@@ -1,0 +1,30 @@
+"""hypergef_tpu_torch — the PyTorch / CUDA port of ``hypergef_tpu``.
+
+The JAX package beside it is the reference: each module here names its
+JAX counterpart by file and line, and the tests hold the two against each
+other on the same NumPy inputs. This package imports ``torch`` and never
+``jax``. Its kernels are hand-written CUDA for Hopper (``csrc/``), built at
+first use; on CPU tensors each kernel's plain torch version runs instead.
+
+What runs today is HGNN serving (the full-graph forward) on the ``xla``,
+``dense`` and ``pallas`` routes; see ROADMAP.md for the rest.
+"""
+
+import torch
+
+# The linear projections must stay in full f32, as XLA keeps them on the JAX
+# side: TF32 would keep about three decimal digits of each product. This is
+# PyTorch's default; it is set here so that no caller's setting changes it.
+torch.backends.cuda.matmul.allow_tf32 = False
+
+__version__ = "0.1.0"
+
+from hypergef_tpu_torch.sparse.hypergraph import Hypergraph, HypergraphData  # noqa: E402
+from hypergef_tpu_torch.sparse.planner import AggregationPlan, DenseIncidence  # noqa: E402
+
+__all__ = [
+    "Hypergraph",
+    "HypergraphData",
+    "AggregationPlan",
+    "DenseIncidence",
+]

@@ -1,0 +1,77 @@
+"""Synthetic hypergraph generators.
+
+Port of ``hypergef_tpu/data/synthetic.py`` (``:18-34``, ``:62-109``): the
+same NumPy RNG calls in the same order, so a seed gives the same graph and
+features in both packages.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from hypergef_tpu_torch.sparse.hypergraph import Hypergraph
+
+
+def random_hypergraph(
+    num_nodes: int,
+    num_edges: int,
+    avg_edge_size: float = 6.0,
+    seed: int = 0,
+    name: str = "random",
+) -> Hypergraph:
+    """Uniform random membership: each hyperedge draws a Poisson-sized
+    vertex set uniformly at random (≥1 member)."""
+    rng = np.random.default_rng(seed)
+    sizes = np.maximum(rng.poisson(avg_edge_size, size=num_edges), 1)
+    sizes = np.minimum(sizes, num_nodes)
+    edge = np.repeat(np.arange(num_edges, dtype=np.int64), sizes)
+    vertex = rng.integers(0, num_nodes, size=edge.shape[0], dtype=np.int64)
+    return Hypergraph.from_coo(
+        vertex, edge, num_nodes=num_nodes, num_edges=num_edges, name=name
+    )
+
+
+def homophilic_hypergraph(
+    num_nodes: int,
+    num_edges: int,
+    num_classes: int,
+    avg_edge_size: float = 6.0,
+    noise: float = 0.1,
+    seed: int = 0,
+    name: str = "homophilic",
+):
+    """Hypergraph whose hyperedges draw their members mostly from one class
+    (``noise`` of them from anywhere). Returns ``(Hypergraph, labels)``."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, num_classes, size=num_nodes)
+    by_class = [np.nonzero(y == c)[0] for c in range(num_classes)]
+    sizes = np.maximum(rng.poisson(avg_edge_size, size=num_edges), 2)
+    vs, es = [], []
+    for e in range(num_edges):
+        c = rng.integers(0, num_classes)
+        pool = by_class[c]
+        if pool.size == 0:
+            pool = np.arange(num_nodes)
+        k = int(min(sizes[e], pool.size))
+        members = rng.choice(pool, size=k, replace=False)
+        flip = rng.random(k) < noise
+        members[flip] = rng.integers(0, num_nodes, size=int(flip.sum()))
+        vs.append(members)
+        es.append(np.full(k, e, dtype=np.int64))
+    vertex = np.concatenate(vs)
+    edge = np.concatenate(es)
+    hg = Hypergraph.from_coo(
+        vertex, edge, num_nodes=num_nodes, num_edges=num_edges, name=name
+    )
+    return hg, y.astype(np.int32)
+
+
+def random_features(
+    num_nodes: int, num_features: int, num_classes: int, seed: int = 0
+):
+    """Random features + class-correlated labels (NumPy f32 / int32)."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, num_classes, size=num_nodes)
+    centers = rng.normal(size=(num_classes, num_features))
+    x = centers[y] + 0.5 * rng.normal(size=(num_nodes, num_features))
+    return x.astype(np.float32), y.astype(np.int32)

@@ -1,0 +1,97 @@
+"""Build and load the port's CUDA kernels.
+
+The sources in ``hypergef_tpu_torch/csrc/`` are compiled with ``nvcc`` for
+Hopper (``sm_90a``) into one shared library with a plain C interface, which
+is loaded with ``ctypes``. The build happens at first use, into
+``build/kernels/`` at the root of the checkout, and is keyed by a hash of
+the sources and flags, so an edited source is rebuilt and an unchanged one
+is reused. Nothing here runs when the module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+SOURCES = ("fused_dense.cu",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME or put nvcc on PATH): the CUDA "
+            "kernels are built from source at first use"
+        )
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels if this exact build is missing; return the .so path.
+
+    The compiler's ``-Xptxas -v`` report (registers, shared memory, spills)
+    is kept beside the library as ``<name>.log``.
+    """
+    lib = BUILD_DIR / f"libhypergef_torch_kernels_{_digest()}.so"
+    if lib.is_file():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # compile to a private name, then rename: a concurrent process never
+    # loads a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+            )
+        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with typed entries."""
+    lib = ctypes.CDLL(str(build()))
+    ptr, cint = ctypes.c_void_p, ctypes.c_int
+    fn = lib.hg_fused_dense_two_stage
+    fn.argtypes = [ptr] * 7 + [cint] * 5 + [ptr]
+    fn.restype = cint
+    lib.hg_error_string.argtypes = [cint]
+    lib.hg_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build_log() -> str:
+    """The compiler's resource report for the current build."""
+    return build().with_suffix(".log").read_text()

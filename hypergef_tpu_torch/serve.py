@@ -1,0 +1,92 @@
+"""Serving: full-graph log-probabilities for one fixed hypergraph.
+
+Port of the serving side of ``hypergef_tpu/serve.py``. A request supplies
+the node features ``x``; the model, its weights, the graph and its plan
+are the deployment (``serve.py:50-77``). :class:`ServingModel` holds them on
+one device and answers ``predict`` (``:192-205``) under
+``torch.inference_mode()``. Artifact export and load (``:50-163``) come
+later (ROADMAP.md queue 1, item 9).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from hypergef_tpu_torch import __version__
+from hypergef_tpu_torch.models.zoo import build_model
+from hypergef_tpu_torch.sparse.planner import AggregationPlan
+
+
+class ServingModel:
+    """A model, its weights and its graph, ready to answer requests.
+
+    ``params`` is a ``state_dict`` (for instance from
+    :func:`hypergef_tpu_torch.models.convert.params_from_flax`); without it
+    the weights are drawn from ``cfg.seed``. The ``dense`` and ``pallas``
+    routes need the int8 table, which is built on ``device`` when no
+    ``plan`` is given.
+    """
+
+    def __init__(
+        self,
+        cfg,
+        hg,
+        nfeat: int,
+        nclass: int,
+        device,
+        params: Optional[Mapping[str, Any]] = None,
+        plan: Optional[AggregationPlan] = None,
+    ):
+        self.device = torch.device(device)
+        if plan is None and cfg.backend in ("dense", "pallas"):
+            plan = AggregationPlan.dense_plan(hg, self.device)
+        self.plan = plan
+        self.hgd = hg.device_data(self.device)
+        self.model = build_model(
+            cfg.model, nfeat=nfeat, nhid=cfg.nhid, nclass=nclass,
+            num_edges=hg.num_edges, nlayer=cfg.nlayer, first_aggr=cfg.first_aggr,
+            nhead=cfg.nhead, dropout=cfg.dropout, input_drop=cfg.input_drop,
+            activation=cfg.activation, backend=cfg.backend, seed=cfg.seed,
+            device=self.device,
+        )
+        if params is not None:
+            self.model.load_state_dict({k: torch.as_tensor(v) for k, v in params.items()})
+        self.model.eval()
+        # the fields of hypergef_tpu/serve.py:143-160
+        self.meta: Dict[str, Any] = {
+            "model": cfg.model,
+            "nhid": cfg.nhid,
+            "nlayer": cfg.nlayer,
+            "nhead": cfg.nhead,
+            "first_aggr": cfg.first_aggr,
+            "nclass": int(nclass),
+            "input_shape": [int(hg.num_nodes), int(nfeat)],
+            "input_dtype": "float32",
+            "output_shape": [int(hg.num_nodes), int(nclass)],
+            "graph": getattr(hg, "name", None),
+            "num_nodes": int(hg.num_nodes),
+            "num_edges": int(hg.num_edges),
+            "nnz": int(hg.nnz),
+            "platforms": [self.device.type],
+            "hypergef_version": __version__,
+            "payload_bytes": None,  # no serialized artifact yet
+        }
+
+    def predict(self, x) -> torch.Tensor:
+        """Full-graph log-probabilities ``[num_nodes, nclass]`` on the device."""
+        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        expect = tuple(self.meta["input_shape"])
+        if tuple(x.shape) != expect:
+            raise ValueError(
+                f"serving input shape {tuple(x.shape)} != the model's shape "
+                f"{expect} (the server is built for one graph; build another "
+                "for a different graph)"
+            )
+        with torch.inference_mode():
+            return self.model(x.contiguous(), self.hgd, self.plan)
+
+    def predict_labels(self, x) -> np.ndarray:
+        return self.predict(x).argmax(dim=1).cpu().numpy()

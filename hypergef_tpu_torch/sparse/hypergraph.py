@@ -1,0 +1,259 @@
+"""Hypergraph data layer: incidence matrix in CSR both ways + degree vectors.
+
+Port of ``hypergef_tpu/sparse/hypergraph.py``. The host side is the same
+NumPy code (``:87-303``), so every host array is bit-identical to the JAX
+package's for the same input; the device view :class:`HypergraphData`
+(``:33-61``) holds torch tensors on a device the caller names.
+
+Semantics (those of the reference, ``HyperGsys/hypergraph.py``):
+
+* ``H`` is the |V|×|E| incidence matrix built from a bipartite COO
+  (vertex, hyperedge) list.
+* ``degV = (Σ_e H[v,e])^(-1/2)`` with ``inf → 1`` for isolated vertices.
+* ``degE = (Σ_v H[v,e])^(-1)`` per hyperedge, with ``inf → 1`` for empty
+  hyperedges so synthetic graphs stay finite.
+* ``degD = degV^(-1)`` is kept for API parity.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class HypergraphData:
+    """Device-side view of a hypergraph (``hypergraph.py:33-61``).
+
+    Index tensors are int64, torch's index type; degrees are f32 columns.
+    ``ht_*`` tensors enumerate nnz in hyperedge-major (Hᵀ CSR) order and
+    feed the V→E stage; ``h_*`` tensors enumerate nnz in vertex-major
+    (H CSR) order and feed the E→V stage.
+    """
+
+    ht_vertex: torch.Tensor  # [nnz] member vertex ids
+    ht_segids: torch.Tensor  # [nnz] owning hyperedge ids (non-decreasing)
+    ht_indptr: torch.Tensor  # [E+1] CSR row pointer of Hᵀ
+    h_edge: torch.Tensor  # [nnz] incident hyperedge ids
+    h_segids: torch.Tensor  # [nnz] owning vertex ids (non-decreasing)
+    h_indptr: torch.Tensor  # [N+1] CSR row pointer of H
+    degV: torch.Tensor  # [N, 1] f32
+    degE: torch.Tensor  # [E, 1] f32
+    num_nodes: int = 0
+    num_edges: int = 0
+
+
+@dataclasses.dataclass
+class Hypergraph:
+    """Host-side hypergraph: CSR of H and Hᵀ plus degree vectors."""
+
+    num_nodes: int
+    num_edges: int
+    # CSR of H (V×E): per-vertex sorted lists of incident hyperedges
+    h_indptr: np.ndarray  # [N+1] int64
+    h_indices: np.ndarray  # [nnz] int32
+    # CSR of Hᵀ (E×V): per-hyperedge sorted lists of member vertices
+    ht_indptr: np.ndarray  # [E+1] int64
+    ht_indices: np.ndarray  # [nnz] int32
+    name: str = "unnamed"
+
+    def __post_init__(self):
+        self.h_indptr = np.asarray(self.h_indptr, dtype=np.int64)
+        self.h_indices = np.asarray(self.h_indices, dtype=np.int32)
+        self.ht_indptr = np.asarray(self.ht_indptr, dtype=np.int64)
+        self.ht_indices = np.asarray(self.ht_indices, dtype=np.int32)
+        if self.h_indptr.shape != (self.num_nodes + 1,):
+            raise ValueError("h_indptr shape mismatch")
+        if self.ht_indptr.shape != (self.num_edges + 1,):
+            raise ValueError("ht_indptr shape mismatch")
+        if self.h_indices.shape != self.ht_indices.shape:
+            raise ValueError("nnz mismatch between H and H^T")
+        self._degV: Optional[np.ndarray] = None
+        self._degE: Optional[np.ndarray] = None
+        self._data: Dict[torch.device, HypergraphData] = {}
+
+    # ------------------------------------------------------------------
+    # constructors
+    # ------------------------------------------------------------------
+    @classmethod
+    def from_coo(
+        cls,
+        vertex: np.ndarray,
+        edge: np.ndarray,
+        num_nodes: Optional[int] = None,
+        num_edges: Optional[int] = None,
+        name: str = "unnamed",
+        dedup: bool = True,
+    ) -> "Hypergraph":
+        """Build from a bipartite COO membership list (vertex[k] ∈ edge[k]);
+        duplicates are dropped since H is 0/1 (``hypergraph.py:118-166``)."""
+        vertex = np.asarray(vertex, dtype=np.int64)
+        edge = np.asarray(edge, dtype=np.int64)
+        if vertex.shape != edge.shape or vertex.ndim != 1:
+            raise ValueError("vertex/edge must be equal-length 1-D arrays")
+        if num_nodes is None:
+            num_nodes = int(vertex.max()) + 1 if vertex.size else 0
+        if num_edges is None:
+            num_edges = int(edge.max()) + 1 if edge.size else 0
+        if dedup and vertex.size:
+            flat = np.unique(vertex * num_edges + edge)
+            vertex = flat // num_edges
+            edge = flat % num_edges
+        # CSR of H: sort by (vertex, edge)
+        order_v = np.lexsort((edge, vertex))
+        h_indices = edge[order_v].astype(np.int32)
+        h_indptr = np.zeros(num_nodes + 1, dtype=np.int64)
+        np.add.at(h_indptr, vertex + 1, 1)
+        np.cumsum(h_indptr, out=h_indptr)
+        # CSR of Hᵀ: sort by (edge, vertex)
+        order_e = np.lexsort((vertex, edge))
+        ht_indices = vertex[order_e].astype(np.int32)
+        ht_indptr = np.zeros(num_edges + 1, dtype=np.int64)
+        np.add.at(ht_indptr, edge + 1, 1)
+        np.cumsum(ht_indptr, out=ht_indptr)
+        return cls(
+            num_nodes=num_nodes,
+            num_edges=num_edges,
+            h_indptr=h_indptr,
+            h_indices=h_indices,
+            ht_indptr=ht_indptr,
+            ht_indices=ht_indices,
+            name=name,
+        )
+
+    @classmethod
+    def from_edge_index(
+        cls,
+        edge_index: np.ndarray,
+        num_nodes: Optional[int] = None,
+        name: str = "unnamed",
+        compact: bool = False,
+    ) -> "Hypergraph":
+        """Build from a PyG/AllSet-style bipartite ``edge_index`` [2, M]
+        (``hypergraph.py:168-211``).
+
+        Row 0 holds vertex ids, then (past the split point) hyperedge ids
+        offset by ``num_nodes``; only the V→E half is used. With
+        ``compact=False`` hyperedge ids stay raw after the rebase and gaps
+        become empty hyperedges; ``compact=True`` remaps the unique ids to
+        ``0..k-1``.
+        """
+        edge_index = np.asarray(edge_index, dtype=np.int64)
+        if num_nodes is None:
+            raise ValueError("num_nodes is required for edge_index input")
+        split = np.nonzero(edge_index[0] == num_nodes)[0]
+        c_idx = int(split.min()) if split.size else edge_index.shape[1]
+        v = edge_index[0, :c_idx]
+        e = edge_index[1, :c_idx] - num_nodes
+        if e.size and e.min() < 0:
+            raise ValueError(
+                "hyperedge ids below num_nodes in edge_index row 1 — "
+                "row 1 must hold ids offset by num_nodes"
+            )
+        if compact:
+            uniq, e = np.unique(e, return_inverse=True)
+            num_edges = int(uniq.size)
+        else:
+            num_edges = int(e.max()) + 1 if e.size else 0
+        return cls.from_coo(v, e, num_nodes=num_nodes, num_edges=num_edges, name=name)
+
+    @classmethod
+    def from_scipy(cls, H, name: str = "unnamed") -> "Hypergraph":
+        """Build from a scipy sparse |V|×|E| incidence matrix."""
+        coo = H.tocoo()
+        return cls.from_coo(coo.row, coo.col, num_nodes=H.shape[0], num_edges=H.shape[1], name=name)
+
+    # ------------------------------------------------------------------
+    # derived quantities
+    # ------------------------------------------------------------------
+    @property
+    def nnz(self) -> int:
+        return int(self.h_indices.shape[0])
+
+    @property
+    def degV(self) -> np.ndarray:
+        """[N,1] f32: rowsum(H)^(-1/2), inf→1."""
+        if self._degV is None:
+            rowsum = np.diff(self.h_indptr).astype(np.float64)
+            with np.errstate(divide="ignore"):
+                d = rowsum ** -0.5
+            d[~np.isfinite(d)] = 1.0
+            self._degV = d.astype(np.float32)[:, None]
+        return self._degV
+
+    @property
+    def degE(self) -> np.ndarray:
+        """[E,1] f32: colsum(H)^(-1), inf→1."""
+        if self._degE is None:
+            colsum = np.diff(self.ht_indptr).astype(np.float64)
+            with np.errstate(divide="ignore"):
+                d = 1.0 / colsum
+            d[~np.isfinite(d)] = 1.0
+            self._degE = d.astype(np.float32)[:, None]
+        return self._degE
+
+    @property
+    def degD(self) -> np.ndarray:
+        """[N,1] f32: degV^(-1), kept for parity."""
+        with np.errstate(divide="ignore"):
+            d = 1.0 / self.degV
+        d[~np.isfinite(d)] = 1.0
+        return d.astype(np.float32)
+
+    def edge_sizes(self) -> np.ndarray:
+        return np.diff(self.ht_indptr)
+
+    def vertex_degrees(self) -> np.ndarray:
+        return np.diff(self.h_indptr)
+
+    # ------------------------------------------------------------------
+    # device view
+    # ------------------------------------------------------------------
+    def device_data(self, device) -> HypergraphData:
+        """Tensors every route consumes, on ``device`` (cached per device;
+        ``hypergraph.py:265-288``)."""
+        device = torch.device(device)
+        if device not in self._data:
+            ht_segids = np.repeat(np.arange(self.num_edges), self.edge_sizes())
+            h_segids = np.repeat(np.arange(self.num_nodes), self.vertex_degrees())
+
+            def idx(a):
+                return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+
+            self._data[device] = HypergraphData(
+                ht_vertex=idx(self.ht_indices),
+                ht_segids=idx(ht_segids),
+                ht_indptr=idx(self.ht_indptr),
+                h_edge=idx(self.h_indices),
+                h_segids=idx(h_segids),
+                h_indptr=idx(self.h_indptr),
+                degV=torch.as_tensor(self.degV, device=device),
+                degE=torch.as_tensor(self.degE, device=device),
+                num_nodes=self.num_nodes,
+                num_edges=self.num_edges,
+            )
+        return self._data[device]
+
+    # ------------------------------------------------------------------
+    # interop
+    # ------------------------------------------------------------------
+    def to_scipy(self):
+        import scipy.sparse as sp
+
+        return sp.csr_matrix(
+            (
+                np.ones(self.nnz, dtype=np.float32),
+                self.h_indices.astype(np.int64),
+                self.h_indptr,
+            ),
+            shape=(self.num_nodes, self.num_edges),
+        )
+
+    def __repr__(self) -> str:
+        return (
+            f"Hypergraph(name={self.name!r}, |V|={self.num_nodes}, "
+            f"|E|={self.num_edges}, nnz={self.nnz})"
+        )

@@ -1,0 +1,159 @@
+"""The port's aggregation routes against the JAX package's, on the CPU.
+
+Same NumPy inputs into both packages. Tolerances are the JAX tests' own
+(tests/test_fuzz_backends.py:46,54):
+
+* 1e-3 for the f32 segment-sum ``xla`` route;
+* 3e-2 for the bf16 routes (``dense``, and ``pallas``, whose CPU form is
+  the CUDA kernel's plain version), against the JAX Pallas kernel in
+  interpret mode, the JAX dense route and the NumPy dense oracle.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import hypergef_tpu.data.synthetic as jsyn
+from hypergef_tpu.ops import fused as jfused
+from hypergef_tpu.ops import pallas_kernels as jpk
+from hypergef_tpu.ops import refops as jrefops
+from hypergef_tpu.sparse.planner import plan_aggregation
+
+import hypergef_tpu_torch.data.synthetic as tsyn
+from hypergef_tpu_torch.ops import fused, fused_dense
+from hypergef_tpu_torch.sparse.planner import AggregationPlan
+
+from conftest import dense_hgnn_oracle
+
+F32_TOL = dict(rtol=1e-3, atol=1e-3)
+BF16_TOL = dict(rtol=3e-2, atol=3e-2)
+
+# (n, e, avg_edge_size, seed, f): the graphs of tests/test_pallas.py:20-53
+# (small_hg is random_hypergraph(120, 80, 5.0, seed=3)) plus a few giant edges
+GRAPHS = {
+    "small_f8": (120, 80, 5.0, 3, 8),
+    "small_f4": (120, 80, 5.0, 3, 4),
+    "odd_301x187x17": (301, 187, 5.0, 2, 17),
+    "giant_edges": (50, 7, 20.0, 4, 5),
+}
+
+
+@pytest.fixture(autouse=True)
+def deterministic():
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(prev)
+
+
+def _problem(name, with_wdiag):
+    n, e, avg, seed, f = GRAPHS[name]
+    jhg = jsyn.random_hypergraph(n, e, avg_edge_size=avg, seed=seed)
+    thg = tsyn.random_hypergraph(n, e, avg_edge_size=avg, seed=seed)
+    rng = np.random.default_rng(seed + 10)
+    x = rng.normal(size=(n, f)).astype(np.float32)
+    w = rng.uniform(0.5, 1.5, (e, 1)).astype(np.float32) if with_wdiag else None
+    return jhg, thg, x, w
+
+
+def _port(thg, x, w, aggr, backend):
+    plan = AggregationPlan.dense_plan(thg, "cpu")
+    wt = None if w is None else torch.as_tensor(w)
+    out = fused.hgnn_aggregate(thg.device_data("cpu"), torch.as_tensor(x), wt, aggr,
+                               plan=plan, backend=backend)
+    assert out.dtype == torch.float32 and tuple(out.shape) == x.shape
+    return out.numpy()
+
+
+CASES = [(g, aggr, wd) for g in GRAPHS for aggr in ("sum", "mean") for wd in (False, True)]
+
+
+@pytest.mark.parametrize("graph,aggr,with_wdiag", CASES)
+def test_xla_route_matches_jax_refops(graph, aggr, with_wdiag):
+    jhg, thg, x, w = _problem(graph, with_wdiag)
+    want = jrefops.hgnn_aggregate_ref(
+        jhg.device_data(), jnp.asarray(x), None if w is None else jnp.asarray(w), aggr)
+    np.testing.assert_allclose(_port(thg, x, w, aggr, "xla"), np.asarray(want), **F32_TOL)
+
+
+@pytest.mark.parametrize("graph,aggr,with_wdiag", CASES)
+def test_pallas_plain_matches_jax_pallas_interpret(graph, aggr, with_wdiag):
+    jhg, thg, x, w = _problem(graph, with_wdiag)
+    want = jpk.hgnn_aggregate_pallas(
+        jhg.device_data(), jnp.asarray(x), None if w is None else jnp.asarray(w), aggr,
+        plan_aggregation(jhg), interpret=True)
+    before = fused_dense.launches
+    got = _port(thg, x, w, aggr, "pallas")
+    assert fused_dense.launches == before  # CPU tensors take the plain version
+    np.testing.assert_allclose(got, np.asarray(want), **BF16_TOL)
+    np.testing.assert_allclose(got, dense_hgnn_oracle(jhg, x, w, aggr), **BF16_TOL)
+
+
+@pytest.mark.parametrize("graph,aggr", [(g, a) for g in GRAPHS for a in ("sum", "mean")])
+def test_dense_route_matches_jax_dense(graph, aggr):
+    jhg, thg, x, w = _problem(graph, True)
+    want = jfused.hgnn_aggregate(jhg.device_data(), jnp.asarray(x), jnp.asarray(w), aggr,
+                                 plan=plan_aggregation(jhg), backend="dense")
+    np.testing.assert_allclose(_port(thg, x, w, aggr, "dense"), np.asarray(want), **BF16_TOL)
+
+
+def test_plain_path_keeps_gradients():
+    """On CPU tensors the pallas route is differentiable plain torch: its
+    dx matches the xla route's exact adjoint at the bf16 tolerance."""
+    _, thg, x, w = _problem("small_f4", True)
+    hgd, plan = thg.device_data("cpu"), AggregationPlan.dense_plan(thg, "cpu")
+    grads = []
+    for backend in ("pallas", "xla"):
+        xt = torch.as_tensor(x).requires_grad_(True)
+        out = fused.hgnn_aggregate(hgd, xt, torch.as_tensor(w), "sum", plan, backend)
+        (out ** 2).sum().backward()
+        grads.append(xt.grad.numpy())
+    np.testing.assert_allclose(grads[0], grads[1], rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("backend", list(fused.UNPORTED) + [None])
+def test_unported_routes_raise(backend):
+    _, thg, x, _ = _problem("small_f4", False)
+    plan = AggregationPlan.dense_plan(thg, "cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        fused.hgnn_aggregate(thg.device_data("cpu"), torch.as_tensor(x), None, "sum",
+                             plan=plan, backend=backend)
+
+
+@pytest.mark.parametrize("backend", fused.ROUTES)
+def test_max_first_aggr_raises(backend):
+    _, thg, x, _ = _problem("small_f4", False)
+    plan = AggregationPlan.dense_plan(thg, "cpu")
+    before = fused_dense.launches
+    with pytest.raises(NotImplementedError, match="max"):
+        fused.hgnn_aggregate(thg.device_data("cpu"), torch.as_tensor(x), None, "max",
+                             plan=plan, backend=backend)
+    assert fused_dense.launches == before
+
+
+def test_route_argument_errors():
+    _, thg, x, _ = _problem("small_f4", False)
+    hgd, xt = thg.device_data("cpu"), torch.as_tensor(x)
+    with pytest.raises(ValueError, match="backend must be"):
+        fused.hgnn_aggregate(hgd, xt, backend="no_such_route")
+    with pytest.raises(ValueError, match="requires a plan"):
+        fused.hgnn_aggregate(hgd, xt, backend="pallas")
+    for backend in ("pallas", "dense"):
+        with pytest.raises(ValueError, match="DenseIncidence"):
+            fused.hgnn_aggregate(hgd, xt, plan=AggregationPlan(), backend=backend)
+
+
+def test_kernel_node_backward_raises():
+    """The CUDA kernel's autograd node refuses a backward (no silent
+    zero gradient); its message points at the ROADMAP item."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fused_dense._FusedDenseTwoStage.backward(None, torch.ones(2, 2))
+
+
+def test_kernel_wrapper_rejects_mixed_devices_on_cpu():
+    _, thg, x, _ = _problem("small_f4", False)
+    hgd = thg.device_data("cpu")
+    h = AggregationPlan.dense_plan(thg, "cpu").dense.h
+    with pytest.raises(ValueError, match="on the CPU"):
+        fused_dense.fused_dense_two_stage(h.to("meta"), torch.as_tensor(x), hgd.degE, hgd.degV)
