@@ -6,8 +6,9 @@ other on the same NumPy inputs. This package imports ``torch`` and never
 ``jax``. Its kernels are hand-written CUDA for Hopper (``csrc/``), built at
 first use; on CPU tensors each kernel's plain torch version runs instead.
 
-What runs today is HGNN serving (the full-graph forward) on the ``xla``,
-``dense`` and ``pallas`` routes; see ROADMAP.md for the rest.
+What runs today is HGNN training (``Trainer``, ``train_full_batch``) and
+serving (``ServingModel``) on the ``xla``, ``dense``, ``pallas``, ``tree``
+and ``pallas_sparse`` routes; see ROADMAP.md for the rest.
 """
 
 import torch

@@ -6,6 +6,8 @@
 //
 //     out = scale_v * (H @ bf16(scale_e * (H^T @ bf16(X))))
 //
+// Its VJP (:143-180) is built on the same kernel; see ops/fused_dense.py.
+//
 // H is the int8 [N, E] incidence-count table (row-major), X is f32 [N, F],
 // scale_e is f32 [E], scale_v is f32 [N]. X and Xe are rounded to bf16
 // (round-to-nearest-even, as the TPU kernel's `.astype(bfloat16)` at :93 and
@@ -39,6 +41,10 @@
 //
 // Ragged F is handled in chunks of FC (8 or 32) features: X is staged with
 // zeros past F, and only columns below F are stored.
+//
+// Launches 1 and 2 without the scale and the rounding are also an entry of
+// their own, hg_dense_v2e: H^T @ bf16(X) in f32, the product that the
+// backward's d scale_e takes twice (pallas_kernels.py:161-170).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -116,6 +122,9 @@ v2e_partial_kernel(const int8_t* __restrict__ h, const float* __restrict__ x,
   }
 }
 
+// kScaleRound: Xe for phase 2 (scaled by scale_e, rounded to bf16); without
+// it the plain f32 sums (hg_dense_v2e).
+template <bool kScaleRound>
 __global__ void __launch_bounds__(kReduceThreads)
 v2e_reduce_kernel(const float* __restrict__ partial,
                   const float* __restrict__ scale_e, float* __restrict__ xe,
@@ -125,7 +134,7 @@ v2e_reduce_kernel(const float* __restrict__ partial,
   if (i >= total) return;
   float s = 0.f;
   for (int k = 0; k < splits; ++k) s += partial[(size_t)k * total + i];
-  xe[i] = bf16_round(s * scale_e[i / fp]);
+  xe[i] = kScaleRound ? bf16_round(s * scale_e[i / fp]) : s;
 }
 
 // Halves the live values at each step: lanes with bit O set keep the upper
@@ -200,15 +209,15 @@ e2v_kernel(const int8_t* __restrict__ h, const float* __restrict__ xe,
   }
 }
 
-template <int FC>
-cudaError_t launch(const int8_t* h, const float* x, const float* scale_e,
-                   const float* scale_v, float* out, float* partial, float* xe,
-                   int n, int e, int f, int splits, cudaStream_t stream) {
+// Phase 1 and its reduce: xe [e, fp] from x [n, f].
+template <int FC, bool kScaleRound>
+cudaError_t launch_v2e(const int8_t* h, const float* x, const float* scale_e,
+                       float* partial, float* xe, int n, int e, int f,
+                       int splits, cudaStream_t stream) {
   const int fp = (f + FC - 1) / FC * FC;
-  const int chunks = fp / FC;
   const int rows_per_split = (n + splits - 1) / splits;
 
-  const dim3 g1((e + kP1Threads - 1) / kP1Threads, splits, chunks);
+  const dim3 g1((e + kP1Threads - 1) / kP1Threads, splits, fp / FC);
   v2e_partial_kernel<FC><<<g1, kP1Threads, 0, stream>>>(
       h, x, partial, n, e, f, fp, rows_per_split);
   cudaError_t err = cudaGetLastError();
@@ -216,9 +225,19 @@ cudaError_t launch(const int8_t* h, const float* x, const float* scale_e,
 
   const size_t total = (size_t)e * fp;
   const unsigned g2 = (unsigned)((total + kReduceThreads - 1) / kReduceThreads);
-  v2e_reduce_kernel<<<g2, kReduceThreads, 0, stream>>>(partial, scale_e, xe, e,
-                                                       fp, splits);
-  err = cudaGetLastError();
+  v2e_reduce_kernel<kScaleRound><<<g2, kReduceThreads, 0, stream>>>(
+      partial, scale_e, xe, e, fp, splits);
+  return cudaGetLastError();
+}
+
+template <int FC>
+cudaError_t launch(const int8_t* h, const float* x, const float* scale_e,
+                   const float* scale_v, float* out, float* partial, float* xe,
+                   int n, int e, int f, int splits, cudaStream_t stream) {
+  const int fp = (f + FC - 1) / FC * FC;
+  const int chunks = fp / FC;
+  cudaError_t err = launch_v2e<FC, true>(h, x, scale_e, partial, xe, n, e, f,
+                                         splits, stream);
   if (err != cudaSuccess) return err;
 
   const dim3 g3((n + kP2Warps - 1) / kP2Warps, chunks);
@@ -255,6 +274,29 @@ extern "C" int hg_fused_dense_two_stage(const void* h, const void* x,
       return (int)launch<8>(hp, xp, sep, svp, op, pp, xep, n, e, f, splits, st);
     case 32:
       return (int)launch<32>(hp, xp, sep, svp, op, pp, xep, n, e, f, splits, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// out [e, fp] = Ht @ bf16(x) in f32, columns past f zero; `partial` as
+// above.
+extern "C" int hg_dense_v2e(const void* h, const void* x, void* partial,
+                            void* out, int n, int e, int f, int fc, int splits,
+                            void* stream) {
+  if (n <= 0 || e <= 0 || f <= 0 || splits <= 0 || splits > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const auto* hp = static_cast<const int8_t*>(h);
+  const auto* xp = static_cast<const float*>(x);
+  auto* pp = static_cast<float*>(partial);
+  auto* op = static_cast<float*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (fc) {
+    case 8:
+      return (int)launch_v2e<8, false>(hp, xp, nullptr, pp, op, n, e, f, splits, st);
+    case 32:
+      return (int)launch_v2e<32, false>(hp, xp, nullptr, pp, op, n, e, f, splits, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -4,7 +4,9 @@ Port of ``hypergef_tpu/models/zoo.py``: :class:`HGNN` (``:31-69``) and
 :func:`build_model` (``:130-179``). The stack is input dropout →
 [conv → activation → dropout]×(nlayer-1) → conv_out → log_softmax. Dropout
 follows the module's train/eval mode, which takes the place of flax's
-``deterministic`` flag. UniGIN and UniGCNII are not ported yet.
+``deterministic`` flag, and draws its masks from the ``torch.Generator``
+that ``forward`` is given (the trainer's, seeded from its config), as flax
+draws them from an explicit key. UniGIN and UniGCNII are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +22,17 @@ _ACTS = {
     "relu": torch.relu,
     "leaky_relu": lambda x: nn.functional.leaky_relu(x, negative_slope=0.01),
 }
+
+
+def dropout(x, rate: float, training: bool, generator: Optional[torch.Generator]):
+    """flax's ``nn.Dropout``: keep each entry with probability 1 - rate and
+    scale it by 1 / (1 - rate); the mask comes from ``generator``."""
+    if not training or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    return torch.where(keep.bool(), x / (1.0 - rate), torch.zeros_like(x))
 
 
 class HGNN(nn.Module):
@@ -41,8 +54,8 @@ class HGNN(nn.Module):
     ):
         super().__init__()
         self.act = _ACTS[activation]
-        self.input_drop = nn.Dropout(input_drop)
-        self.dropout = nn.Dropout(dropout)
+        self.input_drop_rate = input_drop
+        self.dropout_rate = dropout
         widths = [nfeat] + [nhead * nhid] * (nlayer - 1)
         convs = [
             HGNNConv(widths[i], nhid, num_edges, first_aggr, heads=nhead,
@@ -58,10 +71,11 @@ class HGNN(nn.Module):
         )
         self.convs = nn.ModuleList(convs)
 
-    def forward(self, x, hgd, plan=None):
-        x = self.input_drop(x)
+    def forward(self, x, hgd, plan=None, generator: Optional[torch.Generator] = None):
+        x = dropout(x, self.input_drop_rate, self.training, generator)
         for conv in self.convs[:-1]:
-            x = self.dropout(self.act(conv(x, hgd, plan)))
+            x = dropout(self.act(conv(x, hgd, plan)), self.dropout_rate, self.training,
+                        generator)
         return torch.log_softmax(self.convs[-1](x, hgd, plan), dim=1)
 
 

@@ -22,7 +22,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("fused_dense.cu",)
+SOURCES = ("fused_dense.cu", "ell_gather.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -84,9 +84,18 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with typed entries."""
     lib = ctypes.CDLL(str(build()))
     ptr, cint = ctypes.c_void_p, ctypes.c_int
-    fn = lib.hg_fused_dense_two_stage
-    fn.argtypes = [ptr] * 7 + [cint] * 5 + [ptr]
-    fn.restype = cint
+    entries = {
+        # h, x, scale_e, scale_v, out, partial, xe; n, e, f, fc, splits; stream
+        "hg_fused_dense_two_stage": [ptr] * 7 + [cint] * 5 + [ptr],
+        # h, x, partial, out; n, e, f, fc, splits; stream
+        "hg_dense_v2e": [ptr] * 4 + [cint] * 5 + [ptr],
+        # x, gidx, mask, out; c, ngs, f, lanes; stream
+        "hg_ell_gather_sum": [ptr] * 4 + [cint] * 4 + [ptr],
+    }
+    for name, argtypes in entries.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = cint
     lib.hg_error_string.argtypes = [cint]
     lib.hg_error_string.restype = ctypes.c_char_p
     return lib

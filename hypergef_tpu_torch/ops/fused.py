@@ -1,13 +1,17 @@
 """Fused two-stage aggregation: route dispatch.
 
 Port of ``hypergef_tpu/ops/fused.py::hgnn_aggregate`` (``:269-375``) with
-three routes; the route names mean the same thing in both packages:
+five routes; the route names mean the same thing in both packages:
 
 * ``"xla"`` — the plain segment-sum oracle (:mod:`.refops`).
 * ``"dense"`` — two plain matmuls over the int8 table, the XLA dense route
   (``fused.py:107-142``, ``:341-347``).
 * ``"pallas"`` — the hand-written fused kernel (:mod:`.fused_dense`), the
   counterpart of the Pallas kernel. It never falls back to another route.
+* ``"tree"`` — the reduction tree with every level plain (:mod:`.tree`,
+  ``fused.py:316-319``).
+* ``"pallas_sparse"`` — the same tree with level 0 on the hand-written
+  gather kernel (:mod:`.ell_gather`, ``fused.py:334-340``).
 
 ``auto``, the other routes and ``first_aggr="max"`` raise
 ``NotImplementedError`` until they are ported (ROADMAP.md queue 1).
@@ -17,19 +21,19 @@ from __future__ import annotations
 
 from typing import Optional
 
-from hypergef_tpu_torch.ops import refops
+from hypergef_tpu_torch.ops import refops, tree
 from hypergef_tpu_torch.ops.fused_dense import (
     dense_dot,
     dense_table,
     hgnn_aggregate_fused_dense,
 )
 from hypergef_tpu_torch.sparse.hypergraph import HypergraphData
+from hypergef_tpu_torch.sparse.planner import TreePlan
 
-ROUTES = ("xla", "dense", "pallas")
+ROUTES = ("xla", "dense", "pallas", "tree", "pallas_sparse")
 # routes of the JAX package (hypergef_tpu/ops/fused.py:36-39) not ported yet
 UNPORTED = (
-    "auto", "cumsum", "ell", "tree", "bsr", "precomp", "multihot",
-    "pallas_sparse", "aligned", "bitstream",
+    "auto", "cumsum", "ell", "bsr", "precomp", "multihot", "aligned", "bitstream",
 )
 
 
@@ -43,6 +47,17 @@ def _resolve(backend: Optional[str], plan) -> str:
             f"backend {backend!r} is not ported yet (ported: {ROUTES}; "
             "ROADMAP.md queue 1, item 3)")
     raise ValueError(f"backend must be one of {ROUTES + UNPORTED}, got {backend!r}")
+
+
+def tree_plan(plan, route: str) -> TreePlan:
+    """The TreePlan of ``plan`` for ``route`` (an AggregationPlan's field of
+    that name, or a TreePlan passed directly; ``fused.py:87-92``)."""
+    sub = getattr(plan, route, None) or plan
+    if not isinstance(sub, TreePlan):
+        raise ValueError(
+            f"the {route} route needs a TreePlan (plan_tree or plan_pallas_sparse), "
+            f"got {type(sub).__name__}")
+    return sub
 
 
 def hgnn_aggregate(
@@ -60,12 +75,14 @@ def hgnn_aggregate(
     if first_aggr == "max":
         raise NotImplementedError(
             "max first aggregation is not ported yet (ROADMAP.md queue 1, item 6)")
+    if first_aggr not in ("sum", "mean"):
+        raise ValueError(f"unknown first_aggr {first_aggr!r}")
     if b == "xla":
         return refops.hgnn_aggregate_ref(hgd, x, wdiag, first_aggr)
     if b == "pallas":
         return hgnn_aggregate_fused_dense(hgd, x, wdiag, first_aggr, plan)
-    if first_aggr not in ("sum", "mean"):
-        raise ValueError(f"unknown first_aggr {first_aggr!r}")
+    if b in ("tree", "pallas_sparse"):
+        return tree.hgnn_aggregate_tree(hgd, x, wdiag, first_aggr, tree_plan(plan, b))
     dense = dense_table(plan, "dense")
     xe = dense_dot(dense.h, x, True)
     if first_aggr == "mean":

@@ -2,15 +2,17 @@
 
 Counterpart of ``hypergef_tpu/utils/timing.py::device_time_per_iter``
 (``:76-140``). CUDA events are recorded in stream order, so they need none
-of the TPU runtime's value-fetch fencing. Every function here raises
-without a CUDA device: a time from the CPU is never reported as a device
+of the TPU runtime's value-fetch fencing. :func:`cuda_time_ms` raises
+without a CUDA device; :class:`Window` reads the host clock on the CPU and
+says so in ``timer``: a time from the CPU is never reported as a device
 time.
 """
 
 from __future__ import annotations
 
 import statistics
-from typing import Callable
+import time
+from typing import Callable, Optional
 
 import torch
 
@@ -52,3 +54,37 @@ def cuda_time_ms(
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+class Window:
+    """Seconds taken by the work issued inside a ``with`` block.
+
+    On a CUDA device two events bracket the block on the current stream:
+    the window holds the card's work and any time the card waits for the
+    host between launches (host time included, as the reference's
+    ``torch.cuda.synchronize`` brackets hold it), and ``timer`` is
+    ``"cuda_events"``. On the CPU it is the host clock, ``"host_clock"``.
+    """
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.timer = "cuda_events" if self.device.type == "cuda" else "host_clock"
+        self.seconds: Optional[float] = None
+
+    def __enter__(self) -> "Window":
+        if self.timer == "cuda_events":
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._end = torch.cuda.Event(enable_timing=True)
+            self._start.record(torch.cuda.current_stream(self.device))
+        else:
+            self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self.timer == "cuda_events":
+            self._end.record(torch.cuda.current_stream(self.device))
+            self._end.synchronize()
+            self.seconds = self._start.elapsed_time(self._end) / 1000.0
+        else:
+            self.seconds = time.perf_counter() - self._t0
+        return False

@@ -1,13 +1,18 @@
-"""The port's CUDA kernel against its plain version, on the card.
+"""The port's CUDA kernels against their plain versions, on the card.
 
 Every test here needs an NVIDIA Hopper card and skips without one. This
 file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
-Tolerance: rtol 1e-2 and atol 1e-2·max|plain|. Kernel and plain version
-round the same operands to bf16, but sum in different orders, so Xe can
-round to a neighbouring bf16 value (2^-8 relative) before the second stage.
+Tolerances:
+
+* fused dense op, forward and backward: rtol 1e-2 and atol 1e-2·max|plain|.
+  Kernel and plain version round the same operands to bf16, but sum in
+  different orders, so Xe can round to a neighbouring bf16 value (2^-8
+  relative) before the second stage.
+* gather kernel: bitwise equal to the sequential plain loop, which rounds
+  each product and each sum in the same order.
 """
 
 import importlib.util
@@ -17,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from hypergef_tpu_torch.ops import fused_dense
+from hypergef_tpu_torch.ops import ell_gather, fused_dense
 
 pytestmark = pytest.mark.cuda
 
@@ -65,12 +70,61 @@ def test_kernel_matches_plain(cuda, n, e, f, density):
     assert torch.equal(got, again), "two runs differ"
 
 
-def test_backward_raises(cuda):
-    h, x, se, sv = _operands(64, 32, 8, 0.1, seed=0, device=cuda)
-    x.requires_grad_(True)
-    out = fused_dense.fused_dense_two_stage(h, x, se, sv)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        out.sum().backward()
+@pytest.mark.parametrize("n,e,f,density", [(301, 187, 17, 0.03), (16242, 100, 4, 0.04)])
+def test_backward_matches_plain_formula(cuda, n, e, f, density):
+    h, x, se, sv = _operands(n, e, f, density, seed=n + f, device=cuda)
+    g = torch.as_tensor(np.random.default_rng(f).normal(size=(n, f)).astype(np.float32),
+                        device=cuda)
+    ts = [t.clone().requires_grad_(True) for t in (x, se, sv)]
+    out = fused_dense.fused_dense_two_stage(h, *ts)
+    before = (fused_dense.launches, fused_dense.v2e_launches)
+    out.backward(g)
+    torch.cuda.synchronize()
+    # dx and d scale_v run the op once each, d scale_e its first phase twice
+    assert (fused_dense.launches, fused_dense.v2e_launches) == (before[0] + 2, before[1] + 2)
+    for name, t, want in zip(("dx", "d_scale_e", "d_scale_v"), ts,
+                             fused_dense.fused_dense_backward_plain(h, x, se, sv, g)):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(t.grad, want, rtol=1e-2, atol=1e-2 * scale, msg=name)
+
+
+def _gather_operands(n, c, ngs, f, seed, device):
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.normal(size=(n, f)).astype(np.float32), device=device)
+    gidx = torch.as_tensor(rng.integers(0, n, size=(c, ngs)).astype(np.int32), device=device)
+    mask = torch.as_tensor((rng.random((c, ngs)) > 0.2).astype(np.float32), device=device)
+    table = ell_gather.GatherTable(gidx=gidx, gidx_long=gidx.long(), mask=mask, num_inputs=n)
+    return x, table
+
+
+@pytest.mark.parametrize(
+    "n,c,ngs,f",
+    [(300, 700, 8, 16), (50, 3, 1, 1), (1000, 777, 5, 3), (2000, 1500, 37, 32),
+     (500, 300, 12, 33), (19717, 9000, 12, 4), (7963, 20000, 4, 32)],
+)
+def test_gather_kernel_is_bitwise_plain(cuda, n, c, ngs, f):
+    x, table = _gather_operands(n, c, ngs, f, seed=n + c + f, device=cuda)
+    before = ell_gather.launches
+    got = ell_gather.ell_gather_sum(x, table)
+    again = ell_gather.ell_gather_sum(x, table)
+    torch.cuda.synchronize()
+    assert ell_gather.launches == before + 2
+    want = ell_gather.ell_gather_sum_plain(x, table.gidx_long, table.mask)
+    assert got.shape == want.shape == (c, f)
+    assert torch.equal(got, want), float((got - want).abs().max())
+    assert torch.equal(got, again), "two runs differ"
+
+
+def test_gather_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x, table = _gather_operands(64, 32, 4, 8, seed=1, device=cuda)
+    with pytest.raises(TypeError):
+        ell_gather.ell_gather_sum(x.double(), table)
+    with pytest.raises(TypeError):
+        ell_gather.ell_gather_sum(x[:10], table)
+    with pytest.raises(ValueError, match="contiguous"):
+        ell_gather.ell_gather_sum(x.t().contiguous().t(), table)
+    with pytest.raises(ValueError):
+        ell_gather.ell_gather_sum(x.cpu(), table)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):

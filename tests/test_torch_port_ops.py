@@ -9,6 +9,7 @@ Same NumPy inputs into both packages. Tolerances are the JAX tests' own
   interpret mode, the JAX dense route and the NumPy dense oracle.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -144,11 +145,61 @@ def test_route_argument_errors():
             fused.hgnn_aggregate(hgd, xt, plan=AggregationPlan(), backend=backend)
 
 
-def test_kernel_node_backward_raises():
-    """The CUDA kernel's autograd node refuses a backward (no silent
-    zero gradient); its message points at the ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_dense._FusedDenseTwoStage.backward(None, torch.ones(2, 2))
+def _fd_operands(name):
+    n, e, avg, seed, f = GRAPHS[name]
+    thg = tsyn.random_hypergraph(n, e, avg_edge_size=avg, seed=seed)
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, f)).astype(np.float32)
+    se = rng.uniform(0.1, 1.0, (e, 1)).astype(np.float32)
+    sv = rng.uniform(0.1, 1.0, (n, 1)).astype(np.float32)
+    g = rng.normal(size=(n, f)).astype(np.float32)
+    h = AggregationPlan.dense_plan(thg, "cpu").dense.h
+    return thg, h, x, se, sv, g
+
+
+@pytest.mark.parametrize("graph", ["small_f8", "odd_301x187x17", "giant_edges"])
+def test_plain_gradient_is_jax_vjp(graph):
+    """On CPU tensors the op's gradient is JAX's ``_fd_bwd``
+    (pallas_kernels.py:153-177), which rounds ``g·scale_v`` to bf16 and runs
+    the op again, and not autograd of the f32 plain form. Autograd of the
+    plain form is off by 2.5e-3 to 6.1e-3 of max|grad| in dx and d scale_e
+    at these shapes; ``_fd_bwd``'s formula is within 2.3e-7 (f32 summation
+    order only). The bar, 1e-4 of max|grad|, lies between the two."""
+    thg, h, x, se, sv, g = _fd_operands(graph)
+    hb = jnp.asarray(thg.to_scipy().toarray(), jnp.bfloat16)
+    _, vjp = jax.vjp(lambda a, b, c: jpk._fused_dense_op(hb, a, b, c, True),
+                     jnp.asarray(x), jnp.asarray(se), jnp.asarray(sv))
+    want = [np.asarray(t) for t in vjp(jnp.asarray(g))]
+    ts = [torch.tensor(a, requires_grad=True) for a in (x, se, sv)]
+    before = fused_dense.launches
+    fused_dense.fused_dense_two_stage(h, *ts).backward(torch.as_tensor(g))
+    assert fused_dense.launches == before
+    for name, t, w in zip(("dx", "d_scale_e", "d_scale_v"), ts, want):
+        np.testing.assert_allclose(t.grad.numpy(), w, rtol=0, atol=1e-4 * np.abs(w).max(),
+                                   err_msg=name)
+
+
+def test_kernel_node_backward_is_fd_bwd(monkeypatch):
+    """The autograd node's backward is ``_fd_bwd``'s formula on the op
+    itself: ``dx = op(h, g·Sv, Se, 1)``, ``d Se = Σ_f (Hᵀx)⊙(Hᵀ(g·Sv))``,
+    ``d Sv = Σ_f op(h, x, Se, 1)⊙g``, and nothing for ``h``; a gradient
+    nobody asks for is not computed."""
+    _, h, x, se, sv, g = _fd_operands("small_f8")
+    xt, set_, svt, gt = (torch.as_tensor(a) for a in (x, se, sv, g))
+    ts = [t.clone().requires_grad_(True) for t in (xt, set_, svt)]
+    fused_dense.fused_dense_two_stage(h, *ts).backward(gt)
+    for t, want in zip(ts, fused_dense.fused_dense_backward_plain(h, xt, set_, svt, gt)):
+        assert torch.equal(t.grad, want)
+    calls = []
+    for name in ("_two_stage", "_v2e"):
+        real = getattr(fused_dense, name)
+        monkeypatch.setattr(fused_dense, name,
+                            lambda *a, _real=real, _name=name: calls.append(_name) or _real(*a))
+    only_x = xt.clone().requires_grad_(True)
+    out = fused_dense.fused_dense_two_stage(h, only_x, set_, svt)
+    assert out.grad_fn.__class__.__name__ == "_FusedDenseTwoStageBackward"
+    torch.autograd.grad(out, only_x, gt)
+    assert calls == ["_two_stage", "_two_stage"]  # the forward, then dx alone
 
 
 def test_kernel_wrapper_rejects_mixed_devices_on_cpu():
