@@ -7,8 +7,10 @@ other on the same NumPy inputs. This package imports ``torch`` and never
 first use; on CPU tensors each kernel's plain torch version runs instead.
 
 What runs today is HGNN training (``Trainer``, ``train_full_batch``) and
-serving (``ServingModel``) on the ``xla``, ``dense``, ``pallas``, ``tree``
-and ``pallas_sparse`` routes; see ROADMAP.md for the rest.
+serving (``ServingModel``) on the ``xla``, ``dense``, ``pallas``, ``tree``,
+``pallas_sparse`` and ``aligned`` routes, the last on community-sorted
+graphs (``sparse.reorder.community_reorder``, ``sparse.planner.plan_aligned``);
+see ROADMAP.md for the rest.
 """
 
 import torch

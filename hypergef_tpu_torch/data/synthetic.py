@@ -1,6 +1,7 @@
 """Synthetic hypergraph generators.
 
-Port of ``hypergef_tpu/data/synthetic.py`` (``:18-34``, ``:62-109``): the
+Port of ``hypergef_tpu/data/synthetic.py`` (``:18-34``, ``:62-109``) and of
+the SBM generator of ``experiments/clustered_bench.py`` (``:30-55``): the
 same NumPy RNG calls in the same order, so a seed gives the same graph and
 features in both packages.
 """
@@ -64,6 +65,36 @@ def homophilic_hypergraph(
         vertex, edge, num_nodes=num_nodes, num_edges=num_edges, name=name
     )
     return hg, y.astype(np.int32)
+
+
+def community_hypergraph(n_nodes, n_edges, n_comm, avg, noise, seed):
+    """Community-structured (SBM-style) hypergraph with vertices already
+    numbered by community, contiguous id ranges per community
+    (``experiments/clustered_bench.py:30-55``; ``bench.py``'s clustered leg
+    is ``(60000, 30000, 240, 12, 0.02, 0)``). Each hyperedge draws
+    max(Poisson(avg), 2) members from one community, ``noise`` of them from
+    anywhere."""
+    rng = np.random.default_rng(seed)
+    comm_of = np.sort(rng.integers(0, n_comm, size=n_nodes))  # contiguous
+    starts = np.searchsorted(comm_of, np.arange(n_comm))
+    ends = np.searchsorted(comm_of, np.arange(n_comm), side="right")
+    vs, es = [], []
+    for e in range(n_edges):
+        c = rng.integers(0, n_comm)
+        lo, hi = starts[c], ends[c]
+        if hi - lo < 2:
+            lo, hi = 0, n_nodes
+        k = max(int(rng.poisson(avg)), 2)
+        members = rng.integers(lo, hi, size=k)
+        flip = rng.random(k) < noise
+        members[flip] = rng.integers(0, n_nodes, size=int(flip.sum()))
+        members = np.unique(members)
+        vs.append(members)
+        es.append(np.full(len(members), e, dtype=np.int64))
+    return Hypergraph.from_coo(
+        np.concatenate(vs), np.concatenate(es),
+        num_nodes=n_nodes, num_edges=n_edges, name=f"sbm{n_comm}",
+    )
 
 
 def random_features(

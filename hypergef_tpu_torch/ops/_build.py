@@ -22,7 +22,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("fused_dense.cu", "ell_gather.cu")
+SOURCES = ("fused_dense.cu", "ell_gather.cu", "aligned_band.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -91,6 +91,8 @@ def load_library() -> ctypes.CDLL:
         "hg_dense_v2e": [ptr] * 4 + [cint] * 5 + [ptr],
         # x, gidx, mask, out; c, ngs, f, lanes; stream
         "hg_ell_gather_sum": [ptr] * 4 + [cint] * 4 + [ptr],
+        # x, band, win, spill, src, groups, out; n_groups, g, b, n, s, f; stream
+        "hg_aligned_band": [ptr] * 7 + [cint] * 6 + [ptr],
     }
     for name, argtypes in entries.items():
         fn = getattr(lib, name)

@@ -1,0 +1,291 @@
+"""The aligned stage apply: CUDA band kernel and its plain twins.
+
+Counterpart of ``hypergef_tpu/ops/aligned_pallas.py`` (Pallas kernel
+``_band_kernel`` ``:40-78``, ``pallas_call`` in ``_band_bucket_call``
+``:126``, entry ``apply_aligned_b_pallas`` ``:145-206``) and of the XLA forms
+it replaces, ``hypergef_tpu/ops/tree.py::_apply_aligned_b`` (``:413-460``)
+and ``::_apply_aligned`` (``:376-400``). One function: for every output
+group g of G segments,
+
+    out[g] = Σ_k band_g[:, kB:(k+1)B] @ bf16(x[win_block[g, k]])
+             + b_spill[g] @ bf16(x[spill_src[g]])
+
+with int8 counts, x f32 [N, F] rounded to bf16, exact products and f32
+sums, in two forms:
+
+* :func:`aligned_band` runs the hand-written CUDA kernel
+  (``csrc/aligned_band.cu``) on a CUDA tensor and the plain twin on a CPU
+  tensor. On a CUDA tensor it launches the kernel, once for the whole
+  stage, or raises; it never falls back.
+* :func:`apply_aligned_b_plain` (bucketed stages) and
+  :func:`apply_aligned_plain` (uniform stages) are the JAX package's XLA
+  chains in plain torch: block gather, an f32 ``bmm`` of the counts and the
+  bf16-rounded rows (the rule of ``fused_dense.dense_dot``: never a bf16
+  ``bmm``, which would round its output), spill gather and ``bmm``, slot
+  assembly.
+
+A :class:`BandTable` holds one stage's kernel tables on one device, built
+and checked once when a plan is put on the device, so a call checks only
+``x``. ``launches`` counts the kernel's launches.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from hypergef_tpu_torch.ops.fused_dense import bf16_round
+
+launches = 0
+
+_INT32_MAX = 2**31 - 1
+# columns of BandTable.groups, one row per output group
+_BAND_OFF, _WIN_OFF, _WIDTH, _SPILL_OFF, _SRC_OFF, _SW = range(6)
+
+
+@dataclasses.dataclass(frozen=True)
+class BandTable:
+    """One aligned stage's tables for the band kernel, on one device.
+
+    The band tables of every width bucket lie in one flat int8 array (the
+    plain form's per-bucket tables are views of it), the spill tables in
+    another; ``groups`` is the per-group directory into them: band offset,
+    window offset, width in blocks, spill offset, spill-source offset and
+    spill width (0: the group does not spill).
+    """
+
+    band: torch.Tensor  # int8 [*]: [G, width·block_rows] per group, row-major
+    win: torch.Tensor  # int32 [*]: width source block ids per group
+    spill: torch.Tensor  # int8 [*]: [G, sw] per spilling group, row-major
+    src: torch.Tensor  # int32 [*]: sw source rows per spilling group (N = zero row)
+    groups: torch.Tensor  # int64 [n_groups, 6], the directory
+    num_inputs: int  # N, the rows of x
+    num_segments: int  # S, the rows of the output
+    group_rows: int  # G
+    block_rows: int  # B
+
+    @classmethod
+    def build(cls, band, spill, windows, sources, num_inputs, num_segments, group_rows,
+              block_rows) -> "BandTable":
+        """Directory and int32 index tables for flat ``band``/``spill``
+        tables on a device. ``windows`` lists (win_block [ng_b, w] int32,
+        group ids) per band bucket and ``sources`` (spill_src [m_b, sw]
+        int32, group ids) per spill bucket, in the order of the flat
+        tables."""
+        n_groups = max(-(-num_segments // group_rows), 1)
+        d = np.zeros((n_groups, 6), np.int64)
+        band_off = win_off = 0
+        for win_block, gids in windows:
+            ng, w = win_block.shape
+            d[gids, _BAND_OFF] = band_off + np.arange(ng) * group_rows * w * block_rows
+            d[gids, _WIN_OFF] = win_off + np.arange(ng) * w
+            d[gids, _WIDTH] = w
+            band_off += ng * group_rows * w * block_rows
+            win_off += win_block.size
+        spill_off = src_off = 0
+        for spill_src, gids in sources:
+            m, sw = spill_src.shape
+            d[gids, _SPILL_OFF] = spill_off + np.arange(m) * group_rows * sw
+            d[gids, _SRC_OFF] = src_off + np.arange(m) * sw
+            d[gids, _SW] = sw
+            spill_off += m * group_rows * sw
+            src_off += spill_src.size
+
+        def flat32(tables):
+            a = (np.concatenate([t.reshape(-1) for t, _ in tables]) if tables
+                 else np.zeros(0, np.int32))
+            return torch.as_tensor(a.astype(np.int32), device=band.device)
+
+        return cls(band=band, win=flat32(windows), spill=spill, src=flat32(sources),
+                   groups=torch.as_tensor(d, device=band.device), num_inputs=num_inputs,
+                   num_segments=num_segments, group_rows=group_rows, block_rows=block_rows)
+
+    def __post_init__(self):
+        kinds = (("band", torch.int8), ("win", torch.int32), ("spill", torch.int8),
+                 ("src", torch.int32), ("groups", torch.int64))
+        for name, dtype in kinds:
+            t = getattr(self, name)
+            if t.dtype != dtype:
+                raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+            if t.device != self.band.device:
+                raise ValueError(f"{name} is on {t.device}, band on {self.band.device}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+        for name in ("band", "win", "spill", "src"):
+            if getattr(self, name).dim() != 1:
+                raise ValueError(f"{name} must be flat")
+        g_rows, b_rows, n, s = self.group_rows, self.block_rows, self.num_inputs, self.num_segments
+        n_groups = max(-(-s // g_rows), 1)
+        if self.groups.shape != (n_groups, 6):
+            raise ValueError(f"groups must be [{n_groups}, 6], got {tuple(self.groups.shape)}")
+        if min(g_rows, b_rows) <= 0 or min(n, s) < 0 or max(n, n_groups * g_rows) > _INT32_MAX:
+            raise ValueError(f"unsupported stage: G={g_rows}, B={b_rows}, N={n}, S={s}")
+        d = self.groups.cpu()
+        width, sw = d[:, _WIDTH], d[:, _SW]
+        if int(width.min()) < 1 or int(sw.min()) < 0:
+            raise ValueError("every group needs a window of at least one block")
+        ends = (
+            ("band", d[:, _BAND_OFF], g_rows * width * b_rows),
+            ("win", d[:, _WIN_OFF], width),
+            ("spill", d[:, _SPILL_OFF], g_rows * sw),
+            ("src", d[:, _SRC_OFF], sw),
+        )
+        for name, off, size in ends:
+            if int(off.min()) < 0 or int((off + size).max()) > getattr(self, name).numel():
+                raise ValueError(f"the directory reaches past the {name} table")
+        # windows may reach past the last block that holds rows of x (the
+        # uniform form's nb = max(ceil(N/B), wb)): the kernel reads no row
+        # past N, and those rows count as zeros
+        blocks = max(-(-n // b_rows), int(width.max()))
+        if self.win.numel() and (int(self.win.min()) < 0 or int(self.win.max()) >= blocks):
+            raise ValueError(f"window block ids must lie in [0, {blocks})")
+        if self.src.numel() and (int(self.src.min()) < 0 or int(self.src.max()) > n):
+            raise ValueError(f"spill sources must lie in [0, {n}] ({n}: the zero row)")
+
+    @property
+    def device(self) -> torch.device:
+        return self.band.device
+
+    @property
+    def num_groups(self) -> int:
+        return int(self.groups.shape[0])
+
+
+def _blocks(x, num_blocks: int, block_rows: int):
+    """bf16(x), zero-padded to ``num_blocks`` blocks: [num_blocks, B, F]."""
+    n, f = x.shape
+    xb = bf16_round(x)
+    pad = num_blocks * block_rows - n
+    if pad > 0:
+        xb = torch.cat([xb, xb.new_zeros((pad, f))])
+    return xb.reshape(num_blocks, block_rows, f)
+
+
+def _with_zero_row(x):
+    """bf16(x) with the zero row at index N that spill sources use."""
+    return torch.cat([bf16_round(x), x.new_zeros((1, x.shape[1]))])
+
+
+def _band_dot(table_i8, rows):
+    """``table @ rows`` per group: the int8 counts and the bf16 values are
+    exact in f32, so an f32 ``bmm`` gives exact products, f32 sums."""
+    return torch.bmm(table_i8.to(torch.float32), rows)
+
+
+def apply_aligned_b_plain(x, st):
+    """Bucketed aligned apply (``hypergef_tpu/ops/tree.py:413-460``): one
+    band product per width bucket, one per spill bucket, assembled by the
+    slot maps (skipped where they are the identity)."""
+    f = x.shape[1]
+    blk = st.block_rows
+    xb = _blocks(x, st.num_blocks, blk)
+    outs = []
+    for bk in st.buckets:
+        ng_b, wb = bk.win_block.shape
+        win = xb.index_select(0, bk.win_block.reshape(-1)).reshape(ng_b, wb * blk, f)
+        outs.append(_band_dot(bk.b_dense, win))  # [ng_b, G, F]
+    cat = torch.cat(outs) if len(outs) > 1 else outs[0]
+    base = cat if st.base_identity else cat.index_select(0, st.base_slot)
+    if st.spills:
+        xz = _with_zero_row(x)
+        souts = []
+        for sp in st.spills:
+            m_b, sw = sp.spill_src.shape
+            rows = xz.index_select(0, sp.spill_src.reshape(-1)).reshape(m_b, sw, f)
+            souts.append(_band_dot(sp.b_spill, rows))
+        if st.spill_identity:
+            base = base + souts[0]  # every group spills, one bucket, in order
+        else:
+            souts.append(x.new_zeros((1, st.group_rows, f)))
+            base = base + torch.cat(souts).index_select(0, st.spill_slot)
+    return base.reshape(-1, f)[: st.num_segments]
+
+
+def apply_aligned_plain(x, st):
+    """Uniform aligned apply (``hypergef_tpu/ops/tree.py:376-400``): one
+    band product over every group's window plus one spill product."""
+    f = x.shape[1]
+    n_groups, wb = st.win_block.shape
+    blk = st.b_dense.shape[2] // wb
+    xb = _blocks(x, st.num_blocks, blk)
+    win = xb.index_select(0, st.win_block.reshape(-1)).reshape(n_groups, wb * blk, f)
+    out = _band_dot(st.b_dense, win)  # [n_groups, G, F]
+    spill_w = st.spill_src.shape[1]
+    if spill_w:
+        rows = _with_zero_row(x).index_select(0, st.spill_src.reshape(-1))
+        out = out + _band_dot(st.b_spill, rows.reshape(n_groups, spill_w, f))
+    return out.reshape(n_groups * st.group_rows, f)[: st.num_segments]
+
+
+def aligned_band_plain(x, st):
+    """The plain twin of either stage form."""
+    if hasattr(st, "buckets"):
+        return apply_aligned_b_plain(x, st)
+    return apply_aligned_plain(x, st)
+
+
+def _launch(x, table: BandTable):
+    global launches
+    from hypergef_tpu_torch.ops import _build
+
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {dev}")
+    if table.device != dev:
+        raise ValueError(f"the table is on {table.device}, x on {dev}")
+    n = table.num_inputs
+    if x.dtype != torch.float32 or x.dim() != 2 or x.shape[0] != n:
+        raise TypeError(f"x must be f32 [{n}, F], got {x.dtype} {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    f = x.shape[1]
+    if f <= 0 or f > _INT32_MAX:
+        raise ValueError(f"unsupported width F={f}")
+    if torch.cuda.get_device_capability(dev) != (9, 0):
+        raise RuntimeError(
+            f"the kernel is built for sm_90a (Hopper); {torch.cuda.get_device_name(dev)} "
+            f"is sm_{''.join(map(str, torch.cuda.get_device_capability(dev)))}"
+        )
+    lib = _build.load_library()
+    out = torch.empty((table.num_segments, f), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.hg_aligned_band(
+            x.data_ptr(), table.band.data_ptr(), table.win.data_ptr(),
+            table.spill.data_ptr(), table.src.data_ptr(), table.groups.data_ptr(),
+            out.data_ptr(), table.num_groups, table.group_rows, table.block_rows,
+            n, table.num_segments, f, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"aligned_band launch failed: {lib.hg_error_string(err).decode()}")
+    launches += 1
+    return out
+
+
+def aligned_band(x, st):
+    """One aligned stage applied to x f32 [N, F]: f32 [S, F].
+
+    ``st`` is a device stage of an aligned plan
+    (``planner.AlignedStageBDev`` or ``planner.AlignedStageDev``). On CUDA
+    tensors this launches the kernel once, with the stage's
+    :class:`BandTable` (a plan of a ``pallas_*`` form); on CPU tensors it
+    runs :func:`aligned_band_plain`. It carries no autograd rule of its own,
+    so it refuses an ``x`` that requires grad: the tree op's backward
+    applies the transposed stage (:mod:`hypergef_tpu_torch.ops.tree`).
+    """
+    if x.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError(
+            "aligned_band has no autograd rule: differentiate through "
+            "ops.tree.tree_matvec, whose backward is the transposed stage")
+    if x.device.type == "cpu":
+        if st.counts.device.type != "cpu":
+            raise ValueError(f"x is on the CPU but the stage is on {st.counts.device}")
+        return aligned_band_plain(x, st)
+    if st.band is None:
+        raise ValueError(
+            "the stage holds no kernel tables: it was put on the device in the plain "
+            "form; use a plan of a pallas_* form (dataclasses.replace(plan, "
+            "form='pallas_auto'))")
+    return _launch(x, st.band)

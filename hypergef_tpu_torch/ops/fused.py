@@ -1,7 +1,7 @@
 """Fused two-stage aggregation: route dispatch.
 
 Port of ``hypergef_tpu/ops/fused.py::hgnn_aggregate`` (``:269-375``) with
-five routes; the route names mean the same thing in both packages:
+six routes; the route names mean the same thing in both packages:
 
 * ``"xla"`` — the plain segment-sum oracle (:mod:`.refops`).
 * ``"dense"`` — two plain matmuls over the int8 table, the XLA dense route
@@ -12,6 +12,10 @@ five routes; the route names mean the same thing in both packages:
   ``fused.py:316-319``).
 * ``"pallas_sparse"`` — the same tree with level 0 on the hand-written
   gather kernel (:mod:`.ell_gather`, ``fused.py:334-340``).
+* ``"aligned"`` — banded products for community-sorted graphs
+  (:func:`~hypergef_tpu_torch.sparse.planner.plan_aligned`,
+  ``fused.py:327-333``): the plain chain, or the hand-written band kernel
+  (:mod:`.aligned_band`) when the plan's form is ``pallas_*``.
 
 ``auto``, the other routes and ``first_aggr="max"`` raise
 ``NotImplementedError`` until they are ported (ROADMAP.md queue 1).
@@ -30,11 +34,9 @@ from hypergef_tpu_torch.ops.fused_dense import (
 from hypergef_tpu_torch.sparse.hypergraph import HypergraphData
 from hypergef_tpu_torch.sparse.planner import TreePlan
 
-ROUTES = ("xla", "dense", "pallas", "tree", "pallas_sparse")
+ROUTES = ("xla", "dense", "pallas", "tree", "pallas_sparse", "aligned")
 # routes of the JAX package (hypergef_tpu/ops/fused.py:36-39) not ported yet
-UNPORTED = (
-    "auto", "cumsum", "ell", "bsr", "precomp", "multihot", "aligned", "bitstream",
-)
+UNPORTED = ("auto", "cumsum", "ell", "bsr", "precomp", "multihot", "bitstream")
 
 
 def _resolve(backend: Optional[str], plan) -> str:
@@ -55,8 +57,8 @@ def tree_plan(plan, route: str) -> TreePlan:
     sub = getattr(plan, route, None) or plan
     if not isinstance(sub, TreePlan):
         raise ValueError(
-            f"the {route} route needs a TreePlan (plan_tree or plan_pallas_sparse), "
-            f"got {type(sub).__name__}")
+            f"the {route} route needs a TreePlan (plan_tree, plan_pallas_sparse or "
+            f"plan_aligned), got {type(sub).__name__}")
     return sub
 
 
@@ -81,7 +83,7 @@ def hgnn_aggregate(
         return refops.hgnn_aggregate_ref(hgd, x, wdiag, first_aggr)
     if b == "pallas":
         return hgnn_aggregate_fused_dense(hgd, x, wdiag, first_aggr, plan)
-    if b in ("tree", "pallas_sparse"):
+    if b in ("tree", "pallas_sparse", "aligned"):
         return tree.hgnn_aggregate_tree(hgd, x, wdiag, first_aggr, tree_plan(plan, b))
     dense = dense_table(plan, "dense")
     xe = dense_dot(dense.h, x, True)

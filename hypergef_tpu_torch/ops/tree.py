@@ -1,7 +1,8 @@
-"""Reduction-tree aggregation: the ``tree`` and ``pallas_sparse`` routes.
+"""Stage-plan aggregation: the ``tree``, ``pallas_sparse`` and ``aligned``
+routes.
 
-Port of ``hypergef_tpu/ops/tree.py`` for plain stages. Each aggregation
-direction runs as
+Port of ``hypergef_tpu/ops/tree.py`` for plain and aligned stages. A
+reduction-tree direction runs as
 
     gather source rows (ELL chunks)  →  masked in-chunk sum
     → levels of gather + masked fan-in sum  →  final per-segment map
@@ -10,7 +11,10 @@ over a :class:`~hypergef_tpu_torch.sparse.planner.DeviceStage`. In the
 plain form (``tree`` route) every level is a torch gather and sum; in the
 kernel form (``pallas_sparse`` route) level 0 is the CUDA gather kernel
 (:mod:`.ell_gather`) and the deeper levels stay plain, as the JAX package
-leaves them to XLA (``:341-353``).
+leaves them to XLA (``:341-353``). An aligned direction (``aligned`` route)
+runs as banded products over source windows plus a spill product
+(:mod:`.aligned_band`): the plain chain in the ``xla`` form, one launch of
+the CUDA band kernel in a ``pallas_*`` form.
 
 The adjoint of the V→E stage is the E→V stage over the transposed CSR, so
 :func:`tree_matvec`'s backward applies the other stage (``:481-499``): no
@@ -21,16 +25,18 @@ from __future__ import annotations
 
 import torch
 
+from hypergef_tpu_torch.ops.aligned_band import aligned_band, aligned_band_plain
 from hypergef_tpu_torch.ops.ell_gather import ell_gather_sum
-from hypergef_tpu_torch.sparse.planner import DeviceStage
+from hypergef_tpu_torch.sparse.planner import AlignedStageBDev, AlignedStageDev, DeviceStage
 
 # elements above which a level's [C, fan, F] gathered intermediate is not
 # materialized; per-slot 2-D gathers are used instead (``:173-176``)
 _LEVEL_3D_MAX_ELEMS = 1 << 22
 
 
-def stage_counts(stage: DeviceStage) -> torch.Tensor:
-    """Members per output segment, f32 [S] (``:165-170``)."""
+def stage_counts(stage) -> torch.Tensor:
+    """Members per output segment, f32 [S], of a stage of any type
+    (``:165-170``)."""
     return stage.counts
 
 
@@ -68,7 +74,19 @@ def _apply_kernel(x, stage: DeviceStage):
     return apply_levels(p, stage.levels[1:], stage.final_idx, stage.final_mask)
 
 
-def _apply_any(x, stage: DeviceStage):
+def _apply_aligned(x, st):
+    """An aligned stage, uniform (``:376-400``) or bucketed (``:413-460``):
+    one launch of the band kernel in the kernel form, the plain chain
+    otherwise."""
+    if st.band is not None:
+        return aligned_band(x.contiguous(), st)
+    return aligned_band_plain(x, st)
+
+
+def _apply_any(x, stage):
+    """``:463-478`` for the ported stage types."""
+    if isinstance(stage, (AlignedStageBDev, AlignedStageDev)):
+        return _apply_aligned(x, stage)
     if stage.gather0 is not None:
         return _apply_kernel(x, stage)
     return _apply_stage(x, stage)
@@ -86,15 +104,17 @@ class _TreeMatvec(torch.autograd.Function):
         return tree_matvec(g, bwd_stage, fwd_stage), None, None
 
 
-def tree_matvec(x, fwd_stage: DeviceStage, bwd_stage: DeviceStage):
+def tree_matvec(x, fwd_stage, bwd_stage):
     """``y = M x`` where ``fwd_stage`` encodes the 0/1 incidence map M and
-    ``bwd_stage`` encodes Mᵀ, which the backward applies."""
+    ``bwd_stage`` encodes Mᵀ, which the backward applies (tree or aligned
+    stages)."""
     return _TreeMatvec.apply(x, fwd_stage, bwd_stage)
 
 
 def hgnn_aggregate_tree(hgd, x, wdiag, first_aggr, plan):
     """HGNN aggregation over a :class:`TreePlan` (``:502-514``), sum or
-    mean first aggregation; the plan's form picks plain or kernel level 0."""
+    mean first aggregation; the plan's form picks the plain or the kernel
+    form of its stages."""
     e_stage, v_stage = plan.device(x.device)
     xe = tree_matvec(x, e_stage, v_stage)
     if first_aggr == "mean":

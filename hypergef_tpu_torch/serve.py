@@ -18,6 +18,7 @@ import torch
 from hypergef_tpu_torch import __version__
 from hypergef_tpu_torch.models.zoo import build_model
 from hypergef_tpu_torch.sparse.planner import AggregationPlan
+from hypergef_tpu_torch.train.trainer import default_plan, tree_plans
 
 
 class ServingModel:
@@ -25,9 +26,10 @@ class ServingModel:
 
     ``params`` is a ``state_dict`` (for instance from
     :func:`hypergef_tpu_torch.models.convert.params_from_flax`); without it
-    the weights are drawn from ``cfg.seed``. The ``dense`` and ``pallas``
-    routes need the int8 table, which is built on ``device`` when no
-    ``plan`` is given.
+    the weights are drawn from ``cfg.seed``. Without a ``plan``, the
+    ``dense`` and ``pallas`` routes get the int8 table and the ``aligned``
+    route the plain-form ``plan_aligned(hg)``; pass a ``pallas_*`` form plan
+    to run the band kernel. A plan's tables go to ``device`` here.
     """
 
     def __init__(
@@ -41,9 +43,11 @@ class ServingModel:
         plan: Optional[AggregationPlan] = None,
     ):
         self.device = torch.device(device)
-        if plan is None and cfg.backend in ("dense", "pallas"):
-            plan = AggregationPlan.dense_plan(hg, self.device)
+        if plan is None and cfg.backend in ("dense", "pallas", "aligned"):
+            plan = default_plan(cfg.backend, hg, self.device)
         self.plan = plan
+        for tp in tree_plans(plan):
+            tp.device(self.device)
         self.hgd = hg.device_data(self.device)
         self.model = build_model(
             cfg.model, nfeat=nfeat, nhid=cfg.nhid, nclass=nclass,

@@ -27,7 +27,7 @@ from torch.nn import functional as F
 
 from hypergef_tpu_torch.models.zoo import build_model
 from hypergef_tpu_torch.ops import fused
-from hypergef_tpu_torch.sparse.planner import AggregationPlan, TreePlan, plan_tree
+from hypergef_tpu_torch.sparse.planner import AggregationPlan, TreePlan, plan_aligned, plan_tree
 from hypergef_tpu_torch.train.splits import accuracy
 from hypergef_tpu_torch.utils.timing import Window
 
@@ -37,7 +37,7 @@ class TrainConfig:
     """The reference's argparse knobs (``hgsys.py:22-70``) plus route
     options. ``backend="auto"``, ``tune`` and ``plan_cache`` need modules
     that are not ported yet: name a route (``xla``, ``dense``, ``pallas``,
-    ``tree`` or ``pallas_sparse``)."""
+    ``tree``, ``pallas_sparse`` or ``aligned``)."""
 
     model: str = "HGNN"
     nhid: int = 32
@@ -68,13 +68,18 @@ def make_optimizer(params, lr: float, wd: float) -> torch.optim.Adam:
 
 def default_plan(backend: Optional[str], hg, device):
     """The plan the JAX Trainer builds for ``backend`` (``:88-99``): the
-    int8 table for ``dense``/``pallas``, the tree for ``tree``."""
+    int8 table for ``dense``/``pallas``, the tree for ``tree``; for
+    ``aligned`` the plain-form aligned plan, the one JAX's ladder picks for
+    a community-sorted graph (``plan_aligned`` raises ``ValueError`` for a
+    graph that is not: run ``community_reorder`` first)."""
     if backend == "xla":
         return None
     if backend in ("dense", "pallas"):
         return AggregationPlan.dense_plan(hg, device)
     if backend == "tree":
         return AggregationPlan(tree=plan_tree(hg))
+    if backend == "aligned":
+        return AggregationPlan(aligned=plan_aligned(hg))
     if backend == "pallas_sparse":
         raise ValueError(
             "backend 'pallas_sparse' needs its plan: pass plan=plan_pallas_sparse(hg), "
@@ -87,11 +92,13 @@ def default_plan(backend: Optional[str], hg, device):
     raise AssertionError(backend)
 
 
-def _tree_plans(plan):
+def tree_plans(plan):
+    """The stage plans of ``plan``, whose tables go to the device when a
+    Trainer or a server is built, not inside its first step."""
     if isinstance(plan, TreePlan):
         return [plan]
-    return [p for p in (getattr(plan, "tree", None), getattr(plan, "pallas_sparse", None))
-            if p is not None]
+    fields = ("tree", "pallas_sparse", "aligned")
+    return [p for p in (getattr(plan, f, None) for f in fields) if p is not None]
 
 
 class Trainer:
@@ -116,7 +123,7 @@ class Trainer:
         self.hg = hg
         self.device = torch.device(device)
         self.plan = default_plan(cfg.backend, hg, self.device) if plan is None else plan
-        for tp in _tree_plans(self.plan):
+        for tp in tree_plans(self.plan):
             tp.device(self.device)  # tables put on the device and checked once, here
         self.hgd = hg.device_data(self.device)
         self.x = torch.as_tensor(np.asarray(x), dtype=torch.float32, device=self.device)

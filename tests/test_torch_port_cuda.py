@@ -13,8 +13,14 @@ Tolerances:
   relative) before the second stage.
 * gather kernel: bitwise equal to the sequential plain loop, which rounds
   each product and each sum in the same order.
+* band kernel (aligned stages): rtol 1e-5 and atol 1e-5·max|plain|. The
+  products are exact in f32 in both forms; the kernel sums each row in one
+  order (window, then spill), the plain chain in bmm's order and band and
+  spill apart.
 """
 
+import dataclasses
+import functools
 import importlib.util
 from pathlib import Path
 
@@ -22,7 +28,11 @@ import numpy as np
 import pytest
 import torch
 
-from hypergef_tpu_torch.ops import ell_gather, fused_dense
+from hypergef_tpu_torch.data.synthetic import community_hypergraph
+from hypergef_tpu_torch.ops import aligned_band, ell_gather, fused, fused_dense
+from hypergef_tpu_torch.sparse import planner
+from hypergef_tpu_torch.sparse.hypergraph import Hypergraph
+from hypergef_tpu_torch.sparse.reorder import apply_vertex_order, community_reorder
 
 pytestmark = pytest.mark.cuda
 
@@ -135,6 +145,175 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         fused_dense.fused_dense_two_stage(h, x.t().contiguous().t(), se, sv)
     with pytest.raises(ValueError):
         fused_dense.fused_dense_two_stage(h.cpu(), x, se, sv)
+
+
+def sorted_community_graph(n, e, comm, avg, noise, seed, duplicate=0.0):
+    """A community graph from raw (shuffled) vertex ids, reordered by the
+    coarsening pass, as bench.py builds its clustered graph. With
+    ``duplicate`` that share of the incidences is listed twice, so the band
+    and spill tables hold counts of 2."""
+    hg = community_hypergraph(n, e, comm, avg, noise, seed)
+    hg, _ = apply_vertex_order(hg, np.random.default_rng(7).permutation(n), sort_edges=False)
+    hg, _ = community_reorder(hg)
+    if duplicate:
+        v = hg.ht_indices.astype(np.int64)
+        ed = np.repeat(np.arange(e), np.diff(hg.ht_indptr))
+        twice = np.random.default_rng(seed).random(v.size) < duplicate
+        hg = Hypergraph.from_coo(np.concatenate([v, v[twice]]), np.concatenate([ed, ed[twice]]),
+                                 num_nodes=n, num_edges=e, dedup=False)
+    return hg
+
+
+def split_buckets(st):
+    """The same bucketed stage laid out as several band and spill buckets out
+    of group order: odd groups' windows get one more block (block 0, with
+    zero band columns), and the spilling groups go to two spill buckets, the
+    first in reverse group order, padded to a common width with zero-row
+    slots. Neither slot map is then the identity."""
+    g_rows, b_rows, n = st.group_rows, st.block_rows, st.num_inputs
+    band, win = {}, {}
+    for b in st.buckets:
+        for l, g in enumerate(b.group_ids):
+            band[int(g)], win[int(g)] = b.b_dense[l], b.win_block[l]
+    n_groups = len(st.base_slot)
+    classes = {}
+    for g in range(n_groups):
+        classes.setdefault((g % 2, len(win[g])), []).append(g)
+    buckets, base_slot, slot = [], np.zeros(n_groups, np.int32), 0
+    for (odd, _), gids in sorted(classes.items()):
+        bands = [np.concatenate([band[g], np.zeros((g_rows, b_rows * odd), np.int8)], axis=1)
+                 for g in gids]
+        wins = [np.concatenate([win[g], np.zeros(odd, np.int32)]) for g in gids]
+        buckets.append(planner.AlignedBucket(np.stack(bands), np.stack(wins),
+                                             np.asarray(gids, np.int32)))
+        base_slot[gids] = slot + np.arange(len(gids))
+        slot += len(gids)
+    per_group = {}
+    for sp in st.spills:
+        for l, g in enumerate(sp.group_ids):
+            per_group[int(g)] = (sp.b_spill[l], sp.spill_src[l])
+    spilling = sorted(per_group)
+    parts = [[g for g in spilling if g % 3 == 0][::-1], [g for g in spilling if g % 3]]
+    spills, spill_slot, m = [], np.zeros(n_groups, np.int32), 0
+    for gids in (p for p in parts if p):
+        sw = max(per_group[g][1].size for g in gids)
+        tabs = [np.pad(per_group[g][0], ((0, 0), (0, sw - per_group[g][0].shape[1])))
+                for g in gids]
+        srcs = [np.pad(per_group[g][1], (0, sw - per_group[g][1].size), constant_values=n)
+                for g in gids]
+        spills.append(planner.AlignedSpill(np.stack(tabs), np.stack(srcs).astype(np.int32),
+                                           np.asarray(gids, np.int32)))
+        spill_slot[gids] = m + np.arange(len(gids))
+        m += len(gids)
+    spill_slot[[g for g in range(n_groups) if g not in per_group]] = m
+    return st._replace(buckets=tuple(buckets), spills=tuple(spills), base_slot=base_slot,
+                       spill_slot=spill_slot)
+
+
+@functools.lru_cache(maxsize=None)
+def aligned_plan(case):
+    """The host plans the band kernel is held at: a small community graph
+    in each form and layout, and the shapes that go wrong."""
+    if case == "empty":
+        return planner.plan_aligned(Hypergraph.from_coo([], [], num_nodes=300, num_edges=200))
+    if case == "past_n":  # N = 300 rows, windows of 4 blocks: block 3 holds no row
+        return planner.plan_aligned(sorted_community_graph(300, 200, 5, 4, 0.02, 1),
+                                    form="uniform", window_blocks=4)
+    if case == "width32":  # 4096-row windows
+        return planner.plan_aligned(sorted_community_graph(6000, 3000, 24, 12, 0.02, 0),
+                                    form="uniform", window_blocks=32)
+    if case == "counts":
+        return planner.plan_aligned(sorted_community_graph(2000, 1600, 25, 5, 0.02, 3, 0.05))
+    hg = sorted_community_graph(2000, 1600, 25, 5, 0.02, 3)
+    if case == "split":
+        plan = planner.plan_aligned(hg)
+        return dataclasses.replace(plan, edge_stage=split_buckets(plan.edge_stage),
+                                   vertex_stage=split_buckets(plan.vertex_stage))
+    kw = {"bucketed": {}, "uniform": {"form": "uniform"}, "group64": {"group_rows": 64},
+          "block64": {"block_rows": 64}}[case]
+    return planner.plan_aligned(hg, **kw)
+
+
+ALIGNED_CASES = ("bucketed", "split", "uniform", "group64", "block64", "counts", "past_n",
+                 "width32", "empty")
+
+
+@pytest.mark.parametrize("case", ALIGNED_CASES)
+@pytest.mark.parametrize("f", [3, 32, 48])
+def test_band_kernel_matches_plain(cuda, case, f):
+    plan = dataclasses.replace(aligned_plan(case), form="pallas_auto")
+    for stage in plan.device(cuda):
+        x = torch.as_tensor(np.random.default_rng(f).normal(size=(stage.num_inputs, f))
+                            .astype(np.float32), device=cuda)
+        before = aligned_band.launches
+        got = aligned_band.aligned_band(x, stage)
+        again = aligned_band.aligned_band(x, stage)
+        torch.cuda.synchronize()
+        assert aligned_band.launches == before + 2  # one launch a stage apply
+        want = aligned_band.aligned_band_plain(x, stage)
+        assert got.shape == want.shape == (stage.num_segments, f)
+        scale = float(want.abs().max()) if want.numel() else 0.0
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+        assert torch.equal(got, again), "two runs differ"
+
+
+def test_band_kernel_reads_no_row_past_n(cuda):
+    """x's rows are a view into a larger buffer full of NaN: rows past N and
+    the spill zero row must never be read."""
+    plan = dataclasses.replace(aligned_plan("past_n"), form="pallas_auto")
+    for stage in plan.device(cuda):
+        n, f = stage.num_inputs, 5
+        buf = torch.full((n + 1000, f), float("nan"), device=cuda)
+        buf[:n] = torch.as_tensor(np.random.default_rng(2).normal(size=(n, f))
+                                  .astype(np.float32), device=cuda)
+        got = aligned_band.aligned_band(buf[:n], stage)
+        assert bool(torch.isfinite(got).all())
+        want = aligned_band.aligned_band_plain(buf[:n].clone(), stage)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("aggr", ["sum", "mean"])
+def test_aligned_route_runs_the_kernel_forward_and_backward(cuda, aggr):
+    """The route on the kernel form against the plain form on the card: the
+    output and dx, with one launch per stage apply (2 forward, 2 backward)."""
+    hg = sorted_community_graph(2000, 1600, 25, 5, 0.02, 3)
+    plain = planner.plan_aligned(hg)
+    kernel = dataclasses.replace(plain, form="pallas_auto")
+    hgd = hg.device_data(cuda)
+    rng = np.random.default_rng(4)
+    x = torch.as_tensor(rng.normal(size=(hg.num_nodes, 16)).astype(np.float32), device=cuda)
+    cot = torch.as_tensor(rng.normal(size=(hg.num_nodes, 16)).astype(np.float32), device=cuda)
+    res = []
+    for plan in (kernel, plain):
+        xr = x.clone().requires_grad_(True)
+        before = aligned_band.launches
+        out = fused.hgnn_aggregate(hgd, xr, None, aggr, plan=plan, backend="aligned")
+        (out * cot).sum().backward()
+        torch.cuda.synchronize()
+        res.append((out.detach(), xr.grad, aligned_band.launches - before))
+    (out_k, dx_k, n_k), (out_p, dx_p, n_p) = res
+    assert (n_k, n_p) == (4, 0)
+    for got, want in ((out_k, out_p), (dx_k, dx_p)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+
+
+def test_band_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    kernel_stage, _ = dataclasses.replace(aligned_plan("bucketed"), form="pallas_auto").device(cuda)
+    plain_stage, _ = aligned_plan("bucketed").device(cuda)
+    n = kernel_stage.num_inputs
+    x = torch.ones((n, 4), device=cuda)
+    with pytest.raises(RuntimeError, match="autograd"):
+        aligned_band.aligned_band(x.clone().requires_grad_(True), kernel_stage)
+    with pytest.raises(TypeError):
+        aligned_band.aligned_band(x.double(), kernel_stage)
+    with pytest.raises(TypeError):
+        aligned_band.aligned_band(x[:10], kernel_stage)
+    with pytest.raises(ValueError, match="contiguous"):
+        aligned_band.aligned_band(torch.ones((4, n), device=cuda).t(), kernel_stage)
+    with pytest.raises(ValueError, match="kernel tables"):
+        aligned_band.aligned_band(x, plain_stage)
+    with pytest.raises(ValueError):
+        aligned_band.aligned_band(x.cpu(), kernel_stage)
 
 
 def test_chip_smoke_imports_and_reads_the_card():
