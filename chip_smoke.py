@@ -54,6 +54,36 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    epoch on the aligned kernel form, the aligned plain form and
    ``pallas_sparse``; the band kernel vs its plain twin per stage at
    F = 32.
+13. On phase 9's plans: hold the masked argmax kernel against its plain
+   twin on both stages of the SBM-60k plan at F = 32, 4 and 3, with
+   tie-heavy inputs (integers in [-2, 2]) at F = 32, and on the uniform
+   and the small plans: values and ids bitwise equal, two runs bitwise
+   equal, one launch per stage apply. Hold the masked arg-sum kernel on the
+   uniform plan's vertex stage, with the arg table of the argmax kernel on
+   its edge stage: rtol 1e-6, atol 1e-6·max|plain|; two runs bitwise equal.
+14. Serve five HGNN max requests on SBM-60k through the kernel-form aligned
+   plan: the checks of phase 3, against the plain form on the card;
+   exactly 2 argmax and 2 band launches a request.
+15. Train 20 steps of HGNN max on SBM-60k, kernel form: finite losses,
+   exactly 2 argmax, 4 band and 0 arg-sum launches a step; 10 epochs
+   without dropout, kernel form vs plain form on the card, losses within
+   rtol 1e-3. One forward and backward of ``aligned_max_matvec`` on the
+   uniform plan at F = 32: one argmax and one arg-sum launch, dx within
+   rtol 1e-6, atol 1e-6·max of ``v2e_max_aligned``'s CSR-routed dx.
+16. Time, with CUDA events, median of 20 windows: the argmax kernel vs its
+   twin (edge stage, F = 32 and 4), the arg-sum kernel vs its twin
+   (uniform vertex stage, F = 32), the SBM-60k max training epoch on the
+   aligned kernel form, on ``AggregationPlan(tree, aligned kernel form)``
+   (tree argmax V→E, band kernel E→V) and on the aligned plain form, and a
+   max request.
+
+Phases 8 and 12 also time one ``torch.sparse.mm`` of the gather table's
+and of each aligned stage's CSR matrix (the library yardstick; the port
+never calls it). The ``kernels`` line gives, for each kernel, its launches
+on the main paths, its largest error against its plain version, its time,
+the plain version's and the library call's (null where no single PyTorch
+call computes the same function), and its bound: the larger of its bytes
+over the card's memory rate and its operations over its f32 rate.
 
 The last line is ``{"ok": true, "device": {...}}``. Needs one card (an
 H100: the kernels are built for sm_90a) and imports nothing of JAX.
@@ -105,6 +135,39 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
+# the least time the card could take for a function: the larger of its
+# bytes (each input read once, each output written once) over the H100 SXM's
+# memory rate and its operations over the f32 rate outside the tensor cores,
+# where every port kernel does its arithmetic (NVIDIA's data sheet, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def bound(nbytes: int, ops: int) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(nbytes), "ops": int(ops)}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def stage_table_bytes(stage) -> int:
+    """The kernel tables a stage apply reads: bands, spills, windows,
+    sources and the directory."""
+    t = stage.band
+    return nbytes(t.band, t.win, t.spill, t.src, t.groups)
+
+
+def stage_live(stage) -> int:
+    """Non-zero entries of a stage's band and spill tables."""
+    t = stage.band
+    return int((t.band != 0).sum()) + int((t.spill != 0).sum())
+
+
 def make_graph(name: str):
     from hypergef_tpu_torch.data.synthetic import random_hypergraph
 
@@ -144,33 +207,35 @@ def check_kernel(hg, f: int, seed: int, device) -> dict:
 
 
 def time_kernel(hg, f: int, device) -> dict:
-    """Kernel and plain version in turns (plain, kernel, kernel, plain)."""
+    """Kernel and plain version in turns (plain, kernel, kernel, plain), and
+    the bound: the int8 table, x, the scales and the output moved once;
+    a multiply-add a feature for each non-zero entry in each stage."""
     from hypergef_tpu_torch.ops import fused_dense
-    from hypergef_tpu_torch.utils.timing import cuda_time_ms
 
     ops = kernel_operands(hg, f, seed=7, device=device)
     fns = {
         "kernel": lambda: fused_dense.fused_dense_two_stage(*ops),
         "plain": lambda: fused_dense.fused_dense_two_stage_plain(*ops),
     }
-    runs = {"kernel": [], "plain": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        runs[name].append(cuda_time_ms(fns[name], repeats=20, iters=10))
-    return {name: float(np.median(v)) for name, v in runs.items()}
+    out = time_turns(fns, ("plain", "kernel", "kernel", "plain"))
+    h, x = ops[0], ops[1]
+    out.update(bound(nbytes(*ops) + nbytes(x), 4 * int((h != 0).sum()) * f))
+    return out
 
 
-def serve(device, hg, backend, kernel, per_request, plan=None, plain_plan=None,
-          plain_device="cpu") -> dict:
-    """Five requests through ``backend``, whose kernel module is ``kernel``
-    (``per_request`` launches each), checked against the same model on the
-    kernel's plain version (``plain_plan`` on ``plain_device``) and on the
-    f32 segment-sum route."""
+def serve(device, hg, backend, counters, plan=None, plain_plan=None, plain_device="cpu",
+          first_aggr="sum") -> dict:
+    """Five requests through ``backend``. ``counters`` maps a kernel's name
+    to (module, counter attribute, launches a request); every count is set
+    to 0 just before the requests and read just after. Each answer is
+    checked against the same model on the kernels' plain versions
+    (``plain_plan`` on ``plain_device``) and on the f32 segment-reduce route."""
     from hypergef_tpu_torch.data.synthetic import random_features
     from hypergef_tpu_torch.serve import ServingModel
     from hypergef_tpu_torch.train.trainer import TrainConfig
     from hypergef_tpu_torch.utils.timing import cuda_time_ms
 
-    cfg = TrainConfig(model="HGNN", nhid=32, nlayer=2, first_aggr="sum", backend=backend)
+    cfg = TrainConfig(model="HGNN", nhid=32, nlayer=2, first_aggr=first_aggr, backend=backend)
     server = ServingModel(cfg, hg, NFEAT, NCLASS, device, plan=plan)
     params = {k: v.detach().cpu() for k, v in server.model.state_dict().items()}
     plain = ServingModel(cfg, hg, NFEAT, NCLASS, plain_device, params=params, plan=plain_plan)
@@ -181,12 +246,15 @@ def serve(device, hg, backend, kernel, per_request, plan=None, plain_plan=None,
     xs = [torch.as_tensor(a, device=device) for a in feats]
     torch.cuda.synchronize()
 
-    kernel.launches = 0
+    for module, attr, _ in counters.values():
+        setattr(module, attr, 0)
     answers = [server.predict(x) for x in xs]
     torch.cuda.synchronize()
-    launches = kernel.launches
-    check(launches == REQUESTS * per_request,
-          f"{REQUESTS} requests launched the kernel {REQUESTS * per_request} times, got {launches}")
+    launches = {name: getattr(module, attr) for name, (module, attr, _) in counters.items()}
+    for name, (_, _, per_request) in counters.items():
+        check(launches[name] == REQUESTS * per_request,
+              f"{REQUESTS} requests launched {name} {REQUESTS * per_request} times, "
+              f"got {launches[name]}")
 
     worst = {"plain_abs": 0.0, "xla_abs": 0.0, "agree": 1.0}
     for logp, a, x in zip(answers, feats, xs):
@@ -279,28 +347,39 @@ def train_problem(name: str):
     return cfg, hg, x, y, rand_train_test_idx(y, seed=2), plan
 
 
+def kernel_counters():
+    """Every kernel's launch counter: name -> (module, attribute)."""
+    from hypergef_tpu_torch.ops import aligned_band, aligned_max, ell_gather, fused_dense
+
+    return {"fused": (fused_dense, "launches"), "gather": (ell_gather, "launches"),
+            "band": (aligned_band, "launches"), "argmax": (aligned_max, "argmax_launches"),
+            "argsum": (aligned_max, "argsum_launches")}
+
+
 def train(problems, device) -> dict:
     """Each path with its counts set to 0 just before and read just after."""
-    from hypergef_tpu_torch.ops import aligned_band, ell_gather, fused_dense
+    from hypergef_tpu_torch.ops import fused_dense
     from hypergef_tpu_torch.train.trainer import Trainer
 
     out = {}
-    # (fused dense, gather, band) launches a step
-    per_step = {"pallas": (4, 0, 0), "pallas_sparse": (0, 8, 0), "aligned": (0, 0, 8)}
+    # launches a step, by (route, first aggregation); every other count is 0
+    per_step = {("pallas", "sum"): {"fused": 4}, ("pallas_sparse", "sum"): {"gather": 8},
+                ("aligned", "sum"): {"band": 8}, ("aligned", "max"): {"argmax": 2, "band": 4}}
+    counters = kernel_counters()
     for name, (cfg, hg, x, y, split, plan) in problems.items():
         tr = Trainer(cfg, hg, x, y, plan=plan, device=device)
         torch.cuda.synchronize()
-        fused_dense.launches = fused_dense.v2e_launches = 0
-        ell_gather.launches = aligned_band.launches = 0
+        fused_dense.v2e_launches = 0
+        for module, attr in counters.values():
+            setattr(module, attr, 0)
         res = tr.fit(split["train"], epochs=TRAIN_STEPS, warmup=0)
-        launched = (fused_dense.launches, ell_gather.launches, aligned_band.launches)
+        launched = {k: getattr(module, attr) for k, (module, attr) in counters.items()}
         check(fused_dense.v2e_launches == 0, "a frozen wdiag needs no d scale_e")
-        want = tuple(TRAIN_STEPS * k for k in per_step[cfg.backend])
-        check(launched == want, f"{name}: {TRAIN_STEPS} steps launched (fused, gather, band) "
-              f"{launched}, want {want}")
+        want = {k: TRAIN_STEPS * per_step[cfg.backend, cfg.first_aggr].get(k, 0)
+                for k in counters}
+        check(launched == want, f"{name}: {TRAIN_STEPS} steps launched {launched}, want {want}")
         check(bool(np.isfinite(res["losses"]).all()), f"{name}: finite losses")
-        out[name] = {"route": cfg.backend, "fused_launches": launched[0],
-                     "gather_launches": launched[1], "band_launches": launched[2],
+        out[name] = {"route": cfg.backend, "first_aggr": cfg.first_aggr, "launches": launched,
                      "losses": res["losses"].tolist(),
                      "train_acc": tr.evaluate(split)["train_acc"]}
     return out
@@ -377,18 +456,34 @@ def time_steps(trainers, train_idx, order, device) -> dict:
             for k in trainers}
 
 
+def gather_csr(table):
+    """The level-0 table as a CSR matrix [C, N] of its mask (live slots
+    only), for the library yardstick ``torch.sparse.mm``."""
+    c = torch.arange(table.gidx.shape[0], device=table.mask.device)[:, None].expand_as(
+        table.gidx_long)
+    live = table.mask != 0
+    coo = torch.sparse_coo_tensor(torch.stack([c[live], table.gidx_long[live]]),
+                                  table.mask[live], (table.gidx.shape[0], table.num_inputs),
+                                  check_invariants=True)
+    return coo.coalesce().to_sparse_csr()
+
+
 def time_gather(table, f: int, device) -> dict:
+    """Kernel, plain loop and one ``torch.sparse.mm`` of the table's CSR (the
+    library yardstick; the port never calls it), in turns."""
     from hypergef_tpu_torch.ops import ell_gather
-    from hypergef_tpu_torch.utils.timing import cuda_time_ms
 
     x = torch.as_tensor(np.random.default_rng(11).normal(size=(table.num_inputs, f))
                         .astype(np.float32), device=device)
+    csr = gather_csr(table)
     fns = {"kernel": lambda: ell_gather.ell_gather_sum(x, table),
-           "plain": lambda: ell_gather.ell_gather_sum_plain(x, table.gidx_long, table.mask)}
-    runs = {"kernel": [], "plain": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        runs[name].append(cuda_time_ms(fns[name], repeats=20, iters=10))
-    return {name: float(np.median(v)) for name, v in runs.items()}
+           "plain": lambda: ell_gather.ell_gather_sum_plain(x, table.gidx_long, table.mask),
+           "library": lambda: torch.sparse.mm(csr, x)}
+    out = time_turns(fns, ("plain", "kernel", "library", "library", "kernel", "plain"))
+    live = int((table.mask != 0).sum())
+    out.update(bound(nbytes(x, table.gidx, table.mask) + table.gidx.shape[0] * f * 4,
+                     2 * live * f))
+    return out
 
 
 def time_fd_backward(hg, f: int, device) -> dict:
@@ -458,18 +553,33 @@ def check_band(stage, f: int, seed: int, device) -> dict:
             "f": f, "max_abs_err": float((got - want).abs().max()), "max_abs_plain": scale}
 
 
-def time_band(stage, f: int, device) -> dict:
+def incidence_csr(hg, stage: str, device):
+    """The count matrix a stage applies, as CSR: Hᵀ [E, N] for the edge
+    stage, H [N, E] for the vertex stage (for ``torch.sparse.mm``)."""
+    indptr, indices, shape = ((hg.ht_indptr, hg.ht_indices, (hg.num_edges, hg.num_nodes))
+                              if stage == "edge" else
+                              (hg.h_indptr, hg.h_indices, (hg.num_nodes, hg.num_edges)))
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(indptr, device=device), torch.as_tensor(indices, device=device).long(),
+        torch.ones(len(indices), device=device), shape, check_invariants=True)
+
+
+def time_band(stage, f: int, device, csr) -> dict:
+    """Kernel, plain twin and one ``torch.sparse.mm`` of the stage's CSR
+    count matrix against bf16(x) (the library yardstick), in turns."""
     from hypergef_tpu_torch.ops import aligned_band
-    from hypergef_tpu_torch.utils.timing import cuda_time_ms
+    from hypergef_tpu_torch.ops.fused_dense import bf16_round
 
     x = torch.as_tensor(np.random.default_rng(12).normal(size=(stage.num_inputs, f))
                         .astype(np.float32), device=device)
+    xb = bf16_round(x)
     fns = {"kernel": lambda: aligned_band.aligned_band(x, stage),
-           "plain": lambda: aligned_band.aligned_band_plain(x, stage)}
-    runs = {"kernel": [], "plain": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        runs[name].append(cuda_time_ms(fns[name], repeats=20, iters=10))
-    return {name: float(np.median(v)) for name, v in runs.items()}
+           "plain": lambda: aligned_band.aligned_band_plain(x, stage),
+           "library": lambda: torch.sparse.mm(csr, xb)}
+    out = time_turns(fns, ("plain", "kernel", "library", "library", "kernel", "plain"))
+    out.update(bound(stage_table_bytes(stage) + nbytes(x) + stage.num_segments * f * 4,
+                     2 * stage_live(stage) * f))
+    return out
 
 
 def sbm_problem(hg, plan):
@@ -516,7 +626,7 @@ def aligned_phases(device, card: str) -> dict:
         print(f"phase 9 band kernel vs plain: {json.dumps(b)}", flush=True)
 
     # 10. serve SBM-60k through the kernel-form aligned plan
-    served_al = serve(device, sbm, "aligned", aligned_band, per_request=4,
+    served_al = serve(device, sbm, "aligned", {"band": (aligned_band, "launches", 4)},
                       plan=AggregationPlan(aligned=al_kernel),
                       plain_plan=AggregationPlan(aligned=al_plan), plain_device=device)
     print(f"phase 10 serve sbm60k: {json.dumps(served_al)}", flush=True)
@@ -543,7 +653,8 @@ def aligned_phases(device, card: str) -> dict:
     order = ("aligned plain", "aligned kernel", "pallas_sparse",
              "pallas_sparse", "aligned kernel", "aligned plain")
     sbm_epochs = time_steps(trainers, split["train"], order, device)
-    band_times = {f"{stage} F=32": time_band(sbm_stages[stage], 32, device)
+    band_times = {f"{stage} F=32": time_band(sbm_stages[stage], 32, device,
+                                             incidence_csr(sbm, stage, device))
                   for stage in ("edge", "vertex")}
     print(f"phase 12 times (ms, CUDA events, median of 20): card {card}; SBM-60k training "
           f"epoch (wall: 10 back-to-back steps, host included; device: behind a queued "
@@ -552,13 +663,272 @@ def aligned_phases(device, card: str) -> dict:
           f"{served_al['request_ms']}", flush=True)
 
     return {"bands": bands, "served": served_al, "trained": trained_al["sbm60k"],
-            "band_times": band_times}
+            "band_times": band_times, "sbm": sbm, "plan": al_plan, "extra": extra}
+
+
+def check_argmax(stage, f: int, seed: int, device, ties: bool = False) -> dict:
+    """The masked argmax kernel against its plain twin on one device stage:
+    values and ids bitwise equal, two runs bitwise equal, one launch."""
+    from hypergef_tpu_torch.ops import aligned_max
+
+    rng = np.random.default_rng(seed)
+    a = (rng.integers(-2, 3, size=(stage.num_inputs, f)) if ties
+         else rng.normal(size=(stage.num_inputs, f)))
+    x = torch.as_tensor(a.astype(np.float32), device=device)
+    before = aligned_max.argmax_launches
+    val, arg = aligned_max.aligned_masked_argmax(x, stage)
+    val2, arg2 = aligned_max.aligned_masked_argmax(x, stage)
+    torch.cuda.synchronize()
+    check(aligned_max.argmax_launches == before + 2, "one argmax launch per stage apply")
+    want_val, want_arg = aligned_max.aligned_max_plain(x, stage)
+    err = float((val - want_val).abs().max())
+    wrong = int((arg != want_arg).sum())
+    check(torch.equal(val, want_val) and torch.equal(arg, want_arg),
+          f"argmax kernel bitwise equal to its twin (values off by {err}, {wrong} ids differ)")
+    check(torch.equal(val, val2) and torch.equal(arg, arg2), "two argmax runs are bitwise equal")
+    return {"groups": stage.band.num_groups, "n": stage.num_inputs, "s": stage.num_segments,
+            "f": f, "ties": ties, "max_abs_err": err, "ids_differ": wrong,
+            "empty_share": float((arg < 0).float().mean())}
+
+
+def argsum_operands(e_stage, v_stage, f: int, seed: int, device):
+    """g [E, F] and the arg table of the argmax kernel on ``e_stage``."""
+    from hypergef_tpu_torch.ops import aligned_max
+
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.normal(size=(e_stage.num_inputs, f)).astype(np.float32),
+                        device=device)
+    _, arg = aligned_max.aligned_masked_argmax(x, e_stage)
+    g = torch.as_tensor(rng.normal(size=(v_stage.num_inputs, f)).astype(np.float32),
+                        device=device)
+    return g, arg
+
+
+def check_argsum(e_stage, v_stage, f: int, seed: int, device) -> dict:
+    """The masked arg-sum kernel on the transpose stage against its twin:
+    rtol 1e-6, atol 1e-6·max|plain| (sums of a few f32 terms in another
+    order); two runs bitwise equal."""
+    from hypergef_tpu_torch.ops import aligned_max
+
+    g, arg = argsum_operands(e_stage, v_stage, f, seed, device)
+    before = aligned_max.argsum_launches
+    got = aligned_max.aligned_masked_argsum(g, arg, v_stage)
+    again = aligned_max.aligned_masked_argsum(g, arg, v_stage)
+    torch.cuda.synchronize()
+    check(aligned_max.argsum_launches == before + 2, "one arg-sum launch per stage apply")
+    want = aligned_max.aligned_argsum_plain(g, arg, v_stage)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * scale)
+    check(torch.equal(got, again), "two arg-sum runs are bitwise equal")
+    return {"groups": v_stage.band.num_groups, "n": v_stage.num_inputs,
+            "s": v_stage.num_segments, "f": f, "max_abs_err": float((got - want).abs().max()),
+            "max_abs_plain": scale}
+
+
+def time_turns(fns: dict, order, iters: int = 10) -> dict:
+    """Device time of each function (CUDA events behind a queued sleep,
+    median of 20 windows of ``iters`` calls), taken in ``order``; the
+    median over each name's turns."""
+    from hypergef_tpu_torch.utils.timing import cuda_time_ms
+
+    runs = {name: [] for name in fns}
+    for name in order:
+        runs[name].append(cuda_time_ms(fns[name], repeats=20, iters=iters))
+    return {name: float(np.median(v)) for name, v in runs.items()}
+
+
+def max_phases(device, card: str, aligned: dict) -> dict:
+    """Phases 13-16: max first aggregation on SBM-60k, on phase 9's graph
+    and plans."""
+    from hypergef_tpu_torch.ops import aligned_band, aligned_max
+    from hypergef_tpu_torch.sparse.planner import AggregationPlan, plan_tree
+    from hypergef_tpu_torch.train.trainer import Trainer
+
+    sbm, al_plan, extra = aligned["sbm"], aligned["plan"], aligned["extra"]
+    al_kernel = dataclasses.replace(al_plan, form="pallas_auto")
+    stages = dict(zip(("edge", "vertex"), al_kernel.device(device)))
+    uni_e, uni_v = extra["sbm60k uniform"].device(device)
+
+    # 13. the kernels against their twins
+    argmaxes = []
+    for seed, (stage, f) in enumerate([(s, f) for s in ("edge", "vertex") for f in (32, 4, 3)]):
+        argmaxes.append({"plan": "sbm60k", "stage": stage,
+                         **check_argmax(stages[stage], f, 40 + seed, device)})
+    for stage in ("edge", "vertex"):
+        argmaxes.append({"plan": "sbm60k", "stage": stage,
+                         **check_argmax(stages[stage], 32, 50, device, ties=True)})
+    for name, p in extra.items():
+        for stage, st in zip(("edge", "vertex"), p.device(device)):
+            argmaxes.append({"plan": name, "stage": stage, "layout": type(st).__name__,
+                             **check_argmax(st, 32, 60 + len(argmaxes), device)})
+    for a in argmaxes:
+        print(f"phase 13 argmax kernel vs plain: {json.dumps(a)}", flush=True)
+    argsum = {"plan": "sbm60k uniform", "stage": "vertex",
+              **check_argsum(uni_e, uni_v, 32, 70, device)}
+    print(f"phase 13 arg-sum kernel vs plain: {json.dumps(argsum)}", flush=True)
+
+    # 14. serve max requests through the kernel-form aligned plan
+    served = serve(device, sbm, "aligned",
+                   {"argmax": (aligned_max, "argmax_launches", 2),
+                    "band": (aligned_band, "launches", 2),
+                    "argsum": (aligned_max, "argsum_launches", 0)},
+                   plan=AggregationPlan(aligned=al_kernel),
+                   plain_plan=AggregationPlan(aligned=al_plan), plain_device=device,
+                   first_aggr="max")
+    print(f"phase 14 serve sbm60k max: {json.dumps(served)}", flush=True)
+
+    # 15. train max, kernel form; then aligned_max_matvec's backward
+    cfg, hg, x, y, split, plan = sbm_problem(sbm, al_plan)
+    problems = {"sbm60k max": (dataclasses.replace(cfg, first_aggr="max"), hg, x, y, split,
+                               plan)}
+    trained = train(problems, device)["sbm60k max"]
+    print(f"phase 15 train sbm60k max: {json.dumps(trained)}", flush=True)
+    parity = train_parity(problems, device)["sbm60k max"]
+    print(f"phase 15 no-dropout parity sbm60k max: {json.dumps(parity)}", flush=True)
+    matvec = check_matvec(sbm, uni_e, uni_v, device)
+    print(f"phase 15 aligned_max_matvec: {json.dumps(matvec)}", flush=True)
+
+    # 16. times
+    xs = {f: torch.as_tensor(np.random.default_rng(13).normal(size=(sbm.num_nodes, f))
+                             .astype(np.float32), device=device) for f in (32, 4)}
+    order = ("plain", "kernel", "kernel", "plain")
+    argmax_times = {f"edge F={f}": time_turns({
+        "kernel": lambda xf=xf: aligned_max.aligned_masked_argmax(xf, stages["edge"]),
+        "plain": lambda xf=xf: aligned_max.aligned_max_plain(xf, stages["edge"])}, order)
+        for f, xf in xs.items()}
+    live = stage_live(stages["edge"])
+    for f, xf in xs.items():  # tables, x, then val and arg written; a compare a feature
+        argmax_times[f"edge F={f}"].update(bound(
+            stage_table_bytes(stages["edge"]) + nbytes(xf) + sbm.num_edges * f * 8, live * f))
+    g, arg = argsum_operands(uni_e, uni_v, 32, 71, device)
+    argsum_times = time_turns({
+        "kernel": lambda: aligned_max.aligned_masked_argsum(g, arg, uni_v),
+        "plain": lambda: aligned_max.aligned_argsum_plain(g, arg, uni_v)}, order)
+    argsum_times.update(bound(stage_table_bytes(uni_v) + nbytes(g, arg) + sbm.num_nodes * 32 * 4,
+                              stage_live(uni_v) * 32))
+    mcfg = problems["sbm60k max"][0]
+    trainers = {
+        "aligned kernel": Trainer(mcfg, hg, x, y, plan=plan, device=device),
+        "tree + aligned kernel": Trainer(
+            mcfg, hg, x, y, plan=AggregationPlan(tree=plan_tree(hg), aligned=al_kernel),
+            device=device),
+        "aligned plain": Trainer(mcfg, hg, x, y, plan=AggregationPlan(aligned=al_plan),
+                                 device=device),
+    }
+    epoch_order = ("aligned plain", "aligned kernel", "tree + aligned kernel",
+                   "tree + aligned kernel", "aligned kernel", "aligned plain")
+    epochs = time_steps(trainers, split["train"], epoch_order, device)
+    print(f"phase 16 times (ms, CUDA events, median of 20): card {card}; SBM-60k max training "
+          f"epoch (wall: 10 back-to-back steps, host included; device: behind a queued "
+          f"sleep): {json.dumps(epochs)}; argmax kernel vs plain twin: "
+          f"{json.dumps(argmax_times)}; arg-sum kernel vs plain twin, uniform vertex stage "
+          f"F=32: {json.dumps(argsum_times)}; HGNN max request on SBM-60k, kernel form "
+          f"{served['request_ms']}", flush=True)
+    return {"argmaxes": argmaxes, "argsum": argsum, "served": served, "trained": trained,
+            "matvec": matvec, "argmax_times": argmax_times, "argsum_times": argsum_times,
+            "epochs": epochs, "stages": stages, "uniform": (uni_e, uni_v)}
+
+
+def check_matvec(hg, e_stage, v_stage, device) -> dict:
+    """One forward and backward of ``aligned_max_matvec`` on the uniform
+    SBM-60k plan at F = 32: one argmax and one arg-sum launch, and dx within
+    rtol 1e-6, atol 1e-6·max of ``v2e_max_aligned``'s CSR-routed dx."""
+    from hypergef_tpu_torch.ops import aligned_max
+
+    hgd = hg.device_data(device)
+    rng = np.random.default_rng(14)
+    x = torch.as_tensor(rng.normal(size=(hg.num_nodes, 32)).astype(np.float32), device=device)
+    cot = torch.as_tensor(rng.normal(size=(hg.num_edges, 32)).astype(np.float32),
+                          device=device)
+    xr = x.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    aligned_max.argmax_launches = aligned_max.argsum_launches = 0
+    y = aligned_max.aligned_max_matvec(xr, e_stage, v_stage)
+    (dx,) = torch.autograd.grad(y, xr, cot)
+    torch.cuda.synchronize()
+    launched = (aligned_max.argmax_launches, aligned_max.argsum_launches)
+    check(launched == (1, 1), f"aligned_max_matvec launched (argmax, arg-sum) {launched}")
+    xc = x.clone().requires_grad_(True)
+    yc = aligned_max.v2e_max_aligned(xc, e_stage, hgd.h_edge, hgd.h_segids, hgd.h_indptr)
+    (want,) = torch.autograd.grad(yc, xc, cot)
+    check(torch.equal(y, yc), "the two ops' forwards are bitwise equal")
+    scale = float(want.abs().max())
+    torch.testing.assert_close(dx, want, rtol=1e-6, atol=1e-6 * scale)
+    return {"argmax_launches": launched[0], "argsum_launches": launched[1],
+            "max_abs_err": float((dx - want).abs().max()), "max_abs": scale}
+
+
+def profile_steps(device, steps: int = 10) -> None:
+    """``--profile``: the SBM-60k training step of each aligned-route form
+    under ``torch.profiler`` (``steps`` steps after 5 warm-up ones): the
+    device's busy time a step, its kernel count and the kernels that take
+    the most device time. Not part of the smoke run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hypergef_tpu_torch.sparse.planner import AggregationPlan, plan_tree
+    from hypergef_tpu_torch.train.trainer import Trainer
+
+    sbm, al_plan, _ = build_sbm60k()
+    cfg, hg, x, y, split, plan = sbm_problem(sbm, al_plan)
+    kernel = plan.aligned
+    mcfg = dataclasses.replace(cfg, first_aggr="max")
+    forms = {
+        "sum aligned kernel": (cfg, plan),
+        "max aligned kernel": (mcfg, plan),
+        "max tree + aligned kernel": (mcfg, AggregationPlan(tree=plan_tree(hg), aligned=kernel)),
+        "max aligned plain": (mcfg, AggregationPlan(aligned=al_plan)),
+    }
+    # the pieces of the CSR-routed max backward (maxops.record_routed_dx) at
+    # SBM-60k F = 32, each alone: row gathers by h_edge in three forms, and
+    # the direct segment sum
+    from hypergef_tpu_torch.ops.segments import segment_sum_sorted
+    from hypergef_tpu_torch.utils.timing import cuda_time_ms
+
+    hgd = hg.device_data(device)
+    rng = np.random.default_rng(15)
+    g = torch.as_tensor(rng.normal(size=(hg.num_edges, 32)).astype(np.float32), device=device)
+    arg = torch.as_tensor(rng.integers(0, hg.num_nodes, size=(hg.num_edges, 32))
+                          .astype(np.int32), device=device)
+    vals = g.index_select(0, hgd.h_edge)
+    pieces = {
+        "index_select f32": lambda: g.index_select(0, hgd.h_edge),
+        "index_select int32": lambda: arg.index_select(0, hgd.h_edge),
+        "advanced index f32": lambda: g[hgd.h_edge],
+        "torch.gather f32": lambda: torch.gather(g, 0, hgd.h_edge[:, None].expand(-1, 32)),
+        "segment_sum_sorted": lambda: segment_sum_sorted(vals, hgd.h_indptr),
+    }
+    print("profile CSR backward pieces (ms, CUDA events behind a queued sleep, median of 20): "
+          + json.dumps({k: cuda_time_ms(f, repeats=20, iters=10) for k, f in pieces.items()}),
+          flush=True)
+    idx = torch.as_tensor(split["train"], device=device)
+    for name, (c, p) in forms.items():
+        tr = Trainer(c, hg, x, y, plan=p, device=device)
+        for _ in range(5):
+            tr.step(idx)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                tr.step(idx)
+            torch.cuda.synchronize()
+        # kernels on the device; the optimizer's range annotation is no kernel
+        rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0 and not e.key.startswith("Optimizer.")]
+        busy = sum(e.self_device_time_total for e in rows) / steps / 1e3
+        count = sum(e.count for e in rows) / steps
+        top = sorted(rows, key=lambda e: -e.self_device_time_total)[:12]
+        print(f"profile {name}: device busy {busy:.5f} ms a step, {count:.1f} kernels a step; "
+              + json.dumps({e.key[:90]: round(e.self_device_time_total / steps / 1e3, 6)
+                            for e in top}), flush=True)
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--profile"]:
+        print(f"card: {card_line()}", flush=True)
+        profile_steps(torch.device("cuda", 0))
+        return 0
     from hypergef_tpu_torch.ops import _build
 
     device = torch.device("cuda", 0)
@@ -582,7 +952,8 @@ def main() -> int:
     # 3. serve
     from hypergef_tpu_torch.ops import fused_dense
 
-    served = serve(device, make_graph("20news"), "pallas", fused_dense, per_request=2)
+    served = serve(device, make_graph("20news"), "pallas",
+                   {"fused_dense": (fused_dense, "launches", 2)})
     print(f"phase 3 serve: {json.dumps(served)}", flush=True)
 
     # 4. times
@@ -634,18 +1005,21 @@ def main() -> int:
           f"F=32: {json.dumps(bwd_times)}", flush=True)
 
     aligned = aligned_phases(device, card)
+    maxed = max_phases(device, card, aligned)
 
     fd_bwd_err = max(max(c["max_abs_err"].values()) for c in bwd)
+    timed = {"fused_dense_two_stage": times["20news"], "ell_gather_sum": gather_times["edge F=32"],
+             "aligned_band": aligned["band_times"]["edge F=32"],
+             "aligned_masked_argmax": maxed["argmax_times"]["edge F=32"],
+             "aligned_masked_argsum": maxed["argsum_times"]}
     kernels = [{
         "name": "fused_dense_two_stage",
         "route": "cuda",
         "source": "hypergef_tpu_torch/csrc/fused_dense.cu",
         "replaces": "hypergef_tpu/ops/pallas_kernels.py:108",
         # forward and backward launches of the serving and the pallas training paths
-        "launches": served["launches"] + trained["20news"]["fused_launches"],
+        "launches": served["launches"]["fused_dense"] + trained["20news"]["launches"]["fused"],
         "max_abs_err": max(max(c["max_abs_err"] for c in cases), fd_bwd_err),
-        "ms": times["20news"]["kernel"],
-        "plain_ms": times["20news"]["plain"],
         "bwd_ms": bwd_times["20news"]["kernel"],
         "bwd_plain_ms": bwd_times["20news"]["plain"],
     }, {
@@ -654,23 +1028,46 @@ def main() -> int:
         "source": "hypergef_tpu_torch/csrc/ell_gather.cu",
         "replaces": "hypergef_tpu/ops/pallas_sparse.py:111",
         "also_replaces": "hypergef_tpu/ops/pallas_sparse.py:127",
-        "launches": trained["pubmed_real"]["gather_launches"],
+        "launches": trained["pubmed_real"]["launches"]["gather"],
         "max_abs_err": max(g["max_abs_err"] for g in gathers),
-        "ms": gather_times["edge F=32"]["kernel"],
-        "plain_ms": gather_times["edge F=32"]["plain"],
     }, {
         "name": "aligned_band",
         "route": "cuda",
         "source": "hypergef_tpu_torch/csrc/aligned_band.cu",
         "replaces": "hypergef_tpu/ops/aligned_pallas.py:126",
-        # forward and backward launches of the aligned serving and training paths
-        "launches": aligned["served"]["launches"] + aligned["trained"]["band_launches"],
+        # forward and backward launches of the aligned serving and training paths,
+        # sum and max
+        "launches": (aligned["served"]["launches"]["band"] + aligned["trained"]["launches"]["band"]
+                     + maxed["served"]["launches"]["band"] + maxed["trained"]["launches"]["band"]),
         "max_abs_err": max(b["max_abs_err"] for b in aligned["bands"]),
-        "ms": aligned["band_times"]["edge F=32"]["kernel"],
-        "plain_ms": aligned["band_times"]["edge F=32"]["plain"],
         "vertex_ms": aligned["band_times"]["vertex F=32"]["kernel"],
         "vertex_plain_ms": aligned["band_times"]["vertex F=32"]["plain"],
+        "vertex_library_ms": aligned["band_times"]["vertex F=32"]["library"],
+    }, {
+        "name": "aligned_masked_argmax",
+        "route": "cuda",
+        "source": "hypergef_tpu_torch/csrc/aligned_max.cu",
+        "replaces": "hypergef_tpu/ops/aligned_max.py:107",
+        # the max serving and training paths, and aligned_max_matvec's forward
+        "launches": (maxed["served"]["launches"]["argmax"]
+                     + maxed["trained"]["launches"]["argmax"] + maxed["matvec"]["argmax_launches"]),
+        "max_abs_err": max(a["max_abs_err"] for a in maxed["argmaxes"]),
+        "f4_ms": maxed["argmax_times"]["edge F=4"]["kernel"],
+        "f4_plain_ms": maxed["argmax_times"]["edge F=4"]["plain"],
+    }, {
+        "name": "aligned_masked_argsum",
+        "route": "cuda",
+        "source": "hypergef_tpu_torch/csrc/aligned_max.cu",
+        "replaces": "hypergef_tpu/ops/aligned_max.py:285",
+        # aligned_max_matvec's backward (the max training path routes its
+        # backward through the CSR, as JAX's does)
+        "launches": maxed["matvec"]["argsum_launches"],
+        "max_abs_err": maxed["argsum"]["max_abs_err"],
     }]
+    for k in kernels:
+        t = timed[k["name"]]
+        k.update({"ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": t["bound_ms"],
+                  "bound_by": t["bound_by"], "library_ms": t.get("library")})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 The sources in ``hypergef_tpu_torch/csrc/`` are compiled with ``nvcc`` for
-Hopper (``sm_90a``) into one shared library with a plain C interface, which
-is loaded with ``ctypes``. The build happens at first use, into
+Hopper (``sm_90a``), one process per source, all started together, and
+linked into one shared library with a plain C interface, which is loaded
+with ``ctypes``. The build happens at first use, into
 ``build/kernels/`` at the root of the checkout, and is keyed by a hash of
 the sources and flags, so an edited source is rebuilt and an unchanged one
 is reused. Nothing here runs when the module is imported.
@@ -22,10 +23,10 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("fused_dense.cu", "ell_gather.cu", "aligned_band.cu")
+SOURCES = ("fused_dense.cu", "ell_gather.cu", "aligned_band.cu", "aligned_max.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -64,18 +65,29 @@ def build() -> Path:
     # loads a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
+    objs = [f"{tmp[:-3]}_{Path(name).stem}.o" for name in SOURCES]
     try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        nvcc = _nvcc()
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / name)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for name, obj in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [(name, p.returncode, log) for name, p, log in zip(SOURCES, procs, logs)
+                  if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name} ({rc}):\n{log}" for name, rc, log in failed))
+        proc = subprocess.run([nvcc, "-shared", "-o", tmp, *objs], capture_output=True,
+                              text=True, check=False)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
-        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        lib.with_suffix(".log").write_text("".join(logs))
         os.replace(tmp, lib)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        for path in (tmp, *objs):
+            if os.path.exists(path):
+                os.unlink(path)
     return lib
 
 
@@ -93,6 +105,10 @@ def load_library() -> ctypes.CDLL:
         "hg_ell_gather_sum": [ptr] * 4 + [cint] * 4 + [ptr],
         # x, band, win, spill, src, groups, out; n_groups, g, b, n, s, f; stream
         "hg_aligned_band": [ptr] * 7 + [cint] * 6 + [ptr],
+        # x, band, win, spill, src, groups, val, arg; n_groups, g, b, n, s, f; stream
+        "hg_aligned_masked_argmax": [ptr] * 8 + [cint] * 6 + [ptr],
+        # g, arg, band, win, spill, src, groups, out; n_groups, g, b, n, s, f; stream
+        "hg_aligned_masked_argsum": [ptr] * 8 + [cint] * 6 + [ptr],
     }
     for name, argtypes in entries.items():
         fn = getattr(lib, name)

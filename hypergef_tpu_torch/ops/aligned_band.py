@@ -226,40 +226,63 @@ def aligned_band_plain(x, st):
     return apply_aligned_plain(x, st)
 
 
-def _launch(x, table: BandTable):
-    global launches
-    from hypergef_tpu_torch.ops import _build
-
-    dev = x.device
+def kernel_table(st, dev) -> BandTable:
+    """The :class:`BandTable` of stage ``st`` for a kernel launch on
+    ``dev``. Raises unless ``dev`` is a Hopper card and ``st`` holds kernel
+    tables (a plan of a ``pallas_*`` form); every kernel that walks an
+    aligned stage (this module's and :mod:`.aligned_max`'s) reads it."""
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {dev}")
-    if table.device != dev:
-        raise ValueError(f"the table is on {table.device}, x on {dev}")
-    n = table.num_inputs
-    if x.dtype != torch.float32 or x.dim() != 2 or x.shape[0] != n:
-        raise TypeError(f"x must be f32 [{n}, F], got {x.dtype} {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
-    f = x.shape[1]
-    if f <= 0 or f > _INT32_MAX:
-        raise ValueError(f"unsupported width F={f}")
+    if st.band is None:
+        raise ValueError(
+            "the stage holds no kernel tables: it was put on the device in the plain "
+            "form; use a plan of a pallas_* form (dataclasses.replace(plan, "
+            "form='pallas_auto'))")
     if torch.cuda.get_device_capability(dev) != (9, 0):
         raise RuntimeError(
             f"the kernel is built for sm_90a (Hopper); {torch.cuda.get_device_name(dev)} "
             f"is sm_{''.join(map(str, torch.cuda.get_device_capability(dev)))}"
         )
+    return st.band
+
+
+def check_operand(t, dtype, table: BandTable, name: str) -> None:
+    """``t`` must be a contiguous ``dtype`` [N, F] beside ``table``, N the
+    stage's inputs."""
+    n = table.num_inputs
+    if t.dtype != dtype or t.dim() != 2 or t.shape[0] != n:
+        raise TypeError(f"{name} must be {dtype} [{n}, F], got {t.dtype} {tuple(t.shape)}")
+    if t.device != table.device:
+        raise ValueError(f"the table is on {table.device}, {name} on {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.shape[1] <= 0 or t.shape[1] > _INT32_MAX:
+        raise ValueError(f"unsupported width F={t.shape[1]}")
+
+
+def raise_on_error(err: int, lib, kernel: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a launch entry."""
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: {lib.hg_error_string(err).decode()}")
+
+
+def _launch(x, table: BandTable):
+    global launches
+    from hypergef_tpu_torch.ops import _build
+
+    check_operand(x, torch.float32, table, "x")
+    f = x.shape[1]
     lib = _build.load_library()
-    out = torch.empty((table.num_segments, f), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    out = torch.empty((table.num_segments, f), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.hg_aligned_band(
             x.data_ptr(), table.band.data_ptr(), table.win.data_ptr(),
             table.spill.data_ptr(), table.src.data_ptr(), table.groups.data_ptr(),
             out.data_ptr(), table.num_groups, table.group_rows, table.block_rows,
-            n, table.num_segments, f, stream,
+            table.num_inputs, table.num_segments, f, stream,
         )
-    if err != 0:
-        raise RuntimeError(f"aligned_band launch failed: {lib.hg_error_string(err).decode()}")
+    raise_on_error(err, lib, "aligned_band")
     launches += 1
     return out
 
@@ -283,9 +306,4 @@ def aligned_band(x, st):
         if st.counts.device.type != "cpu":
             raise ValueError(f"x is on the CPU but the stage is on {st.counts.device}")
         return aligned_band_plain(x, st)
-    if st.band is None:
-        raise ValueError(
-            "the stage holds no kernel tables: it was put on the device in the plain "
-            "form; use a plan of a pallas_* form (dataclasses.replace(plan, "
-            "form='pallas_auto'))")
-    return _launch(x, st.band)
+    return _launch(x, kernel_table(st, x.device))

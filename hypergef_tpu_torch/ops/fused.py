@@ -17,22 +17,31 @@ six routes; the route names mean the same thing in both packages:
   ``fused.py:327-333``): the plain chain, or the hand-written band kernel
   (:mod:`.aligned_band`) when the plan's form is ``pallas_*``.
 
-``auto``, the other routes and ``first_aggr="max"`` raise
-``NotImplementedError`` until they are ported (ROADMAP.md queue 1).
+Max first aggregation (``fused.py:195-263``, ``:284-290``) takes its V→E
+stage from ``plan.tree`` when the plan has one, else from a TreePlan passed
+directly, else from the route's own plan (``aligned``, ``tree``,
+``pallas_sparse``): a tree stage runs :func:`.maxops.v2e_max_tree`, an
+aligned stage :func:`.aligned_max.v2e_max_aligned` (the argmax kernel in a
+``pallas_*`` form). The E→V sum then runs on the route's own stages or
+table. Where JAX would fall back to the nnz oracle, this raises
+``ValueError`` and names the plan to pass.
+
+``auto`` and the other routes raise ``NotImplementedError`` until they are
+ported (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-from hypergef_tpu_torch.ops import refops, tree
+from hypergef_tpu_torch.ops import aligned_max, maxops, refops, tree
 from hypergef_tpu_torch.ops.fused_dense import (
     dense_dot,
     dense_table,
     hgnn_aggregate_fused_dense,
 )
 from hypergef_tpu_torch.sparse.hypergraph import HypergraphData
-from hypergef_tpu_torch.sparse.planner import TreePlan
+from hypergef_tpu_torch.sparse.planner import AlignedStageBDev, AlignedStageDev, TreePlan
 
 ROUTES = ("xla", "dense", "pallas", "tree", "pallas_sparse", "aligned")
 # routes of the JAX package (hypergef_tpu/ops/fused.py:36-39) not ported yet
@@ -62,6 +71,43 @@ def tree_plan(plan, route: str) -> TreePlan:
     return sub
 
 
+def _max_plan(plan, b: str) -> TreePlan:
+    """The TreePlan whose edge stage computes max V→E (``fused.py:208-213``):
+    ``plan.tree``, a TreePlan passed directly, or the route's own plan."""
+    for sub in (getattr(plan, "tree", None), plan,
+                getattr(plan, b, None) if b in ("tree", "pallas_sparse", "aligned") else None):
+        if isinstance(sub, TreePlan):
+            return sub
+    raise ValueError(
+        f"max first aggregation on the {b} route needs a stage plan that carries the "
+        f"record table: pass AggregationPlan(..., tree=plan_tree(hg)) (or the route's own "
+        f"TreePlan); the JAX package falls back to the nnz oracle here")
+
+
+def _hgnn_aggregate_max(hgd, x, wdiag, plan, b: str):
+    """Max V→E with the record table, then the route's E→V sum
+    (``fused.py:195-263``)."""
+    mplan = _max_plan(plan, b)
+    e_stage, v_stage = mplan.device(x.device)
+    if isinstance(e_stage, (AlignedStageDev, AlignedStageBDev)):
+        xe = aligned_max.v2e_max_aligned(x, e_stage, hgd.h_edge, hgd.h_segids, hgd.h_indptr)
+    else:
+        xe = maxops.v2e_max_tree(x, e_stage, hgd.h_edge, hgd.h_segids, hgd.h_indptr)
+    xe = xe * hgd.degE
+    if wdiag is not None:
+        xe = xe * wdiag
+    if b == "dense" and getattr(plan, "dense", None) is not None:
+        xv = dense_dot(plan.dense.h, xe, False)
+    else:
+        own = getattr(plan, b, None) if b in ("aligned", "pallas_sparse") else None
+        if isinstance(own, TreePlan):
+            fe_stage, fv_stage = own.device(x.device)
+            xv = tree.tree_matvec(xe, fv_stage, fe_stage)
+        else:
+            xv = tree.tree_matvec(xe, v_stage, e_stage)
+    return xv * hgd.degV
+
+
 def hgnn_aggregate(
     hgd: HypergraphData,
     x,
@@ -72,15 +118,14 @@ def hgnn_aggregate(
 ):
     """Fused HGNNConv aggregation:
     ``out = diag(degV) · H · diag(Wdiag·degE) · Hᵀ · X``, first-stage
-    reduce ∈ {sum, mean}."""
+    reduce ∈ {sum, mean, max}."""
     b = _resolve(backend, plan)
-    if first_aggr == "max":
-        raise NotImplementedError(
-            "max first aggregation is not ported yet (ROADMAP.md queue 1, item 6)")
-    if first_aggr not in ("sum", "mean"):
+    if first_aggr not in ("sum", "mean", "max"):
         raise ValueError(f"unknown first_aggr {first_aggr!r}")
     if b == "xla":
         return refops.hgnn_aggregate_ref(hgd, x, wdiag, first_aggr)
+    if first_aggr == "max":
+        return _hgnn_aggregate_max(hgd, x, wdiag, plan, b)
     if b == "pallas":
         return hgnn_aggregate_fused_dense(hgd, x, wdiag, first_aggr, plan)
     if b in ("tree", "pallas_sparse", "aligned"):

@@ -239,13 +239,11 @@ def hgnn_aggregate_fused_dense(hgd, x, wdiag, first_aggr, plan):
     """``pallas`` route entry (``pallas_kernels.py:202-236``).
 
     Folds ``degE``, ``wdiag`` and, for ``mean``, 1/|e| into ``scale_e``;
-    the kernel computes sums.
+    the kernel computes sums. Max never reaches it: the dispatcher routes
+    max through the record table (:mod:`.fused`), as JAX's does.
     """
-    if first_aggr == "max":
-        raise NotImplementedError(
-            "max first aggregation is not ported yet (ROADMAP.md queue 1, item 6)")
     if first_aggr not in ("sum", "mean"):
-        raise ValueError(f"unknown first_aggr {first_aggr!r}")
+        raise ValueError(f"the fused kernel computes first_aggr sum or mean, got {first_aggr!r}")
     dense = dense_table(plan, "pallas")
     scale_e = hgd.degE if wdiag is None else hgd.degE * wdiag
     if first_aggr == "mean":

@@ -27,9 +27,10 @@ class ServingModel:
     ``params`` is a ``state_dict`` (for instance from
     :func:`hypergef_tpu_torch.models.convert.params_from_flax`); without it
     the weights are drawn from ``cfg.seed``. Without a ``plan``, the
-    ``dense`` and ``pallas`` routes get the int8 table and the ``aligned``
-    route the plain-form ``plan_aligned(hg)``; pass a ``pallas_*`` form plan
-    to run the band kernel. A plan's tables go to ``device`` here.
+    ``dense`` and ``pallas`` routes get the int8 table (and, for max first
+    aggregation, the tree) and the ``aligned`` route the plain-form
+    ``plan_aligned(hg)``; pass a ``pallas_*`` form plan to run the band and
+    argmax kernels. A plan's tables go to ``device`` here.
     """
 
     def __init__(
@@ -44,7 +45,7 @@ class ServingModel:
     ):
         self.device = torch.device(device)
         if plan is None and cfg.backend in ("dense", "pallas", "aligned"):
-            plan = default_plan(cfg.backend, hg, self.device)
+            plan = default_plan(cfg.backend, hg, self.device, cfg.first_aggr)
         self.plan = plan
         for tp in tree_plans(plan):
             tp.device(self.device)

@@ -66,16 +66,22 @@ def make_optimizer(params, lr: float, wd: float) -> torch.optim.Adam:
     return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=wd)
 
 
-def default_plan(backend: Optional[str], hg, device):
+def default_plan(backend: Optional[str], hg, device, first_aggr: str = "sum"):
     """The plan the JAX Trainer builds for ``backend`` (``:88-99``): the
-    int8 table for ``dense``/``pallas``, the tree for ``tree``; for
+    int8 table for ``dense``/``pallas`` (with ``first_aggr="max"`` also the
+    tree, whose edge stage carries the record table, as JAX's
+    ``plan_aggregation`` always holds one), the tree for ``tree``; for
     ``aligned`` the plain-form aligned plan, the one JAX's ladder picks for
     a community-sorted graph (``plan_aligned`` raises ``ValueError`` for a
-    graph that is not: run ``community_reorder`` first)."""
+    graph that is not: run ``community_reorder`` first). Max on ``aligned``
+    runs the masked argmax on the aligned edge stage."""
     if backend == "xla":
         return None
     if backend in ("dense", "pallas"):
-        return AggregationPlan.dense_plan(hg, device)
+        plan = AggregationPlan.dense_plan(hg, device)
+        if first_aggr == "max":
+            plan.tree = plan_tree(hg)
+        return plan
     if backend == "tree":
         return AggregationPlan(tree=plan_tree(hg))
     if backend == "aligned":
@@ -104,7 +110,9 @@ def tree_plans(plan):
 class Trainer:
     """A model, its optimizer and its graph on one device.
 
-    ``params`` is a ``state_dict`` (for instance from
+    ``device`` is the card unless the caller asks for the CPU
+    (``device="cpu"``); without a card the default raises. ``params`` is a
+    ``state_dict`` (for instance from
     :func:`hypergef_tpu_torch.models.convert.params_from_flax`); without it
     the weights are drawn from ``cfg.seed``. Dropout masks come from a
     ``torch.Generator`` on ``device``, seeded from ``cfg.seed`` at each
@@ -112,7 +120,12 @@ class Trainer:
     """
 
     def __init__(self, cfg: TrainConfig, hg, x, y, nclass: Optional[int] = None, plan=None,
-                 *, device="cpu", params: Optional[Mapping[str, Any]] = None):
+                 *, device="cuda", params: Optional[Mapping[str, Any]] = None):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the Trainer runs on the card unless it is given "
+                "device='cpu'")
         if cfg.tune:
             raise NotImplementedError(
                 "tune (the measured autotune) is not ported yet (ROADMAP.md queue 1, item 7)")
@@ -121,8 +134,9 @@ class Trainer:
                 "plan_cache is not ported yet (ROADMAP.md queue 1, item 7)")
         self.cfg = cfg
         self.hg = hg
-        self.device = torch.device(device)
-        self.plan = default_plan(cfg.backend, hg, self.device) if plan is None else plan
+        if plan is None:
+            plan = default_plan(cfg.backend, hg, self.device, cfg.first_aggr)
+        self.plan = plan
         for tp in tree_plans(self.plan):
             tp.device(self.device)  # tables put on the device and checked once, here
         self.hgd = hg.device_data(self.device)
@@ -218,9 +232,10 @@ class Trainer:
 
 
 def train_full_batch(cfg: TrainConfig, hg, x, y, split_idx, nclass=None, plan=None, *,
-                     device="cpu", params: Optional[Mapping[str, Any]] = None):
+                     device="cuda", params: Optional[Mapping[str, Any]] = None):
     """One call in the manner of the reference CLI run: timing + accuracy
-    (the CSV row of ``hgsys.py:207-211``)."""
+    (the CSV row of ``hgsys.py:207-211``), on the card unless ``device``
+    says otherwise."""
     tr = Trainer(cfg, hg, x, y, nclass=nclass, plan=plan, device=device, params=params)
     res = tr.fit(split_idx["train"])
     res["inference_time_s"] = tr.time_inference(iters=max(cfg.epochs // 2, 1))

@@ -543,4 +543,4 @@ def test_default_plan_for_aligned():
     _, traw = _graphs("raw")
     with pytest.raises(ValueError, match="community_reorder"):
         Trainer(TrainConfig(backend="aligned"), traw, np.zeros((N, 3), np.float32),
-                np.zeros(N, np.int64))
+                np.zeros(N, np.int64), device="cpu")

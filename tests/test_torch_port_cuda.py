@@ -17,6 +17,10 @@ Tolerances:
   products are exact in f32 in both forms; the kernel sums each row in one
   order (window, then spill), the plain chain in bmm's order and band and
   spill apart.
+* masked argmax kernel: values and ids bitwise equal to the twin (a max is
+  one of its inputs; both take the lowest id among equal values).
+* masked arg-sum kernel: rtol 1e-6 and atol 1e-6·max|plain| (the same few
+  f32 terms summed in another order).
 """
 
 import dataclasses
@@ -29,7 +33,7 @@ import pytest
 import torch
 
 from hypergef_tpu_torch.data.synthetic import community_hypergraph
-from hypergef_tpu_torch.ops import aligned_band, ell_gather, fused, fused_dense
+from hypergef_tpu_torch.ops import aligned_band, aligned_max, ell_gather, fused, fused_dense
 from hypergef_tpu_torch.sparse import planner
 from hypergef_tpu_torch.sparse.hypergraph import Hypergraph
 from hypergef_tpu_torch.sparse.reorder import apply_vertex_order, community_reorder
@@ -314,6 +318,144 @@ def test_band_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         aligned_band.aligned_band(x, plain_stage)
     with pytest.raises(ValueError):
         aligned_band.aligned_band(x.cpu(), kernel_stage)
+
+
+def _max_x(rows, f, seed, device):
+    """Normal values, or integers in [-2, 2] (many ties) for even seeds."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(-2, 3, size=(rows, f)) if seed % 2 == 0 else rng.normal(size=(rows, f))
+    return torch.as_tensor(a.astype(np.float32), device=device)
+
+
+@pytest.mark.parametrize("case", ALIGNED_CASES)
+@pytest.mark.parametrize("f,seed", [(3, 1), (32, 2), (32, 3), (48, 4)])
+def test_argmax_kernel_is_bitwise_plain(cuda, case, f, seed):
+    plan = dataclasses.replace(aligned_plan(case), form="pallas_auto")
+    for stage in plan.device(cuda):
+        x = _max_x(stage.num_inputs, f, seed, cuda)
+        before = aligned_max.argmax_launches
+        val, arg = aligned_max.aligned_masked_argmax(x, stage)
+        val2, arg2 = aligned_max.aligned_masked_argmax(x, stage)
+        torch.cuda.synchronize()
+        assert aligned_max.argmax_launches == before + 2  # one launch a stage apply
+        want_val, want_arg = aligned_max.aligned_max_plain(x, stage)
+        assert val.shape == want_val.shape == (stage.num_segments, f)
+        assert arg.dtype == torch.int32
+        assert torch.equal(val, want_val), float((val - want_val).abs().max())
+        assert torch.equal(arg, want_arg), int((arg != want_arg).sum())
+        assert torch.equal(val, val2) and torch.equal(arg, arg2), "two runs differ"
+
+
+@pytest.mark.parametrize("case", ["uniform", "past_n", "width32"])
+@pytest.mark.parametrize("f", [3, 32, 48])
+def test_argsum_kernel_matches_plain(cuda, case, f):
+    """Over the uniform vertex stage, with the arg table of the argmax
+    kernel on the edge stage."""
+    e_st, v_st = dataclasses.replace(aligned_plan(case), form="pallas_auto").device(cuda)
+    _, arg = aligned_max.aligned_masked_argmax(_max_x(e_st.num_inputs, f, 5, cuda), e_st)
+    g = _max_x(v_st.num_inputs, f, 7, cuda)
+    before = aligned_max.argsum_launches
+    got = aligned_max.aligned_masked_argsum(g, arg, v_st)
+    again = aligned_max.aligned_masked_argsum(g, arg, v_st)
+    torch.cuda.synchronize()
+    assert aligned_max.argsum_launches == before + 2
+    want = aligned_max.aligned_argsum_plain(g, arg, v_st)
+    assert got.shape == want.shape == (v_st.num_segments, f)
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * scale)
+    assert torch.equal(got, again), "two runs differ"
+
+
+def test_max_kernels_read_no_row_past_n(cuda):
+    """x's (and g's and arg's) rows are a view into a larger buffer full of
+    NaN (and of ids that would hit): rows past N and the spill zero row must
+    never be read."""
+    e_st, v_st = dataclasses.replace(aligned_plan("past_n"), form="pallas_auto").device(cuda)
+    n, f = e_st.num_inputs, 5
+    buf = torch.full((n + 1000, f), float("nan"), device=cuda)
+    buf[:n] = _max_x(n, f, 3, cuda)
+    val, arg = aligned_max.aligned_masked_argmax(buf[:n], e_st)
+    assert bool(torch.isfinite(val).all())
+    want_val, want_arg = aligned_max.aligned_max_plain(buf[:n].clone(), e_st)
+    assert torch.equal(val, want_val) and torch.equal(arg, want_arg)
+    m = v_st.num_inputs
+    gbuf = torch.full((m + 1000, f), float("nan"), device=cuda)
+    gbuf[:m] = _max_x(m, f, 5, cuda)
+    abuf = torch.zeros((m + 1000, f), dtype=torch.int32, device=cuda)
+    abuf[:m] = arg
+    got = aligned_max.aligned_masked_argsum(gbuf[:m], abuf[:m], v_st)
+    assert bool(torch.isfinite(got).all())
+    want = aligned_max.aligned_argsum_plain(gbuf[:m].clone(), arg, v_st)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * float(want.abs().max()))
+
+
+def test_max_route_runs_the_kernels_forward_and_backward(cuda):
+    """The aligned route with max on the kernel form against the plain form
+    on the card: the output bitwise equal up to the band kernel's sums, dx
+    (the CSR-routed backward) equal; one argmax and one band launch forward,
+    one band launch backward."""
+    hg = sorted_community_graph(2000, 1600, 25, 5, 0.02, 3)
+    plain = planner.plan_aligned(hg)
+    kernel = dataclasses.replace(plain, form="pallas_auto")
+    hgd = hg.device_data(cuda)
+    x = _max_x(hg.num_nodes, 16, 9, cuda)
+    cot = _max_x(hg.num_nodes, 16, 11, cuda)
+    res = []
+    for plan in (kernel, plain):
+        xr = x.clone().requires_grad_(True)
+        before = (aligned_max.argmax_launches, aligned_band.launches)
+        out = fused.hgnn_aggregate(hgd, xr, None, "max", plan=plan, backend="aligned")
+        (out * cot).sum().backward()
+        torch.cuda.synchronize()
+        res.append((out.detach(), xr.grad, (aligned_max.argmax_launches - before[0],
+                                            aligned_band.launches - before[1])))
+    (out_k, dx_k, n_k), (out_p, dx_p, n_p) = res
+    assert (n_k, n_p) == ((1, 2), (0, 0))
+    for got, want in ((out_k, out_p), (dx_k, dx_p)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+
+
+def test_segment_sum_sorted_is_deterministic_on_the_card(cuda):
+    """The max backward's direct segment sum at SBM-60k's nnz and F = 32:
+    two runs bitwise equal, and within 1e-5 of float64 sums on the host."""
+    from hypergef_tpu_torch.ops.segments import segment_sum_sorted
+
+    rng = np.random.default_rng(0)
+    nnz, segs = 351737, 60000
+    indptr = np.concatenate([[0], np.sort(rng.integers(0, nnz + 1, size=segs - 1)), [nnz]])
+    vals = rng.normal(size=(nnz, 32)).astype(np.float32)
+    v, ip = torch.as_tensor(vals, device=cuda), torch.as_tensor(indptr, device=cuda)
+    got, again = segment_sum_sorted(v, ip), segment_sum_sorted(v, ip)
+    assert torch.equal(got, again), "two runs differ"
+    prefix = np.concatenate([np.zeros((1, 32)), np.cumsum(vals, axis=0, dtype=np.float64)])
+    want = prefix[indptr[1:]] - prefix[indptr[:-1]]  # float64: exact enough here
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_max_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    plan = dataclasses.replace(aligned_plan("uniform"), form="pallas_auto")
+    e_st, v_st = plan.device(cuda)
+    e_cpu, _ = plan.device("cpu")
+    e_plain, v_plain = aligned_plan("uniform").device(cuda)
+    x = torch.ones((e_st.num_inputs, 4), device=cuda)
+    with pytest.raises(ValueError, match="table is on"):
+        aligned_max.aligned_masked_argmax(x, e_cpu)
+    with pytest.raises(TypeError):
+        aligned_max.aligned_masked_argmax(x.double(), e_st)
+    with pytest.raises(TypeError):
+        aligned_max.aligned_masked_argmax(x[:10], e_st)
+    with pytest.raises(ValueError, match="contiguous"):
+        aligned_max.aligned_masked_argmax(torch.ones((4, e_st.num_inputs), device=cuda).t(), e_st)
+    with pytest.raises(ValueError, match="kernel tables"):
+        aligned_max.aligned_masked_argmax(x, e_plain)
+    _, arg = aligned_max.aligned_masked_argmax(x, e_st)
+    g = torch.ones((v_st.num_inputs, 4), device=cuda)
+    with pytest.raises(TypeError):
+        aligned_max.aligned_masked_argsum(g, arg.long(), v_st)
+    with pytest.raises(TypeError):
+        aligned_max.aligned_masked_argsum(g.double(), arg, v_st)
+    with pytest.raises(ValueError, match="kernel tables"):
+        aligned_max.aligned_masked_argsum(g, arg, v_plain)
 
 
 def test_chip_smoke_imports_and_reads_the_card():

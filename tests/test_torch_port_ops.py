@@ -124,12 +124,21 @@ def test_unported_routes_raise(backend):
 
 @pytest.mark.parametrize("backend", fused.ROUTES)
 def test_max_first_aggr_raises(backend):
+    """Max needs a stage plan that carries the record table: with the int8
+    table alone every plan route raises (JAX would fall back to the nnz
+    oracle) and names the plan to pass; the xla route takes max and raises
+    on a reduction it does not know. Nothing launches."""
     _, thg, x, _ = _problem("small_f4", False)
     plan = AggregationPlan.dense_plan(thg, "cpu")
     before = fused_dense.launches
-    with pytest.raises(NotImplementedError, match="max"):
-        fused.hgnn_aggregate(thg.device_data("cpu"), torch.as_tensor(x), None, "max",
-                             plan=plan, backend=backend)
+    if backend == "xla":
+        with pytest.raises(ValueError, match="unknown first_aggr"):
+            fused.hgnn_aggregate(thg.device_data("cpu"), torch.as_tensor(x), None, "min",
+                                 plan=plan, backend=backend)
+    else:
+        with pytest.raises(ValueError, match="record table"):
+            fused.hgnn_aggregate(thg.device_data("cpu"), torch.as_tensor(x), None, "max",
+                                 plan=plan, backend=backend)
     assert fused_dense.launches == before
 
 

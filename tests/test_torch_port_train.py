@@ -149,7 +149,7 @@ def test_trainer_matches_jax_trainer(backend, first_aggr, nlayer):
 def test_train_full_batch_learns_and_reports():
     _, thg, x, y, split = _problem(240, 120, seed=5)
     cfg = TrainConfig(model="HGNN", nhid=8, epochs=30, warmup=2, backend="tree")
-    res = train_full_batch(cfg, thg, x, y, split, nclass=NCLASS)
+    res = train_full_batch(cfg, thg, x, y, split, nclass=NCLASS, device="cpu")
     assert set(res) >= {"train_epoch_time_s", "timer", "final_loss", "losses", "epochs",
                         "inference_time_s", "train_acc", "valid_acc", "test_acc"}
     assert res["losses"].shape == (30,) and np.isfinite(res["losses"]).all()
@@ -172,7 +172,7 @@ def test_dropout_masks_come_from_the_generator():
     cfg = TrainConfig(model="HGNN", nhid=8, epochs=5, warmup=0, backend="xla")
     runs = []
     for _ in range(2):
-        tr = Trainer(cfg, thg, xf, y, nclass=NCLASS)
+        tr = Trainer(cfg, thg, xf, y, nclass=NCLASS, device="cpu")
         runs.append(tr.fit(split["train"])["losses"])
     np.testing.assert_array_equal(runs[0], runs[1])
 
@@ -195,13 +195,27 @@ def test_trainer_plans_and_unported_options():
     assert default_plan("pallas", thg, "cpu").dense is not None
     assert default_plan("tree", thg, "cpu").tree.form == "xla"
     with pytest.raises(ValueError, match="plan_pallas_sparse"):
-        Trainer(TrainConfig(backend="pallas_sparse"), thg, x, y)
+        Trainer(TrainConfig(backend="pallas_sparse"), thg, x, y, device="cpu")
     for cfg in (TrainConfig(backend="auto"), TrainConfig(backend="cumsum"),
                 TrainConfig(backend="tree", tune=True),
                 TrainConfig(backend="tree", plan_cache="")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(cfg, thg, x, y)
-    tr = Trainer(TrainConfig(backend="xla"), thg, x, y)
+            Trainer(cfg, thg, x, y, device="cpu")
+    tr = Trainer(TrainConfig(backend="xla"), thg, x, y, device="cpu")
     for call in (lambda: tr.save("ckpt"), lambda: tr.restore("ckpt")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+
+
+def test_trainer_runs_on_the_card_by_default():
+    """Without ``device`` a Trainer (and train_full_batch) runs on the card;
+    where there is none, construction raises instead of falling back."""
+    _, thg, x, y, split = _problem(240, 120, seed=5)
+    cfg = TrainConfig(model="HGNN", nhid=8, epochs=2, warmup=0, backend="xla")
+    if torch.cuda.is_available():
+        assert Trainer(cfg, thg, x, y, nclass=NCLASS).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Trainer(cfg, thg, x, y, nclass=NCLASS)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            train_full_batch(cfg, thg, x, y, split, nclass=NCLASS)
