@@ -76,6 +76,36 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    aligned kernel form, on ``AggregationPlan(tree, aligned kernel form)``
    (tree argmax V→E, band kernel E→V) and on the aligned plain form, and a
    max request.
+17. Build stream100k from raw input (``random_hypergraph(100000, 20000,
+   avg_edge_size=60, seed=0)``, N·E/nnz about 1670: the band where the JAX
+   package's routing ladder picks ``bitstream``, ``planner.py:735-754``),
+   its bit packs and its tree plan, with their host times. Hold the
+   bit-packed product kernel (``bitmm``) against its plain twin on both
+   packs at F = 32, 4 and 3, on both packs of the pubmed_real box at
+   F = 32, and on ``bit_matvec``'s backward: rtol 1e-5, atol
+   1e-5·max|plain| (exact 0/1 × bf16 products, f32 sums in another
+   order); two runs bitwise equal; one launch per call.
+18. Serve five requests each of HGNN (sum) and UniGCNII on stream100k
+   through ``bitstream`` (the server builds its own packs): the checks of
+   phase 3, against the same model on the f32 ``tree`` route on the card
+   at the bf16 bar, 3e-2 (the kernel rounds x to bf16 before each of the
+   four products; phase 17 holds it to its twin); exactly 4 bitmm
+   launches a request.
+19. Train 20 steps on stream100k through ``bitstream`` with no ``plan=``,
+   default dropout: HGNN sum, HGNN max, UniGIN and UniGCNII. Losses finite;
+   exactly 8, 4, 8 and 8 bitmm launches a step. Then 10 epochs without
+   dropout from the same weights, each within rtol 1e-2 of the ``tree``
+   route on the card (bitstream rounds x to bf16, tree does not); and HGNN
+   sum on the pubmed_real box, ``bitstream`` against ``dense`` on the card:
+   the first loss (the forward: both round x to bf16 and sum exact
+   products) within rtol 1e-5, all within rtol 1e-3 (the backward of
+   ``dense`` rounds its cotangent after the product, the kernel's before,
+   as in JAX: tests/test_bitstream.py:86-89).
+20. Time, with CUDA events, median of 20 windows: the kernel vs its twin vs
+   one ``torch.sparse.mm`` of the same CSR on bf16-rounded x, per pack at
+   F = 32, on stream100k and the pubmed_real box; the stream100k training
+   epoch on ``bitstream``, ``tree`` and ``pallas_sparse`` (HGNN sum) and of
+   UniGCNII on ``bitstream``; a request.
 
 Phases 8 and 12 also time one ``torch.sparse.mm`` of the gather table's
 and of each aligned stage's CSR matrix (the library yardstick; the port
@@ -112,6 +142,9 @@ PUBMED_NFEAT, PUBMED_NCLASS = 500, 3
 # bench.py's clustered leg (bench.py:153, :172-176): community_hypergraph's
 # arguments, then a shuffle from default_rng(7) and the coarsening reorder
 SBM60K = dict(n_nodes=60000, n_edges=30000, n_comm=240, avg=12, noise=0.02, seed=0)
+# a dense-ish unstructured graph in the bitstream band of the JAX ladder
+# (N·E in (0.8G, 6.4G] and N·E < 2000·nnz, planner.py:735-754)
+STREAM100K = dict(n=100_000, e=20_000, avg=60.0)
 REQUESTS = 5
 TRAIN_STEPS = 20
 PARITY_EPOCHS = 10
@@ -224,21 +257,23 @@ def time_kernel(hg, f: int, device) -> dict:
 
 
 def serve(device, hg, backend, counters, plan=None, plain_plan=None, plain_device="cpu",
-          first_aggr="sum") -> dict:
+          first_aggr="sum", model="HGNN", ref_backend=None, ref_atol=1e-2) -> dict:
     """Five requests through ``backend``. ``counters`` maps a kernel's name
     to (module, counter attribute, launches a request); every count is set
     to 0 just before the requests and read just after. Each answer is
     checked against the same model on the kernels' plain versions
-    (``plain_plan`` on ``plain_device``) and on the f32 segment-reduce route."""
+    (``plain_plan`` on ``plain_device``), or on ``ref_backend`` if given,
+    within ``ref_atol``, and on the f32 segment-reduce route."""
     from hypergef_tpu_torch.data.synthetic import random_features
     from hypergef_tpu_torch.serve import ServingModel
     from hypergef_tpu_torch.train.trainer import TrainConfig
     from hypergef_tpu_torch.utils.timing import cuda_time_ms
 
-    cfg = TrainConfig(model="HGNN", nhid=32, nlayer=2, first_aggr=first_aggr, backend=backend)
+    cfg = TrainConfig(model=model, nhid=32, nlayer=2, first_aggr=first_aggr, backend=backend)
     server = ServingModel(cfg, hg, NFEAT, NCLASS, device, plan=plan)
     params = {k: v.detach().cpu() for k, v in server.model.state_dict().items()}
-    plain = ServingModel(cfg, hg, NFEAT, NCLASS, plain_device, params=params, plan=plain_plan)
+    ref_cfg = dataclasses.replace(cfg, backend=ref_backend or backend)
+    plain = ServingModel(ref_cfg, hg, NFEAT, NCLASS, plain_device, params=params, plan=plain_plan)
     xla = ServingModel(dataclasses.replace(cfg, backend="xla"), hg, NFEAT, NCLASS, device,
                        params=params)
     feats = [random_features(hg.num_nodes, NFEAT, NCLASS, seed=100 + i)[0]
@@ -264,7 +299,7 @@ def serve(device, hg, backend, counters, plan=None, plain_plan=None, plain_devic
         check(bool(torch.allclose(rows, torch.ones_like(rows), atol=1e-4)),
               "probabilities sum to 1")
         d_plain = float((logp.cpu() - plain.predict(a).cpu()).abs().max())
-        check(d_plain <= 1e-2, f"log-probs within 1e-2 of the plain version ({d_plain})")
+        check(d_plain <= ref_atol, f"log-probs within {ref_atol} of the reference ({d_plain})")
         ref = xla.predict(x)
         agree = float((logp.argmax(1) == ref.argmax(1)).float().mean())
         check(agree >= 0.98, f"argmax agrees with the xla route on >=98% ({agree})")
@@ -349,11 +384,11 @@ def train_problem(name: str):
 
 def kernel_counters():
     """Every kernel's launch counter: name -> (module, attribute)."""
-    from hypergef_tpu_torch.ops import aligned_band, aligned_max, ell_gather, fused_dense
+    from hypergef_tpu_torch.ops import aligned_band, aligned_max, bitstream, ell_gather, fused_dense
 
     return {"fused": (fused_dense, "launches"), "gather": (ell_gather, "launches"),
             "band": (aligned_band, "launches"), "argmax": (aligned_max, "argmax_launches"),
-            "argsum": (aligned_max, "argsum_launches")}
+            "argsum": (aligned_max, "argsum_launches"), "bitmm": (bitstream, "launches")}
 
 
 def train(problems, device) -> dict:
@@ -362,9 +397,18 @@ def train(problems, device) -> dict:
     from hypergef_tpu_torch.train.trainer import Trainer
 
     out = {}
-    # launches a step, by (route, first aggregation); every other count is 0
-    per_step = {("pallas", "sum"): {"fused": 4}, ("pallas_sparse", "sum"): {"gather": 8},
-                ("aligned", "sum"): {"band": 8}, ("aligned", "max"): {"argmax": 2, "band": 4}}
+    # launches a step (2 layers), by (model, route, first aggregation); every
+    # other count is 0. A layer's aggregation is two products forward and
+    # their adjoints backward; max takes V→E from the tree or the argmax
+    # kernel and its backward from the CSR.
+    per_step = {("HGNN", "pallas", "sum"): {"fused": 4},
+                ("HGNN", "pallas_sparse", "sum"): {"gather": 8},
+                ("HGNN", "aligned", "sum"): {"band": 8},
+                ("HGNN", "aligned", "max"): {"argmax": 2, "band": 4},
+                ("HGNN", "bitstream", "sum"): {"bitmm": 8},
+                ("HGNN", "bitstream", "max"): {"bitmm": 4},
+                ("UniGIN", "bitstream", "sum"): {"bitmm": 8},
+                ("UniGCNII", "bitstream", "sum"): {"bitmm": 8}}
     counters = kernel_counters()
     for name, (cfg, hg, x, y, split, plan) in problems.items():
         tr = Trainer(cfg, hg, x, y, plan=plan, device=device)
@@ -375,11 +419,12 @@ def train(problems, device) -> dict:
         res = tr.fit(split["train"], epochs=TRAIN_STEPS, warmup=0)
         launched = {k: getattr(module, attr) for k, (module, attr) in counters.items()}
         check(fused_dense.v2e_launches == 0, "a frozen wdiag needs no d scale_e")
-        want = {k: TRAIN_STEPS * per_step[cfg.backend, cfg.first_aggr].get(k, 0)
+        want = {k: TRAIN_STEPS * per_step[cfg.model, cfg.backend, cfg.first_aggr].get(k, 0)
                 for k in counters}
         check(launched == want, f"{name}: {TRAIN_STEPS} steps launched {launched}, want {want}")
         check(bool(np.isfinite(res["losses"]).all()), f"{name}: finite losses")
-        out[name] = {"route": cfg.backend, "first_aggr": cfg.first_aggr, "launches": launched,
+        out[name] = {"model": cfg.model, "route": cfg.backend, "first_aggr": cfg.first_aggr,
+                     "launches": launched,
                      "losses": res["losses"].tolist(),
                      "train_acc": tr.evaluate(split)["train_acc"]}
     return out
@@ -391,7 +436,6 @@ def train_parity(problems, device) -> dict:
     the card, the aligned kernel form vs the aligned plain form on the card;
     losses of PARITY_EPOCHS epochs within rtol 1e-3."""
     from hypergef_tpu_torch.sparse.planner import AggregationPlan
-    from hypergef_tpu_torch.train.trainer import Trainer
 
     out = {}
     for name, (cfg, hg, x, y, split, plan) in problems.items():
@@ -403,18 +447,33 @@ def train_parity(problems, device) -> dict:
             ref_cfg, ref_plan, ref_device = cfg, AggregationPlan(aligned=plain), device
         else:
             ref_cfg, ref_plan, ref_device = dataclasses.replace(cfg, backend="tree"), None, device
-        got = Trainer(cfg, hg, x, y, plan=plan, device=device).fit(
-            split["train"], epochs=PARITY_EPOCHS, warmup=0)["losses"]
-        want = Trainer(ref_cfg, hg, x, y, plan=ref_plan, device=ref_device).fit(
-            split["train"], epochs=PARITY_EPOCHS, warmup=0)["losses"]
-        rel = float(np.max(np.abs(got - want) / np.abs(want)))
-        check(bool(np.allclose(got, want, rtol=1e-3, atol=0.0)),
-              f"{name}: {cfg.backend} losses within rtol 1e-3 of the reference on "
-              f"{ref_device} (max rel {rel})")
         ref_name = ref_cfg.backend + (" plain form" if cfg.backend == "aligned" else "")
-        out[name] = {"route": cfg.backend, "ref": f"{ref_name} on {ref_device}",
-                     "max_rel": rel, "losses": got.tolist(), "ref_losses": want.tolist()}
+        out[name] = loss_parity(name, (cfg, plan, device), (ref_cfg, ref_plan, ref_device),
+                                (hg, x, y, split), 1e-3, ref_name)
     return out
+
+
+def loss_parity(name, run, ref, problem, rtol, ref_name, first_rtol=None) -> dict:
+    """Losses of PARITY_EPOCHS no-dropout epochs of ``run`` and ``ref``, each
+    (cfg, plan, device), from the same seeded weights: within ``rtol``, and
+    the first (the forward before any update) within ``first_rtol`` if
+    given."""
+    from hypergef_tpu_torch.train.trainer import Trainer
+
+    hg, x, y, split = problem
+    got, want = (Trainer(cfg, hg, x, y, plan=plan, device=dev).fit(
+        split["train"], epochs=PARITY_EPOCHS, warmup=0)["losses"] for cfg, plan, dev in (run, ref))
+    rels = np.abs(got - want) / np.abs(want)
+    rel = float(np.max(rels))
+    check(bool(np.allclose(got, want, rtol=rtol, atol=0.0)),
+          f"{name}: {run[0].backend} losses within rtol {rtol} of {ref_name} on {ref[2]} "
+          f"(max rel {rel})")
+    if first_rtol is not None:
+        check(float(rels[0]) <= first_rtol,
+              f"{name}: first loss within rtol {first_rtol} of {ref_name} ({float(rels[0])})")
+    return {"model": run[0].model, "route": run[0].backend, "ref": f"{ref_name} on {ref[2]}",
+            "rtol": rtol, "max_rel": rel, "first_rel": float(rels[0]), "losses": got.tolist(),
+            "ref_losses": want.tolist()}
 
 
 def time_epochs(problems, device) -> dict:
@@ -858,6 +917,200 @@ def check_matvec(hg, e_stage, v_stage, device) -> dict:
             "max_abs_err": float((dx - want).abs().max()), "max_abs": scale}
 
 
+def build_stream100k():
+    """stream100k from raw input, its bit packs and its tree plan, with the
+    host seconds of each."""
+    from hypergef_tpu_torch.data.synthetic import random_hypergraph
+    from hypergef_tpu_torch.ops.bitstream import BitIncidence
+    from hypergef_tpu_torch.sparse.planner import plan_tree
+
+    secs = {}
+    t0 = time.perf_counter()
+    hg = random_hypergraph(STREAM100K["n"], STREAM100K["e"], avg_edge_size=STREAM100K["avg"],
+                           seed=0, name="stream100k")
+    secs["generate_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bits = BitIncidence.from_hypergraph(hg)
+    secs["pack_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tree = plan_tree(hg)
+    secs["plan_tree_s"] = time.perf_counter() - t0
+    info = {"graph": "stream100k", "n": hg.num_nodes, "e": hg.num_edges, "nnz": hg.nnz,
+            "ne_over_nnz": hg.num_nodes * hg.num_edges / hg.nnz,
+            "table_bytes": bits.table_bytes(), **secs}
+    return hg, bits, tree, info
+
+
+def bit_packs(bits, device) -> dict:
+    """The packs on the card by name: H [N, E] (E→V) and Hᵀ [E, N] (V→E)."""
+    return dict(zip(("H", "Ht"), bits.device(device)))
+
+
+def check_bitmm(pack, f: int, seed: int, device) -> dict:
+    """The bit-packed product kernel against its plain twin on one pack."""
+    from hypergef_tpu_torch.ops import bitstream
+
+    x = torch.as_tensor(np.random.default_rng(seed).normal(size=(pack.k, f))
+                        .astype(np.float32), device=device)
+    before = bitstream.launches
+    got = bitstream.bitmm(pack.words, x, pack.m, pack.k)
+    again = bitstream.bitmm(pack.words, x, pack.m, pack.k)
+    torch.cuda.synchronize()
+    check(bitstream.launches == before + 2, "one bitmm launch per call")
+    want = bitstream.bitmm_plain(pack.words, x, pack.m, pack.k)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+    check(torch.equal(got, again), "two bitmm runs are bitwise equal")
+    return {"m": pack.m, "k": pack.k, "f": f, "max_abs_err": float((got - want).abs().max()),
+            "max_abs_plain": scale}
+
+
+def check_bit_matvec(packs, f: int, seed: int, device) -> dict:
+    """One forward and backward of ``bit_matvec`` over Hᵀ: one launch each,
+    the forward and dx (the product with H on g) within the kernel's
+    tolerance of the twin's."""
+    from hypergef_tpu_torch.ops import bitstream
+
+    h, ht = packs["H"], packs["Ht"]
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.normal(size=(ht.k, f)).astype(np.float32), device=device)
+    g = torch.as_tensor(rng.normal(size=(ht.m, f)).astype(np.float32), device=device)
+    xr = x.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    before = bitstream.launches
+    y = bitstream.bit_matvec(xr, ht, h)
+    (dx,) = torch.autograd.grad(y, xr, g)
+    torch.cuda.synchronize()
+    check(bitstream.launches == before + 2, "bit_matvec: one launch forward, one backward")
+    errs = {}
+    for name, got, want in (("y", y.detach(), bitstream.bitmm_plain(ht.words, x, ht.m, ht.k)),
+                            ("dx", dx, bitstream.bitmm_plain(h.words, g, h.m, h.k))):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale, msg=name)
+        errs[name] = float((got - want).abs().max())
+    return {"f": f, "max_abs_err": errs}
+
+
+def time_bitmm(hg, pack, stage: str, f: int, device, iters: int) -> dict:
+    """Kernel, plain twin and one ``torch.sparse.mm`` of the pack's CSR
+    matrix on bf16(x) (the library yardstick), in turns; the bound reads
+    the m rows' words, x, and writes the output once, with an add a feature
+    for each set bit."""
+    from hypergef_tpu_torch.ops import bitstream
+    from hypergef_tpu_torch.ops.fused_dense import bf16_round
+
+    x = torch.as_tensor(np.random.default_rng(16).normal(size=(pack.k, f)).astype(np.float32),
+                        device=device)
+    xb = bf16_round(x)
+    csr = incidence_csr(hg, stage, device)
+    fns = {"kernel": lambda: bitstream.bitmm(pack.words, x, pack.m, pack.k),
+           "plain": lambda: bitstream.bitmm_plain(pack.words, x, pack.m, pack.k),
+           "library": lambda: torch.sparse.mm(csr, xb)}
+    out = time_turns(fns, ("plain", "kernel", "library", "library", "kernel", "plain"),
+                     iters=iters)
+    out.update(bound(pack.m * pack.words.shape[1] * 4 + nbytes(x) + pack.m * f * 4,
+                     hg.nnz * f))
+    return out
+
+
+def bitstream_phases(device, card: str, graphs) -> dict:
+    """Phases 17-20: the bitstream route, HGNN and the UniGNN models, on
+    stream100k."""
+    from hypergef_tpu_torch.data.synthetic import random_features
+    from hypergef_tpu_torch.ops import bitstream
+    from hypergef_tpu_torch.ops.bitstream import BitIncidence
+    from hypergef_tpu_torch.sparse.planner import AggregationPlan, plan_pallas_sparse
+    from hypergef_tpu_torch.train.splits import rand_train_test_idx
+    from hypergef_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    # 17. stream100k from raw input; the kernel against its twin
+    hg, bits, tree, info = build_stream100k()
+    t0 = time.perf_counter()
+    packs = bit_packs(bits, device)
+    torch.cuda.synchronize()
+    info["to_card_s"] = time.perf_counter() - t0
+    print(f"phase 17 graph: {json.dumps(info)}", flush=True)
+    pub = graphs["pubmed_real"]
+    pub_packs = bit_packs(BitIncidence.from_hypergraph(pub), device)
+    checks = []
+    for seed, (name, f) in enumerate([(p, f) for p in ("Ht", "H") for f in (32, 4, 3)]):
+        checks.append({"graph": "stream100k", "pack": name,
+                       **check_bitmm(packs[name], f, 80 + seed, device)})
+    for name in ("Ht", "H"):
+        checks.append({"graph": "pubmed_real", "pack": name,
+                       **check_bitmm(pub_packs[name], 32, 90 + len(checks), device)})
+    for c in checks:
+        print(f"phase 17 bitmm kernel vs plain: {json.dumps(c)}", flush=True)
+    matvec = check_bit_matvec(packs, 32, 95, device)
+    print(f"phase 17 bit_matvec backward: {json.dumps(matvec)}", flush=True)
+
+    # 18. serve HGNN and UniGCNII; the servers build their own packs. The
+    # reference, the f32 tree route, does not round x to bf16 before each of
+    # the four products, so it is held at the bf16 bar of
+    # tests/test_fuzz_backends.py:54
+    tree_plan = AggregationPlan(tree=tree)
+    served = {model: serve(device, hg, "bitstream", {"bitmm": (bitstream, "launches", 4)},
+                           plain_plan=tree_plan, plain_device=device, model=model,
+                           ref_backend="tree", ref_atol=3e-2)
+              for model in ("HGNN", "UniGCNII")}
+    for model, s in served.items():
+        print(f"phase 18 serve stream100k {model}: {json.dumps(s)}", flush=True)
+
+    # 19. train with no plan=; then no-dropout parity
+    x, y = random_features(hg.num_nodes, NFEAT, NCLASS, seed=1)
+    split = rand_train_test_idx(y, seed=2)
+    base = TrainConfig(model="HGNN", nhid=32, nlayer=2, first_aggr="sum", backend="bitstream")
+    configs = {"HGNN sum": base, "HGNN max": dataclasses.replace(base, first_aggr="max"),
+               "UniGIN": dataclasses.replace(base, model="UniGIN"),
+               "UniGCNII": dataclasses.replace(base, model="UniGCNII")}
+    trained = train({name: (cfg, hg, x, y, split, None) for name, cfg in configs.items()},
+                    device)
+    for name, t in trained.items():
+        print(f"phase 19 train stream100k {name}: {json.dumps(t)}", flush=True)
+    parity = {}
+    for name, cfg in configs.items():
+        cfg = dataclasses.replace(cfg, dropout=0.0, input_drop=0.0)
+        plan = AggregationPlan(bitstream=bits, tree=tree if cfg.first_aggr == "max" else None)
+        parity[name] = loss_parity(name, (cfg, plan, device),
+                                   (dataclasses.replace(cfg, backend="tree"), tree_plan, device),
+                                   (hg, x, y, split), 1e-2, "tree")
+    pcfg, _, px, py, psplit, _ = train_problem("pubmed_real")
+    pcfg = dataclasses.replace(pcfg, backend="bitstream", dropout=0.0, input_drop=0.0)
+    parity["pubmed_real HGNN sum"] = loss_parity(
+        "pubmed_real", (pcfg, None, device),
+        (dataclasses.replace(pcfg, backend="dense"), None, device), (pub, px, py, psplit), 1e-3,
+        "dense", first_rtol=1e-5)
+    for name, t in parity.items():
+        print(f"phase 19 no-dropout parity {name}: {json.dumps(t)}", flush=True)
+
+    # 20. times
+    bitmm_times = {}
+    for gname, g, ps, iters in (("stream100k", hg, packs, 2), ("pubmed_real", pub, pub_packs, 10)):
+        for name, stage in (("Ht", "edge"), ("H", "vertex")):
+            bitmm_times[f"{gname} {name} F=32"] = time_bitmm(g, ps[name], stage, 32, device,
+                                                             iters)
+    trainers = {
+        "HGNN bitstream": Trainer(base, hg, x, y, plan=AggregationPlan(bitstream=bits),
+                                  device=device),
+        "HGNN tree": Trainer(dataclasses.replace(base, backend="tree"), hg, x, y, plan=tree_plan,
+                             device=device),
+        "HGNN pallas_sparse": Trainer(dataclasses.replace(base, backend="pallas_sparse"), hg, x,
+                                      y, plan=plan_pallas_sparse(hg), device=device),
+        "UniGCNII bitstream": Trainer(configs["UniGCNII"], hg, x, y,
+                                      plan=AggregationPlan(bitstream=bits), device=device),
+    }
+    names = list(trainers)
+    epochs = time_steps(trainers, split["train"], names + names[::-1], device)
+    requests = {model: s["request_ms"] for model, s in served.items()}
+    print(f"phase 20 times (ms, CUDA events, median of 20): card {card}; stream100k training "
+          f"epoch (wall: 10 back-to-back steps, host included; device: behind a queued "
+          f"sleep): {json.dumps(epochs)}; bitmm kernel vs plain twin vs torch.sparse.mm: "
+          f"{json.dumps(bitmm_times)}; request on stream100k, bitstream: "
+          f"{json.dumps(requests)}", flush=True)
+    return {"checks": checks, "matvec": matvec, "served": served, "trained": trained,
+            "parity": parity, "bitmm_times": bitmm_times, "epochs": epochs}
+
+
 def profile_steps(device, steps: int = 10) -> None:
     """``--profile``: the SBM-60k training step of each aligned-route form
     under ``torch.profiler`` (``steps`` steps after 5 warm-up ones): the
@@ -1006,12 +1259,16 @@ def main() -> int:
 
     aligned = aligned_phases(device, card)
     maxed = max_phases(device, card, aligned)
+    t0 = time.perf_counter()
+    streamed = bitstream_phases(device, card, graphs)
+    print(f"phases 17-20: {time.perf_counter() - t0:.2f} s", flush=True)
 
     fd_bwd_err = max(max(c["max_abs_err"].values()) for c in bwd)
     timed = {"fused_dense_two_stage": times["20news"], "ell_gather_sum": gather_times["edge F=32"],
              "aligned_band": aligned["band_times"]["edge F=32"],
              "aligned_masked_argmax": maxed["argmax_times"]["edge F=32"],
-             "aligned_masked_argsum": maxed["argsum_times"]}
+             "aligned_masked_argsum": maxed["argsum_times"],
+             "bitstream_bitmm": streamed["bitmm_times"]["stream100k Ht F=32"]}
     kernels = [{
         "name": "fused_dense_two_stage",
         "route": "cuda",
@@ -1063,6 +1320,20 @@ def main() -> int:
         # backward through the CSR, as JAX's does)
         "launches": maxed["matvec"]["argsum_launches"],
         "max_abs_err": maxed["argsum"]["max_abs_err"],
+    }, {
+        "name": "bitstream_bitmm",
+        "route": "cuda",
+        "source": "hypergef_tpu_torch/csrc/bitstream.cu",
+        "replaces": "hypergef_tpu/ops/bitstream.py:195",
+        # forward and backward launches of the bitstream serving and training paths
+        "launches": (sum(s["launches"]["bitmm"] for s in streamed["served"].values())
+                     + sum(t["launches"]["bitmm"] for t in streamed["trained"].values())),
+        "max_abs_err": max([c["max_abs_err"] for c in streamed["checks"]]
+                           + list(streamed["matvec"]["max_abs_err"].values())),
+        "h_ms": streamed["bitmm_times"]["stream100k H F=32"]["kernel"],
+        "h_plain_ms": streamed["bitmm_times"]["stream100k H F=32"]["plain"],
+        "h_library_ms": streamed["bitmm_times"]["stream100k H F=32"]["library"],
+        "h_bound_ms": streamed["bitmm_times"]["stream100k H F=32"]["bound_ms"],
     }]
     for k in kernels:
         t = timed[k["name"]]

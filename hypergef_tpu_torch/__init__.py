@@ -6,12 +6,14 @@ other on the same NumPy inputs. This package imports ``torch`` and never
 ``jax``. Its kernels are hand-written CUDA for Hopper (``csrc/``), built at
 first use; on CPU tensors each kernel's plain torch version runs instead.
 
-What runs today is HGNN training (``Trainer``, ``train_full_batch``, on the
-card unless given ``device="cpu"``) and serving (``ServingModel``) with sum,
-mean or max first aggregation on the ``xla``, ``dense``, ``pallas``,
-``tree``, ``pallas_sparse`` and ``aligned`` routes, the last on
-community-sorted graphs (``sparse.reorder.community_reorder``,
-``sparse.planner.plan_aligned``); see ROADMAP.md for the rest.
+What runs today is training (``Trainer``, ``train_full_batch``, on the card
+unless given ``device="cpu"``) and serving (``ServingModel``) of HGNN (sum,
+mean or max first aggregation), UniGIN and UniGCNII on the ``xla``,
+``dense``, ``pallas``, ``tree``, ``pallas_sparse``, ``aligned`` and
+``bitstream`` routes. ``aligned`` serves community-sorted graphs
+(``sparse.reorder.community_reorder``, ``sparse.planner.plan_aligned``);
+``bitstream`` holds the incidence one bit per entry
+(``ops.bitstream.BitIncidence``). See ROADMAP.md for the rest.
 """
 
 import torch

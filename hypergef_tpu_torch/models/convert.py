@@ -1,9 +1,11 @@
 """Weights from the JAX package into the port.
 
-:func:`params_from_flax` turns the params of ``hypergef_tpu``'s HGNN (nested
-dicts of arrays, as ``model.init(...)["params"]`` returns them) into a
-``state_dict`` for :class:`hypergef_tpu_torch.models.zoo.HGNN`. Leaves are
-read with ``np.asarray``, so the port needs no JAX to take them.
+:func:`params_from_flax` turns the params of ``hypergef_tpu``'s models
+(nested dicts of arrays, as ``model.init(...)["params"]`` returns them) into
+a ``state_dict`` for the port's :class:`~hypergef_tpu_torch.models.zoo.HGNN`,
+:class:`~hypergef_tpu_torch.models.zoo.UniGIN` or
+:class:`~hypergef_tpu_torch.models.zoo.UniGCNII`. Leaves are read with
+``np.asarray``, so the port needs no JAX to take them.
 """
 
 from __future__ import annotations
@@ -14,22 +16,43 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-_CONV = re.compile(r"HGNNConv_(\d+)$")
+_CONV = re.compile(r"(HGNNConv|UniGINConv|UniGCNIIConv)_(\d+)$")
+
+
+def _tensor(a, transpose: bool = False) -> torch.Tensor:
+    a = np.asarray(a, dtype=np.float32)
+    return torch.from_numpy(np.array(a.T if transpose else a, order="C"))
 
 
 def params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """``HGNNConv_i/linear/kernel`` [in, out] → ``convs.i.linear.weight``
-    [out, in]; ``HGNNConv_i/wdiag`` [E, 1] → ``convs.i.wdiag``."""
+    """Flax names to the port's, kernels [in, out] transposed to torch's
+    [out, in]:
+
+    * ``HGNNConv_i/linear/kernel`` and ``UniGINConv_i/linear/kernel`` →
+      ``convs.i.linear.weight``; ``HGNNConv_i/wdiag`` [E, 1] →
+      ``convs.i.wdiag``; ``UniGINConv_i/eps`` (1,) → ``convs.i.eps``;
+    * ``UniGCNIIConv_i/W/kernel`` → ``convs.i.W.weight``;
+    * ``lin_in`` and ``lin_out`` ``{kernel, bias}`` → ``lin_in.weight``,
+      ``lin_in.bias`` (and ``lin_out``);
+    * ``PReLU_0/negative_slope`` () → ``prelu.weight`` (1,).
+    """
     out: Dict[str, torch.Tensor] = {}
     for name, sub in params.items():
         m = _CONV.match(name)
-        if m is None:
-            raise NotImplementedError(
-                f"param group {name!r}: only HGNN is ported (ROADMAP.md queue 1, item 4)")
-        i = int(m.group(1))
-        kernel = np.asarray(sub["linear"]["kernel"], dtype=np.float32)
-        out[f"convs.{i}.linear.weight"] = torch.from_numpy(np.ascontiguousarray(kernel.T))
-        if "wdiag" in sub:
-            out[f"convs.{i}.wdiag"] = torch.from_numpy(
-                np.array(sub["wdiag"], dtype=np.float32))
+        if m is not None:
+            i = int(m.group(2))
+            if m.group(1) == "UniGCNIIConv":
+                out[f"convs.{i}.W.weight"] = _tensor(sub["W"]["kernel"], transpose=True)
+                continue
+            out[f"convs.{i}.linear.weight"] = _tensor(sub["linear"]["kernel"], transpose=True)
+            for leaf in ("wdiag", "eps"):
+                if leaf in sub:
+                    out[f"convs.{i}.{leaf}"] = _tensor(sub[leaf])
+        elif name in ("lin_in", "lin_out"):
+            out[f"{name}.weight"] = _tensor(sub["kernel"], transpose=True)
+            out[f"{name}.bias"] = _tensor(sub["bias"])
+        elif name == "PReLU_0":
+            out["prelu.weight"] = _tensor(sub["negative_slope"]).reshape(1)
+        else:
+            raise ValueError(f"unknown param group {name!r} (HGNN | UniGIN | UniGCNII)")
     return out

@@ -23,7 +23,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("fused_dense.cu", "ell_gather.cu", "aligned_band.cu", "aligned_max.cu")
+SOURCES = (
+    "fused_dense.cu", "ell_gather.cu", "aligned_band.cu", "aligned_max.cu", "bitstream.cu",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -109,6 +111,8 @@ def load_library() -> ctypes.CDLL:
         "hg_aligned_masked_argmax": [ptr] * 8 + [cint] * 6 + [ptr],
         # g, arg, band, win, spill, src, groups, out; n_groups, g, b, n, s, f; stream
         "hg_aligned_masked_argsum": [ptr] * 8 + [cint] * 6 + [ptr],
+        # words, x, out; m, kt_count, k, f; stream
+        "hg_bitmm": [ptr] * 3 + [cint] * 4 + [ptr],
     }
     for name, argtypes in entries.items():
         fn = getattr(lib, name)

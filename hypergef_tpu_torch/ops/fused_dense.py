@@ -1,7 +1,7 @@
 """The fused dense two-stage aggregation: CUDA kernel, plain twin, entry.
 
 Counterpart of ``hypergef_tpu/ops/pallas_kernels.py`` (kernel ``:58-140``,
-VJP ``:143-180``, entry ``:202-236``). One function,
+VJP ``:143-180``, entries ``:202-254``). One function,
 
     out = scale_v ⊙ (H @ bf16(scale_e ⊙ (Hᵀ @ bf16(X))))
 
@@ -250,3 +250,17 @@ def hgnn_aggregate_fused_dense(hgd, x, wdiag, first_aggr, plan):
         cnt = (hgd.ht_indptr[1:] - hgd.ht_indptr[:-1]).to(x.dtype)[:, None]
         scale_e = scale_e / cnt.clamp_min(1.0)
     return fused_dense_two_stage(dense.h, x, scale_e.contiguous(), hgd.degV)
+
+
+def unignn_aggregate_fused_dense(hgd, x, use_deg: bool, plan):
+    """``pallas`` route entry for UniGNN (``pallas_kernels.py:239-254``):
+    the same op with ``degE``/``degV`` as the scales, or unit scales. The
+    JAX dispatcher's fall back to the dense route when the VMEM guard trips
+    (``fused.py:463-471``) has no counterpart: the kernel takes any shape."""
+    dense = dense_table(plan, "pallas")
+    if use_deg:
+        scale_e, scale_v = hgd.degE, hgd.degV
+    else:
+        scale_e = _unit_scale(dense.num_edges, x.device)
+        scale_v = _unit_scale(dense.num_nodes, x.device)
+    return fused_dense_two_stage(dense.h, x, scale_e, scale_v)

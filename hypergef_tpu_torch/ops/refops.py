@@ -1,7 +1,7 @@
 """Reference (oracle) incidence aggregation in plain torch: the ``xla`` route.
 
 Port of ``hypergef_tpu/ops/refops.py`` (``:40-65``, ``:71-141``,
-``:147-165``): segment sums over the nnz of the incidence matrix, written
+``:147-184``): segment sums over the nnz of the incidence matrix, written
 with ``index_add_``, which autograd differentiates exactly, and the segment
 max with the reference's record table (``hgnnaggr_cuda.cu:144-208``), whose
 backward routes each cotangent to the one member that won the max.
@@ -104,3 +104,16 @@ def hgnn_aggregate_ref(
     if wdiag is not None:
         xe = xe * wdiag
     return e2v_sum(hgd, xe) * hgd.degV
+
+
+def unignn_aggregate_ref(hgd: HypergraphData, x: torch.Tensor, use_deg: bool = False) -> torch.Tensor:
+    """UniGNN aggregation (``refops.py:167-184``): ``H Hᵀ X``, or
+    ``diag(degV)·H·diag(degE)·Hᵀ·X`` with ``use_deg``; UniGIN takes the
+    first, UniGCNII the second."""
+    xe = v2e_aggregate(hgd, x, "sum")
+    if use_deg:
+        xe = xe * hgd.degE
+    xv = e2v_sum(hgd, xe)
+    if use_deg:
+        xv = xv * hgd.degV
+    return xv

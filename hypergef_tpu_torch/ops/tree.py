@@ -124,3 +124,16 @@ def hgnn_aggregate_tree(hgd, x, wdiag, first_aggr, plan):
         xe = xe * wdiag
     xv = tree_matvec(xe, v_stage, e_stage)
     return xv * hgd.degV
+
+
+def unignn_aggregate_tree(hgd, x, use_deg: bool, plan):
+    """UniGNN aggregation over a :class:`TreePlan` (``:517-525``), in the
+    plan's plain or kernel form."""
+    e_stage, v_stage = plan.device(x.device)
+    xe = tree_matvec(x, e_stage, v_stage)
+    if use_deg:
+        xe = xe * hgd.degE
+    xv = tree_matvec(xe, v_stage, e_stage)
+    if use_deg:
+        xv = xv * hgd.degV
+    return xv

@@ -18,7 +18,7 @@ import torch
 from hypergef_tpu_torch import __version__
 from hypergef_tpu_torch.models.zoo import build_model
 from hypergef_tpu_torch.sparse.planner import AggregationPlan
-from hypergef_tpu_torch.train.trainer import default_plan, tree_plans
+from hypergef_tpu_torch.train.trainer import default_plan, device_plans
 
 
 class ServingModel:
@@ -26,11 +26,14 @@ class ServingModel:
 
     ``params`` is a ``state_dict`` (for instance from
     :func:`hypergef_tpu_torch.models.convert.params_from_flax`); without it
-    the weights are drawn from ``cfg.seed``. Without a ``plan``, the
-    ``dense`` and ``pallas`` routes get the int8 table (and, for max first
-    aggregation, the tree) and the ``aligned`` route the plain-form
-    ``plan_aligned(hg)``; pass a ``pallas_*`` form plan to run the band and
-    argmax kernels. A plan's tables go to ``device`` here.
+    the weights are drawn from ``cfg.seed``. ``cfg.model`` is HGNN, UniGIN
+    or UniGCNII. Without a ``plan``, a route gets the Trainer's default
+    (:func:`~hypergef_tpu_torch.train.trainer.default_plan`): the int8
+    table for ``dense`` and ``pallas``, the tree for ``tree``, the bit packs
+    for ``bitstream`` (each with the tree for max first aggregation) and
+    the plain-form ``plan_aligned(hg)`` for ``aligned``; pass a
+    ``pallas_*`` form plan to run the band and argmax kernels, and
+    ``pallas_sparse`` its plan. A plan's tables go to ``device`` here.
     """
 
     def __init__(
@@ -44,11 +47,11 @@ class ServingModel:
         plan: Optional[AggregationPlan] = None,
     ):
         self.device = torch.device(device)
-        if plan is None and cfg.backend in ("dense", "pallas", "aligned"):
+        if plan is None:
             plan = default_plan(cfg.backend, hg, self.device, cfg.first_aggr)
         self.plan = plan
-        for tp in tree_plans(plan):
-            tp.device(self.device)
+        for p in device_plans(plan):
+            p.device(self.device)
         self.hgd = hg.device_data(self.device)
         self.model = build_model(
             cfg.model, nfeat=nfeat, nhid=cfg.nhid, nclass=nclass,

@@ -14,9 +14,10 @@ code, so every host table is bit-identical to the JAX package's:
   and :func:`plan_aligned`, with the JAX planner's bucket-merge cost model;
 * the int8 :class:`DenseIncidence` (``:433-515``);
 * an :class:`AggregationPlan` (``:540-557``) with the ``dense``, ``tree``,
-  ``pallas_sparse`` and ``aligned`` plans.
+  ``pallas_sparse``, ``aligned`` and ``bitstream`` plans (the bit packs
+  live beside their kernel, in :mod:`hypergef_tpu_torch.ops.bitstream`).
 
-The other plan forms (tiled, multihot, bitstream, precomp), the v5e floor
+The other plan forms (tiled, multihot, precomp), the v5e floor
 model ``aligned_stage_floor``/``aligned_plan_floor`` and the routing ladder
 ``plan_aggregation`` (``:638-782``) are not ported yet (ROADMAP.md).
 """
@@ -33,6 +34,7 @@ from hypergef_tpu_torch.ops.ell_gather import GatherTable
 
 if TYPE_CHECKING:
     from hypergef_tpu_torch.ops.aligned_band import BandTable
+    from hypergef_tpu_torch.ops.bitstream import BitIncidence
 
 
 def _round_up(x: int, m: int) -> int:
@@ -1118,15 +1120,17 @@ class AggregationPlan:
     """Everything the route dispatcher needs, built once per graph.
 
     ``dense`` serves the ``dense`` and ``pallas`` routes, ``tree`` the
-    ``tree`` route, ``pallas_sparse`` and ``aligned`` the routes of those
-    names. Unlike the JAX package's, it needs no ``tree`` for the
-    ``aligned`` route.
+    ``tree`` route, ``pallas_sparse``, ``aligned`` and ``bitstream`` the
+    routes of those names. Unlike the JAX package's, it needs no ``tree``
+    for the ``aligned`` route; like it, it needs one for max first
+    aggregation on ``dense``, ``pallas`` and ``bitstream``.
     """
 
     dense: Optional[DenseIncidence] = None
     tree: Optional[TreePlan] = None
     pallas_sparse: Optional[TreePlan] = None  # pallas-level-0 TreePlan
     aligned: Optional[TreePlan] = None  # plan_aligned's TreePlan, plain or kernel form
+    bitstream: Optional["BitIncidence"] = None  # the bit-packed H and Hᵀ
 
     @classmethod
     def dense_plan(cls, hg, device) -> "AggregationPlan":

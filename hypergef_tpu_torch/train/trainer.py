@@ -27,6 +27,7 @@ from torch.nn import functional as F
 
 from hypergef_tpu_torch.models.zoo import build_model
 from hypergef_tpu_torch.ops import fused
+from hypergef_tpu_torch.ops.bitstream import BitIncidence
 from hypergef_tpu_torch.sparse.planner import AggregationPlan, TreePlan, plan_aligned, plan_tree
 from hypergef_tpu_torch.train.splits import accuracy
 from hypergef_tpu_torch.utils.timing import Window
@@ -35,9 +36,10 @@ from hypergef_tpu_torch.utils.timing import Window
 @dataclasses.dataclass
 class TrainConfig:
     """The reference's argparse knobs (``hgsys.py:22-70``) plus route
-    options. ``backend="auto"``, ``tune`` and ``plan_cache`` need modules
-    that are not ported yet: name a route (``xla``, ``dense``, ``pallas``,
-    ``tree``, ``pallas_sparse`` or ``aligned``)."""
+    options. ``model`` is HGNN, UniGIN or UniGCNII. ``backend="auto"``,
+    ``tune`` and ``plan_cache`` need modules that are not ported yet: name
+    a route (``xla``, ``dense``, ``pallas``, ``tree``, ``pallas_sparse``,
+    ``aligned`` or ``bitstream``)."""
 
     model: str = "HGNN"
     nhid: int = 32
@@ -74,11 +76,16 @@ def default_plan(backend: Optional[str], hg, device, first_aggr: str = "sum"):
     ``aligned`` the plain-form aligned plan, the one JAX's ladder picks for
     a community-sorted graph (``plan_aligned`` raises ``ValueError`` for a
     graph that is not: run ``community_reorder`` first). Max on ``aligned``
-    runs the masked argmax on the aligned edge stage."""
+    runs the masked argmax on the aligned edge stage. ``bitstream`` gets the
+    bit packs, the plan JAX's ladder builds in its band (``planner.py:735-754``),
+    with the tree for max."""
     if backend == "xla":
         return None
-    if backend in ("dense", "pallas"):
-        plan = AggregationPlan.dense_plan(hg, device)
+    if backend in ("dense", "pallas", "bitstream"):
+        if backend == "bitstream":
+            plan = AggregationPlan(bitstream=BitIncidence.from_hypergraph(hg))
+        else:
+            plan = AggregationPlan.dense_plan(hg, device)
         if first_aggr == "max":
             plan.tree = plan_tree(hg)
         return plan
@@ -98,12 +105,12 @@ def default_plan(backend: Optional[str], hg, device, first_aggr: str = "sum"):
     raise AssertionError(backend)
 
 
-def tree_plans(plan):
-    """The stage plans of ``plan``, whose tables go to the device when a
-    Trainer or a server is built, not inside its first step."""
-    if isinstance(plan, TreePlan):
+def device_plans(plan):
+    """The stage plans and bit packs of ``plan``, whose tables go to the
+    device when a Trainer or a server is built, not inside its first step."""
+    if isinstance(plan, (TreePlan, BitIncidence)):
         return [plan]
-    fields = ("tree", "pallas_sparse", "aligned")
+    fields = ("tree", "pallas_sparse", "aligned", "bitstream")
     return [p for p in (getattr(plan, f, None) for f in fields) if p is not None]
 
 
@@ -137,8 +144,8 @@ class Trainer:
         if plan is None:
             plan = default_plan(cfg.backend, hg, self.device, cfg.first_aggr)
         self.plan = plan
-        for tp in tree_plans(self.plan):
-            tp.device(self.device)  # tables put on the device and checked once, here
+        for p in device_plans(self.plan):
+            p.device(self.device)  # tables put on the device and checked once, here
         self.hgd = hg.device_data(self.device)
         self.x = torch.as_tensor(np.asarray(x), dtype=torch.float32, device=self.device)
         self.y = torch.as_tensor(np.asarray(y), dtype=torch.int64, device=self.device)

@@ -21,6 +21,9 @@ Tolerances:
   one of its inputs; both take the lowest id among equal values).
 * masked arg-sum kernel: rtol 1e-6 and atol 1e-6·max|plain| (the same few
   f32 terms summed in another order).
+* bit-packed product kernel: rtol 1e-5 and atol 1e-5·max|plain|. The
+  products are exact (0/1 times bf16); the kernel sums each row in column
+  order, the twin in its matmul's order.
 """
 
 import dataclasses
@@ -33,7 +36,9 @@ import pytest
 import torch
 
 from hypergef_tpu_torch.data.synthetic import community_hypergraph
-from hypergef_tpu_torch.ops import aligned_band, aligned_max, ell_gather, fused, fused_dense
+from hypergef_tpu_torch.ops import (
+    aligned_band, aligned_max, bitstream, ell_gather, fused, fused_dense,
+)
 from hypergef_tpu_torch.sparse import planner
 from hypergef_tpu_torch.sparse.hypergraph import Hypergraph
 from hypergef_tpu_torch.sparse.reorder import apply_vertex_order, community_reorder
@@ -456,6 +461,85 @@ def test_max_wrappers_reject_what_the_kernels_do_not_take(cuda):
         aligned_max.aligned_masked_argsum(g.double(), arg, v_st)
     with pytest.raises(ValueError, match="kernel tables"):
         aligned_max.aligned_masked_argsum(g, arg, v_plain)
+
+
+def _bit_pack(m, k, density, seed, device):
+    """A pack of a random 0/1 matrix [m, k] with every third row empty and
+    row 1 full, padded to 256 rows as BitIncidence pads them."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    a = (rng.random((m, k)) < density).astype(np.float32)
+    a[::3] = 0
+    if m > 1:
+        a[1] = 1
+    csr = sp.csr_matrix(a)
+    words = bitstream.pack_bits_csr(csr.indptr, csr.indices, m, k)
+    words = np.pad(words, ((0, -m % 256), (0, 0)))
+    return torch.as_tensor(words, device=device), a
+
+
+@pytest.mark.parametrize("m,k,density", [(1, 1, 1.0), (300, 5000, 0.01), (257, 4096, 0.05),
+                                         (1000, 9000, 0.002), (4100, 700, 0.03)])
+@pytest.mark.parametrize("f", [1, 3, 4, 32, 100, 300])
+def test_bitmm_kernel_matches_plain(cuda, m, k, density, f):
+    words, a = _bit_pack(m, k, density, seed=m + k + f, device=cuda)
+    x = torch.as_tensor(np.random.default_rng(f).normal(size=(k, f)).astype(np.float32),
+                        device=cuda)
+    before = bitstream.launches
+    got = bitstream.bitmm(words, x, m, k)
+    again = bitstream.bitmm(words, x, m, k)
+    torch.cuda.synchronize()
+    assert bitstream.launches == before + 2
+    want = bitstream.bitmm_plain(words, x, m, k)
+    assert got.shape == want.shape == (m, f)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    assert torch.equal(got, again), "two runs differ"
+    assert not got[::3].any()  # empty rows
+    exact = torch.as_tensor(a, device=cuda).double() @ bitstream.bf16_round(x).double()
+    torch.testing.assert_close(got.double(), exact, rtol=1e-5, atol=1e-5 * float(exact.abs().max()))
+
+
+def test_bit_matvec_gradient_matches_the_twin(cuda):
+    from hypergef_tpu_torch.data.synthetic import random_hypergraph
+
+    hg = random_hypergraph(5000, 4500, avg_edge_size=6.0, seed=2)
+    h, ht = bitstream.BitIncidence.from_hypergraph(hg).device(cuda)
+    rng = np.random.default_rng(4)
+    x = torch.as_tensor(rng.normal(size=(hg.num_nodes, 20)).astype(np.float32), device=cuda)
+    g = torch.as_tensor(rng.normal(size=(hg.num_edges, 20)).astype(np.float32), device=cuda)
+    xr = x.clone().requires_grad_(True)
+    before = bitstream.launches
+    out = bitstream.bit_matvec(xr, ht, h)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert bitstream.launches == before + 2  # one forward, one backward
+    for got, want in ((out.detach(), bitstream.bitmm_plain(ht.words, x, ht.m, ht.k)),
+                      (xr.grad, bitstream.bitmm_plain(h.words, g, h.m, h.k))):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+
+
+def test_bitmm_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    words, _ = _bit_pack(300, 5000, 0.01, seed=1, device=cuda)
+    x = torch.ones((5000, 4), device=cuda)
+    with pytest.raises(ValueError, match="on the CPU"):
+        bitstream.bitmm(words, x.cpu(), 300, 5000)
+    with pytest.raises(ValueError, match="pack is on"):
+        bitstream.bitmm(words.cpu(), x, 300, 5000)
+    with pytest.raises(TypeError):
+        bitstream.bitmm(words, x.double(), 300, 5000)
+    with pytest.raises(TypeError):
+        bitstream.bitmm(words, x[:10], 300, 5000)
+    with pytest.raises(TypeError):
+        bitstream.bitmm(words.long(), x, 300, 5000)
+    with pytest.raises(ValueError, match="contiguous"):
+        bitstream.bitmm(words, torch.ones((4, 5000), device=cuda).t(), 300, 5000)
+    with pytest.raises(ValueError, match="contiguous"):
+        bitstream.bitmm(words[:, :128], x[:4096], 300, 4096)
+    with pytest.raises(ValueError, match="unsupported pack"):
+        bitstream.bitmm(words, torch.ones((9000, 4), device=cuda), 300, 9000)
+    with pytest.raises(RuntimeError, match="bit_matvec"):
+        bitstream.bitmm(words, x.requires_grad_(True), 300, 5000)
 
 
 def test_chip_smoke_imports_and_reads_the_card():

@@ -143,11 +143,3 @@ def test_train_config_matches_jax():
     ours = {f.name: f.default for f in dataclasses.fields(TrainConfig)}
     theirs = {f.name: f.default for f in dataclasses.fields(JTrainConfig)}
     assert ours == theirs
-
-
-@pytest.mark.parametrize("model", ["UniGIN", "UniGCNII"])
-def test_unported_models_raise(model):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(model, NFEAT, 8, NCLASS, 10, device="cpu")
-    with pytest.raises(NotImplementedError, match="only HGNN"):
-        params_from_flax({f"{model}Conv_0": {"linear": {"kernel": np.zeros((2, 2))}}})
