@@ -106,6 +106,38 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    F = 32, on stream100k and the pubmed_real box; the stream100k training
    epoch on ``bitstream``, ``tree`` and ``pallas_sparse`` (HGNN sum) and of
    UniGCNII on ``bitstream``; a request.
+21. The routing ladder on the card: ``plan_aggregation`` on 20news and
+   pubmed_real (``dense``), cora 2708×2708 (``precomp``), coauthor_dblp
+   41302×22363 (``cumsum``), SBM-60k after the reorder (``aligned``, in the
+   kernel form) and stream100k (``bitstream``); each pick must equal the JAX
+   package's (``LADDER_PICKS``, held against JAX on the CPU by
+   tests/test_torch_port_ladder.py); the host seconds of each plan.
+22. Hold the segment-sum kernel (``gather_segment_sum``, the ``cumsum``
+   route's) against its plain version on both directions of coauthor_dblp at
+   F = 32, 4, 3 and 1425, on identity gathers at the one-hot probes' shapes
+   (TS 8, R 64; TS 256, R 4096) and on a CSR with empty segments: rtol 1e-6,
+   atol 1e-6·max|plain|; two runs bitwise equal; one launch per call; and
+   ``incidence_gather_sum``'s backward (one launch each way).
+23. Serve and train with ``TrainConfig()``'s defaults, no ``backend=`` and no
+   ``plan=``: coauthor_dblp at AllSet's widths (1425 features, 6 classes),
+   five HGNN requests (exactly 4 segment-sum launches each, within 1e-3 of
+   the f32 ``tree`` route) and 20 steps each of HGNN sum, HGNN max and
+   UniGCNII (exactly 8, 4 and 8 launches a step), then 10 no-dropout epochs
+   within rtol 1e-3 of ``tree``; cora (1433 features, 7 classes) on
+   ``precomp``: requests within 1e-2 of the same route on CPU tensors and
+   within 3e-2·max|log-probs| of the f32 ``xla`` route, losses within rtol
+   1e-2 of ``tree``; 20news trains on ``dense``.
+24. Time, with CUDA events, median of 20 windows: the segment-sum kernel vs
+   its plain version vs one ``torch.sparse.mm`` of the same CSR per direction
+   at F = 32; the coauthor_dblp epoch on ``cumsum``, ``tree`` and
+   ``pallas_sparse``, the cora epoch on ``precomp``, ``dense`` and
+   ``pallas``; a request on each; beside the reference's RTX 3090 fused
+   kernel times (not a claim).
+25. The ports of the TPU probes of ``scripts/`` (``hypergef_tpu_torch.probes``)
+   at their scripts' shapes, probe_r2_gather's 2M-row scale included: each
+   case against its script's oracle (bitwise for gathers and copies, rtol
+   1e-5 for sums) and timed against a library call; the row gather, chunk sum
+   and scaled copy kernels against their plain versions.
 
 Phases 8 and 12 also time one ``torch.sparse.mm`` of the gather table's
 and of each aligned stage's CSR matrix (the library yardstick; the port
@@ -115,8 +147,10 @@ the plain version's and the library call's (null where no single PyTorch
 call computes the same function), and its bound: the larger of its bytes
 over the card's memory rate and its operations over its f32 rate.
 
-The last line is ``{"ok": true, "device": {...}}``. Needs one card (an
-H100: the kernels are built for sm_90a) and imports nothing of JAX.
+Every ``pl.pallas_call`` of the repo appears in one kernel's ``replaces``
+or ``also_replaces`` (``KERNEL_SITES``). The last line is ``{"ok": true,
+"device": {...}}``. Needs one card (an H100: the kernels are built for
+sm_90a) and imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -145,6 +179,48 @@ SBM60K = dict(n_nodes=60000, n_edges=30000, n_comm=240, avg=12, noise=0.02, seed
 # a dense-ish unstructured graph in the bitstream band of the JAX ladder
 # (N·E in (0.8G, 6.4G] and N·E < 2000·nnz, planner.py:735-754)
 STREAM100K = dict(n=100_000, e=20_000, avg=60.0)
+# the routing ladder's phase: the random graphs it plans (random_hypergraph(n,
+# e, avg, seed=0); coauthor_dblp and cora at the dims of
+# experiments/fig7_9_realistic.py:45,49), and JAX's plan_aggregation pick for
+# each graph the script builds (hypergef_tpu/sparse/planner.py:638-782). The
+# card has no JAX, so the picks are constants;
+# tests/test_torch_port_ladder.py holds the random graphs' against JAX.
+LADDER_GRAPHS = {**GRAPHS, "cora": dict(n=2708, e=2708, avg=4.0),
+                 "coauthor_dblp": dict(n=41302, e=22363, avg=4.5)}
+LADDER_PICKS = {"20news": "dense", "pubmed_real": "dense", "cora": "precomp",
+                "coauthor_dblp": "cumsum", "sbm60k": "aligned", "stream100k": "bitstream"}
+# AllSet's published widths: co-authorship DBLP (1425 features, 6 classes)
+# and Cora (1433 features, 7 classes)
+DBLP_NFEAT, DBLP_NCLASS = 1425, 6
+CORA_NFEAT, CORA_NCLASS = 1433, 7
+# the reference's fused kernel at F = 32 on an RTX 3090
+# (experiments/fig7_9_realistic.py:61,67; BASELINE.md §1)
+REF_RTX3090_FUSED_MS = {"coauthor_dblp": 0.030438, "cora": 0.004795}
+# every pl.pallas_call of the repo, by the kernel of the port that replaces it
+KERNEL_SITES = {
+    "fused_dense_two_stage": ["hypergef_tpu/ops/pallas_kernels.py:108"],
+    "ell_gather_sum": ["hypergef_tpu/ops/pallas_sparse.py:111",
+                       "hypergef_tpu/ops/pallas_sparse.py:127",
+                       "scripts/probe_r2_gather.py:109", "scripts/probe_r2b_bisect.py:242",
+                       "scripts/probe_r2b_bisect.py:271", "scripts/probe_r2b_bisect.py:309",
+                       "scripts/probe_r2b_bisect.py:341", "scripts/probe_r2b_bisect.py:374"],
+    "aligned_band": ["hypergef_tpu/ops/aligned_pallas.py:126"],
+    "aligned_masked_argmax": ["hypergef_tpu/ops/aligned_max.py:107"],
+    "aligned_masked_argsum": ["hypergef_tpu/ops/aligned_max.py:285"],
+    "bitstream_bitmm": ["hypergef_tpu/ops/bitstream.py:195"],
+    "gather_segment_sum": ["scripts/pallas_probe.py:98", "scripts/pallas_probe2.py:184",
+                           "scripts/pallas_probe3.py:108"],
+    "row_gather": ["scripts/pallas_probe.py:47", "scripts/pallas_probe.py:69",
+                   "scripts/pallas_probe.py:147", "scripts/pallas_probe2.py:59",
+                   "scripts/pallas_probe2.py:81", "scripts/pallas_probe2.py:126",
+                   "scripts/probe_r2b_bisect.py:64", "scripts/probe_r2b_bisect.py:82",
+                   "scripts/probe_r2b_bisect.py:102", "scripts/probe_r2b_bisect.py:124",
+                   "scripts/probe_r2b_bisect.py:149", "scripts/probe_r2b_bisect.py:214"],
+    "chunk_masked_sum": ["scripts/pallas_probe.py:176", "scripts/pallas_probe2.py:151",
+                         "scripts/pallas_probe3.py:85", "scripts/probe_r2_gather.py:168",
+                         "scripts/probe_r2b_bisect.py:184"],
+    "scaled_copy": ["scripts/probe_r2b_bisect.py:49"],
+}
 REQUESTS = 5
 TRAIN_STEPS = 20
 PARITY_EPOCHS = 10
@@ -188,6 +264,12 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def rows_read_bytes(x, idx) -> int:
+    """The bytes of the rows of ``x`` that ``idx`` names, each read once (a
+    row no index names need not move)."""
+    return int(torch.unique(idx).numel()) * x[0].numel() * x.element_size()
+
+
 def stage_table_bytes(stage) -> int:
     """The kernel tables a stage apply reads: bands, spills, windows,
     sources and the directory."""
@@ -204,7 +286,7 @@ def stage_live(stage) -> int:
 def make_graph(name: str):
     from hypergef_tpu_torch.data.synthetic import random_hypergraph
 
-    g = GRAPHS[name]
+    g = LADDER_GRAPHS[name]
     return random_hypergraph(g["n"], g["e"], avg_edge_size=g["avg"], seed=0, name=name)
 
 
@@ -257,26 +339,31 @@ def time_kernel(hg, f: int, device) -> dict:
 
 
 def serve(device, hg, backend, counters, plan=None, plain_plan=None, plain_device="cpu",
-          first_aggr="sum", model="HGNN", ref_backend=None, ref_atol=1e-2) -> dict:
-    """Five requests through ``backend``. ``counters`` maps a kernel's name
-    to (module, counter attribute, launches a request); every count is set
-    to 0 just before the requests and read just after. Each answer is
-    checked against the same model on the kernels' plain versions
-    (``plain_plan`` on ``plain_device``), or on ``ref_backend`` if given,
-    within ``ref_atol``, and on the f32 segment-reduce route."""
+          first_aggr="sum", model="HGNN", ref_backend=None, ref_atol=1e-2, nfeat=NFEAT,
+          nclass=NCLASS, xla_atol=None) -> dict:
+    """Five requests through ``backend`` (None: ``TrainConfig``'s default,
+    no ``backend=``). ``counters`` maps a kernel's name to (module, counter
+    attribute, launches a request); every count is set to 0 just before the
+    requests and read just after. Each answer is checked against the same
+    model on the kernels' plain versions (``plain_plan`` on
+    ``plain_device``), or on ``ref_backend`` if given, within ``ref_atol``,
+    and on the f32 segment-reduce route: argmax agreement, and with
+    ``xla_atol`` the log-probs within ``xla_atol`` of it."""
     from hypergef_tpu_torch.data.synthetic import random_features
     from hypergef_tpu_torch.serve import ServingModel
     from hypergef_tpu_torch.train.trainer import TrainConfig
     from hypergef_tpu_torch.utils.timing import cuda_time_ms
 
-    cfg = TrainConfig(model=model, nhid=32, nlayer=2, first_aggr=first_aggr, backend=backend)
-    server = ServingModel(cfg, hg, NFEAT, NCLASS, device, plan=plan)
+    cfg = TrainConfig(model=model, nhid=32, nlayer=2, first_aggr=first_aggr)
+    if backend is not None:
+        cfg = dataclasses.replace(cfg, backend=backend)
+    server = ServingModel(cfg, hg, nfeat, nclass, device, plan=plan)
     params = {k: v.detach().cpu() for k, v in server.model.state_dict().items()}
-    ref_cfg = dataclasses.replace(cfg, backend=ref_backend or backend)
-    plain = ServingModel(ref_cfg, hg, NFEAT, NCLASS, plain_device, params=params, plan=plain_plan)
-    xla = ServingModel(dataclasses.replace(cfg, backend="xla"), hg, NFEAT, NCLASS, device,
+    ref_cfg = dataclasses.replace(cfg, backend=ref_backend or cfg.backend)
+    plain = ServingModel(ref_cfg, hg, nfeat, nclass, plain_device, params=params, plan=plain_plan)
+    xla = ServingModel(dataclasses.replace(cfg, backend="xla"), hg, nfeat, nclass, device,
                        params=params)
-    feats = [random_features(hg.num_nodes, NFEAT, NCLASS, seed=100 + i)[0]
+    feats = [random_features(hg.num_nodes, nfeat, nclass, seed=100 + i)[0]
              for i in range(REQUESTS)]
     xs = [torch.as_tensor(a, device=device) for a in feats]
     torch.cuda.synchronize()
@@ -291,9 +378,9 @@ def serve(device, hg, backend, counters, plan=None, plain_plan=None, plain_devic
               f"{REQUESTS} requests launched {name} {REQUESTS * per_request} times, "
               f"got {launches[name]}")
 
-    worst = {"plain_abs": 0.0, "xla_abs": 0.0, "agree": 1.0}
+    worst = {"plain_abs": 0.0, "xla_abs": 0.0, "xla_scale": 0.0, "agree": 1.0}
     for logp, a, x in zip(answers, feats, xs):
-        check(tuple(logp.shape) == (hg.num_nodes, NCLASS), "answer shape")
+        check(tuple(logp.shape) == (hg.num_nodes, nclass), "answer shape")
         check(bool(torch.isfinite(logp).all()), "finite log-probs")
         rows = logp.exp().sum(dim=1)
         check(bool(torch.allclose(rows, torch.ones_like(rows), atol=1e-4)),
@@ -303,12 +390,24 @@ def serve(device, hg, backend, counters, plan=None, plain_plan=None, plain_devic
         ref = xla.predict(x)
         agree = float((logp.argmax(1) == ref.argmax(1)).float().mean())
         check(agree >= 0.98, f"argmax agrees with the xla route on >=98% ({agree})")
+        if xla_atol is not None:
+            d_xla = float((logp - ref).abs().max())
+            check(d_xla <= xla_atol, f"log-probs within {xla_atol} of the xla route ({d_xla})")
         worst["plain_abs"] = max(worst["plain_abs"], d_plain)
         worst["xla_abs"] = max(worst["xla_abs"], float((logp - ref).abs().max()))
+        worst["xla_scale"] = max(worst["xla_scale"], float(ref.abs().max()))
         worst["agree"] = min(worst["agree"], agree)
 
     request_ms = cuda_time_ms(lambda: server.predict(xs[0]), repeats=20, queue_ahead=False)
-    return {"launches": launches, "worst": worst, "request_ms": request_ms}
+    return {"route": fused_route(cfg.backend, server.plan, hg), "launches": launches,
+            "worst": worst, "request_ms": request_ms}
+
+
+def fused_route(backend, plan, hg) -> str:
+    """The route a call with ``backend`` and ``plan`` takes on ``hg``."""
+    from hypergef_tpu_torch.ops import fused
+
+    return fused.resolve_backend(backend, plan, hg.nnz)
 
 
 def check_gather(table, f: int, seed: int, device) -> dict:
@@ -384,11 +483,18 @@ def train_problem(name: str):
 
 def kernel_counters():
     """Every kernel's launch counter: name -> (module, attribute)."""
-    from hypergef_tpu_torch.ops import aligned_band, aligned_max, bitstream, ell_gather, fused_dense
+    from hypergef_tpu_torch import probes
+    from hypergef_tpu_torch.ops import (
+        aligned_band, aligned_max, bitstream, ell_gather, fused_dense, segment_sum,
+    )
 
     return {"fused": (fused_dense, "launches"), "gather": (ell_gather, "launches"),
             "band": (aligned_band, "launches"), "argmax": (aligned_max, "argmax_launches"),
-            "argsum": (aligned_max, "argsum_launches"), "bitmm": (bitstream, "launches")}
+            "argsum": (aligned_max, "argsum_launches"), "bitmm": (bitstream, "launches"),
+            "segsum": (segment_sum, "launches"),
+            "row_gather": (probes, "row_gather_launches"),
+            "chunk_sum": (probes, "chunk_sum_launches"),
+            "scaled_copy": (probes, "scaled_copy_launches")}
 
 
 def train(problems, device) -> dict:
@@ -408,7 +514,13 @@ def train(problems, device) -> dict:
                 ("HGNN", "bitstream", "sum"): {"bitmm": 8},
                 ("HGNN", "bitstream", "max"): {"bitmm": 4},
                 ("UniGIN", "bitstream", "sum"): {"bitmm": 8},
-                ("UniGCNII", "bitstream", "sum"): {"bitmm": 8}}
+                ("UniGCNII", "bitstream", "sum"): {"bitmm": 8},
+                # cumsum's max takes V→E from the tree and its backward from
+                # the CSR-routed plain segment sum (maxops)
+                ("HGNN", "cumsum", "sum"): {"segsum": 8},
+                ("HGNN", "cumsum", "max"): {"segsum": 4},
+                ("UniGCNII", "cumsum", "sum"): {"segsum": 8},
+                ("HGNN", "precomp", "sum"): {}, ("HGNN", "dense", "sum"): {}}
     counters = kernel_counters()
     for name, (cfg, hg, x, y, split, plan) in problems.items():
         tr = Trainer(cfg, hg, x, y, plan=plan, device=device)
@@ -419,11 +531,13 @@ def train(problems, device) -> dict:
         res = tr.fit(split["train"], epochs=TRAIN_STEPS, warmup=0)
         launched = {k: getattr(module, attr) for k, (module, attr) in counters.items()}
         check(fused_dense.v2e_launches == 0, "a frozen wdiag needs no d scale_e")
-        want = {k: TRAIN_STEPS * per_step[cfg.model, cfg.backend, cfg.first_aggr].get(k, 0)
+        route = fused_route(cfg.backend, tr.plan, hg)
+        want = {k: TRAIN_STEPS * per_step[cfg.model, route, cfg.first_aggr].get(k, 0)
                 for k in counters}
         check(launched == want, f"{name}: {TRAIN_STEPS} steps launched {launched}, want {want}")
         check(bool(np.isfinite(res["losses"]).all()), f"{name}: finite losses")
-        out[name] = {"model": cfg.model, "route": cfg.backend, "first_aggr": cfg.first_aggr,
+        out[name] = {"model": cfg.model, "backend": cfg.backend, "route": route,
+                     "first_aggr": cfg.first_aggr,
                      "launches": launched,
                      "losses": res["losses"].tolist(),
                      "train_acc": tr.evaluate(split)["train_acc"]}
@@ -540,8 +654,8 @@ def time_gather(table, f: int, device) -> dict:
            "library": lambda: torch.sparse.mm(csr, x)}
     out = time_turns(fns, ("plain", "kernel", "library", "library", "kernel", "plain"))
     live = int((table.mask != 0).sum())
-    out.update(bound(nbytes(x, table.gidx, table.mask) + table.gidx.shape[0] * f * 4,
-                     2 * live * f))
+    out.update(bound(rows_read_bytes(x, table.gidx) + nbytes(table.gidx, table.mask)
+                     + table.gidx.shape[0] * f * 4, 2 * live * f))
     return out
 
 
@@ -1108,14 +1222,298 @@ def bitstream_phases(device, card: str, graphs) -> dict:
           f"{json.dumps(bitmm_times)}; request on stream100k, bitstream: "
           f"{json.dumps(requests)}", flush=True)
     return {"checks": checks, "matvec": matvec, "served": served, "trained": trained,
-            "parity": parity, "bitmm_times": bitmm_times, "epochs": epochs}
+            "parity": parity, "bitmm_times": bitmm_times, "epochs": epochs, "hg": hg}
+
+
+def ladder_phase(device, graphs) -> dict:
+    """Phase 21: ``plan_aggregation`` on the card for each graph, its pick
+    against JAX's (``LADDER_PICKS``), and its host planning time."""
+    from hypergef_tpu_torch.sparse.planner import plan_aggregation
+
+    out = {}
+    for name, hg in graphs.items():
+        t0 = time.perf_counter()
+        plan = plan_aggregation(hg, device)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        pick = plan.preferred_backend
+        check(pick == LADDER_PICKS[name], f"{name}: the ladder picks {pick}, JAX "
+              f"{LADDER_PICKS[name]}")
+        check(plan.tree is not None and plan.tree.form == "xla", f"{name}: plain-form tree")
+        if plan.aligned is not None:
+            check(plan.aligned.form == "pallas_auto", f"{name}: aligned kernel form on the card")
+        out[name] = {"n": hg.num_nodes, "e": hg.num_edges, "nnz": hg.nnz, "pick": pick,
+                     "built": [f for f in ("dense", "precomp", "aligned", "bitstream")
+                               if getattr(plan, f) is not None], "plan_s": secs}
+    return out
+
+
+def segment_operands(table, f: int, seed: int, device):
+    return torch.as_tensor(np.random.default_rng(seed).normal(size=(table.num_inputs, f))
+                           .astype(np.float32), device=device)
+
+
+def check_segsum(table, f: int, seed: int, device) -> dict:
+    """The segment-sum kernel against its plain version: rtol 1e-6, atol
+    1e-6·max|plain| (the same f32 terms, summed by the kernel in CSR order
+    and by segment_reduce in its own); two runs bitwise equal; one launch a
+    call."""
+    from hypergef_tpu_torch.ops import segment_sum
+
+    x = segment_operands(table, f, seed, device)
+    before = segment_sum.launches
+    got = segment_sum.gather_segment_sum(x, table)
+    again = segment_sum.gather_segment_sum(x, table)
+    torch.cuda.synchronize()
+    check(segment_sum.launches == before + 2, "one segment-sum launch per call")
+    want = segment_sum.gather_segment_sum_plain(x, table)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * scale)
+    check(torch.equal(got, again), "two segment-sum runs are bitwise equal")
+    return {"s": table.num_segments, "n": table.num_inputs, "nnz": table.nnz, "f": f,
+            "identity": table.gather is None, "max_abs_err": float((got - want).abs().max()),
+            "max_abs_plain": scale}
+
+
+def check_incidence_backward(hgd, f: int, device) -> dict:
+    """One forward and backward of ``incidence_gather_sum`` over V→E: one
+    launch each, dx against the plain E→V sum of the cotangent."""
+    from hypergef_tpu_torch.ops import segment_sum
+    from hypergef_tpu_torch.ops.segments import incidence_gather_sum
+
+    rng = np.random.default_rng(23)
+    x = torch.as_tensor(rng.normal(size=(hgd.num_nodes, f)).astype(np.float32), device=device)
+    g = torch.as_tensor(rng.normal(size=(hgd.num_edges, f)).astype(np.float32), device=device)
+    xr = x.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    before = segment_sum.launches
+    y = incidence_gather_sum(xr, hgd.v2e, hgd.e2v)
+    (dx,) = torch.autograd.grad(y, xr, g)
+    torch.cuda.synchronize()
+    check(segment_sum.launches == before + 2, "incidence_gather_sum: one launch each way")
+    errs = {}
+    for name, got, want in (("y", y.detach(), segment_sum.gather_segment_sum_plain(x, hgd.v2e)),
+                            ("dx", dx, segment_sum.gather_segment_sum_plain(g, hgd.e2v))):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * scale, msg=name)
+        errs[name] = float((got - want).abs().max())
+    return {"f": f, "max_abs_err": errs}
+
+
+def segsum_phase(device, dblp) -> dict:
+    """Phase 22: the segment-sum kernel on both directions of coauthor_dblp
+    at F = 32, 4, 3 and 1425, on the identity gathers of the one-hot probes'
+    shapes, on a CSR with empty segments; incidence_gather_sum's backward."""
+    from hypergef_tpu_torch.ops.segment_sum import SegmentTable
+
+    hgd = dblp.device_data(device)
+    cases = []
+    for seed, (stage, f) in enumerate([(s, f) for s in ("v2e", "e2v") for f in (32, 4, 3, 1425)]):
+        cases.append({"graph": "coauthor_dblp", "stage": stage,
+                      **check_segsum(getattr(hgd, stage), f, 110 + seed, device)})
+    rng = np.random.default_rng(24)
+    for ts, r in ((8, 64), (256, 4096)):  # pallas_probe3.py:97, pallas_probe.py:17,81
+        seg = np.sort(rng.integers(0, ts, size=r))
+        table = SegmentTable.build(np.searchsorted(seg, np.arange(ts + 1)), None, r, device)
+        cases.append({"graph": f"one-hot TS={ts} R={r}",
+                      **check_segsum(table, 32 if ts == 8 else 128, 120 + ts, device)})
+    sizes = rng.poisson(3.0, size=5000)
+    sizes[::3] = 0
+    indptr = np.concatenate([[0], np.cumsum(sizes)])
+    table = SegmentTable.build(indptr, rng.integers(0, 7000, size=int(indptr[-1])), 7000, device)
+    cases.append({"graph": "empty segments", **check_segsum(table, 32, 125, device)})
+    return {"cases": cases, "backward": check_incidence_backward(hgd, 32, device)}
+
+
+def default_problem(hg, nfeat: int, nclass: int, **cfg):
+    """(cfg, graph, x, y, split, plan) with ``TrainConfig()``'s defaults but
+    ``cfg``: no ``backend=``, no ``plan=``."""
+    from hypergef_tpu_torch.data.synthetic import random_features
+    from hypergef_tpu_torch.train.splits import rand_train_test_idx
+    from hypergef_tpu_torch.train.trainer import TrainConfig
+
+    x, y = random_features(hg.num_nodes, nfeat, nclass, seed=1)
+    return (dataclasses.replace(TrainConfig(), **cfg), hg, x, y, rand_train_test_idx(y, seed=2),
+            None)
+
+
+def default_phases(device, graphs) -> dict:
+    """Phase 23: serve and train with no ``backend=`` and no ``plan=``."""
+    counters = kernel_counters()
+    zero = {k: (module, attr, 0) for k, (module, attr) in counters.items()}
+    dblp, cora = graphs["coauthor_dblp"], graphs["cora"]
+    served = {
+        "coauthor_dblp": serve(device, dblp, None, {**zero, "segsum": (counters["segsum"][0],
+                                                                     "launches", 4)},
+                               plain_device=device, ref_backend="tree", ref_atol=1e-3,
+                               nfeat=DBLP_NFEAT, nclass=DBLP_NCLASS),
+        # the same route on CPU tensors within phase 3's bf16 bar, 1e-2 (the f32
+        # projections sum in another order, so x can round to a neighbouring bf16
+        # value); the f32 xla route within the bf16 bar of
+        # tests/test_fuzz_backends.py:54, an absolute 3e-2
+        "cora": serve(device, cora, None, zero, nfeat=CORA_NFEAT, nclass=CORA_NCLASS,
+                      xla_atol=3e-2),
+    }
+    check(served["coauthor_dblp"]["route"] == "cumsum" and served["cora"]["route"] == "precomp",
+          f"default serving routes {[s['route'] for s in served.values()]}")
+    problems = {
+        "coauthor_dblp HGNN sum": default_problem(dblp, DBLP_NFEAT, DBLP_NCLASS),
+        "coauthor_dblp HGNN max": default_problem(dblp, DBLP_NFEAT, DBLP_NCLASS,
+                                                  first_aggr="max"),
+        "coauthor_dblp UniGCNII": default_problem(dblp, DBLP_NFEAT, DBLP_NCLASS,
+                                                  model="UniGCNII"),
+        "cora HGNN": default_problem(cora, CORA_NFEAT, CORA_NCLASS),
+        "20news HGNN": default_problem(graphs["20news"], NFEAT, NCLASS),
+    }
+    trained = train(problems, device)
+    routes = {k: t["route"] for k, t in trained.items()}
+    check(routes == {"coauthor_dblp HGNN sum": "cumsum", "coauthor_dblp HGNN max": "cumsum",
+                     "coauthor_dblp UniGCNII": "cumsum", "cora HGNN": "precomp",
+                     "20news HGNN": "dense"}, f"default training routes {routes}")
+    parity = {}
+    for name, (cfg, hg, x, y, split, _) in problems.items():
+        if name.startswith("20news"):
+            continue
+        cfg = dataclasses.replace(cfg, dropout=0.0, input_drop=0.0)
+        # cumsum and tree: f32 direct sums; precomp rounds A and x to bf16
+        rtol = 1e-2 if name.startswith("cora") else 1e-3
+        parity[name] = loss_parity(name, (cfg, None, device),
+                                   (dataclasses.replace(cfg, backend="tree"), None, device),
+                                   (hg, x, y, split), rtol, "tree")
+    return {"served": served, "trained": trained, "parity": parity, "problems": problems}
+
+
+def time_segsum(hg, stage: str, f: int, device) -> dict:
+    """Kernel, plain version and one ``torch.sparse.mm`` of the same CSR, in
+    turns; the bound moves the rows of x the gather names, the int32 gather
+    and row pointer, and the output once, with an add a feature for each
+    entry."""
+    from hypergef_tpu_torch.ops import segment_sum
+
+    table = getattr(hg.device_data(device), stage)
+    x = segment_operands(table, f, 26, device)
+    csr = incidence_csr(hg, "edge" if stage == "v2e" else "vertex", device)
+    fns = {"kernel": lambda: segment_sum.gather_segment_sum(x, table),
+           "plain": lambda: segment_sum.gather_segment_sum_plain(x, table),
+           "library": lambda: torch.sparse.mm(csr, x)}
+    out = time_turns(fns, ("plain", "kernel", "library", "library", "kernel", "plain"))
+    read = (table.nnz * f * 4 if table.gather is None
+            else rows_read_bytes(x, table.gather) + nbytes(table.gather))
+    out.update(bound(read + nbytes(table.indptr) + table.num_segments * f * 4, table.nnz * f))
+    return out
+
+
+def request_times(device, problems) -> dict:
+    """A request (host included) on each route of each cell."""
+    from hypergef_tpu_torch.serve import ServingModel
+    from hypergef_tpu_torch.utils.timing import cuda_time_ms
+
+    out = {}
+    for name, (cfg, hg, x, nclass, routes, plans) in problems.items():
+        xd = torch.as_tensor(x, device=device)
+        for route in routes:
+            server = ServingModel(dataclasses.replace(cfg, backend=route), hg, x.shape[1], nclass,
+                                  device, plan=plans.get(route))
+            out[f"{name} {route}"] = cuda_time_ms(lambda s=server: s.predict(xd), repeats=20,
+                                                  queue_ahead=False)
+    return out
+
+
+def default_times(device, card: str, graphs, problems) -> dict:
+    """Phase 24: the segment-sum kernel per direction at F = 32; the
+    coauthor_dblp epoch on cumsum, tree and pallas_sparse; the cora epoch on
+    precomp, dense and pallas; a request on each."""
+    from hypergef_tpu_torch.sparse.planner import plan_pallas_sparse
+    from hypergef_tpu_torch.train.trainer import Trainer
+
+    dblp = graphs["coauthor_dblp"]
+    segsum_times = {f"{stage} F=32": time_segsum(dblp, stage, 32, device)
+                    for stage in ("v2e", "e2v")}
+    cells = {"coauthor_dblp": ("coauthor_dblp HGNN sum", ("cumsum", "tree", "pallas_sparse"),
+                               DBLP_NCLASS),
+             "cora": ("cora HGNN", ("precomp", "dense", "pallas"), CORA_NCLASS)}
+    epochs, reqs = {}, {}
+    for cell, (pname, routes, nclass) in cells.items():
+        cfg, hg, x, y, split, _ = problems[pname]
+        plans = {"pallas_sparse": plan_pallas_sparse(hg)} if "pallas_sparse" in routes else {}
+        trainers = {r: Trainer(dataclasses.replace(cfg, backend=r), hg, x, y, plan=plans.get(r),
+                               device=device) for r in routes}
+        epochs[cell] = time_steps(trainers, split["train"], routes + routes[::-1], device)
+        reqs[cell] = (cfg, hg, x, nclass, routes, plans)
+    requests = request_times(device, reqs)
+    print(f"phase 24 times (ms, CUDA events, median of 20): card {card}; segment-sum kernel vs "
+          f"plain vs torch.sparse.mm, coauthor_dblp F=32: {json.dumps(segsum_times)}; training "
+          f"epoch (wall: 10 back-to-back steps, host included; device: behind a queued sleep): "
+          f"{json.dumps(epochs)}; requests (host included): {json.dumps(requests)} (reference's "
+          f"RTX 3090 fused kernel at F=32, not a claim: {json.dumps(REF_RTX3090_FUSED_MS)})",
+          flush=True)
+    return {"segsum_times": segsum_times, "epochs": epochs, "requests": requests}
+
+
+def time_probe_kernels(device) -> dict:
+    """Each probe kernel against its plain version and a library call at a
+    probe's shapes: the row gather at pallas_probe3's flat take (85,024 rows
+    of [19,717, 32]), the chunk sum at its e_call ([10,628, 8, 32]), the
+    scaled copy at probe_r2b_bisect's k0 ([1024, 128])."""
+    from hypergef_tpu_torch import probes
+
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.normal(size=(19717, 32)).astype(np.float32), device=device)
+    idx = torch.as_tensor(rng.integers(0, 19717, size=85024).astype(np.int32), device=device)
+    idx_long = idx.long()
+    g = torch.as_tensor(rng.normal(size=(10628, 8, 32)).astype(np.float32), device=device)
+    m = torch.as_tensor((rng.random((10628, 8)) > 0.2).astype(np.float32), device=device)
+    x0 = torch.as_tensor(rng.normal(size=(1024, 128)).astype(np.float32), device=device)
+    order = ("plain", "kernel", "library", "library", "kernel", "plain")
+    out = {
+        "row_gather": time_turns({"kernel": lambda: probes.row_gather(x, idx),
+                                  "plain": lambda: probes.row_gather_plain(x, idx),
+                                  "library": lambda: x.index_select(0, idx_long)}, order),
+        "chunk_masked_sum": time_turns({
+            "kernel": lambda: probes.chunk_masked_sum(g, m),
+            "plain": lambda: probes.chunk_masked_sum_plain(g, m),
+            "library": lambda: torch.einsum("cgf,cg->cf", g, m)}, order),
+        "scaled_copy": time_turns({"kernel": lambda: probes.scaled_copy(x0, 2.0),
+                                   "plain": lambda: x0 * 2.0,
+                                   "library": lambda: torch.mul(x0, 2.0)}, order),
+    }
+    out["row_gather"].update(bound(rows_read_bytes(x, idx) + nbytes(idx) + idx.shape[0] * 32 * 4,
+                                   0))
+    out["chunk_masked_sum"].update(bound(nbytes(g, m) + 10628 * 32 * 4, 2 * g.numel()))
+    out["scaled_copy"].update(bound(2 * nbytes(x0), x0.numel()))
+    return out
+
+
+def probe_phase(device, card: str) -> dict:
+    """Phase 25: every probe of scripts/ at its script's shapes, each case
+    against the script's oracle and timed against a library call; the
+    launches of the checked calls (timing launches not counted)."""
+    from hypergef_tpu_torch import probes
+
+    rows = []
+    for name, fn in probes.PROBES.items():
+        for r in fn(device, timed=True):
+            rows.append({"probe": name, **r})
+    bad = [(r["probe"], r["case"], r["max_abs_err"]) for r in rows if not r["ok"]]
+    check(not bad, f"probes off their oracles: {bad}")
+    check(all(r["launches"] == 1 for r in rows), "one launch per checked probe call")
+    launches = {}
+    for r in rows:
+        launches[r["kernel"]] = launches.get(r["kernel"], 0) + r["launches"]
+    times = time_probe_kernels(device)
+    print(f"phase 25 probes (ms, CUDA events behind a queued sleep, median of 20; card {card}): "
+          + json.dumps([{k: r[k] for k in ("probe", "case", "kernel", "ok", "max_abs_err", "ms",
+                                           "library_ms")} for r in rows]), flush=True)
+    print(f"phase 25 probe kernels vs plain vs library: {json.dumps(times)}", flush=True)
+    return {"rows": rows, "launches": launches, "times": times}
 
 
 def profile_steps(device, steps: int = 10) -> None:
     """``--profile``: the SBM-60k training step of each aligned-route form
-    under ``torch.profiler`` (``steps`` steps after 5 warm-up ones): the
-    device's busy time a step, its kernel count and the kernels that take
-    the most device time. Not part of the smoke run."""
+    and the default path's step on coauthor_dblp (``cumsum``) and cora
+    (``precomp``) under ``torch.profiler`` (``steps`` steps after 5 warm-up
+    ones): the device's busy time a step, its kernel count and the kernels
+    that take the most device time. Not part of the smoke run."""
     from torch.profiler import ProfilerActivity, profile
 
     from hypergef_tpu_torch.sparse.planner import AggregationPlan, plan_tree
@@ -1153,9 +1551,15 @@ def profile_steps(device, steps: int = 10) -> None:
     print("profile CSR backward pieces (ms, CUDA events behind a queued sleep, median of 20): "
           + json.dumps({k: cuda_time_ms(f, repeats=20, iters=10) for k, f in pieces.items()}),
           flush=True)
-    idx = torch.as_tensor(split["train"], device=device)
-    for name, (c, p) in forms.items():
-        tr = Trainer(c, hg, x, y, plan=p, device=device)
+    trainers = {name: (Trainer(c, hg, x, y, plan=p, device=device), split["train"])
+                for name, (c, p) in forms.items()}
+    # the default path's cells, TrainConfig()'s defaults (phase 23)
+    for name, nfeat, nclass in (("coauthor_dblp", DBLP_NFEAT, DBLP_NCLASS),
+                                ("cora", CORA_NFEAT, CORA_NCLASS)):
+        c, g, xd, yd, sp, _ = default_problem(make_graph(name), nfeat, nclass)
+        trainers[f"{name} defaults"] = (Trainer(c, g, xd, yd, device=device), sp["train"])
+    for name, (tr, train_idx) in trainers.items():
+        idx = torch.as_tensor(train_idx, device=device)
         for _ in range(5):
             tr.step(idx)
         torch.cuda.synchronize()
@@ -1263,17 +1667,49 @@ def main() -> int:
     streamed = bitstream_phases(device, card, graphs)
     print(f"phases 17-20: {time.perf_counter() - t0:.2f} s", flush=True)
 
+    # 21. the routing ladder on the card
+    t0 = time.perf_counter()
+    ladder_graphs = {**graphs, **{name: make_graph(name) for name in LADDER_GRAPHS
+                                  if name not in graphs},
+                     "sbm60k": aligned["sbm"], "stream100k": streamed["hg"]}
+    ladder = ladder_phase(device, ladder_graphs)
+    print(f"phase 21 ladder (host seconds to plan): {json.dumps(ladder)}", flush=True)
+    # 22. the segment-sum kernel against its plain version
+    segsum = segsum_phase(device, ladder_graphs["coauthor_dblp"])
+    for c in segsum["cases"]:
+        print(f"phase 22 segment-sum kernel vs plain: {json.dumps(c)}", flush=True)
+    print(f"phase 22 incidence_gather_sum backward: {json.dumps(segsum['backward'])}", flush=True)
+    # 23. serve and train with no backend= and no plan=
+    defaults = default_phases(device, ladder_graphs)
+    for name, sv in defaults["served"].items():
+        print(f"phase 23 serve {name}, defaults: {json.dumps(sv)}", flush=True)
+    for name, t in defaults["trained"].items():
+        print(f"phase 23 train {name}, defaults: {json.dumps(t)}", flush=True)
+    for name, t in defaults["parity"].items():
+        print(f"phase 23 no-dropout parity {name}: {json.dumps(t)}", flush=True)
+    # 24. times; 25. the probes
+    dtimes = default_times(device, card, ladder_graphs, defaults["problems"])
+    probed = probe_phase(device, card)
+    print(f"phases 21-25: {time.perf_counter() - t0:.2f} s", flush=True)
+
     fd_bwd_err = max(max(c["max_abs_err"].values()) for c in bwd)
     timed = {"fused_dense_two_stage": times["20news"], "ell_gather_sum": gather_times["edge F=32"],
              "aligned_band": aligned["band_times"]["edge F=32"],
              "aligned_masked_argmax": maxed["argmax_times"]["edge F=32"],
              "aligned_masked_argsum": maxed["argsum_times"],
-             "bitstream_bitmm": streamed["bitmm_times"]["stream100k Ht F=32"]}
+             "bitstream_bitmm": streamed["bitmm_times"]["stream100k Ht F=32"],
+             "gather_segment_sum": dtimes["segsum_times"]["v2e F=32"],
+             **probed["times"]}
+    dblp_segsum = [defaults["served"]["coauthor_dblp"]["launches"]["segsum"]] + [
+        t["launches"]["segsum"] for name, t in defaults["trained"].items()
+        if name.startswith("coauthor_dblp")]
+    probe_err = {}
+    for r in probed["rows"]:
+        probe_err[r["kernel"]] = max(probe_err.get(r["kernel"], 0.0), r["max_abs_err"])
     kernels = [{
         "name": "fused_dense_two_stage",
         "route": "cuda",
         "source": "hypergef_tpu_torch/csrc/fused_dense.cu",
-        "replaces": "hypergef_tpu/ops/pallas_kernels.py:108",
         # forward and backward launches of the serving and the pallas training paths
         "launches": served["launches"]["fused_dense"] + trained["20news"]["launches"]["fused"],
         "max_abs_err": max(max(c["max_abs_err"] for c in cases), fd_bwd_err),
@@ -1283,15 +1719,14 @@ def main() -> int:
         "name": "ell_gather_sum",
         "route": "cuda",
         "source": "hypergef_tpu_torch/csrc/ell_gather.cu",
-        "replaces": "hypergef_tpu/ops/pallas_sparse.py:111",
-        "also_replaces": "hypergef_tpu/ops/pallas_sparse.py:127",
         "launches": trained["pubmed_real"]["launches"]["gather"],
-        "max_abs_err": max(g["max_abs_err"] for g in gathers),
+        # the ELL level-0 probes with x resident (phase 25)
+        "probe_launches": probed["launches"]["ell_gather_sum"],
+        "max_abs_err": max([g["max_abs_err"] for g in gathers] + [probe_err["ell_gather_sum"]]),
     }, {
         "name": "aligned_band",
         "route": "cuda",
         "source": "hypergef_tpu_torch/csrc/aligned_band.cu",
-        "replaces": "hypergef_tpu/ops/aligned_pallas.py:126",
         # forward and backward launches of the aligned serving and training paths,
         # sum and max
         "launches": (aligned["served"]["launches"]["band"] + aligned["trained"]["launches"]["band"]
@@ -1304,7 +1739,6 @@ def main() -> int:
         "name": "aligned_masked_argmax",
         "route": "cuda",
         "source": "hypergef_tpu_torch/csrc/aligned_max.cu",
-        "replaces": "hypergef_tpu/ops/aligned_max.py:107",
         # the max serving and training paths, and aligned_max_matvec's forward
         "launches": (maxed["served"]["launches"]["argmax"]
                      + maxed["trained"]["launches"]["argmax"] + maxed["matvec"]["argmax_launches"]),
@@ -1315,7 +1749,6 @@ def main() -> int:
         "name": "aligned_masked_argsum",
         "route": "cuda",
         "source": "hypergef_tpu_torch/csrc/aligned_max.cu",
-        "replaces": "hypergef_tpu/ops/aligned_max.py:285",
         # aligned_max_matvec's backward (the max training path routes its
         # backward through the CSR, as JAX's does)
         "launches": maxed["matvec"]["argsum_launches"],
@@ -1324,7 +1757,6 @@ def main() -> int:
         "name": "bitstream_bitmm",
         "route": "cuda",
         "source": "hypergef_tpu_torch/csrc/bitstream.cu",
-        "replaces": "hypergef_tpu/ops/bitstream.py:195",
         # forward and backward launches of the bitstream serving and training paths
         "launches": (sum(s["launches"]["bitmm"] for s in streamed["served"].values())
                      + sum(t["launches"]["bitmm"] for t in streamed["trained"].values())),
@@ -1334,11 +1766,33 @@ def main() -> int:
         "h_plain_ms": streamed["bitmm_times"]["stream100k H F=32"]["plain"],
         "h_library_ms": streamed["bitmm_times"]["stream100k H F=32"]["library"],
         "h_bound_ms": streamed["bitmm_times"]["stream100k H F=32"]["bound_ms"],
+    }, {
+        "name": "gather_segment_sum",
+        "route": "cuda",
+        "source": "hypergef_tpu_torch/csrc/segment_sum.cu",
+        # the cumsum route's serving and training paths on coauthor_dblp (phase 23)
+        "launches": sum(dblp_segsum),
+        "max_abs_err": max([c["max_abs_err"] for c in segsum["cases"]]
+                           + list(segsum["backward"]["max_abs_err"].values())),
+        "e2v_ms": dtimes["segsum_times"]["e2v F=32"]["kernel"],
+        "e2v_plain_ms": dtimes["segsum_times"]["e2v F=32"]["plain"],
+        "e2v_library_ms": dtimes["segsum_times"]["e2v F=32"]["library"],
+        "e2v_bound_ms": dtimes["segsum_times"]["e2v F=32"]["bound_ms"],
     }]
+    # the probe kernels: their path is phase 25, the checked call of each case
+    for name, source in (("row_gather", "probes.cu"), ("chunk_masked_sum", "probes.cu"),
+                         ("scaled_copy", "probes.cu")):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"hypergef_tpu_torch/csrc/{source}",
+                        "launches": probed["launches"][name],
+                        "max_abs_err": probe_err[name]})
     for k in kernels:
         t = timed[k["name"]]
-        k.update({"ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": t["bound_ms"],
+        sites = KERNEL_SITES[k["name"]]
+        k.update({"replaces": sites[0], **({"also_replaces": sites[1:]} if sites[1:] else {}),
+                  "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": t["bound_ms"],
                   "bound_by": t["bound_by"], "library_ms": t.get("library")})
+        check(k["launches"] > 0, f"{k['name']} was launched on its path")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

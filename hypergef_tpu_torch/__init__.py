@@ -9,11 +9,15 @@ first use; on CPU tensors each kernel's plain torch version runs instead.
 What runs today is training (``Trainer``, ``train_full_batch``, on the card
 unless given ``device="cpu"``) and serving (``ServingModel``) of HGNN (sum,
 mean or max first aggregation), UniGIN and UniGCNII on the ``xla``,
-``dense``, ``pallas``, ``tree``, ``pallas_sparse``, ``aligned`` and
-``bitstream`` routes. ``aligned`` serves community-sorted graphs
-(``sparse.reorder.community_reorder``, ``sparse.planner.plan_aligned``);
-``bitstream`` holds the incidence one bit per entry
-(``ops.bitstream.BitIncidence``). See ROADMAP.md for the rest.
+``cumsum``, ``dense``, ``pallas``, ``tree``, ``pallas_sparse``, ``aligned``,
+``bitstream`` and ``precomp`` routes. By default (``backend="auto"``) the
+routing ladder ``sparse.planner.plan_aggregation`` picks the route, as the
+JAX package's does; ``backend=None`` takes ``cumsum``. ``aligned`` serves
+community-sorted graphs (``sparse.reorder.community_reorder``,
+``sparse.planner.plan_aligned``); ``bitstream`` holds the incidence one bit
+per entry (``ops.bitstream.BitIncidence``). ``probes`` ports the TPU probe
+scripts of ``scripts/`` onto one-construct CUDA kernels. See ROADMAP.md for
+the rest.
 """
 
 import torch
@@ -26,11 +30,15 @@ torch.backends.cuda.matmul.allow_tf32 = False
 __version__ = "0.1.0"
 
 from hypergef_tpu_torch.sparse.hypergraph import Hypergraph, HypergraphData  # noqa: E402
-from hypergef_tpu_torch.sparse.planner import AggregationPlan, DenseIncidence  # noqa: E402
+from hypergef_tpu_torch.sparse.planner import (  # noqa: E402
+    AggregationPlan, DenseIncidence, DensePrecomp, plan_aggregation,
+)
 
 __all__ = [
     "Hypergraph",
     "HypergraphData",
     "AggregationPlan",
     "DenseIncidence",
+    "DensePrecomp",
+    "plan_aggregation",
 ]

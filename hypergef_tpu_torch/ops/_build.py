@@ -25,6 +25,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = (
     "fused_dense.cu", "ell_gather.cu", "aligned_band.cu", "aligned_max.cu", "bitstream.cu",
+    "segment_sum.cu", "probes.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -113,6 +114,15 @@ def load_library() -> ctypes.CDLL:
         "hg_aligned_masked_argsum": [ptr] * 8 + [cint] * 6 + [ptr],
         # words, x, out; m, kt_count, k, f; stream
         "hg_bitmm": [ptr] * 3 + [cint] * 4 + [ptr],
+        # x, gather (or null), indptr, out; s, f, lanes; stream
+        "hg_gather_segment_sum": [ptr] * 4 + [cint] * 3 + [ptr],
+        # x, idx, out; r, f, n_buf (0: direct), rows_per_warp; stream
+        "hg_row_gather": [ptr] * 3 + [cint] * 4 + [ptr],
+        # src, gidx (or null: src is gathered [C, ngs, F]), mask, out; c, ngs, f, n_buf,
+        # lanes, chunks_per_warp; stream
+        "hg_chunk_masked_sum": [ptr] * 4 + [cint] * 6 + [ptr],
+        # x, out; count (floats), scale; stream
+        "hg_scaled_copy": [ptr] * 2 + [ctypes.c_longlong, ctypes.c_float, ptr],
     }
     for name, argtypes in entries.items():
         fn = getattr(lib, name)

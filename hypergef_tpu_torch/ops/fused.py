@@ -1,10 +1,20 @@
 """Fused two-stage aggregation: route dispatch.
 
 Port of ``hypergef_tpu/ops/fused.py`` (``hgnn_aggregate`` ``:269-375``,
-``unignn_aggregate`` ``:378-472``) with seven routes; the route names mean
-the same thing in both packages:
+``unignn_aggregate`` ``:378-472``) with nine routes and ``auto``; the route
+names mean the same thing in both packages:
 
 * ``"xla"`` — the plain segment-sum oracle (:mod:`.refops`).
+* ``"cumsum"`` — gather + sorted segment sum over each CSR
+  (:func:`.segments.incidence_gather_sum`, ``fused.py:148-161``), whose
+  backward is the same op over the transposed CSR; one launch of the
+  hand-written segment-sum kernel (:mod:`.segment_sum`) a stage on the card.
+  The default route, as in JAX (``fused.py:35``).
+* ``"precomp"`` — one product with the bf16 propagation matrix
+  (:class:`~hypergef_tpu_torch.sparse.planner.DensePrecomp`,
+  ``fused.py:298-311``), a library matmul as in JAX. With ``wdiag``, or a
+  first aggregation other than sum, it falls through to ``dense`` (when the
+  plan has the table) or ``tree``, as in JAX.
 * ``"dense"`` — two plain matmuls over the int8 table, the XLA dense route
   (``fused.py:107-142``, ``:341-347``).
 * ``"pallas"`` — the hand-written fused kernel (:mod:`.fused_dense`), the
@@ -31,13 +41,21 @@ or packs. Where JAX would fall back to the nnz oracle, this raises
 ``ValueError`` and names the plan to pass.
 
 UniGNN aggregation (``H Hᵀ X``, degree-scaled or not) runs on the same
-seven routes. ``auto`` and the other routes raise ``NotImplementedError``
-until they are ported (ROADMAP.md queue 1).
+routes; ``precomp`` serves it only degree-scaled (``fused.py:397-406``).
+
+``backend=None`` takes the process-global default (``cumsum``, settable with
+:func:`set_default_backend`); ``"auto"`` takes the plan's
+``preferred_backend`` (:func:`~hypergef_tpu_torch.sparse.planner.plan_aggregation`),
+``cumsum`` without a plan. ``ell``, ``bsr`` and ``multihot`` are left out by
+design (ROADMAP.md, "Do not port") and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional
+
+import torch
 
 from hypergef_tpu_torch.ops import aligned_max, bitstream, maxops, refops, tree
 from hypergef_tpu_torch.ops.fused_dense import (
@@ -46,26 +64,69 @@ from hypergef_tpu_torch.ops.fused_dense import (
     hgnn_aggregate_fused_dense,
     unignn_aggregate_fused_dense,
 )
+from hypergef_tpu_torch.ops.segments import divide_by_segment_sizes, incidence_gather_sum
 from hypergef_tpu_torch.sparse.hypergraph import HypergraphData
-from hypergef_tpu_torch.sparse.planner import AlignedStageBDev, AlignedStageDev, TreePlan
+from hypergef_tpu_torch.sparse.planner import (
+    AlignedStageBDev, AlignedStageDev, DensePrecomp, TreePlan,
+)
 
-ROUTES = ("xla", "dense", "pallas", "tree", "pallas_sparse", "aligned", "bitstream")
-# routes of the JAX package (hypergef_tpu/ops/fused.py:36-39) not ported yet
-UNPORTED = ("auto", "cumsum", "ell", "bsr", "precomp", "multihot")
+ROUTES = ("xla", "cumsum", "dense", "pallas", "tree", "pallas_sparse", "aligned", "bitstream",
+          "precomp")
+# routes of the JAX package (hypergef_tpu/ops/fused.py:36-39) left out by design
+UNPORTED = ("ell", "bsr", "multihot")
 # the routes whose plan is a TreePlan
 _STAGE_ROUTES = ("tree", "pallas_sparse", "aligned")
 
+_DEFAULT_BACKEND = "cumsum"
 
-def _resolve(backend: Optional[str], plan) -> str:
-    if backend in ROUTES:
-        if backend != "xla" and plan is None:
-            raise ValueError(f"backend {backend!r} requires a plan (pass plan=...)")
-        return backend
-    if backend is None or backend in UNPORTED:
+
+def set_default_backend(name: str) -> None:
+    """The route ``backend=None`` takes, process-wide (``fused.py:42-46``)."""
+    global _DEFAULT_BACKEND
+    if name not in ROUTES + ("auto",):
+        raise ValueError(f"backend must be one of {ROUTES + ('auto',)}, got {name!r}")
+    _DEFAULT_BACKEND = name
+
+
+def get_default_backend() -> str:
+    return _DEFAULT_BACKEND
+
+
+# nnz above which cumsum goes to the tree when the plan has one, as in JAX
+# (fused.py:53-84). JAX's cumsum differences a running prefix, whose error
+# grows with nnz; the port sums each segment directly and loses nothing
+# there, but keeps the guard so that both packages run the same route.
+CUMSUM_NNZ_GUARD = 1 << 20
+_warned_cumsum = False
+
+
+def resolve_backend(backend: Optional[str], plan, nnz: Optional[int] = None) -> str:
+    """The route a call takes (``fused.py:61-84``): None → the default,
+    ``auto`` → the plan's ``preferred_backend`` (``cumsum`` without a
+    plan), and ``cumsum`` above the nnz guard → ``tree`` when the plan has
+    one (a warning, once, when it has none)."""
+    global _warned_cumsum
+    b = backend or _DEFAULT_BACKEND
+    if b == "auto":
+        b = getattr(plan, "preferred_backend", None) or "cumsum"
+    if b == "cumsum" and nnz is not None and nnz > CUMSUM_NNZ_GUARD:
+        if getattr(plan, "tree", None) is not None:
+            b = "tree"
+        elif not _warned_cumsum:
+            warnings.warn(
+                f"cumsum at nnz={nnz} > {CUMSUM_NNZ_GUARD}: the JAX package routes this "
+                "to the tree when a plan has one; pass a plan to run the same route",
+                stacklevel=3)
+            _warned_cumsum = True
+    if b in UNPORTED:
         raise NotImplementedError(
-            f"backend {backend!r} is not ported yet (ported: {ROUTES}; "
-            "ROADMAP.md queue 1, item 3)")
-    raise ValueError(f"backend must be one of {ROUTES + UNPORTED}, got {backend!r}")
+            f"backend {b!r} is left out of the port by design (ROADMAP.md, 'Do not port'); "
+            f"the routes are {ROUTES}")
+    if b not in ROUTES:
+        raise ValueError(f"backend must be one of {ROUTES + ('auto',)}, got {b!r}")
+    if b not in ("xla", "cumsum") and plan is None:
+        raise ValueError(f"backend {b!r} requires a plan (pass plan=...)")
+    return b
 
 
 def tree_plan(plan, route: str) -> TreePlan:
@@ -88,6 +149,64 @@ def bit_plan(plan) -> bitstream.BitIncidence:
             "the bitstream route needs a BitIncidence: pass AggregationPlan(bitstream="
             f"BitIncidence.from_hypergraph(hg)), got {type(sub).__name__}")
     return sub
+
+
+def _precomp_table(plan) -> Optional[DensePrecomp]:
+    """An AggregationPlan's ``precomp`` field, or a DensePrecomp passed
+    directly (``fused.py:303``)."""
+    pre = getattr(plan, "precomp", None) or plan
+    return pre if isinstance(pre, DensePrecomp) else None
+
+
+def _fallback(plan) -> str:
+    """Where ``precomp`` falls through (``fused.py:310``)."""
+    return "dense" if getattr(plan, "dense", None) is not None else "tree"
+
+
+def _mm_f32(a, b):
+    """``a·b`` of two bf16 operands with an f32 result that is not rounded
+    to bf16: on the card ``torch.mm`` with ``out_dtype=torch.float32`` (bf16
+    products, f32 accumulation and output); on the CPU, which has no such
+    kernel, an f32 product of the bf16-valued operands (exact products, f32
+    sums). ``torch.matmul`` of two bf16 tensors would round the output."""
+    if a.device.type == "cuda":
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _PrecompProduct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, xb):
+        ctx.save_for_backward(a)
+        return _mm_f32(a, xb)
+
+    @staticmethod
+    def backward(ctx, g):
+        (a,) = ctx.saved_tensors
+        # the gradient of the bf16 operand is bf16; autograd's cast back to
+        # f32 is the transpose of x.astype(bf16), as in JAX
+        return None, _mm_f32(a.t(), g.to(torch.bfloat16)).to(torch.bfloat16)
+
+
+def precomp_matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``A · bf16(x)`` with an f32 result (JAX's ``dot_general(a,
+    x.astype(bf16), preferred_element_type=f32)``, ``fused.py:305-308``).
+
+    The gradient is ``bf16(Aᵀ · bf16(ȳ))``: JAX rounds at the same place
+    after the product (the transpose of the cast) but multiplies the f32
+    cotangent, so the two agree at the bf16 bar."""
+    return _PrecompProduct.apply(a, x.to(torch.bfloat16))
+
+
+def _cumsum_v2e(hgd: HypergraphData, x, aggr: str):
+    """V→E of the cumsum route (``fused.py:148-155``)."""
+    xe = incidence_gather_sum(x, hgd.v2e, hgd.e2v)
+    return divide_by_segment_sizes(xe, hgd.ht_indptr) if aggr == "mean" else xe
+
+
+def _cumsum_e2v(hgd: HypergraphData, xe):
+    """E→V of the cumsum route (``fused.py:158-161``)."""
+    return incidence_gather_sum(xe, hgd.e2v, hgd.v2e)
 
 
 def _max_plan(plan, b: str) -> TreePlan:
@@ -120,6 +239,8 @@ def _hgnn_aggregate_max(hgd, x, wdiag, plan, b: str):
     elif b == "bitstream" and getattr(plan, "bitstream", None) is not None:
         h_pack, ht_pack = plan.bitstream.device(x.device)
         xv = bitstream.bit_matvec(xe, h_pack, ht_pack)
+    elif b == "cumsum":
+        xv = _cumsum_e2v(hgd, xe)
     else:
         own = getattr(plan, b, None) if b in ("aligned", "pallas_sparse") else None
         if isinstance(own, TreePlan):
@@ -141,13 +262,23 @@ def hgnn_aggregate(
     """Fused HGNNConv aggregation:
     ``out = diag(degV) · H · diag(Wdiag·degE) · Hᵀ · X``, first-stage
     reduce ∈ {sum, mean, max}."""
-    b = _resolve(backend, plan)
+    b = resolve_backend(backend, plan, nnz=int(hgd.h_edge.shape[0]))
     if first_aggr not in ("sum", "mean", "max"):
         raise ValueError(f"unknown first_aggr {first_aggr!r}")
     if b == "xla":
         return refops.hgnn_aggregate_ref(hgd, x, wdiag, first_aggr)
     if first_aggr == "max":
         return _hgnn_aggregate_max(hgd, x, wdiag, plan, b)
+    if b == "cumsum":
+        xe = _cumsum_v2e(hgd, x, first_aggr) * hgd.degE
+        if wdiag is not None:
+            xe = xe * wdiag
+        return _cumsum_e2v(hgd, xe) * hgd.degV
+    if b == "precomp":
+        pre = _precomp_table(plan)
+        if wdiag is None and first_aggr == "sum" and pre is not None:
+            return precomp_matvec(pre.device(x.device), x)
+        return hgnn_aggregate(hgd, x, wdiag, first_aggr, plan, _fallback(plan))
     if b == "pallas":
         return hgnn_aggregate_fused_dense(hgd, x, wdiag, first_aggr, plan)
     if b in _STAGE_ROUTES:
@@ -174,9 +305,21 @@ def unignn_aggregate(
 ):
     """Fused UniGNN aggregation: ``H Hᵀ X``, or ``diag(degV)·H·diag(degE)·Hᵀ·X``
     with ``use_deg`` (``fused.py:378-472``)."""
-    b = _resolve(backend, plan)
+    b = resolve_backend(backend, plan, nnz=int(hgd.h_edge.shape[0]))
     if b == "xla":
         return refops.unignn_aggregate_ref(hgd, x, use_deg)
+    if b == "cumsum":
+        xe = _cumsum_v2e(hgd, x, "sum")
+        if use_deg:
+            xe = xe * hgd.degE
+        xv = _cumsum_e2v(hgd, xe)
+        return xv * hgd.degV if use_deg else xv
+    if b == "precomp":
+        pre = _precomp_table(plan)
+        if use_deg and pre is not None:
+            # the degree-scaled UniGNN propagation is HGNN's A
+            return precomp_matvec(pre.device(x.device), x)
+        return unignn_aggregate(hgd, x, use_deg, plan, _fallback(plan))
     if b == "pallas":
         return unignn_aggregate_fused_dense(hgd, x, use_deg, plan)
     if b in _STAGE_ROUTES:

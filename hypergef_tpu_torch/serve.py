@@ -5,7 +5,7 @@ the node features ``x``; the model, its weights, the graph and its plan
 are the deployment (``serve.py:50-77``). :class:`ServingModel` holds them on
 one device and answers ``predict`` (``:192-205``) under
 ``torch.inference_mode()``. Artifact export and load (``:50-163``) come
-later (ROADMAP.md queue 1, item 9).
+later (ROADMAP.md queue 1, "Serving export and checkpoints").
 """
 
 from __future__ import annotations
@@ -28,12 +28,14 @@ class ServingModel:
     :func:`hypergef_tpu_torch.models.convert.params_from_flax`); without it
     the weights are drawn from ``cfg.seed``. ``cfg.model`` is HGNN, UniGIN
     or UniGCNII. Without a ``plan``, a route gets the Trainer's default
-    (:func:`~hypergef_tpu_torch.train.trainer.default_plan`): the int8
-    table for ``dense`` and ``pallas``, the tree for ``tree``, the bit packs
-    for ``bitstream`` (each with the tree for max first aggregation) and
-    the plain-form ``plan_aligned(hg)`` for ``aligned``; pass a
-    ``pallas_*`` form plan to run the band and argmax kernels, and
-    ``pallas_sparse`` its plan. A plan's tables go to ``device`` here.
+    (:func:`~hypergef_tpu_torch.train.trainer.default_plan`): the ladder's
+    plan on ``device`` for ``auto`` (the default), ``precomp`` and None (on
+    the card its aligned plan runs the band kernel), none for ``cumsum``,
+    the int8 table for ``dense`` and ``pallas``, the tree for ``tree``, the
+    bit packs for ``bitstream`` (each with the tree for max first
+    aggregation) and the plain-form ``plan_aligned(hg)`` for ``aligned``;
+    pass a ``pallas_*`` form plan to run the band and argmax kernels there,
+    and ``pallas_sparse`` its plan. A plan's tables go to ``device`` here.
     """
 
     def __init__(

@@ -18,10 +18,13 @@ Semantics (those of the reference, ``HyperGsys/hypergraph.py``):
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from hypergef_tpu_torch.ops.segment_sum import SegmentTable
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +47,18 @@ class HypergraphData:
     degE: torch.Tensor  # [E, 1] f32
     num_nodes: int = 0
     num_edges: int = 0
+
+    # The same two CSRs as tables of the segment-sum kernel (the cumsum
+    # route), built on first use over the int64 tensors above plus their
+    # int32 copies: V→E gathers vertices per hyperedge, E→V hyperedges per
+    # vertex; each is the other's adjoint.
+    @functools.cached_property
+    def v2e(self) -> SegmentTable:
+        return SegmentTable.from_long(self.ht_indptr, self.ht_vertex, self.num_nodes)
+
+    @functools.cached_property
+    def e2v(self) -> SegmentTable:
+        return SegmentTable.from_long(self.h_indptr, self.h_edge, self.num_edges)
 
 
 @dataclasses.dataclass

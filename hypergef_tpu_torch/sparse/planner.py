@@ -12,14 +12,18 @@ code, so every host table is bit-identical to the JAX package's:
 * the aligned host layer (``:1010-1329``, ``:1405-1761``): the uniform
   :class:`AlignedStage` and bucketed :class:`AlignedStageB`, their builders
   and :func:`plan_aligned`, with the JAX planner's bucket-merge cost model;
-* the int8 :class:`DenseIncidence` (``:433-515``);
+* the int8 :class:`DenseIncidence` (``:433-515``) and the bf16
+  propagation matrix :class:`DensePrecomp` (``:609-635``);
 * an :class:`AggregationPlan` (``:540-557``) with the ``dense``, ``tree``,
-  ``pallas_sparse``, ``aligned`` and ``bitstream`` plans (the bit packs
-  live beside their kernel, in :mod:`hypergef_tpu_torch.ops.bitstream`).
+  ``pallas_sparse``, ``aligned``, ``bitstream`` and ``precomp`` plans (the
+  bit packs live beside their kernel, in
+  :mod:`hypergef_tpu_torch.ops.bitstream`) and ``preferred_backend``;
+* the routing ladder :func:`plan_aggregation` (``:638-782``) with its
+  constants (``:560-606``).
 
-The other plan forms (tiled, multihot, precomp), the v5e floor
-model ``aligned_stage_floor``/``aligned_plan_floor`` and the routing ladder
-``plan_aggregation`` (``:638-782``) are not ported yet (ROADMAP.md).
+The tiled, BSR and multihot plan forms are left out (ROADMAP.md, "Do not
+port"); the v5e floor model ``aligned_stage_floor``/``aligned_plan_floor``
+is not ported yet (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -1115,15 +1119,75 @@ class DenseIncidence:
         return cls(h=h, num_nodes=hg.num_nodes, num_edges=hg.num_edges)
 
 
+# The routing ladder's constants, with the JAX package's values
+# (``:560-606``). They were measured on a TPU v5e and are carried verbatim so
+# that both packages send a graph down the same route; pricing them for the
+# card waits for the bench (ROADMAP.md queue 1).
+DENSE_AUTO_THRESHOLD = 32_000_000  # N·E at or below which the dense route wins
+# unstructured graphs past the small-dense gate stream the int8 table while
+# N·E < 2000·nnz and N·E stays under the table cap
+DENSE_STREAM_VS_GATHER = 2000
+DENSE_STREAM_MAX_ENTRIES = 800_000_000
+# the bit packs extend the dense stream 8× past the int8 cap
+BITSTREAM_MAX_ENTRIES = 8 * DENSE_STREAM_MAX_ENTRIES
+# nnz at or below which cumsum takes an unstructured graph from the tree
+CUMSUM_PREFER_NNZ = 1 << 17
+# N² at or below which the propagation matrix A is built (bf16)
+PRECOMP_MAX_ENTRIES = 80_000_000
+
+
+@dataclasses.dataclass
+class DensePrecomp:
+    """The propagation matrix ``A = diag(degV)·H·diag(degE)·Hᵀ`` in bf16
+    (``:609-635``): with sum first aggregation and no ``wdiag``, a whole
+    HGNN aggregation is one product ``A·x``.
+
+    Built from the CSR (a sparse product on the host, in f32, then rounded
+    to bf16), not from a dense f32 copy of H as the JAX package builds it
+    (``:631``): near the cap that copy is larger than A. ``a`` lives on the
+    device it was built for; :meth:`device` puts a copy on another one,
+    once.
+    """
+
+    a: torch.Tensor  # bf16 [N, N]
+    num_nodes: int
+    _device: Dict[torch.device, torch.Tensor] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
+
+    @classmethod
+    def from_hypergraph(cls, hg, device) -> "DensePrecomp":
+        h = hg.to_scipy()  # f32 CSR [N, E] of ones
+        left = h.multiply(hg.degV).tocsr()  # degV[v] at (v, e)
+        right = h.multiply(hg.degE.T).T.tocsr()  # degE[e] at (e, v)
+        a = (left @ right).astype(np.float32).toarray()
+        return cls(a=torch.as_tensor(a).to(torch.bfloat16).to(device),
+                   num_nodes=hg.num_nodes)
+
+    def device(self, device) -> torch.Tensor:
+        """``a`` on ``device``."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if device == self.a.device:
+            return self.a
+        if device not in self._device:
+            self._device[device] = self.a.to(device)
+        return self._device[device]
+
+
 @dataclasses.dataclass
 class AggregationPlan:
-    """Everything the route dispatcher needs, built once per graph.
+    """Everything the route dispatcher needs, built once per graph
+    (``:540-557``).
 
     ``dense`` serves the ``dense`` and ``pallas`` routes, ``tree`` the
-    ``tree`` route, ``pallas_sparse``, ``aligned`` and ``bitstream`` the
-    routes of those names. Unlike the JAX package's, it needs no ``tree``
-    for the ``aligned`` route; like it, it needs one for max first
-    aggregation on ``dense``, ``pallas`` and ``bitstream``.
+    ``tree`` route, ``precomp``, ``pallas_sparse``, ``aligned`` and
+    ``bitstream`` the routes of those names, and ``preferred_backend`` is
+    the route ``backend="auto"`` takes. Unlike the JAX package's, it needs
+    no ``tree`` for the ``aligned`` route; like it, it needs one for max
+    first aggregation on ``dense``, ``pallas``, ``bitstream`` and
+    ``cumsum``. The JAX package's ``tile``, ``bsr`` and ``multihot`` forms
+    are not ported (ROADMAP.md, "Do not port").
     """
 
     dense: Optional[DenseIncidence] = None
@@ -1131,7 +1195,95 @@ class AggregationPlan:
     pallas_sparse: Optional[TreePlan] = None  # pallas-level-0 TreePlan
     aligned: Optional[TreePlan] = None  # plan_aligned's TreePlan, plain or kernel form
     bitstream: Optional["BitIncidence"] = None  # the bit-packed H and Hᵀ
+    precomp: Optional[DensePrecomp] = None
+    preferred_backend: str = "tree"
 
     @classmethod
     def dense_plan(cls, hg, device) -> "AggregationPlan":
         return cls(dense=DenseIncidence.from_hypergraph(hg, device))
+
+
+def plan_aggregation(
+    hg,
+    device="cpu",
+    dense_threshold: int = DENSE_AUTO_THRESHOLD,
+    with_tile: bool = False,
+    with_bsr: Optional[bool] = None,
+    with_precomp: bool = True,
+    with_multihot: Optional[bool] = None,
+    with_aligned: bool = True,
+    ngs: Optional[int] = None,
+    fan: int = 8,
+) -> AggregationPlan:
+    """The routing ladder (``:638-782``), branch for branch in JAX's order:
+
+    * ``precomp`` when N² ≤ ``PRECOMP_MAX_ENTRIES`` and N ≤ 2E;
+    * ``dense`` when N·E ≤ ``dense_threshold``;
+    * ``aligned`` when the graph is community-sorted (``plan_aligned``,
+      then with ``window_blocks=32`` when the aspect ratio is ≥ 4);
+    * ``dense`` again for an unstructured graph with N·E under the int8 cap
+      and below ``DENSE_STREAM_VS_GATHER``·nnz;
+    * ``bitstream`` past that cap, up to ``BITSTREAM_MAX_ENTRIES``;
+    * ``cumsum`` when nnz ≤ ``CUMSUM_PREFER_NNZ``;
+    * ``tree`` otherwise.
+
+    The tables go to ``device`` (the int8 table and A here, the stage plans
+    and packs at their first use). The plan always holds the plain-form
+    tree, which max first aggregation reads. On a CUDA device the aligned
+    plan takes the kernel form (``form="pallas_auto"``, the band kernel);
+    the route's name stays ``aligned``. The tiled, BSR and multihot forms
+    are not ported: asking for one raises ``NotImplementedError``; the JAX
+    ladder builds multihot by default but never prefers it.
+    """
+    for name, flag in (("with_tile", with_tile), ("with_bsr", with_bsr),
+                       ("with_multihot", with_multihot)):
+        if flag:
+            raise NotImplementedError(
+                f"{name}=True asks for a plan form the port leaves out (ROADMAP.md, "
+                "'Do not port')")
+    device = torch.device(device)
+    n, e, nnz = hg.num_nodes, hg.num_edges, hg.nnz
+    tree = plan_tree(hg, ngs=ngs, fan=fan)
+    dense = precomp = aligned = bitstream = None
+    preferred = "tree"
+    if with_precomp and n * n <= PRECOMP_MAX_ENTRIES:
+        precomp = DensePrecomp.from_hypergraph(hg, device)
+    if n * e <= dense_threshold:
+        dense = DenseIncidence.from_hypergraph(hg, device)
+        preferred = "dense"
+    if precomp is not None and n <= 2 * e:
+        # one product with A reads N² bf16 against the dense route's two
+        # reads of H (2·N·E): it wins for N ≲ 2E
+        preferred = "precomp"
+    if with_aligned and dense is None and preferred == "tree":
+        try:
+            aligned = plan_aligned(hg)
+            preferred = "aligned"
+        except (ValueError, MemoryError):
+            aligned = None  # not community-sorted at the default window
+        if aligned is None and max(e, n) / max(1, min(e, n)) >= 4:
+            # a community spans many blocks of the larger side: a wider cap
+            try:
+                aligned = plan_aligned(hg, window_blocks=32)
+                preferred = "aligned"
+            except (ValueError, MemoryError):
+                aligned = None
+    stream = dense is None and dense_threshold > 0 and preferred == "tree" and (
+        n * e < DENSE_STREAM_VS_GATHER * max(nnz, 1))
+    if stream and n * e <= DENSE_STREAM_MAX_ENTRIES:
+        dense = DenseIncidence.from_hypergraph(hg, device)
+        preferred = "dense"
+    elif stream and n * e <= BITSTREAM_MAX_ENTRIES:
+        from hypergef_tpu_torch.ops.bitstream import BitIncidence
+
+        try:
+            bitstream = BitIncidence.from_hypergraph(hg)
+            preferred = "bitstream"
+        except ValueError:
+            bitstream = None  # not a 0/1 incidence
+    if preferred == "tree" and nnz <= CUMSUM_PREFER_NNZ:
+        preferred = "cumsum"
+    if aligned is not None and device.type == "cuda":
+        aligned = dataclasses.replace(aligned, form="pallas_auto")
+    return AggregationPlan(dense=dense, tree=tree, aligned=aligned, bitstream=bitstream,
+                           precomp=precomp, preferred_backend=preferred)

@@ -28,7 +28,9 @@ from torch.nn import functional as F
 from hypergef_tpu_torch.models.zoo import build_model
 from hypergef_tpu_torch.ops import fused
 from hypergef_tpu_torch.ops.bitstream import BitIncidence
-from hypergef_tpu_torch.sparse.planner import AggregationPlan, TreePlan, plan_aligned, plan_tree
+from hypergef_tpu_torch.sparse.planner import (
+    AggregationPlan, DensePrecomp, TreePlan, plan_aggregation, plan_aligned, plan_tree,
+)
 from hypergef_tpu_torch.train.splits import accuracy
 from hypergef_tpu_torch.utils.timing import Window
 
@@ -36,10 +38,12 @@ from hypergef_tpu_torch.utils.timing import Window
 @dataclasses.dataclass
 class TrainConfig:
     """The reference's argparse knobs (``hgsys.py:22-70``) plus route
-    options. ``model`` is HGNN, UniGIN or UniGCNII. ``backend="auto"``,
-    ``tune`` and ``plan_cache`` need modules that are not ported yet: name
-    a route (``xla``, ``dense``, ``pallas``, ``tree``, ``pallas_sparse``,
-    ``aligned`` or ``bitstream``)."""
+    options. ``model`` is HGNN, UniGIN or UniGCNII. ``backend="auto"`` (the
+    default) trains on the route the ladder picks
+    (:func:`~hypergef_tpu_torch.sparse.planner.plan_aggregation`); ``None``
+    takes the process-global default route (``cumsum``). ``tune`` and
+    ``plan_cache`` need modules that are not ported yet (ROADMAP.md queue 1,
+    "Autotune and the plan cache")."""
 
     model: str = "HGNN"
     nhid: int = 32
@@ -70,6 +74,10 @@ def make_optimizer(params, lr: float, wd: float) -> torch.optim.Adam:
 
 def default_plan(backend: Optional[str], hg, device, first_aggr: str = "sum"):
     """The plan the JAX Trainer builds for ``backend`` (``:88-99``): the
+    ladder's plan (:func:`plan_aggregation` on ``device``) for ``auto``,
+    ``precomp`` and None, as JAX builds it for every route but ``xla`` and
+    ``cumsum``; none for ``xla`` and ``cumsum`` (the tree for max on
+    ``cumsum``, where JAX would fall back to its oracle); the
     int8 table for ``dense``/``pallas`` (with ``first_aggr="max"`` also the
     tree, whose edge stage carries the record table, as JAX's
     ``plan_aggregation`` always holds one), the tree for ``tree``; for
@@ -81,6 +89,10 @@ def default_plan(backend: Optional[str], hg, device, first_aggr: str = "sum"):
     with the tree for max."""
     if backend == "xla":
         return None
+    if backend == "cumsum":
+        return AggregationPlan(tree=plan_tree(hg)) if first_aggr == "max" else None
+    if backend in (None, "auto", "precomp"):
+        return plan_aggregation(hg, device)
     if backend in ("dense", "pallas", "bitstream"):
         if backend == "bitstream":
             plan = AggregationPlan(bitstream=BitIncidence.from_hypergraph(hg))
@@ -97,20 +109,17 @@ def default_plan(backend: Optional[str], hg, device, first_aggr: str = "sum"):
         raise ValueError(
             "backend 'pallas_sparse' needs its plan: pass plan=plan_pallas_sparse(hg), "
             "as the JAX package's Trainer needs it too")
-    if backend in (None, "auto"):
-        raise NotImplementedError(
-            "backend 'auto' needs the routing ladder plan_aggregation, which is not "
-            "ported yet (ROADMAP.md queue 1, item 3): name a route")
-    fused._resolve(backend, None)  # raises for an unported or unknown route
+    fused.resolve_backend(backend, None)  # raises for a route left out or unknown
     raise AssertionError(backend)
 
 
 def device_plans(plan):
-    """The stage plans and bit packs of ``plan``, whose tables go to the
-    device when a Trainer or a server is built, not inside its first step."""
-    if isinstance(plan, (TreePlan, BitIncidence)):
+    """The stage plans, bit packs and propagation matrix of ``plan``, whose
+    tables go to the device when a Trainer or a server is built, not inside
+    its first step."""
+    if isinstance(plan, (TreePlan, BitIncidence, DensePrecomp)):
         return [plan]
-    fields = ("tree", "pallas_sparse", "aligned", "bitstream")
+    fields = ("tree", "pallas_sparse", "aligned", "bitstream", "precomp")
     return [p for p in (getattr(plan, f, None) for f in fields) if p is not None]
 
 
@@ -135,10 +144,12 @@ class Trainer:
                 "device='cpu'")
         if cfg.tune:
             raise NotImplementedError(
-                "tune (the measured autotune) is not ported yet (ROADMAP.md queue 1, item 7)")
+                "tune (the measured autotune) is not ported yet (ROADMAP.md queue 1, "
+                "'Autotune and the plan cache')")
         if cfg.plan_cache is not None:
             raise NotImplementedError(
-                "plan_cache is not ported yet (ROADMAP.md queue 1, item 7)")
+                "plan_cache is not ported yet (ROADMAP.md queue 1, 'Autotune and the plan "
+                "cache')")
         self.cfg = cfg
         self.hg = hg
         if plan is None:
@@ -231,11 +242,13 @@ class Trainer:
 
     def save(self, directory: str, step: int = 0, wait: bool = True) -> None:
         raise NotImplementedError(
-            "checkpointing is not ported yet (ROADMAP.md queue 1, item 9)")
+            "checkpointing is not ported yet (ROADMAP.md queue 1, 'Serving export and "
+            "checkpoints')")
 
     def restore(self, directory: str, step: Optional[int] = None) -> int:
         raise NotImplementedError(
-            "checkpointing is not ported yet (ROADMAP.md queue 1, item 9)")
+            "checkpointing is not ported yet (ROADMAP.md queue 1, 'Serving export and "
+            "checkpoints')")
 
 
 def train_full_batch(cfg: TrainConfig, hg, x, y, split_idx, nclass=None, plan=None, *,

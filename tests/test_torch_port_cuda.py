@@ -552,3 +552,220 @@ def test_chip_smoke_imports_and_reads_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     assert mod.card_line().split(",")[0].strip() == torch.cuda.get_device_name(0)
+
+
+# ---- the segment-sum kernel (cumsum route), precomp, the ladder ----------
+
+
+def _segment_csr(s, n, density, seed, identity=False):
+    """A CSR of ``s`` segments over rows of an [n, F] input, with every
+    fourth segment empty and one long one."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.poisson(density, size=s)
+    sizes[::4] = 0
+    if s > 2:
+        sizes[1] = 700
+    indptr = np.concatenate([[0], np.cumsum(sizes)])
+    if identity:
+        indptr = np.minimum(indptr, n)
+        return indptr, None
+    return indptr, rng.integers(0, n, size=int(indptr[-1])).astype(np.int32)
+
+
+@pytest.mark.parametrize("s,n,density", [(1, 5, 3.0), (300, 500, 6.0), (4100, 2000, 2.5)])
+@pytest.mark.parametrize("f", [1, 3, 4, 32, 33, 100])
+@pytest.mark.parametrize("identity", [False, True])
+def test_segment_sum_kernel_matches_plain(cuda, s, n, density, f, identity):
+    """rtol 1e-6, atol 1e-6·max|plain|: the same f32 terms, summed in CSR
+    order by the kernel and by segment_reduce's own order."""
+    from hypergef_tpu_torch.ops import segment_sum
+
+    indptr, gather = _segment_csr(s, n if not identity else 10**6, density, s + f, identity)
+    rows = max(n, int(indptr[-1])) if identity else n
+    table = segment_sum.SegmentTable.build(indptr, gather, rows, cuda)
+    x = torch.as_tensor(np.random.default_rng(f).normal(size=(rows, f)).astype(np.float32),
+                        device=cuda)
+    before = segment_sum.launches
+    got = segment_sum.gather_segment_sum(x, table)
+    again = segment_sum.gather_segment_sum(x, table)
+    torch.cuda.synchronize()
+    assert segment_sum.launches == before + 2
+    want = segment_sum.gather_segment_sum_plain(x, table)
+    assert got.shape == want.shape == (s, f)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * float(want.abs().max()))
+    assert torch.equal(got, again), "two runs differ"
+    empty = torch.as_tensor(np.diff(indptr) == 0, device=cuda)
+    assert not got[empty].any()
+
+
+def test_incidence_gather_sum_backward_is_the_transposed_csr(cuda):
+    from hypergef_tpu_torch.data.synthetic import random_hypergraph
+    from hypergef_tpu_torch.ops import segment_sum
+    from hypergef_tpu_torch.ops.segments import incidence_gather_sum
+
+    hg = random_hypergraph(3000, 1700, avg_edge_size=4.5, seed=3)
+    hgd = hg.device_data(cuda)
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.normal(size=(hg.num_nodes, 32)).astype(np.float32), device=cuda)
+    g = torch.as_tensor(rng.normal(size=(hg.num_edges, 32)).astype(np.float32), device=cuda)
+    xr = x.clone().requires_grad_(True)
+    before = segment_sum.launches
+    y = incidence_gather_sum(xr, hgd.v2e, hgd.e2v)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert segment_sum.launches == before + 2  # one forward, one backward
+    for got, want in ((y.detach(), segment_sum.gather_segment_sum_plain(x, hgd.v2e)),
+                      (xr.grad, segment_sum.gather_segment_sum_plain(g, hgd.e2v))):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("aggr", ["sum", "mean", "max"])
+def test_cumsum_route_runs_the_kernel_forward_and_backward(cuda, aggr):
+    """Sum and mean launch the kernel twice forward and twice backward;
+    max takes V→E from the tree and launches it once each way."""
+    from hypergef_tpu_torch.data.synthetic import random_hypergraph
+    from hypergef_tpu_torch.ops import segment_sum
+
+    hg = random_hypergraph(2000, 1500, avg_edge_size=4.0, seed=4)
+    plan = planner.AggregationPlan(tree=planner.plan_tree(hg)) if aggr == "max" else None
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(hg.num_nodes, 16)).astype(np.float32)
+    outs, grads = [], []
+    for dev in (cuda, torch.device("cpu")):
+        xt = torch.as_tensor(x, device=dev).requires_grad_(True)
+        before = segment_sum.launches
+        out = fused.hgnn_aggregate(hg.device_data(dev), xt, None, aggr, plan=plan,
+                                   backend="cumsum")
+        (out ** 2).sum().backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert segment_sum.launches - before == (2 if aggr == "max" else 4)
+        outs.append(out.detach().cpu())
+        grads.append(xt.grad.cpu())
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-5, atol=1e-5 * float(outs[1].abs().max()))
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5,
+                               atol=1e-5 * float(grads[1].abs().max()))
+
+
+def test_segment_sum_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from hypergef_tpu_torch.ops import segment_sum
+
+    indptr, gather = _segment_csr(50, 80, 3.0, 1)
+    table = segment_sum.SegmentTable.build(indptr, gather, 80, cuda)
+    cpu_table = segment_sum.SegmentTable.build(indptr, gather, 80, "cpu")
+    x = torch.ones((80, 4), device=cuda)
+    with pytest.raises(ValueError, match="table is on"):
+        segment_sum.gather_segment_sum(x, cpu_table)
+    with pytest.raises(TypeError):
+        segment_sum.gather_segment_sum(x.double(), table)
+    with pytest.raises(TypeError):
+        segment_sum.gather_segment_sum(x[:10], table)
+    with pytest.raises(ValueError, match="contiguous"):
+        segment_sum.gather_segment_sum(torch.ones((4, 80), device=cuda).t(), table)
+    with pytest.raises(RuntimeError, match="incidence_gather_sum"):
+        segment_sum.gather_segment_sum(x.requires_grad_(True), table)
+    with pytest.raises(ValueError, match=r"\[0, 80\)"):
+        segment_sum.SegmentTable.build(indptr, gather + 80, 80, cuda)
+
+
+def test_precomp_product_on_the_card_is_unrounded_f32(cuda):
+    """A·bf16(x) with an f32 result: within 1e-5 of the float64 product of
+    the same bf16 values (not rounded to bf16), and its gradient within the
+    same of bf16(Aᵀ·bf16(g))."""
+    from hypergef_tpu_torch.data.synthetic import random_hypergraph
+    from hypergef_tpu_torch.ops.fused_dense import bf16_round
+
+    hg = random_hypergraph(2708, 2708, avg_edge_size=4.0, seed=0)
+    pre = planner.DensePrecomp.from_hypergraph(hg, cuda)
+    rng = np.random.default_rng(7)
+    x = torch.as_tensor(rng.normal(size=(hg.num_nodes, 32)).astype(np.float32), device=cuda)
+    g = torch.as_tensor(rng.normal(size=(hg.num_nodes, 32)).astype(np.float32), device=cuda)
+    xr = x.clone().requires_grad_(True)
+    y = fused.precomp_matvec(pre.a, xr)
+    y.backward(g)
+    a = pre.a.double()
+    want = a @ bf16_round(x).double()
+    assert y.dtype == torch.float32
+    torch.testing.assert_close(y.double(), want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    assert not torch.equal(y, bf16_round(y))  # not rounded to bf16
+    want_dx = bf16_round((a.t() @ bf16_round(g).double()).float())
+    torch.testing.assert_close(xr.grad, want_dx, rtol=1e-2, atol=1e-2 * float(want_dx.abs().max()))
+
+
+def test_plan_aggregation_takes_the_aligned_kernel_form_on_the_card(cuda):
+    """Past the dense and precomp gates (closed here: the graph is small) a
+    community-sorted graph takes ``aligned``, in the kernel form on the card."""
+    hg, _ = community_reorder(community_hypergraph(2000, 1600, 25, 5, 0.02, 3))
+    gates = dict(dense_threshold=0, with_precomp=False)
+    plan = planner.plan_aggregation(hg, cuda, **gates)
+    assert plan.preferred_backend == "aligned" and plan.aligned.form == "pallas_auto"
+    assert plan.tree.form == "xla"
+    assert planner.plan_aggregation(hg, "cpu", **gates).aligned.form == "xla"
+    before = aligned_band.launches
+    x = torch.ones((hg.num_nodes, 8), device=cuda)
+    fused.hgnn_aggregate(hg.device_data(cuda), x, plan=plan, backend="auto")
+    torch.cuda.synchronize()
+    assert aligned_band.launches == before + 2
+
+
+# ---- the probe kernels ----------------------------------------------------
+
+
+@pytest.mark.parametrize("f", [1, 4, 32, 64, 128, 132])
+@pytest.mark.parametrize("n_buf", [0, 4, 8, 16])
+def test_row_gather_kernel_is_bitwise_plain(cuda, f, n_buf):
+    from hypergef_tpu_torch import probes
+
+    if n_buf and f % 4:
+        pytest.skip("the ring takes F % 4 == 0")
+    rng = np.random.default_rng(f + n_buf)
+    x = torch.as_tensor(rng.normal(size=(3000, f)).astype(np.float32), device=cuda)
+    idx = torch.as_tensor(rng.integers(0, 3000, size=5001).astype(np.int32), device=cuda)
+    before = probes.row_gather_launches
+    got = probes.row_gather(x, idx, n_buf)
+    torch.cuda.synchronize()
+    assert probes.row_gather_launches == before + 1
+    assert torch.equal(got, probes.row_gather_plain(x, idx))
+
+
+@pytest.mark.parametrize("ngs,f", [(2, 3), (8, 32), (8, 128), (5, 33)])
+def test_chunk_masked_sum_kernels_are_bitwise_plain(cuda, ngs, f):
+    from hypergef_tpu_torch import probes
+
+    rng = np.random.default_rng(ngs * f)
+    c, n = 1234, 900
+    g = torch.as_tensor(rng.normal(size=(c, ngs, f)).astype(np.float32), device=cuda)
+    mask = torch.as_tensor((rng.random((c, ngs)) > 0.2).astype(np.float32), device=cuda)
+    before = probes.chunk_sum_launches
+    assert torch.equal(probes.chunk_masked_sum(g, mask), probes.chunk_masked_sum_plain(g, mask))
+    if f % 4 == 0:
+        x = torch.as_tensor(rng.normal(size=(n, f)).astype(np.float32), device=cuda)
+        gidx = torch.as_tensor(rng.integers(0, n, size=(c, ngs)).astype(np.int32), device=cuda)
+        want = ell_gather.ell_gather_sum_plain(x, gidx.long(), mask)
+        for nb in probes.RING_DEPTHS:
+            assert torch.equal(probes.chunk_masked_sum_ring(x, gidx, mask, nb), want)
+    torch.cuda.synchronize()
+    assert probes.chunk_sum_launches == before + 1 + (3 if f % 4 == 0 else 0)
+
+
+@pytest.mark.parametrize("numel", [1, 7, 4096, 1_000_003])
+def test_scaled_copy_kernel_is_bitwise_plain(cuda, numel):
+    from hypergef_tpu_torch import probes
+
+    x = torch.as_tensor(np.random.default_rng(numel).normal(size=numel).astype(np.float32),
+                        device=cuda)
+    assert torch.equal(probes.scaled_copy(x, 2.0), x * 2.0)
+
+
+def test_probes_hold_against_their_oracles_on_the_card(cuda):
+    """Every probe of scripts/ at the scripts' shapes (probe_r2_gather's tiny
+    and pubmed scales), each row against the script's oracle."""
+    from hypergef_tpu_torch import probes
+
+    for name, fn in probes.PROBES.items():
+        kw = ({"scales": {k: probes.R2_SCALES[k] for k in ("tiny", "pubmed")}}
+              if name == "probe_r2_gather" else {})
+        rows = fn(cuda, **kw)
+        bad = [(r["case"], r["max_abs_err"]) for r in rows if not r["ok"]]
+        assert not bad, f"{name}: {bad}"
+        assert all(r["launches"] == 1 for r in rows), name

@@ -24,6 +24,7 @@ from hypergef_tpu.sparse.planner import plan_aggregation
 import hypergef_tpu_torch.data.synthetic as tsyn
 from hypergef_tpu_torch.ops import fused, fused_dense
 from hypergef_tpu_torch.sparse.planner import AggregationPlan
+from hypergef_tpu_torch.sparse.planner import plan_aggregation as plan_port
 
 from conftest import dense_hgnn_oracle
 
@@ -113,13 +114,23 @@ def test_plain_path_keeps_gradients():
     np.testing.assert_allclose(grads[0], grads[1], rtol=5e-2, atol=5e-2)
 
 
-@pytest.mark.parametrize("backend", list(fused.UNPORTED) + [None])
+@pytest.mark.parametrize("backend", ["auto", "cumsum", "ell", "bsr", "precomp", "multihot", None])
 def test_unported_routes_raise(backend):
+    """The JAX route names beyond the first seven: the three left out by
+    design raise; ``auto``, ``cumsum``, ``precomp`` and None, ported since,
+    run on the ladder's plan and agree with the xla route (``precomp`` at
+    the bf16 bar)."""
     _, thg, x, _ = _problem("small_f4", False)
-    plan = AggregationPlan.dense_plan(thg, "cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        fused.hgnn_aggregate(thg.device_data("cpu"), torch.as_tensor(x), None, "sum",
-                             plan=plan, backend=backend)
+    plan = plan_port(thg)
+    hgd, xt = thg.device_data("cpu"), torch.as_tensor(x)
+    if backend in fused.UNPORTED:
+        with pytest.raises(NotImplementedError, match="left out"):
+            fused.hgnn_aggregate(hgd, xt, None, "sum", plan=plan, backend=backend)
+        return
+    got = fused.hgnn_aggregate(hgd, xt, None, "sum", plan=plan, backend=backend).numpy()
+    want = fused.hgnn_aggregate(hgd, xt, None, "sum", backend="xla").numpy()
+    np.testing.assert_allclose(got, want, **(BF16_TOL if backend in ("auto", "precomp")
+                                             else F32_TOL))
 
 
 @pytest.mark.parametrize("backend", fused.ROUTES)

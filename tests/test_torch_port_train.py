@@ -196,8 +196,10 @@ def test_trainer_plans_and_unported_options():
     assert default_plan("tree", thg, "cpu").tree.form == "xla"
     with pytest.raises(ValueError, match="plan_pallas_sparse"):
         Trainer(TrainConfig(backend="pallas_sparse"), thg, x, y, device="cpu")
-    for cfg in (TrainConfig(backend="auto"), TrainConfig(backend="cumsum"),
-                TrainConfig(backend="tree", tune=True),
+    # auto takes the ladder's plan and cumsum none, as in JAX (trainer.py:88-99)
+    assert Trainer(TrainConfig(backend="auto"), thg, x, y, device="cpu").plan.preferred_backend
+    assert Trainer(TrainConfig(backend="cumsum"), thg, x, y, device="cpu").plan is None
+    for cfg in (TrainConfig(backend="tree", tune=True),
                 TrainConfig(backend="tree", plan_cache="")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(cfg, thg, x, y, device="cpu")

@@ -157,9 +157,12 @@ def test_unignn_aggregate_and_gradient_match_jax(route, use_deg):
 def test_unignn_aggregate_refusals():
     _, thg = _graphs()
     hgd, x = thg.device_data("cpu"), torch.as_tensor(_inputs()[0])
-    for backend in fused.UNPORTED + (None,):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    for backend in fused.UNPORTED:
+        with pytest.raises(NotImplementedError, match="left out"):
             fused.unignn_aggregate(hgd, x, plan=_port_plan("dense"), backend=backend)
+    # None takes the default route, cumsum, which needs no plan
+    assert torch.equal(fused.unignn_aggregate(hgd, x),
+                       fused.unignn_aggregate(hgd, x, backend="cumsum"))
     with pytest.raises(ValueError, match="backend must be"):
         fused.unignn_aggregate(hgd, x, backend="no_such_route")
     with pytest.raises(ValueError, match="requires a plan"):
