@@ -40,7 +40,8 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    leg does (generator, shuffle, ``community_reorder(method="coarsen")``)
    and its ``plan_aligned`` plan. Hold the band kernel (``aligned_band``)
    against its plain twin on both stages at F = 32, 4 and 3, on the
-   uniform-form plan of the same graph and on a small single-bucket plan:
+   uniform-form plan of the same graph and on a small single-bucket plan, and
+   at F = 100 (two passes of the kernel's 64 features) on the SBM-60k plan:
    rtol 1e-5, atol 1e-5·max|plain|; two runs bitwise equal; one launch per
    stage apply.
 10. Serve five HGNN requests on SBM-60k (2 layers, nhid 32, 100 features,
@@ -52,8 +53,8 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    losses within rtol 1e-3.
 12. Time, with CUDA events, median of 20 windows: the SBM-60k training
    epoch on the aligned kernel form, the aligned plain form and
-   ``pallas_sparse``; the band kernel vs its plain twin per stage at
-   F = 32.
+   ``pallas_sparse``; the band kernel vs its plain twin vs one
+   ``torch.sparse.mm`` per stage at F = 32.
 13. On phase 9's plans: hold the masked argmax kernel against its plain
    twin on both stages of the SBM-60k plan at F = 32, 4 and 3, with
    tie-heavy inputs (integers in [-2, 2]) at F = 32, and on the uniform
@@ -145,16 +146,25 @@ never calls it). The ``kernels`` line gives, for each kernel, its launches
 on the main paths, its largest error against its plain version, its time,
 the plain version's and the library call's (null where no single PyTorch
 call computes the same function), and its bound: the larger of its bytes
-over the card's memory rate and its operations over its f32 rate.
+over the card's memory rate and its operations over the rate of the unit
+that does them (the f32 rate; the bf16 tensor-core rate for the band
+kernel's dense tile products).
 
 Every ``pl.pallas_call`` of the repo appears in one kernel's ``replaces``
 or ``also_replaces`` (``KERNEL_SITES``). The last line is ``{"ok": true,
 "device": {...}}``. Needs one card (an H100: the kernels are built for
 sm_90a) and imports nothing of JAX.
+
+    python3 chip_smoke.py --profile
+
+times the band kernel beside its ablations (``BAND_ABLATIONS``) on
+SBM-60k, then profiles training steps (``profile_band``,
+``profile_steps``); it checks no result and prints no ``ok`` line.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import json
@@ -246,15 +256,18 @@ def check(cond: bool, what: str) -> None:
 
 # the least time the card could take for a function: the larger of its
 # bytes (each input read once, each output written once) over the H100 SXM's
-# memory rate and its operations over the f32 rate outside the tensor cores,
-# where every port kernel does its arithmetic (NVIDIA's data sheet, 700 W)
+# memory rate and its operations over the rate of the unit that does them:
+# the f32 rate outside the tensor cores, where every port kernel but the
+# band kernel does its arithmetic, or the dense bf16 tensor-core rate, where
+# the band kernel does its tile products (NVIDIA's data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
 
 
-def bound(nbytes: int, ops: int) -> dict:
+def bound(nbytes: int, ops: int, ops_per_s: float = F32_OPS_PER_S) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": int(nbytes), "ops": int(ops)}
@@ -281,6 +294,12 @@ def stage_live(stage) -> int:
     """Non-zero entries of a stage's band and spill tables."""
     t = stage.band
     return int((t.band != 0).sum()) + int((t.spill != 0).sum())
+
+
+def stage_dense(stage) -> int:
+    """Entries of a stage's band tiles, zeros included: what the band
+    kernel's tensor-core products multiply."""
+    return stage.band.tiles.numel()
 
 
 def make_graph(name: str):
@@ -750,8 +769,12 @@ def time_band(stage, f: int, device, csr) -> dict:
            "plain": lambda: aligned_band.aligned_band_plain(x, stage),
            "library": lambda: torch.sparse.mm(csr, xb)}
     out = time_turns(fns, ("plain", "kernel", "library", "library", "kernel", "plain"))
+    # the kernel multiplies whole tiles on the tensor cores; beside it, the
+    # time of the same function's operations on the f32 pipes, a multiply-add
+    # a feature for each non-zero count only
     out.update(bound(stage_table_bytes(stage) + nbytes(x) + stage.num_segments * f * 4,
-                     2 * stage_live(stage) * f))
+                     2 * stage_dense(stage) * f, BF16_TC_OPS_PER_S))
+    out["live_f32_ops_ms"] = 2 * stage_live(stage) * f / F32_OPS_PER_S * 1e3
     return out
 
 
@@ -791,6 +814,9 @@ def aligned_phases(device, card: str) -> dict:
     for seed, (stage, f) in enumerate([(s, f) for s in ("edge", "vertex") for f in (32, 4, 3)]):
         bands.append({"plan": "sbm60k", "stage": stage,
                       **check_band(sbm_stages[stage], f, 20 + seed, device)})
+    for seed, stage in enumerate(("edge", "vertex")):  # F past one 64-feature pass
+        bands.append({"plan": "sbm60k", "stage": stage,
+                      **check_band(sbm_stages[stage], 100, 60 + seed, device)})
     for name, p in extra.items():
         for stage, st in zip(("edge", "vertex"), p.device(device)):
             bands.append({"plan": name, "stage": stage, "layout": type(st).__name__,
@@ -1484,6 +1510,23 @@ def time_probe_kernels(device) -> dict:
     return out
 
 
+def r2_chunk_sum_bounds() -> dict:
+    """The bound of probe_r2_gather's chunk sums (its ELL stage, on the gather
+    kernel or through the ring) at each of its scales, from the probe's own
+    tables (``probes.probe_r2_gather``'s draw): the distinct x rows the gather
+    names (masked slots too: a 0 times Inf is NaN), the index and mask tables
+    and the output, each moved once; a multiply-add a slot and feature."""
+    from hypergef_tpu_torch import probes
+
+    out = {}
+    for scale, (n, nnz, f) in probes.R2_SCALES.items():
+        c = nnz // probes.NGS
+        gidx = np.random.default_rng(0).integers(0, n, size=(c, probes.NGS)).astype(np.int32)
+        rows = int(np.unique(gidx).size)
+        out[scale] = bound(rows * f * 4 + 2 * gidx.size * 4 + c * f * 4, 2 * gidx.size * f)
+    return out
+
+
 def probe_phase(device, card: str) -> dict:
     """Phase 25: every probe of scripts/ at its script's shapes, each case
     against the script's oracle and timed against a library call; the
@@ -1501,11 +1544,87 @@ def probe_phase(device, card: str) -> dict:
     for r in rows:
         launches[r["kernel"]] = launches.get(r["kernel"], 0) + r["launches"]
     times = time_probe_kernels(device)
+    times["r2 chunk sum bounds"] = r2_chunk_sum_bounds()
     print(f"phase 25 probes (ms, CUDA events behind a queued sleep, median of 20; card {card}): "
           + json.dumps([{k: r[k] for k in ("probe", "case", "kernel", "ok", "max_abs_err", "ms",
                                            "library_ms")} for r in rows]), flush=True)
     print(f"phase 25 probe kernels vs plain vs library: {json.dumps(times)}", flush=True)
     return {"rows": rows, "launches": launches, "times": times}
+
+
+# ``--profile``'s variants of the band kernel: csrc/aligned_band.cu without
+# its tensor-core products, or without rounding x to bf16 into the
+# transposed tile (wrong results: each times the rest of the slab loop).
+# Each substitution must apply exactly once; tests/test_torch_port_aligned.py
+# checks that it does on the CPU
+BAND_ABLATIONS = {
+    "no products": [("      if (active) {\n", "      if (false) {\n")],
+    "no rounding": [("      if (i + 1 < count)\n        to_bf16_tile(",
+                     "      if (false)\n        to_bf16_tile(")],
+}
+
+
+def band_ablation_source(name: str, source: str) -> str:
+    """The band kernel's ``source`` with ablation ``name`` applied."""
+    for old, new in BAND_ABLATIONS[name]:
+        if source.count(old) != 1:
+            raise ValueError(f"{name}: {old!r} is not in the band kernel's source once")
+        source = source.replace(old, new)
+    return source
+
+
+def build_band_ablations() -> dict:
+    """Compile every ablation of the band kernel into a library of its own
+    under build/ablations/, all at once: ``{name: CDLL}``."""
+    from hypergef_tpu_torch.ops import _build
+
+    out = _build.BUILD_DIR.parent / "ablations"
+    out.mkdir(parents=True, exist_ok=True)
+    source = (_build.CSRC / "aligned_band.cu").read_text()
+    procs = {}
+    for i, name in enumerate(BAND_ABLATIONS):
+        cu = out / f"aligned_band_{i}.cu"
+        cu.write_text(band_ablation_source(name, source))
+        procs[name] = (cu.with_suffix(".so"), subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(cu.with_suffix(".so")),
+             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        log = proc.communicate()[0]
+        check(proc.returncode == 0, f"the band kernel's ablation {name!r} builds:\n{log[-2000:]}")
+        libs[name] = _build.typed(ctypes.CDLL(str(so)))
+    return libs
+
+
+def profile_band(device) -> None:
+    """``--profile``: the band kernel on both SBM-60k stages at F = 32, in
+    turns with its ablations (``BAND_ABLATIONS``), with itself over work
+    items that cut no group, and with one ``torch.sparse.mm`` of the
+    stage's CSR matrix (CUDA events behind a queued sleep, median of 20)."""
+    from hypergef_tpu_torch.ops import aligned_band
+    from hypergef_tpu_torch.ops.fused_dense import bf16_round
+
+    libs = {"kernel": aligned_band._library(), **build_band_ablations()}
+    sbm, plan, _ = build_sbm60k()
+    stages = zip(("edge", "vertex"), dataclasses.replace(plan, form="pallas_auto").device(device))
+    for name, st in stages:
+        t = st.band
+        d = t.groups.cpu().numpy()
+        whole, _ = aligned_band.band_work(d[:, aligned_band._WIDTH], d[:, aligned_band._SW],
+                                          t.block_rows, t.group_rows, ctas=0)
+        whole = torch.as_tensor(whole, device=device)
+        x = torch.as_tensor(np.random.default_rng(12).normal(size=(st.num_inputs, 32))
+                            .astype(np.float32), device=device)
+        xb, csr = bf16_round(x), incidence_csr(sbm, name, device)
+        fns = {k: functools.partial(aligned_band.launch_band, lib, x, t, t.work, t.slots)
+               for k, lib in libs.items()}
+        fns["kernel, whole groups"] = functools.partial(
+            aligned_band.launch_band, libs["kernel"], x, t, whole, 0)
+        fns["library"] = lambda: torch.sparse.mm(csr, xb)
+        times = time_turns(fns, list(fns) + list(fns)[::-1])
+        print(f"profile band {name} F=32 ({t.num_groups} groups, {t.work.shape[0]} work items, "
+              f"{t.slots} cut; ms, CUDA events behind a queued sleep, median of 20): "
+              + json.dumps(times), flush=True)
 
 
 def profile_steps(device, steps: int = 10) -> None:
@@ -1584,6 +1703,7 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--profile"]:
         print(f"card: {card_line()}", flush=True)
+        profile_band(torch.device("cuda", 0))
         profile_steps(torch.device("cuda", 0))
         return 0
     from hypergef_tpu_torch.ops import _build
@@ -1735,6 +1855,7 @@ def main() -> int:
         "vertex_ms": aligned["band_times"]["vertex F=32"]["kernel"],
         "vertex_plain_ms": aligned["band_times"]["vertex F=32"]["plain"],
         "vertex_library_ms": aligned["band_times"]["vertex F=32"]["library"],
+        "vertex_bound_ms": aligned["band_times"]["vertex F=32"]["bound_ms"],
     }, {
         "name": "aligned_masked_argmax",
         "route": "cuda",

@@ -32,7 +32,11 @@
 // The order is fixed (K tile, then word slot q of the lanes' 16-byte loads,
 // then lane, then bit), there are no atomics, and each row is written once
 // by its warp: two runs are bitwise equal. A dense unpack into tensor-core
-// tiles would only pay where rows are dense.
+// tiles would only pay where rows are dense. Two redesigns measured slower
+// on the H100 (PERF.md, PR 7): a TMA stream of word chunks into shared
+// memory with the set bits listed, and rings of words and x rows in
+// registers. They held more registers a thread than this walk, whose 64
+// warps an SM hide more latency than their deeper queues did.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -94,43 +94,55 @@ def build() -> Path:
     return lib
 
 
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# the argument types of each entry of the library
+ENTRIES = {
+    # h, x, scale_e, scale_v, out, partial, xe; n, e, f, fc, splits; stream
+    "hg_fused_dense_two_stage": [_PTR] * 7 + [_INT] * 5 + [_PTR],
+    # h, x, partial, out; n, e, f, fc, splits; stream
+    "hg_dense_v2e": [_PTR] * 4 + [_INT] * 5 + [_PTR],
+    # x, gidx, mask, out; c, ngs, f, lanes; stream
+    "hg_ell_gather_sum": [_PTR] * 4 + [_INT] * 4 + [_PTR],
+    # x, tiles, tile_off, win, src, groups, work, counters, scratch, out; n_items,
+    # slots, g, b, n, s, f; stream
+    "hg_aligned_band": [_PTR] * 10 + [_INT] * 7 + [_PTR],
+    # out: int[3]
+    "hg_aligned_band_layout": [_PTR],
+    # x, band, win, spill, src, groups, val, arg; n_groups, g, b, n, s, f; stream
+    "hg_aligned_masked_argmax": [_PTR] * 8 + [_INT] * 6 + [_PTR],
+    # g, arg, band, win, spill, src, groups, out; n_groups, g, b, n, s, f; stream
+    "hg_aligned_masked_argsum": [_PTR] * 8 + [_INT] * 6 + [_PTR],
+    # words, x, out; m, kt_count, k, f; stream
+    "hg_bitmm": [_PTR] * 3 + [_INT] * 4 + [_PTR],
+    # x, gather (or null), indptr, out; s, f, lanes; stream
+    "hg_gather_segment_sum": [_PTR] * 4 + [_INT] * 3 + [_PTR],
+    # x, idx, out; r, f, n_buf (0: direct), rows_per_warp; stream
+    "hg_row_gather": [_PTR] * 3 + [_INT] * 4 + [_PTR],
+    # src, gidx (or null: src is gathered [C, ngs, F]), mask, out; c, ngs, f, n_buf,
+    # lanes, chunks_per_warp; stream
+    "hg_chunk_masked_sum": [_PTR] * 4 + [_INT] * 6 + [_PTR],
+    # x, out; count (floats), scale; stream
+    "hg_scaled_copy": [_PTR] * 2 + [ctypes.c_longlong, ctypes.c_float, _PTR],
+}
+
+
+def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the argument types of those of its entries in ``ENTRIES``."""
+    for name, argtypes in ENTRIES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _INT
+    if hasattr(lib, "hg_error_string"):
+        lib.hg_error_string.argtypes = [_INT]
+        lib.hg_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with typed entries."""
-    lib = ctypes.CDLL(str(build()))
-    ptr, cint = ctypes.c_void_p, ctypes.c_int
-    entries = {
-        # h, x, scale_e, scale_v, out, partial, xe; n, e, f, fc, splits; stream
-        "hg_fused_dense_two_stage": [ptr] * 7 + [cint] * 5 + [ptr],
-        # h, x, partial, out; n, e, f, fc, splits; stream
-        "hg_dense_v2e": [ptr] * 4 + [cint] * 5 + [ptr],
-        # x, gidx, mask, out; c, ngs, f, lanes; stream
-        "hg_ell_gather_sum": [ptr] * 4 + [cint] * 4 + [ptr],
-        # x, band, win, spill, src, groups, out; n_groups, g, b, n, s, f; stream
-        "hg_aligned_band": [ptr] * 7 + [cint] * 6 + [ptr],
-        # x, band, win, spill, src, groups, val, arg; n_groups, g, b, n, s, f; stream
-        "hg_aligned_masked_argmax": [ptr] * 8 + [cint] * 6 + [ptr],
-        # g, arg, band, win, spill, src, groups, out; n_groups, g, b, n, s, f; stream
-        "hg_aligned_masked_argsum": [ptr] * 8 + [cint] * 6 + [ptr],
-        # words, x, out; m, kt_count, k, f; stream
-        "hg_bitmm": [ptr] * 3 + [cint] * 4 + [ptr],
-        # x, gather (or null), indptr, out; s, f, lanes; stream
-        "hg_gather_segment_sum": [ptr] * 4 + [cint] * 3 + [ptr],
-        # x, idx, out; r, f, n_buf (0: direct), rows_per_warp; stream
-        "hg_row_gather": [ptr] * 3 + [cint] * 4 + [ptr],
-        # src, gidx (or null: src is gathered [C, ngs, F]), mask, out; c, ngs, f, n_buf,
-        # lanes, chunks_per_warp; stream
-        "hg_chunk_masked_sum": [ptr] * 4 + [cint] * 6 + [ptr],
-        # x, out; count (floats), scale; stream
-        "hg_scaled_copy": [ptr] * 2 + [ctypes.c_longlong, ctypes.c_float, ptr],
-    }
-    for name, argtypes in entries.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = cint
-    lib.hg_error_string.argtypes = [cint]
-    lib.hg_error_string.restype = ctypes.c_char_p
-    return lib
+    return typed(ctypes.CDLL(str(build())))
 
 
 def build_log() -> str:

@@ -27,11 +27,20 @@ sums, in two forms:
 A :class:`BandTable` holds one stage's kernel tables on one device, built
 and checked once when a plan is put on the device, so a call checks only
 ``x``. ``launches`` counts the kernel's launches.
+
+The band kernel streams each group's band and spill tables as tiles: a
+tile is one slab of ``SLAB`` band columns for all G rows of the group,
+``[G, SLAB]`` int8, contiguous, so one bulk copy brings it into shared
+memory. :func:`band_tiles` lays them out from the flat tables, only for a
+table on a CUDA device (:meth:`BandTable.with_kernel_layout`).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -43,6 +52,91 @@ launches = 0
 _INT32_MAX = 2**31 - 1
 # columns of BandTable.groups, one row per output group
 _BAND_OFF, _WIN_OFF, _WIDTH, _SPILL_OFF, _SRC_OFF, _SW = range(6)
+# the kernel's layout (kSlab, kRowsPerCta, kCtasPerSm in csrc/aligned_band.cu,
+# checked against the built kernel before its first launch)
+SLAB = 64  # band columns a tile holds: the kernel's slab of source rows
+ROWS_PER_CTA = 128  # rows of a group one CTA of the kernel sums
+CTAS_PER_SM = 2  # the kernel's CTAs an SM holds at once (its launch bounds)
+_CHUNK = 16  # bytes of a tile row that move together (one shared-memory word quad)
+
+
+def _swizzle(t):
+    """Tiles [..., G, SLAB] with the 16-byte chunks of row r stored in the
+    order c ^ ((r >> 1) & 3): the kernel's fragment loads of 8 rows then hit
+    32 banks (the same map undoes it)."""
+    g_rows = t.shape[-2]
+    r = torch.arange(g_rows, device=t.device)
+    perm = torch.arange(SLAB // _CHUNK, device=t.device)[None, :] ^ ((r[:, None] >> 1) & 3)
+    chunks = t.reshape(*t.shape[:-1], SLAB // _CHUNK, _CHUNK)
+    idx = perm.view(*([1] * (t.dim() - 2)), g_rows, SLAB // _CHUNK, 1)
+    return torch.take_along_dim(chunks, idx, dim=-2).reshape(t.shape)
+
+
+def band_tiles(band, spill, groups, group_rows, block_rows):
+    """The kernel's tiles of a stage, read from its flat tables through its
+    directory ``groups`` (int64 [n_groups, 6], on the host), and their own
+    directory: int8 tiles, and int64 [n_groups, 2], the offset of each
+    group's first window tile and of its first spill tile. A group's window
+    tiles are its blocks cut into slabs of ``SLAB`` columns (a block of B
+    rows is ceil(B / SLAB) tiles, zeros past B), its spill tiles its spill
+    slots in slabs (zeros past sw); each tile [G, SLAB] row-major, swizzled
+    (:func:`_swizzle`). The groups of one width are laid out together."""
+    d = np.asarray(groups)
+    g_rows, spb = group_rows, -(-block_rows // SLAB)
+    tile = g_rows * SLAB
+    offs = np.zeros((len(d), 2), np.int64)
+    parts, off = [], 0
+    for kind, flat, col_off, col_w in ((0, band, _BAND_OFF, _WIDTH), (1, spill, _SPILL_OFF, _SW)):
+        for cols in np.unique(d[:, col_w][d[:, col_w] > 0]).tolist():
+            gids = np.flatnonzero(d[:, col_w] == cols)
+            row = cols * block_rows if kind == 0 else cols  # a group row's bytes in `flat`
+            starts = torch.as_tensor(d[gids, col_off], device=flat.device)
+            t = flat[starts[:, None] + torch.arange(g_rows * row, device=flat.device)[None, :]]
+            if kind == 0:  # cols = window blocks
+                t = torch.nn.functional.pad(t.view(len(gids), g_rows, cols, block_rows),
+                                            (0, spb * SLAB - block_rows))
+                slabs = cols * spb
+            else:  # cols = spill slots
+                slabs = -(-cols // SLAB)
+                t = torch.nn.functional.pad(t.view(len(gids), g_rows, cols),
+                                            (0, slabs * SLAB - cols))
+            t = t.reshape(len(gids), g_rows, slabs, SLAB).permute(0, 2, 1, 3)
+            parts.append(_swizzle(t).reshape(-1))
+            offs[gids, kind] = off + np.arange(len(gids)) * slabs * tile
+            off += len(gids) * slabs * tile
+    tiles = torch.cat(parts) if parts else band.new_zeros(0)
+    return tiles, torch.as_tensor(offs, device=band.device)
+
+
+def band_work(width, sw, block_rows, group_rows, ctas=None):
+    """The band kernel's work items, one a CTA (times the group's row CTAs),
+    the longest first: int32 [items, 4] of (group, first slab, end slab,
+    slot), and the number of slots. A group of more than 1.5x the median
+    slab count is cut into two items that share a slot: each writes its
+    partial sums to the slot's scratch and the second to finish adds the
+    two, first half first; slot -1 is a whole group. The stage then ends
+    with its typical groups, not with its widest ones. Only while every
+    item's CTAs fit on the card at once (``ctas``: SMs times
+    ``CTAS_PER_SM``; None: no limit) are groups cut, the widest first: in a
+    stage of more CTAs the next wave takes up the slack, and a cut would
+    only add CTAs to it."""
+    slabs = np.asarray(width) * -(-block_rows // SLAB) + -(-np.asarray(sw) // SLAB)
+    limit = max(2, int(np.ceil(1.5 * np.median(slabs)))) if len(slabs) else 0
+    row_ctas = -(-group_rows // ROWS_PER_CTA)
+    cuts = int((slabs > limit).sum())
+    if ctas is not None:
+        cuts = max(0, min(cuts, ctas // row_ctas - len(slabs)))
+    cut = set(np.argsort(-slabs, kind="stable")[:cuts].tolist())
+    items, slot = [], 0
+    for g, k in enumerate(slabs.tolist()):
+        if g in cut:
+            mid = (k + 1) // 2
+            items += [(g, 0, mid, slot), (g, mid, k, slot)]
+            slot += 1
+        else:
+            items.append((g, 0, k, -1))
+    items = np.asarray(items, np.int32).reshape(-1, 4)
+    return items[np.argsort(items[:, 1] - items[:, 2], kind="stable")], slot
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,15 +159,23 @@ class BandTable:
     num_segments: int  # S, the rows of the output
     group_rows: int  # G
     block_rows: int  # B
+    # the band kernel's tiles (:func:`band_tiles`) and their directory,
+    # int64 [n_groups, 2], its work items (:func:`band_work`) and their
+    # count of split groups; None (and 0) in a table on the CPU, which no
+    # kernel reads
+    tiles: Optional[torch.Tensor] = None
+    tile_off: Optional[torch.Tensor] = None
+    work: Optional[torch.Tensor] = None
+    slots: int = 0
 
     @classmethod
     def build(cls, band, spill, windows, sources, num_inputs, num_segments, group_rows,
               block_rows) -> "BandTable":
         """Directory and int32 index tables for flat ``band``/``spill``
-        tables on a device. ``windows`` lists (win_block [ng_b, w] int32,
-        group ids) per band bucket and ``sources`` (spill_src [m_b, sw]
-        int32, group ids) per spill bucket, in the order of the flat
-        tables."""
+        tables on a device, and on a CUDA device the band kernel's layout.
+        ``windows`` lists (win_block [ng_b, w] int32, group ids) per band
+        bucket and ``sources`` (spill_src [m_b, sw] int32, group ids) per
+        spill bucket, in the order of the flat tables."""
         n_groups = max(-(-num_segments // group_rows), 1)
         d = np.zeros((n_groups, 6), np.int64)
         band_off = win_off = 0
@@ -98,13 +200,31 @@ class BandTable:
                  else np.zeros(0, np.int32))
             return torch.as_tensor(a.astype(np.int32), device=band.device)
 
-        return cls(band=band, win=flat32(windows), spill=spill, src=flat32(sources),
-                   groups=torch.as_tensor(d, device=band.device), num_inputs=num_inputs,
-                   num_segments=num_segments, group_rows=group_rows, block_rows=block_rows)
+        table = cls(band=band, win=flat32(windows), spill=spill, src=flat32(sources),
+                    groups=torch.as_tensor(d, device=band.device), num_inputs=num_inputs,
+                    num_segments=num_segments, group_rows=group_rows, block_rows=block_rows)
+        if band.device.type != "cuda":
+            return table
+        return table.with_kernel_layout(
+            torch.cuda.get_device_properties(band.device).multi_processor_count * CTAS_PER_SM)
+
+    def with_kernel_layout(self, ctas=None) -> "BandTable":
+        """This table with the band kernel's tiles and work items, for a card
+        that holds ``ctas`` of its CTAs at once (None: no limit)."""
+        d = self.groups.cpu().numpy()
+        tiles, tile_off = band_tiles(self.band, self.spill, d, self.group_rows, self.block_rows)
+        work, slots = band_work(d[:, _WIDTH], d[:, _SW], self.block_rows, self.group_rows, ctas)
+        return dataclasses.replace(self, tiles=tiles, tile_off=tile_off,
+                                   work=torch.as_tensor(work, device=self.device), slots=slots)
 
     def __post_init__(self):
         kinds = (("band", torch.int8), ("win", torch.int32), ("spill", torch.int8),
                  ("src", torch.int32), ("groups", torch.int64))
+        kernel = (self.tiles, self.tile_off, self.work)
+        if any(t is None for t in kernel) != all(t is None for t in kernel):
+            raise ValueError("tiles, tile_off and work come together")
+        if self.tiles is not None:
+            kinds += (("tiles", torch.int8), ("tile_off", torch.int64), ("work", torch.int32))
         for name, dtype in kinds:
             t = getattr(self, name)
             if t.dtype != dtype:
@@ -113,7 +233,7 @@ class BandTable:
                 raise ValueError(f"{name} is on {t.device}, band on {self.band.device}")
             if not t.is_contiguous():
                 raise ValueError(f"{name} must be contiguous")
-        for name in ("band", "win", "spill", "src"):
+        for name in ("band", "win", "spill", "src") + (("tiles",) if self.tiles is not None else ()):
             if getattr(self, name).dim() != 1:
                 raise ValueError(f"{name} must be flat")
         g_rows, b_rows, n, s = self.group_rows, self.block_rows, self.num_inputs, self.num_segments
@@ -143,6 +263,36 @@ class BandTable:
             raise ValueError(f"window block ids must lie in [0, {blocks})")
         if self.src.numel() and (int(self.src.min()) < 0 or int(self.src.max()) > n):
             raise ValueError(f"spill sources must lie in [0, {n}] ({n}: the zero row)")
+        if self.tiles is not None:
+            if self.tile_off.shape != (n_groups, 2):
+                raise ValueError(f"tile_off must be [{n_groups}, 2]")
+            t = self.tile_off.cpu()
+            tile = g_rows * SLAB
+            for off, slabs in ((t[:, 0], width * -(-b_rows // SLAB)), (t[:, 1], (sw + SLAB - 1) // SLAB)):
+                live = slabs > 0
+                if live.any() and (int(off[live].min()) < 0 or int(
+                        (off + slabs * tile)[live].max()) > self.tiles.numel()):
+                    raise ValueError("the tile directory reaches past the tiles")
+            self._check_work(width * -(-b_rows // SLAB) + (sw + SLAB - 1) // SLAB)
+
+    def _check_work(self, slabs) -> None:
+        """Every slab of every group in exactly one work item; a slot's two
+        items are the halves of one group; ``slots`` counts the slots."""
+        w = self.work.cpu().numpy()
+        if w.ndim != 2 or w.shape[1] != 4:
+            raise ValueError("work must be int32 [items, 4]")
+        g, first, end, slot = w.T.astype(np.int64)
+        n_groups = len(slabs)
+        if len(g) and (g.min() < 0 or g.max() >= n_groups or (first < 0).any() or
+                       (end > slabs.numpy()[g]).any() or (first >= end).any()):
+            raise ValueError("a work item lies outside its group's slabs")
+        covered = np.zeros(n_groups, np.int64)
+        np.add.at(covered, g, end - first)
+        if not np.array_equal(covered, slabs.numpy()):
+            raise ValueError("the work items must cover every slab of every group once")
+        pairs = np.bincount(slot[slot >= 0], minlength=self.slots)
+        if len(pairs) != self.slots or (pairs != 2).any():
+            raise ValueError("a slot must hold the two halves of one group")
 
     @property
     def device(self) -> torch.device:
@@ -266,23 +416,59 @@ def raise_on_error(err: int, lib, kernel: str) -> None:
         raise RuntimeError(f"{kernel} launch failed: {lib.hg_error_string(err).decode()}")
 
 
-def _launch(x, table: BandTable):
-    global launches
+def check_layout(lib) -> None:
+    """Raise unless ``lib``'s band kernel reads the layout this module builds."""
+    got = (ctypes.c_int * 3)()
+    lib.hg_aligned_band_layout(got)
+    if tuple(got) != (SLAB, ROWS_PER_CTA, CTAS_PER_SM):
+        raise RuntimeError(f"the band kernel takes (slab, rows a CTA, CTAs an SM) = {tuple(got)}, "
+                           f"the wrapper lays out {(SLAB, ROWS_PER_CTA, CTAS_PER_SM)}")
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
     from hypergef_tpu_torch.ops import _build
 
-    check_operand(x, torch.float32, table, "x")
-    f = x.shape[1]
     lib = _build.load_library()
+    check_layout(lib)
+    return lib
+
+
+def launch_band(lib, x, table: BandTable, work, slots: int):
+    """One launch of ``lib``'s band kernel over the work items ``work`` (int32
+    [items, 4] on the card, ``slots`` of them split groups) on the current
+    stream: f32 [S, F]. The split groups' scratch and counters are this
+    call's own, so calls on other streams never meet. No checks: callers
+    check ``x`` and the table."""
+    from hypergef_tpu_torch.ops import _build
+
+    f = x.shape[1]
     out = torch.empty((table.num_segments, f), dtype=torch.float32, device=x.device)
+    # a split group's two partial sums, [slot][half][G][F], and an arrival
+    # counter a slot and CTA row (zeroed by the entry on the stream)
+    scratch = torch.empty(slots * 2 * table.group_rows * f, dtype=torch.float32,
+                          device=x.device)
+    counters = torch.empty(slots * -(-table.group_rows // ROWS_PER_CTA), dtype=torch.int32,
+                           device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.hg_aligned_band(
-            x.data_ptr(), table.band.data_ptr(), table.win.data_ptr(),
-            table.spill.data_ptr(), table.src.data_ptr(), table.groups.data_ptr(),
-            out.data_ptr(), table.num_groups, table.group_rows, table.block_rows,
-            table.num_inputs, table.num_segments, f, stream,
+            x.data_ptr(), table.tiles.data_ptr(), table.tile_off.data_ptr(),
+            table.win.data_ptr(), table.src.data_ptr(), table.groups.data_ptr(),
+            work.data_ptr(), counters.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+            int(work.shape[0]), slots, table.group_rows, table.block_rows, table.num_inputs,
+            table.num_segments, f, stream,
         )
-    raise_on_error(err, lib, "aligned_band")
+    raise_on_error(err, _build.load_library(), "aligned_band")
+    return out
+
+
+def _launch(x, table: BandTable):
+    global launches
+    check_operand(x, torch.float32, table, "x")
+    if table.tiles is None:
+        raise ValueError("the table holds no band tiles: build it on a CUDA device")
+    out = launch_band(_library(), x, table, table.work, table.slots)
     launches += 1
     return out
 

@@ -19,6 +19,8 @@ Tolerances:
 
 import dataclasses
 import functools
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -46,8 +48,9 @@ from hypergef_tpu_torch.serve import ServingModel
 from hypergef_tpu_torch.sparse import planner, reorder
 from hypergef_tpu_torch.sparse.planner import AggregationPlan
 from hypergef_tpu_torch.train.trainer import TrainConfig, Trainer, default_plan
-from test_torch_port_cuda import aligned_plan, split_buckets
+from test_torch_port_cuda import aligned_plan, split_buckets, widen_windows
 
+REPO = Path(__file__).resolve().parents[1]
 N, E = 2000, 1600
 SBM = (N, E, 25, 5, 0.02, 3)  # community_hypergraph's arguments
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -300,10 +303,12 @@ def test_refusals_match_jax():
 def _layout_plans(layout):
     """(JAX plan, port plan) of one aligned layout on the sorted graph."""
     jhg, thg = _graphs("sorted")
-    if layout == "split":
+    if layout in ("split", "wide"):
+        relay = (split_buckets if layout == "split"
+                 else functools.partial(widen_windows, gids=(0, 5, 6), extra=12))
         tplan = planner.plan_aligned(thg)
-        tplan = dataclasses.replace(tplan, edge_stage=split_buckets(tplan.edge_stage),
-                                    vertex_stage=split_buckets(tplan.vertex_stage))
+        tplan = dataclasses.replace(tplan, edge_stage=relay(tplan.edge_stage),
+                                    vertex_stage=relay(tplan.vertex_stage))
         jplan = jplanner.TreePlan(_to_jax(tplan.edge_stage), _to_jax(tplan.vertex_stage),
                                   num_nodes=N, num_edges=E)
         return jplan, tplan
@@ -353,7 +358,8 @@ def _emulate_kernel(x, table):
 
 
 @pytest.mark.parametrize("case", ["bucketed", "split", "uniform", "group64", "block64",
-                                  "counts", "past_n", "empty"])
+                                  "counts", "past_n", "empty", "group200", "group24", "block32",
+                                  "block200", "odd_spill"])
 def test_kernel_tables_hold_the_stage(case):
     """The directory and flat tables the kernel reads give the plain twin's
     result, for every layout the card tests run."""
@@ -369,6 +375,144 @@ def test_kernel_tables_hold_the_stage(case):
         e_st = aligned_plan(case).edge_stage
         assert max(int(b.b_dense.max()) for b in e_st.buckets) == 2
         assert max(int(s.b_spill.max()) for s in e_st.spills) == 2
+
+
+def _unswizzle(tiles):
+    """[n, G, SLAB] tiles as ``band_tiles`` stores them → plain row-major."""
+    g_rows = tiles.shape[1]
+    chunks = tiles.reshape(tiles.shape[0], g_rows, aligned_band.SLAB // 16, 16)
+    perm = np.arange(chunks.shape[2])[None, :] ^ ((np.arange(g_rows)[:, None] >> 1) & 3)
+    return np.take_along_axis(chunks, perm[None, :, :, None], axis=2).reshape(tiles.shape)
+
+
+def _group_tiles(table, g):
+    """Group g's window and spill tiles, unswizzled: [slabs, G, SLAB] each."""
+    _, _, w, _, _, sw = table.groups[g].tolist()
+    tile = table.group_rows * aligned_band.SLAB
+    slabs = (w * -(-table.block_rows // aligned_band.SLAB), -(-sw // aligned_band.SLAB))
+    tiles = table.tiles.numpy()
+    return [_unswizzle(tiles[off:off + k * tile].reshape(k, table.group_rows, aligned_band.SLAB))
+            for off, k in zip(table.tile_off[g].tolist(), slabs)]
+
+
+def _jax_group_tables(jst, n_groups):
+    """Each group's band [G, w·B] and spill [G, sw] of a JAX host stage."""
+    if isinstance(jst, jplanner.AlignedStage):
+        return [(jst.b_dense[g], jst.b_spill[g]) for g in range(n_groups)]
+    band, spill = {}, {}
+    for b in jst.buckets:
+        band.update(zip(b.group_ids.tolist(), b.b_dense))
+    for sp in jst.spills:
+        spill.update(zip(sp.group_ids.tolist(), sp.b_spill))
+    return [(band[g], spill.get(g)) for g in range(n_groups)]
+
+
+@pytest.mark.parametrize("layout", ["bucketed", "split", "uniform", "group64", "wide"])
+@pytest.mark.parametrize("stage", [0, 1], ids=["edge", "vertex"])
+def test_band_tiles_hold_the_jax_stage(layout, stage):
+    """The band kernel's tiles unpack to exactly the JAX plan's band and
+    spill tables, and its work items cover every slab of every group once
+    (the widest groups in two halves); a walk over the items in the
+    kernel's order (window slabs, then spill slabs; rows past N and the
+    spill zero row read as zeros; a split group's halves added first half
+    first) gives JAX's apply (its Pallas kernel in interpret mode, or the
+    uniform XLA chain) at 1e-5."""
+    jplan, tplan = _layout_plans(layout)
+    jhost = (jplan.edge_stage, jplan.vertex_stage)[stage]
+    tst = dataclasses.replace(tplan, form="pallas_auto").device("cpu")[stage]
+    assert tst.band.tiles is None  # laid out only on a CUDA device
+    table = tst.band.with_kernel_layout()
+    g_rows, b_rows, n, slab = table.group_rows, table.block_rows, table.num_inputs, aligned_band.SLAB
+    x = _x(n, 5, seed=11 + stage)
+    xz = np.concatenate([bf16_round(torch.as_tensor(x)).numpy(), np.zeros((1, 5), np.float32)])
+    spb = -(-b_rows // slab)
+    products = {}  # (group, slab) → its tile times its x rows
+    for g, (band, spill) in enumerate(_jax_group_tables(jhost, table.num_groups)):
+        _, wo, w, _, ro, sw = table.groups[g].tolist()
+        win_tiles, spill_tiles = _group_tiles(table, g)
+        cols = win_tiles.reshape(w, spb, g_rows, slab).transpose(2, 0, 1, 3).reshape(g_rows, w, -1)
+        np.testing.assert_array_equal(cols[:, :, :b_rows].reshape(g_rows, -1), band)
+        assert not cols[:, :, b_rows:].any()
+        if sw:
+            flat = spill_tiles.transpose(1, 0, 2).reshape(g_rows, -1)
+            np.testing.assert_array_equal(flat[:, :sw], spill[:, :sw])
+            assert not flat[:, sw:].any()
+        for s, (blk, t0) in enumerate((b, t) for b in table.win[wo:wo + w].tolist()
+                                      for t in range(0, spb * slab, slab)):
+            rows = np.minimum(blk * b_rows + t0 + np.arange(slab), n)
+            rows[t0 + np.arange(slab) >= b_rows] = n  # past the block: zero band columns
+            products[g, s] = win_tiles[s].astype(np.float64) @ xz[rows]
+        srcs = np.concatenate([table.src[ro:ro + sw].numpy(),
+                               np.full(len(spill_tiles) * slab - sw, n)]).astype(np.int64)
+        for s, tile in enumerate(spill_tiles):
+            products[g, len(win_tiles) + s] = tile.astype(np.float64) @ xz[srcs[s * slab:(s + 1) * slab]]
+    work = table.work.numpy()
+    assert sorted((g, s) for g, b, e, _ in work for s in range(b, e)) == sorted(products)
+    sizes = work[:, 2] - work[:, 1]
+    assert (np.diff(sizes) <= 0).all()  # the longest first
+    assert ((work[:, 3] >= 0).any()) == (layout == "wide")
+    out = np.zeros((table.num_groups * g_rows, 5), np.float32)
+    halves = {}
+    for g, b, e, slot in work.tolist():
+        acc = sum(products[g, s] for s in range(b, e))
+        if slot >= 0:
+            halves[g, b > 0] = acc
+            if (g, not (b > 0)) not in halves:
+                continue
+            acc = halves[g, False] + halves[g, True]
+        out[g * g_rows:(g + 1) * g_rows] = acc
+    jst = jplan.device()[stage]
+    want = (jtree._apply_any(jnp.asarray(x), jst) if layout == "uniform"
+            else apply_aligned_b_pallas(jnp.asarray(x), jst, interpret=True))
+    np.testing.assert_allclose(out[:table.num_segments], np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("ctas,group_rows,cuts", [(None, 128, 2), (12, 128, 0), (13, 128, 1),
+                                                  (14, 128, 2), (25, 200, 0), (26, 200, 1)])
+def test_band_work_cuts_the_widest_groups_within_one_wave(ctas, group_rows, cuts):
+    """A group wider than 1.5x the median is cut in two only while every
+    item's CTAs (one a 128 rows of its group) fit on the card at once, the
+    widest first; every slab of every group lies in exactly one item, the
+    longest items first, and a slot holds the two halves of one group."""
+    width = np.array([2] * 10 + [9, 12])
+    sw = np.array([0] * 11 + [70])  # the widest group also has two spill slabs
+    slabs = width + -(-sw // aligned_band.SLAB)  # block_rows 64: one slab a block
+    work, slots = aligned_band.band_work(width, sw, 64, group_rows, ctas)
+    assert slots == cuts
+    assert (np.diff(work[:, 2] - work[:, 1]) <= 0).all()
+    covered = np.zeros(len(slabs), np.int64)
+    np.add.at(covered, work[:, 0], work[:, 2] - work[:, 1])
+    np.testing.assert_array_equal(covered, slabs)
+    cut = sorted(int(g) for g, _, _, slot in work if slot >= 0)
+    assert cut == sorted(2 * [11, 10][:cuts])
+    for slot in range(slots):
+        (g0, b0, e0, _), (g1, b1, e1, _) = sorted(w.tolist() for w in work if w[3] == slot)
+        assert g0 == g1 and b0 == 0 and e0 == b1 == (slabs[g0] + 1) // 2 and e1 == slabs[g0]
+    assert (work[:, 3] == -1).sum() == len(slabs) - cuts
+
+
+def test_band_kernel_source_matches_the_wrapper():
+    """The band kernel's layout constants are the wrapper's, and every
+    ablation that ``chip_smoke.py --profile`` builds from its source applies
+    (each substitution exactly once)."""
+    import re
+
+    from hypergef_tpu_torch.ops import _build
+
+    source = (_build.CSRC / "aligned_band.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", source)}
+    warps = consts["kWarps"]
+    assert (consts["kSlab"], 16 * warps, consts["kCtasPerSm"]) == (
+        aligned_band.SLAB, aligned_band.ROWS_PER_CTA, aligned_band.CTAS_PER_SM)
+    assert "__launch_bounds__(kThreads, kCtasPerSm)" in source
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.BAND_ABLATIONS
+    for name in smoke.BAND_ABLATIONS:
+        assert smoke.band_ablation_source(name, source) != source
+    with pytest.raises(ValueError, match="once"):
+        smoke.band_ablation_source(next(iter(smoke.BAND_ABLATIONS)), "")
 
 
 def test_kernel_form_on_cpu_tensors_is_the_plain_form_bitwise():

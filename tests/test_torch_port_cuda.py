@@ -219,6 +219,46 @@ def split_buckets(st):
                        spill_slot=spill_slot)
 
 
+def widen_windows(st, gids, extra):
+    """The same bucketed stage with the windows of groups ``gids`` wider by
+    ``extra`` blocks (block 0, with zero band columns), in a bucket of their
+    own: groups far wider than the rest, which the band kernel splits."""
+    g_rows, b_rows = st.group_rows, st.block_rows
+    band, win = {}, {}
+    for b in st.buckets:
+        for l, g in enumerate(b.group_ids):
+            band[int(g)], win[int(g)] = b.b_dense[l], b.win_block[l]
+    buckets, base_slot, slot = [], np.zeros(len(st.base_slot), np.int32), 0
+    for wide in (False, True):
+        classes = {}
+        for g in range(len(st.base_slot)):
+            if (g in gids) == wide:
+                classes.setdefault(len(win[g]), []).append(g)
+        for _, members in sorted(classes.items()):
+            pad = extra if wide else 0
+            buckets.append(planner.AlignedBucket(
+                np.stack([np.pad(band[g], ((0, 0), (0, pad * b_rows))) for g in members]),
+                np.stack([np.pad(win[g], (0, pad)) for g in members]).astype(np.int32),
+                np.asarray(members, np.int32)))
+            base_slot[members] = slot + np.arange(len(members))
+            slot += len(members)
+    return st._replace(buckets=tuple(buckets), base_slot=base_slot)
+
+
+def widen_spills(st, extra):
+    """The same bucketed stage with ``extra`` more slots in every spill
+    bucket (zero columns whose source is the zero row N), so no spill width
+    is a multiple of 4 and the spill tables' rows lie at odd byte offsets."""
+    n = st.num_inputs
+    spills = tuple(
+        planner.AlignedSpill(np.pad(sp.b_spill, ((0, 0), (0, 0), (0, extra))),
+                             np.pad(sp.spill_src, ((0, 0), (0, extra)),
+                                    constant_values=n).astype(np.int32),
+                             sp.group_ids)
+        for sp in st.spills)
+    return st._replace(spills=spills)
+
+
 @functools.lru_cache(maxsize=None)
 def aligned_plan(case):
     """The host plans the band kernel is held at: a small community graph
@@ -234,21 +274,34 @@ def aligned_plan(case):
     if case == "counts":
         return planner.plan_aligned(sorted_community_graph(2000, 1600, 25, 5, 0.02, 3, 0.05))
     hg = sorted_community_graph(2000, 1600, 25, 5, 0.02, 3)
-    if case == "split":
-        plan = planner.plan_aligned(hg)
-        return dataclasses.replace(plan, edge_stage=split_buckets(plan.edge_stage),
-                                   vertex_stage=split_buckets(plan.vertex_stage))
+    if case in ("split", "odd_spill", "wide", "wide200"):
+        plan = planner.plan_aligned(hg, group_rows=200 if case == "wide200" else 128)
+        relay = {"split": split_buckets, "odd_spill": functools.partial(widen_spills, extra=5),
+                 "wide": functools.partial(widen_windows, gids=(0, 5, 6), extra=12),
+                 "wide200": functools.partial(widen_windows, gids=(1, 4), extra=12)}[case]
+        return dataclasses.replace(plan, edge_stage=relay(plan.edge_stage),
+                                   vertex_stage=relay(plan.vertex_stage))
     kw = {"bucketed": {}, "uniform": {"form": "uniform"}, "group64": {"group_rows": 64},
-          "block64": {"block_rows": 64}}[case]
+          "block64": {"block_rows": 64}, "group200": {"group_rows": 200},
+          "group24": {"group_rows": 24}, "block32": {"block_rows": 32},
+          "block200": {"block_rows": 200}}[case]
     return planner.plan_aligned(hg, **kw)
 
 
 ALIGNED_CASES = ("bucketed", "split", "uniform", "group64", "block64", "counts", "past_n",
                  "width32", "empty")
+# the shapes the tensor-core band kernel cuts differently: groups taller than
+# a CTA's 128 rows or not a multiple of its 16-row tiles, source blocks
+# shorter than or not a multiple of its 64-row slabs, spill widths at odd
+# byte offsets, groups so much wider than the rest that the kernel splits
+# them over two CTAs (also with two CTAs of rows a group); width32: a window
+# of 64 slabs, wider than the 4-slab ring
+BAND_CASES = ALIGNED_CASES + ("group200", "group24", "block32", "block200", "odd_spill", "wide",
+                              "wide200")
 
 
-@pytest.mark.parametrize("case", ALIGNED_CASES)
-@pytest.mark.parametrize("f", [3, 32, 48])
+@pytest.mark.parametrize("case", BAND_CASES)
+@pytest.mark.parametrize("f", [3, 5, 32, 48, 100])
 def test_band_kernel_matches_plain(cuda, case, f):
     plan = dataclasses.replace(aligned_plan(case), form="pallas_auto")
     for stage in plan.device(cuda):
@@ -279,6 +332,30 @@ def test_band_kernel_reads_no_row_past_n(cuda):
         assert bool(torch.isfinite(got).all())
         want = aligned_band.aligned_band_plain(buf[:n].clone(), stage)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+
+
+def test_band_kernel_runs_on_two_streams_at_once(cuda):
+    """A split group's halves meet through scratch and counters of their
+    own call: launches over one table on two streams, queued without
+    waiting for each other, each give the plain twin's result."""
+    plan = dataclasses.replace(aligned_plan("wide"), form="pallas_auto")
+    rng = np.random.default_rng(9)
+    for stage in plan.device(cuda):
+        assert stage.band.slots > 0
+        xs = [torch.as_tensor(rng.normal(size=(stage.num_inputs, 32)).astype(np.float32),
+                              device=cuda) for _ in range(2)]
+        streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+        torch.cuda.synchronize()
+        outs = ([], [])
+        for _ in range(20):
+            for s, x, got in zip(streams, xs, outs):
+                with torch.cuda.stream(s):
+                    got.append(aligned_band.aligned_band(x, stage))
+        torch.cuda.synchronize()
+        for x, got in zip(xs, outs):
+            want = aligned_band.aligned_band_plain(x, stage)
+            for g in got:
+                torch.testing.assert_close(g, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
 
 
 @pytest.mark.parametrize("aggr", ["sum", "mean"])
@@ -479,8 +556,13 @@ def _bit_pack(m, k, density, seed, device):
     return torch.as_tensor(words, device=device), a
 
 
+# m not a multiple of the kernel's 8 rows a CTA (1, 133, 257, 300, 4100);
+# k = 140000: rows of 35 K tiles (17.5 KB), so the tile loaded ahead and the
+# zero-tile skip run far along a row, with a partial last tile; row 1 full:
+# every word of every tile set
 @pytest.mark.parametrize("m,k,density", [(1, 1, 1.0), (300, 5000, 0.01), (257, 4096, 0.05),
-                                         (1000, 9000, 0.002), (4100, 700, 0.03)])
+                                         (1000, 9000, 0.002), (4100, 700, 0.03),
+                                         (133, 140000, 0.0005)])
 @pytest.mark.parametrize("f", [1, 3, 4, 32, 100, 300])
 def test_bitmm_kernel_matches_plain(cuda, m, k, density, f):
     words, a = _bit_pack(m, k, density, seed=m + k + f, device=cuda)
