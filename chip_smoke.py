@@ -7,16 +7,20 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
 
 1. Build the port's CUDA kernels from the sources in this checkout.
 2. Hold the fused dense kernel against its plain PyTorch version at the
-   main path's shapes (20news-shaped graph at F = 32 and 4, pubmed_real
-   box at F = 32): rtol 1e-2, atol 1e-2·max|plain|; two runs bitwise
-   equal; the launch count rises by one per call.
+   main path's shapes (20news-shaped graph at F = 32, 4 and 100,
+   pubmed_real box at F = 32, cora at F = 32 and 7, and a 20news table
+   whose counts reach 2): rtol 1e-2, atol 1e-2·max|plain|; two runs bitwise
+   equal; the launch count rises by one per call; one call is one CUDA
+   kernel under ``torch.profiler``.
 3. Serve five HGNN requests (2 layers, nhid 32, first_aggr sum; the
    bench's e2e configuration) on the 20news-shaped graph through the
    ``pallas`` route, with seeded random weights. Each answer must be
    finite, have rows of probability summing to 1, lie within 1e-2 of the
    same model on the kernel's plain version, and agree in argmax on ≥98%
    of the nodes with the f32 ``xla`` route.
-4. Time the kernel against the plain version (both graphs, F = 32) and a
+4. Time the kernel against the plain version, the two library products
+   (``torch.mm`` with an f32 result on a bf16 copy of H, the yardstick
+   only) and its bound (20news, pubmed_real and cora, F = 32), and a
    request, with CUDA events, median of 20 runs.
 5. Hold the gather kernel (``ell_gather_sum``) against its plain loop on
    the level-0 tables of both stages of the pubmed_real
@@ -323,6 +327,31 @@ def kernel_operands(hg, f: int, seed: int, device):
     return h, x, (hgd.degE * wdiag).contiguous(), hgd.degV
 
 
+def duplicate_incidences(hg, share: float, seed: int):
+    """``hg`` with ``share`` of its incidences listed twice: a table whose
+    counts reach 2."""
+    from hypergef_tpu_torch.sparse.hypergraph import Hypergraph
+
+    v = hg.ht_indices.astype(np.int64)
+    ed = np.repeat(np.arange(hg.num_edges), np.diff(hg.ht_indptr))
+    twice = np.random.default_rng(seed).random(v.size) < share
+    return Hypergraph.from_coo(np.concatenate([v, v[twice]]), np.concatenate([ed, ed[twice]]),
+                               num_nodes=hg.num_nodes, num_edges=hg.num_edges, dedup=False,
+                               name=f"{hg.name} counts 2")
+
+
+def cuda_kernels_per_call(fn) -> int:
+    """CUDA kernels that one call of ``fn`` runs, under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
 def check_kernel(hg, f: int, seed: int, device) -> dict:
     from hypergef_tpu_torch.ops import fused_dense
 
@@ -337,23 +366,39 @@ def check_kernel(hg, f: int, seed: int, device) -> dict:
     torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2 * scale)
     check(torch.equal(got, again), "two kernel runs are bitwise equal")
     return {"graph": hg.name, "f": f, "max_abs_err": float((got - want).abs().max()),
-            "max_abs_plain": scale}
+            "max_abs_plain": scale, "max_count": int(ops[0].max())}
 
 
 def time_kernel(hg, f: int, device) -> dict:
-    """Kernel and plain version in turns (plain, kernel, kernel, plain), and
-    the bound: the int8 table, x, the scales and the output moved once;
-    a multiply-add a feature for each non-zero entry in each stage."""
+    """Kernel, plain version and library yardstick in turns, and the bound:
+    the int8 table, x, the scales and the output moved once; a
+    multiply-add a feature for each non-zero entry in each stage. Where the
+    table is larger than the 50 MB L2, each stage must read it from HBM:
+    ``bound_table_twice_ms`` counts it twice. The yardstick is the ``dense``
+    route's form, two ``torch.mm`` with an f32 result on a bf16 copy of H
+    made before the window, and the two scalings; the port never calls it."""
     from hypergef_tpu_torch.ops import fused_dense
 
     ops = kernel_operands(hg, f, seed=7, device=device)
+    h, x, se, sv = ops
+    hb = h.to(torch.bfloat16)
+
+    def library():
+        xe = torch.mm(hb.t(), x.to(torch.bfloat16), out_dtype=torch.float32) * se
+        return torch.mm(hb, xe.to(torch.bfloat16), out_dtype=torch.float32) * sv
+
+    want = fused_dense.fused_dense_two_stage_plain(*ops)
+    torch.testing.assert_close(library(), want, rtol=1e-2, atol=1e-2 * float(want.abs().max()))
     fns = {
         "kernel": lambda: fused_dense.fused_dense_two_stage(*ops),
         "plain": lambda: fused_dense.fused_dense_two_stage_plain(*ops),
+        "library": library,
     }
-    out = time_turns(fns, ("plain", "kernel", "kernel", "plain"))
-    h, x = ops[0], ops[1]
-    out.update(bound(nbytes(*ops) + nbytes(x), 4 * int((h != 0).sum()) * f))
+    out = time_turns(fns, ("plain", "kernel", "library", "library", "kernel", "plain"))
+    ops_count = 4 * int((h != 0).sum()) * f
+    out.update(bound(nbytes(*ops) + nbytes(x), ops_count))
+    out["bound_table_twice_ms"] = bound(nbytes(*ops) + nbytes(x) + nbytes(h),
+                                        ops_count)["bound_ms"]
     return out
 
 
@@ -1628,11 +1673,13 @@ def profile_band(device) -> None:
 
 
 def profile_steps(device, steps: int = 10) -> None:
-    """``--profile``: the SBM-60k training step of each aligned-route form
-    and the default path's step on coauthor_dblp (``cumsum``) and cora
-    (``precomp``) under ``torch.profiler`` (``steps`` steps after 5 warm-up
-    ones): the device's busy time a step, its kernel count and the kernels
-    that take the most device time. Not part of the smoke run."""
+    """``--profile``: the SBM-60k training step of each aligned-route form,
+    the default path's step on coauthor_dblp (``cumsum``) and cora
+    (``precomp``), and the 20news ``pallas`` step (phase 7's) under
+    ``torch.profiler`` (``steps`` steps after 5 warm-up ones): the device's
+    busy time a step, its kernel count, the kernels that take the most
+    device time and the fused dense kernel's share. Not part of the smoke
+    run."""
     from torch.profiler import ProfilerActivity, profile
 
     from hypergef_tpu_torch.sparse.planner import AggregationPlan, plan_tree
@@ -1677,6 +1724,8 @@ def profile_steps(device, steps: int = 10) -> None:
                                 ("cora", CORA_NFEAT, CORA_NCLASS)):
         c, g, xd, yd, sp, _ = default_problem(make_graph(name), nfeat, nclass)
         trainers[f"{name} defaults"] = (Trainer(c, g, xd, yd, device=device), sp["train"])
+    c, g, xd, yd, sp, p = train_problem("20news")
+    trainers["20news pallas"] = (Trainer(c, g, xd, yd, plan=p, device=device), sp["train"])
     for name, (tr, train_idx) in trainers.items():
         idx = torch.as_tensor(train_idx, device=device)
         for _ in range(5):
@@ -1692,7 +1741,10 @@ def profile_steps(device, steps: int = 10) -> None:
         busy = sum(e.self_device_time_total for e in rows) / steps / 1e3
         count = sum(e.count for e in rows) / steps
         top = sorted(rows, key=lambda e: -e.self_device_time_total)[:12]
-        print(f"profile {name}: device busy {busy:.5f} ms a step, {count:.1f} kernels a step; "
+        fused = sum(e.self_device_time_total for e in rows
+                    if "fused_dense_kernel" in e.key) / steps / 1e3
+        print(f"profile {name}: device busy {busy:.5f} ms a step, {count:.1f} kernels a step, "
+              f"fused dense kernel {fused:.6f} ms a step ({fused / busy:.4f} of busy); "
               + json.dumps({e.key[:90]: round(e.self_device_time_total / steps / 1e3, 6)
                             for e in top}), flush=True)
 
@@ -1720,24 +1772,37 @@ def main() -> int:
 
     # 2. kernel against its plain version
     graphs = {name: make_graph(name) for name in GRAPHS}
+    cora = make_graph("cora")
     cases = [check_kernel(graphs["20news"], 32, 1, device),
              check_kernel(graphs["20news"], 4, 2, device),
-             check_kernel(graphs["pubmed_real"], 32, 3, device)]
+             check_kernel(graphs["20news"], 100, 11, device),
+             check_kernel(graphs["pubmed_real"], 32, 3, device),
+             check_kernel(cora, 32, 12, device),
+             check_kernel(cora, 7, 13, device),
+             check_kernel(duplicate_incidences(graphs["20news"], 0.05, 14), 32, 15, device)]
+    check(cases[-1]["max_count"] == 2, "the duplicated table holds counts of 2")
     for c in cases:
         print(f"phase 2 kernel vs plain: {json.dumps(c)}", flush=True)
-
-    # 3. serve
     from hypergef_tpu_torch.ops import fused_dense
 
+    fd_ops = kernel_operands(graphs["20news"], 32, 1, device)
+    fd_kernels = cuda_kernels_per_call(lambda: fused_dense.fused_dense_two_stage(*fd_ops))
+    check(fd_kernels == 1, f"one CUDA kernel a fused dense call, got {fd_kernels}")
+    print(f"phase 2 CUDA kernels a fused dense call (torch.profiler): {fd_kernels}", flush=True)
+
+    # 3. serve
     served = serve(device, make_graph("20news"), "pallas",
                    {"fused_dense": (fused_dense, "launches", 2)})
     print(f"phase 3 serve: {json.dumps(served)}", flush=True)
 
     # 4. times
-    times = {name: time_kernel(hg, 32, device) for name, hg in graphs.items()}
+    times = {name: time_kernel(hg, 32, device) for name, hg in {**graphs, "cora": cora}.items()}
     print("phase 4 times (ms, CUDA events, median of 20): card "
-          f"{card}; fused kernel vs plain at F=32: "
-          + "; ".join(f"{g} kernel {t['kernel']} plain {t['plain']}" for g, t in times.items())
+          f"{card}; fused kernel vs plain vs two library products vs bound (table read "
+          "once; twice) at F=32: "
+          + "; ".join(f"{g} kernel {t['kernel']} plain {t['plain']} library {t['library']} "
+                      f"bound {t['bound_ms']}; {t['bound_table_twice_ms']}"
+                      for g, t in times.items())
           + f"; HGNN request on 20news {served['request_ms']} "
           f"(reference's RTX 3090 inference epoch {REF_RTX3090_INFER_MS}, not a claim)",
           flush=True)
@@ -1833,6 +1898,11 @@ def main() -> int:
         # forward and backward launches of the serving and the pallas training paths
         "launches": served["launches"]["fused_dense"] + trained["20news"]["launches"]["fused"],
         "max_abs_err": max(max(c["max_abs_err"] for c in cases), fd_bwd_err),
+        "cuda_kernels_per_call": fd_kernels,
+        **{f"{g}_{k}": times[g][key] for g in ("cora", "pubmed_real")
+           for k, key in (("ms", "kernel"), ("plain_ms", "plain"), ("library_ms", "library"),
+                          ("bound_ms", "bound_ms"))},
+        "pubmed_real_bound_table_twice_ms": times["pubmed_real"]["bound_table_twice_ms"],
         "bwd_ms": bwd_times["20news"]["kernel"],
         "bwd_plain_ms": bwd_times["20news"]["plain"],
     }, {

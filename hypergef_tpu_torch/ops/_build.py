@@ -97,10 +97,13 @@ def build() -> Path:
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # the argument types of each entry of the library
 ENTRIES = {
-    # h, x, scale_e, scale_v, out, partial, xe; n, e, f, fc, splits; stream
-    "hg_fused_dense_two_stage": [_PTR] * 7 + [_INT] * 5 + [_PTR],
-    # h, x, partial, out; n, e, f, fc, splits; stream
-    "hg_dense_v2e": [_PTR] * 4 + [_INT] * 5 + [_PTR],
+    # h, x, scale_e, scale_v, out, partial_a, xe, partial_c; n, e, f, splits_a, k_a,
+    # ways_a, splits_c, k_c, ways_c, grid; stream
+    "hg_fused_dense_two_stage": [_PTR] * 8 + [_INT] * 10 + [_PTR],
+    # h, x, partial_a, out; n, e, f, splits_a, k_a, ways_a, grid; stream
+    "hg_dense_v2e": [_PTR] * 4 + [_INT] * 7 + [_PTR],
+    # out: int[8]
+    "hg_fused_dense_layout": [_PTR],
     # x, gidx, mask, out; c, ngs, f, lanes; stream
     "hg_ell_gather_sum": [_PTR] * 4 + [_INT] * 4 + [_PTR],
     # x, tiles, tile_off, win, src, groups, work, counters, scratch, out; n_items,

@@ -22,6 +22,7 @@ those of its first phase alone (``Hᵀ @ bf16(X)``, for the gradient of
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -31,10 +32,18 @@ from hypergef_tpu_torch.sparse.planner import DenseIncidence
 launches = 0
 v2e_launches = 0
 
-# Tile policy of the kernel; the block shapes themselves live in the .cu file.
-_P1_THREADS = 128  # edges per phase-1 block (kP1Threads)
-_BLOCKS_PER_SM = 8  # phase-1 blocks to aim for on each SM
-_MIN_ROWS_PER_SPLIT = 128  # fewer rows per split cost more in partials than they gain
+# The kernel's tile constants (csrc/fused_dense.cu; hg_fused_dense_layout
+# gives them, and the wrapper checks them before its first launch).
+EDGE_TILE = 128  # edges a phase-A work item covers (kEdgeTile)
+ROWS_PER_CTA = 64  # output rows a phase-C work item covers (kRowsPerCta)
+K_STEP = 64  # table rows a phase-A stage holds (kKStep)
+K_STEP_C = 128  # edges a phase-C stage holds (kKStepC)
+F_CHUNK = 32  # features a pass (kFChunk)
+THREADS = 256  # threads a CTA (kThreads)
+CTAS_PER_SM = 2  # CTAs an SM holds, by the launch bounds (kCtasPerSm)
+# The host's policy: a split of K shorter than this costs more in partials
+# and in the reduce than it gains in CTAs.
+MIN_SPLIT_K = 128
 _INT32_MAX = 2**31 - 1
 
 
@@ -79,18 +88,119 @@ def dense_table(plan, route: str) -> DenseIncidence:
     return dense
 
 
-def _tile_policy(n: int, e: int, f: int, device: torch.device):
-    """(fc, fp, splits): feature chunk, padded width, and row splits."""
-    fc = 8 if f <= 8 else 32
-    fp = -(-f // fc) * fc
-    e_tiles = -(-e // _P1_THREADS)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    splits = min(
-        -(-_BLOCKS_PER_SM * sms // e_tiles),
-        -(-n // _MIN_ROWS_PER_SPLIT),
-        65535,
-    )
-    return fc, fp, max(splits, 1)
+@dataclasses.dataclass(frozen=True)
+class WorkSplit:
+    """How one call of the kernel cuts its work over a grid of CTAs.
+
+    Phase A's work items are (edge tile, row split) pairs, item ``i`` being
+    edge tile ``i % edge_tiles`` of row split ``i // edge_tiles``; phase C's
+    are (row tile, edge split) pairs in the same order. A CTA takes items
+    ``cta, cta + grid, ...`` of each phase. Phases B and D add the splits'
+    partials with ``ways_a`` / ``ways_c`` lanes to an entry.
+    """
+
+    n: int
+    e: int
+    fp: int
+    grid: int
+    edge_tiles: int
+    splits_a: int
+    k_a: int  # table rows a phase-A split holds
+    ways_a: int
+    row_tiles: int
+    splits_c: int
+    k_c: int  # edges a phase-C split holds
+    ways_c: int
+
+    def v2e_items(self, cta: int):
+        """(rows, edges) ranges of the phase-A items of CTA ``cta``."""
+        for i in range(cta, self.edge_tiles * self.splits_a, self.grid):
+            t, s = i % self.edge_tiles, i // self.edge_tiles
+            yield (range(s * self.k_a, min(self.n, (s + 1) * self.k_a)),
+                   range(t * EDGE_TILE, min(self.e, (t + 1) * EDGE_TILE)))
+
+    def e2v_items(self, cta: int):
+        """(rows, edges) ranges of the phase-C items of CTA ``cta``."""
+        for i in range(cta, self.row_tiles * self.splits_c, self.grid):
+            t, s = i % self.row_tiles, i // self.row_tiles
+            yield (range(t * ROWS_PER_CTA, min(self.n, (t + 1) * ROWS_PER_CTA)),
+                   range(s * self.k_c, min(self.e, (s + 1) * self.k_c)))
+
+
+def _split_k(m: int, k: int, tile: int, step: int, cap: int):
+    """(tiles, splits, k a split): ``m`` cut in tiles, and ``k`` in splits of
+    whole stages of ``step``, none shorter than MIN_SPLIT_K, so that the
+    tile x split items keep the ``cap`` CTAs busiest over the waves they
+    take (fewer splits where more buy under 5 points of that share)."""
+    tiles = -(-m // tile)
+    most = max(1, min(-(-k // MIN_SPLIT_K), -(-4 * cap // tiles)))
+    best = None
+    for s in range(1, most + 1):
+        per = -(-(-(-k // s)) // step) * step
+        splits = -(-k // per)
+        items = tiles * splits
+        busy = items / (-(-items // cap) * cap)
+        if best is None or busy > best[0] + 0.05:
+            best = (busy, splits, per)
+    return tiles, best[1], best[2]
+
+
+def _reduce_ways(total: int, splits: int, cap: int) -> int:
+    """Lanes that sum one entry: doubled while the reduce still fits the
+    grid's threads and there are splits to share."""
+    ways = 1
+    while ways < 32 and ways < splits and 2 * ways * total <= cap * THREADS:
+        ways *= 2
+    return ways
+
+
+@functools.lru_cache(maxsize=256)
+def work_split(n: int, e: int, f: int, sms: int, ctas_per_sm: int,
+               two_stage: bool = True) -> WorkSplit:
+    """The grid and the work items of a call at N, E, F on a card of ``sms``
+    SMs holding ``ctas_per_sm`` CTAs each (phases A and B alone where not
+    ``two_stage``): never more CTAs than the card holds at once, as a
+    cooperative launch needs. Cached: a layer calls it with the same shape
+    every step, and the search over splits costs host time."""
+    cap = sms * ctas_per_sm
+    fp = -(-f // 8) * 8
+    edge_tiles, splits_a, k_a = _split_k(e, n, EDGE_TILE, K_STEP, cap)
+    row_tiles, splits_c, k_c = (_split_k(n, e, ROWS_PER_CTA, K_STEP_C, cap) if two_stage
+                                else (0, 1, e))
+    ways_a = _reduce_ways(e * fp, splits_a, cap)
+    ways_c = _reduce_ways(n * fp, splits_c, cap) if splits_c > 1 else 1
+    wanted = [edge_tiles * splits_a, -(-e * fp * ways_a // THREADS),
+              row_tiles * splits_c, -(-n * fp * ways_c // THREADS) if splits_c > 1 else 0]
+    return WorkSplit(n=n, e=e, fp=fp, grid=max(1, min(cap, max(wanted))),
+                     edge_tiles=edge_tiles, splits_a=splits_a, k_a=k_a, ways_a=ways_a,
+                     row_tiles=row_tiles, splits_c=splits_c, k_c=k_c, ways_c=ways_c)
+
+
+@functools.lru_cache(maxsize=None)
+def _card(index: int):
+    """(SMs, CTAs an SM) of the kernel on card ``index``, after checking the
+    kernel's tile constants against the wrapper's."""
+    import ctypes
+
+    from hypergef_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    layout = (ctypes.c_int * 8)()
+    with torch.cuda.device(index):
+        _raise_on(lib.hg_fused_dense_layout(layout), lib, "fused_dense layout")
+    want = (EDGE_TILE, ROWS_PER_CTA, K_STEP, K_STEP_C, F_CHUNK, THREADS, CTAS_PER_SM)
+    if tuple(layout[:7]) != want:
+        raise RuntimeError(f"csrc/fused_dense.cu's layout {tuple(layout[:7])} is not the "
+                           f"wrapper's {want}")
+    if layout[7] < 1:
+        raise RuntimeError("the fused dense kernel does not fit on an SM")
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms, min(CTAS_PER_SM, layout[7])
+
+
+def _device_split(n: int, e: int, f: int, device: torch.device, two_stage: bool = True):
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return work_split(n, e, f, *_card(index), two_stage=two_stage)
 
 
 def _check_kernel_args(h, x, scale_e=None, scale_v=None):
@@ -138,16 +248,20 @@ def _launch(h, x, scale_e, scale_v):
 
     n, e, f = _check_kernel_args(h, x, scale_e, scale_v)
     lib = _build.load_library()
-    fc, fp, splits = _tile_policy(n, e, f, x.device)
-    out = torch.empty((n, f), dtype=torch.float32, device=x.device)
-    partial = torch.empty((splits, e, fp), dtype=torch.float32, device=x.device)
-    xe = torch.empty((e, fp), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    ws = _device_split(n, e, f, x.device)
+    dev = x.device
+    out = torch.empty((n, f), dtype=torch.float32, device=dev)
+    partial_a = torch.empty((ws.splits_a, e, ws.fp), dtype=torch.float32, device=dev)
+    xe = torch.empty((e, ws.fp), dtype=torch.bfloat16, device=dev)
+    partial_c = torch.empty((ws.splits_c, n, ws.fp) if ws.splits_c > 1 else (0,),
+                            dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.hg_fused_dense_two_stage(
             h.data_ptr(), x.data_ptr(), scale_e.data_ptr(), scale_v.data_ptr(),
-            out.data_ptr(), partial.data_ptr(), xe.data_ptr(),
-            n, e, f, fc, splits, stream,
+            out.data_ptr(), partial_a.data_ptr(), xe.data_ptr(), partial_c.data_ptr(),
+            n, e, f, ws.splits_a, ws.k_a, ws.ways_a, ws.splits_c, ws.k_c, ws.ways_c,
+            ws.grid, stream,
         )
     _raise_on(err, lib, "fused_dense_two_stage")
     launches += 1
@@ -155,19 +269,20 @@ def _launch(h, x, scale_e, scale_v):
 
 
 def _launch_v2e(h, x):
-    """``Hᵀ @ bf16(x)`` in f32 by the kernel's first phase: [E, F]."""
+    """``Hᵀ @ bf16(x)`` in f32 by the kernel's phases A and B: [E, F]."""
     global v2e_launches
     from hypergef_tpu_torch.ops import _build
 
     n, e, f = _check_kernel_args(h, x)
     lib = _build.load_library()
-    fc, fp, splits = _tile_policy(n, e, f, x.device)
-    partial = torch.empty((splits, e, fp), dtype=torch.float32, device=x.device)
-    out = torch.empty((e, fp), dtype=torch.float32, device=x.device)
+    ws = _device_split(n, e, f, x.device, two_stage=False)
+    partial_a = torch.empty((ws.splits_a, e, ws.fp), dtype=torch.float32, device=x.device)
+    out = torch.empty((e, ws.fp), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.hg_dense_v2e(h.data_ptr(), x.data_ptr(), partial.data_ptr(),
-                               out.data_ptr(), n, e, f, fc, splits, stream)
+        err = lib.hg_dense_v2e(h.data_ptr(), x.data_ptr(), partial_a.data_ptr(),
+                               out.data_ptr(), n, e, f, ws.splits_a, ws.k_a, ws.ways_a,
+                               ws.grid, stream)
     _raise_on(err, lib, "dense_v2e")
     v2e_launches += 1
     return out[:, :f]

@@ -74,6 +74,12 @@ def _operands(n, e, f, density, seed, device):
         (1000, 500, 4, 0.01),
         (2048, 300, 40, 0.02),
         (16242, 100, 32, 0.04),
+        (16242, 100, 100, 0.04),
+        (2708, 2708, 32, 0.0015),
+        (2708, 2708, 7, 0.0015),
+        (19717, 7963, 32, 0.0014),
+        (130, 4099, 3, 0.01),
+        (3000, 17, 65, 0.2),
     ],
 )
 def test_kernel_matches_plain(cuda, n, e, f, density):
@@ -89,7 +95,8 @@ def test_kernel_matches_plain(cuda, n, e, f, density):
     assert torch.equal(got, again), "two runs differ"
 
 
-@pytest.mark.parametrize("n,e,f,density", [(301, 187, 17, 0.03), (16242, 100, 4, 0.04)])
+@pytest.mark.parametrize("n,e,f,density", [(301, 187, 17, 0.03), (16242, 100, 4, 0.04),
+                                           (2708, 2708, 32, 0.0015)])
 def test_backward_matches_plain_formula(cuda, n, e, f, density):
     h, x, se, sv = _operands(n, e, f, density, seed=n + f, device=cuda)
     g = torch.as_tensor(np.random.default_rng(f).normal(size=(n, f)).astype(np.float32),
@@ -144,6 +151,88 @@ def test_gather_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         ell_gather.ell_gather_sum(x.t().contiguous().t(), table)
     with pytest.raises(ValueError):
         ell_gather.ell_gather_sum(x.cpu(), table)
+
+
+@pytest.mark.parametrize("offset", [1, 3, 8])
+def test_kernel_reads_a_table_at_any_byte_offset(cuda, offset):
+    """The table's rows are read as the aligned 16-byte words that hold
+    them, so a table that starts off a 16-byte boundary (a view) gives the
+    same result as a copy of it."""
+    h, x, se, sv = _operands(777, 203, 12, 0.05, seed=offset, device=cuda)
+    buf = torch.zeros(h.numel() + offset, dtype=torch.int8, device=cuda)
+    view = buf[offset:].view(h.shape)
+    view.copy_(h)
+    assert view.data_ptr() % 16 != 0 or offset % 16 == 0
+    got = fused_dense.fused_dense_two_stage(view, x, se, sv)
+    assert torch.equal(got, fused_dense.fused_dense_two_stage(h, x, se, sv))
+
+
+def test_kernel_is_one_cuda_kernel_a_call(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    h, x, se, sv = _operands(16242, 100, 32, 0.04, seed=3, device=cuda)
+    fused_dense.fused_dense_two_stage(h, x, se, sv)
+    fused_dense._launch_v2e(h, x)
+    torch.cuda.synchronize()
+    for call in (lambda: fused_dense.fused_dense_two_stage(h, x, se, sv),
+                 lambda: fused_dense._launch_v2e(h, x)):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(names) == 1 and "fused_dense_kernel" in names[0], names
+
+
+def test_kernel_runs_on_two_streams_at_once(cuda):
+    """Each call owns its scratch (partials, Xe): calls queued on two streams
+    without waiting for each other each give the plain version's result,
+    bitwise equal to the same call alone."""
+    ops = [_operands(2708, 2708, 32, 0.0015, seed=s, device=cuda) for s in (1, 2)]
+    alone = [fused_dense.fused_dense_two_stage(*o) for o in ops]
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = ([], [])
+    for _ in range(20):
+        for st, o, got in zip(streams, ops, outs):
+            with torch.cuda.stream(st):
+                got.append(fused_dense.fused_dense_two_stage(*o))
+    torch.cuda.synchronize()
+    for o, a, got in zip(ops, alone, outs):
+        want = fused_dense.fused_dense_two_stage_plain(*o)
+        torch.testing.assert_close(a, want, rtol=1e-2, atol=1e-2 * float(want.abs().max()))
+        for g in got:
+            assert torch.equal(g, a)
+
+
+def test_entry_refuses_a_grid_beyond_the_coresident_limit(cuda):
+    """A cooperative grid larger than the card holds at once is refused with
+    an error (never run, never hung), and the wrapper's check raises on it."""
+    from hypergef_tpu_torch.ops import _build
+
+    h, x, se, sv = _operands(2708, 2708, 8, 0.0015, seed=4, device=cuda)
+    lib = _build.load_library()
+    sms, ctas = fused_dense._card(torch.cuda.current_device())
+    ws = fused_dense.work_split(2708, 2708, 8, sms, ctas)
+    out = torch.empty((2708, 8), device=cuda)
+    pa = torch.empty((ws.splits_a, 2708, ws.fp), device=cuda)
+    xe = torch.empty((2708, ws.fp), dtype=torch.bfloat16, device=cuda)
+    pc = torch.empty((ws.splits_c, 2708, ws.fp), device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(grid):
+        return lib.hg_fused_dense_two_stage(
+            h.data_ptr(), x.data_ptr(), se.data_ptr(), sv.data_ptr(), out.data_ptr(),
+            pa.data_ptr(), xe.data_ptr(), pc.data_ptr(), 2708, 2708, 8, ws.splits_a, ws.k_a,
+            ws.ways_a, ws.splits_c, ws.k_c, ws.ways_c, grid, stream)
+
+    err = call(sms * 64 + 1)
+    assert err != 0
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fused_dense._raise_on(err, lib, "fused_dense_two_stage")
+    assert call(ws.grid) == 0  # the refusal left no error behind
+    want = fused_dense.fused_dense_two_stage_plain(h, x, se, sv)
+    torch.testing.assert_close(out, want, rtol=1e-2, atol=1e-2 * float(want.abs().max()))
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
