@@ -70,17 +70,20 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    plan: the checks of phase 3, against the plain form on the card;
    exactly 2 argmax and 2 band launches a request.
 15. Train 20 steps of HGNN max on SBM-60k, kernel form: finite losses,
-   exactly 2 argmax, 4 band and 0 arg-sum launches a step; 10 epochs
-   without dropout, kernel form vs plain form on the card, losses within
-   rtol 1e-3. One forward and backward of ``aligned_max_matvec`` on the
-   uniform plan at F = 32: one argmax and one arg-sum launch, dx within
-   rtol 1e-6, atol 1e-6·max of ``v2e_max_aligned``'s CSR-routed dx.
+   exactly 2 argmax, 4 band, 2 record-routed sum and 0 arg-sum launches a
+   step; 10 epochs without dropout, kernel form vs plain form on the card,
+   losses within rtol 1e-3. One forward and backward of
+   ``aligned_max_matvec`` on the uniform plan at F = 32: one argmax and one
+   arg-sum launch, dx within rtol 1e-6, atol 1e-6·max of
+   ``v2e_max_aligned``'s CSR-routed dx (the masked segment-sum kernel).
 16. Time, with CUDA events, median of 20 windows: the argmax kernel vs its
    twin (edge stage, F = 32 and 4), the arg-sum kernel vs its twin
-   (uniform vertex stage, F = 32), the SBM-60k max training epoch on the
-   aligned kernel form, on ``AggregationPlan(tree, aligned kernel form)``
-   (tree argmax V→E, band kernel E→V) and on the aligned plain form, and a
-   max request.
+   (uniform vertex stage, F = 32), the record-routed sum (the max
+   backward: the masked segment-sum kernel over SBM-60k's vertex-major CSR,
+   int32 ids, F = 32) vs its plain twin and its bound, the SBM-60k max
+   training epoch on the aligned kernel form, on ``AggregationPlan(tree,
+   aligned kernel form)`` (tree argmax V→E, band kernel E→V) and on the
+   aligned plain form, and a max request.
 17. Build stream100k from raw input (``random_hypergraph(100000, 20000,
    avg_edge_size=60, seed=0)``, N·E/nnz about 1670: the band where the JAX
    package's routing ladder picks ``bitstream``, ``planner.py:735-754``),
@@ -98,9 +101,10 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    launches a request.
 19. Train 20 steps on stream100k through ``bitstream`` with no ``plan=``,
    default dropout: HGNN sum, HGNN max, UniGIN and UniGCNII. Losses finite;
-   exactly 8, 4, 8 and 8 bitmm launches a step. Then 10 epochs without
-   dropout from the same weights, each within rtol 1e-2 of the ``tree``
-   route on the card (bitstream rounds x to bf16, tree does not); and HGNN
+   exactly 8, 4, 8 and 8 bitmm launches a step, and 2 record-routed sums a
+   HGNN max step. Then 10 epochs without dropout from the same weights,
+   each within rtol 1e-2 of the ``tree`` route on the card (bitstream
+   rounds x to bf16, tree does not); and HGNN
    sum on the pubmed_real box, ``bitstream`` against ``dense`` on the card:
    the first loss (the forward: both round x to bf16 and sum exact
    products) within rtol 1e-5, all within rtol 1e-3 (the backward of
@@ -108,9 +112,11 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    as in JAX: tests/test_bitstream.py:86-89).
 20. Time, with CUDA events, median of 20 windows: the kernel vs its twin vs
    one ``torch.sparse.mm`` of the same CSR on bf16-rounded x, per pack at
-   F = 32, on stream100k and the pubmed_real box; the stream100k training
-   epoch on ``bitstream``, ``tree`` and ``pallas_sparse`` (HGNN sum) and of
-   UniGCNII on ``bitstream``; a request.
+   F = 32, on stream100k and the pubmed_real box; the record-routed sum over
+   stream100k's vertex-major CSR (int64 ids, as the tree gives them) vs its
+   twin and its bound; the stream100k training epoch on ``bitstream``,
+   ``tree`` and ``pallas_sparse`` (HGNN sum), of HGNN max and of UniGCNII
+   on ``bitstream``; a request.
 21. The routing ladder on the card: ``plan_aggregation`` on 20news and
    pubmed_real (``dense``), cora 2708×2708 (``precomp``), coauthor_dblp
    41302×22363 (``cumsum``), SBM-60k after the reorder (``aligned``, in the
@@ -120,15 +126,21 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
 22. Hold the segment-sum kernel (``gather_segment_sum``, the ``cumsum``
    route's) against its plain version on both directions of coauthor_dblp at
    F = 32, 4, 3 and 1425, on identity gathers at the one-hot probes' shapes
-   (TS 8, R 64; TS 256, R 4096) and on a CSR with empty segments: rtol 1e-6,
-   atol 1e-6·max|plain|; two runs bitwise equal; one launch per call; and
-   ``incidence_gather_sum``'s backward (one launch each way).
+   (TS 8, R 64; TS 256, R 4096), on a CSR with empty segments and on a
+   long one: rtol 1e-6, atol 1e-6·max|plain|; two runs bitwise equal; one
+   launch per call; and ``incidence_gather_sum``'s backward (one launch
+   each way). Hold its masked form, the record-routed sum
+   (``record_routed_dx``), against its plain twin on the vertex-major CSRs
+   of coauthor_dblp (int64 ids at F = 32, int32 at F = 6 and 3), SBM-60k
+   (int32, F = 32) and stream100k (int64, F = 32), each id a member of
+   its edge: the same bar, repeats bitwise equal, one launch a call.
 23. Serve and train with ``TrainConfig()``'s defaults, no ``backend=`` and no
    ``plan=``: coauthor_dblp at AllSet's widths (1425 features, 6 classes),
    five HGNN requests (exactly 4 segment-sum launches each, within 1e-3 of
    the f32 ``tree`` route) and 20 steps each of HGNN sum, HGNN max and
-   UniGCNII (exactly 8, 4 and 8 launches a step), then 10 no-dropout epochs
-   within rtol 1e-3 of ``tree``; cora (1433 features, 7 classes) on
+   UniGCNII (exactly 8, 4 and 8 launches a step, and 2 record-routed sums a
+   HGNN max step), then 10 no-dropout epochs within rtol 1e-3 of ``tree``;
+   cora (1433 features, 7 classes) on
    ``precomp``: requests within 1e-2 of the same route on CPU tensors and
    within 3e-2·max|log-probs| of the f32 ``xla`` route, losses within rtol
    1e-2 of ``tree``; 20news trains on ``dense``.
@@ -235,6 +247,9 @@ KERNEL_SITES = {
                          "scripts/probe_r2b_bisect.py:184"],
     "scaled_copy": ["scripts/probe_r2b_bisect.py:49"],
 }
+# the record-routed sum replaces no pl.pallas_call: JAX computes the max
+# backward with XLA ops (gathers, a compare, a segment sum)
+RECORD_SUM_SITE = "hypergef_tpu/ops/maxops.py:106"
 REQUESTS = 5
 TRAIN_STEPS = 20
 PARITY_EPOCHS = 10
@@ -556,6 +571,7 @@ def kernel_counters():
             "band": (aligned_band, "launches"), "argmax": (aligned_max, "argmax_launches"),
             "argsum": (aligned_max, "argsum_launches"), "bitmm": (bitstream, "launches"),
             "segsum": (segment_sum, "launches"),
+            "recsum": (segment_sum, "record_launches"),
             "row_gather": (probes, "row_gather_launches"),
             "chunk_sum": (probes, "chunk_sum_launches"),
             "scaled_copy": (probes, "scaled_copy_launches")}
@@ -570,19 +586,19 @@ def train(problems, device) -> dict:
     # launches a step (2 layers), by (model, route, first aggregation); every
     # other count is 0. A layer's aggregation is two products forward and
     # their adjoints backward; max takes V→E from the tree or the argmax
-    # kernel and its backward from the CSR.
+    # kernel and its backward from the CSR: one record-routed sum a layer.
     per_step = {("HGNN", "pallas", "sum"): {"fused": 4},
                 ("HGNN", "pallas_sparse", "sum"): {"gather": 8},
                 ("HGNN", "aligned", "sum"): {"band": 8},
-                ("HGNN", "aligned", "max"): {"argmax": 2, "band": 4},
+                ("HGNN", "aligned", "max"): {"argmax": 2, "band": 4, "recsum": 2},
                 ("HGNN", "bitstream", "sum"): {"bitmm": 8},
-                ("HGNN", "bitstream", "max"): {"bitmm": 4},
+                ("HGNN", "bitstream", "max"): {"bitmm": 4, "recsum": 2},
                 ("UniGIN", "bitstream", "sum"): {"bitmm": 8},
                 ("UniGCNII", "bitstream", "sum"): {"bitmm": 8},
                 # cumsum's max takes V→E from the tree and its backward from
-                # the CSR-routed plain segment sum (maxops)
+                # the record-routed sum
                 ("HGNN", "cumsum", "sum"): {"segsum": 8},
-                ("HGNN", "cumsum", "max"): {"segsum": 4},
+                ("HGNN", "cumsum", "max"): {"segsum": 4, "recsum": 2},
                 ("UniGCNII", "cumsum", "sum"): {"segsum": 8},
                 ("HGNN", "precomp", "sum"): {}, ("HGNN", "dense", "sum"): {}}
     counters = kernel_counters()
@@ -984,7 +1000,7 @@ def time_turns(fns: dict, order, iters: int = 10) -> dict:
 def max_phases(device, card: str, aligned: dict) -> dict:
     """Phases 13-16: max first aggregation on SBM-60k, on phase 9's graph
     and plans."""
-    from hypergef_tpu_torch.ops import aligned_band, aligned_max
+    from hypergef_tpu_torch.ops import aligned_band, aligned_max, segment_sum
     from hypergef_tpu_torch.sparse.planner import AggregationPlan, plan_tree
     from hypergef_tpu_torch.train.trainer import Trainer
 
@@ -1015,7 +1031,8 @@ def max_phases(device, card: str, aligned: dict) -> dict:
     served = serve(device, sbm, "aligned",
                    {"argmax": (aligned_max, "argmax_launches", 2),
                     "band": (aligned_band, "launches", 2),
-                    "argsum": (aligned_max, "argsum_launches", 0)},
+                    "argsum": (aligned_max, "argsum_launches", 0),
+                    "recsum": (segment_sum, "record_launches", 0)},
                    plan=AggregationPlan(aligned=al_kernel),
                    plain_plan=AggregationPlan(aligned=al_plan), plain_device=device,
                    first_aggr="max")
@@ -1050,6 +1067,7 @@ def max_phases(device, card: str, aligned: dict) -> dict:
         "plain": lambda: aligned_max.aligned_argsum_plain(g, arg, uni_v)}, order)
     argsum_times.update(bound(stage_table_bytes(uni_v) + nbytes(g, arg) + sbm.num_nodes * 32 * 4,
                               stage_live(uni_v) * 32))
+    record_times = time_record(sbm.device_data(device), 32, device, torch.int32)
     mcfg = problems["sbm60k max"][0]
     trainers = {
         "aligned kernel": Trainer(mcfg, hg, x, y, plan=plan, device=device),
@@ -1066,18 +1084,22 @@ def max_phases(device, card: str, aligned: dict) -> dict:
           f"epoch (wall: 10 back-to-back steps, host included; device: behind a queued "
           f"sleep): {json.dumps(epochs)}; argmax kernel vs plain twin: "
           f"{json.dumps(argmax_times)}; arg-sum kernel vs plain twin, uniform vertex stage "
-          f"F=32: {json.dumps(argsum_times)}; HGNN max request on SBM-60k, kernel form "
-          f"{served['request_ms']}", flush=True)
+          f"F=32: {json.dumps(argsum_times)}; record-routed sum vs plain twin, vertex-major "
+          f"CSR, int32 ids, F=32: {json.dumps(record_times)}; HGNN max request on SBM-60k, "
+          f"kernel form {served['request_ms']}", flush=True)
     return {"argmaxes": argmaxes, "argsum": argsum, "served": served, "trained": trained,
             "matvec": matvec, "argmax_times": argmax_times, "argsum_times": argsum_times,
-            "epochs": epochs, "stages": stages, "uniform": (uni_e, uni_v)}
+            "record_times": record_times, "epochs": epochs, "stages": stages,
+            "uniform": (uni_e, uni_v)}
 
 
 def check_matvec(hg, e_stage, v_stage, device) -> dict:
     """One forward and backward of ``aligned_max_matvec`` on the uniform
-    SBM-60k plan at F = 32: one argmax and one arg-sum launch, and dx within
-    rtol 1e-6, atol 1e-6·max of ``v2e_max_aligned``'s CSR-routed dx."""
-    from hypergef_tpu_torch.ops import aligned_max
+    SBM-60k plan at F = 32: one argmax and one arg-sum launch, a forward
+    bitwise equal to ``v2e_max_aligned``'s, and dx within rtol 1e-6, atol
+    1e-6·max of the record-routed sum in plain torch over the vertex-major
+    CSR (``segment_sum.record_routed_dx_plain``) on that forward's ids."""
+    from hypergef_tpu_torch.ops import aligned_max, segment_sum
 
     hgd = hg.device_data(device)
     rng = np.random.default_rng(14)
@@ -1092,10 +1114,9 @@ def check_matvec(hg, e_stage, v_stage, device) -> dict:
     torch.cuda.synchronize()
     launched = (aligned_max.argmax_launches, aligned_max.argsum_launches)
     check(launched == (1, 1), f"aligned_max_matvec launched (argmax, arg-sum) {launched}")
-    xc = x.clone().requires_grad_(True)
-    yc = aligned_max.v2e_max_aligned(xc, e_stage, hgd.h_edge, hgd.h_segids, hgd.h_indptr)
-    (want,) = torch.autograd.grad(yc, xc, cot)
+    yc, arg = aligned_max.aligned_max_with_arg(x, e_stage)
     check(torch.equal(y, yc), "the two ops' forwards are bitwise equal")
+    want = segment_sum.record_routed_dx_plain(cot, arg, hgd.e2v)
     scale = float(want.abs().max())
     torch.testing.assert_close(dx, want, rtol=1e-6, atol=1e-6 * scale)
     return {"argmax_launches": launched[0], "argsum_launches": launched[1],
@@ -1281,19 +1302,25 @@ def bitstream_phases(device, card: str, graphs) -> dict:
                              device=device),
         "HGNN pallas_sparse": Trainer(dataclasses.replace(base, backend="pallas_sparse"), hg, x,
                                       y, plan=plan_pallas_sparse(hg), device=device),
+        "HGNN max bitstream": Trainer(configs["HGNN max"], hg, x, y,
+                                      plan=AggregationPlan(bitstream=bits, tree=tree),
+                                      device=device),
         "UniGCNII bitstream": Trainer(configs["UniGCNII"], hg, x, y,
                                       plan=AggregationPlan(bitstream=bits), device=device),
     }
     names = list(trainers)
     epochs = time_steps(trainers, split["train"], names + names[::-1], device)
     requests = {model: s["request_ms"] for model, s in served.items()}
+    record_times = time_record(hg.device_data(device), 32, device, torch.int64)
     print(f"phase 20 times (ms, CUDA events, median of 20): card {card}; stream100k training "
           f"epoch (wall: 10 back-to-back steps, host included; device: behind a queued "
           f"sleep): {json.dumps(epochs)}; bitmm kernel vs plain twin vs torch.sparse.mm: "
-          f"{json.dumps(bitmm_times)}; request on stream100k, bitstream: "
+          f"{json.dumps(bitmm_times)}; record-routed sum vs plain twin, vertex-major CSR, "
+          f"int64 ids, F=32: {json.dumps(record_times)}; request on stream100k, bitstream: "
           f"{json.dumps(requests)}", flush=True)
     return {"checks": checks, "matvec": matvec, "served": served, "trained": trained,
-            "parity": parity, "bitmm_times": bitmm_times, "epochs": epochs, "hg": hg}
+            "parity": parity, "bitmm_times": bitmm_times, "record_times": record_times,
+            "epochs": epochs, "hg": hg}
 
 
 def ladder_phase(device, graphs) -> dict:
@@ -1371,13 +1398,58 @@ def check_incidence_backward(hgd, f: int, device) -> dict:
     return {"f": f, "max_abs_err": errs}
 
 
-def segsum_phase(device, dblp) -> dict:
+def check_record(hgd, f: int, seed: int, device, dtype) -> dict:
+    """The record-routed sum (the masked segment-sum kernel) against its
+    plain twin over ``hgd.e2v``: rtol 1e-6, atol 1e-6·max|plain| (the same
+    f32 terms, zeros where an id differs, in another order); two runs
+    bitwise equal; one launch a call."""
+    from hypergef_tpu_torch.ops import segment_sum
+    from hypergef_tpu_torch.tools.segment_sum_ab import record_operands
+
+    g, arg = record_operands(hgd, f, seed, device, dtype)
+    table = hgd.e2v
+    before = segment_sum.record_launches
+    got = segment_sum.record_routed_dx(g, arg, table)
+    again = segment_sum.record_routed_dx(g, arg, table)
+    torch.cuda.synchronize()
+    check(segment_sum.record_launches == before + 2, "one record-sum launch per call")
+    want = segment_sum.record_routed_dx_plain(g, arg, table)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * scale)
+    check(torch.equal(got, again), "two record-sum runs are bitwise equal")
+    return {"s": table.num_segments, "n": table.num_inputs, "nnz": table.nnz, "f": f,
+            "ids": str(dtype).split(".")[-1], "max_abs_err": float((got - want).abs().max()),
+            "max_abs_plain": scale, "nonzero_share": float((want != 0).float().mean())}
+
+
+def time_record(hgd, f: int, device, dtype) -> dict:
+    """The record-routed sum's kernel and plain twin in turns; the bound
+    moves the rows of g and arg the CSR names, its int32 gather and row
+    pointer, and the output once, with a compare and an add a feature for
+    each entry."""
+    from hypergef_tpu_torch.ops import segment_sum
+    from hypergef_tpu_torch.tools.segment_sum_ab import record_operands
+
+    g, arg = record_operands(hgd, f, 27, device, dtype)
+    table = hgd.e2v
+    out = time_turns({"kernel": lambda: segment_sum.record_routed_dx(g, arg, table),
+                      "plain": lambda: segment_sum.record_routed_dx_plain(g, arg, table)},
+                     ("plain", "kernel", "kernel", "plain"))
+    read = rows_read_bytes(g, table.gather) + rows_read_bytes(arg, table.gather)
+    out.update(bound(read + nbytes(table.gather, table.indptr) + table.num_segments * f * 4,
+                     2 * table.nnz * f))
+    return out
+
+
+def segsum_phase(device, graphs) -> dict:
     """Phase 22: the segment-sum kernel on both directions of coauthor_dblp
     at F = 32, 4, 3 and 1425, on the identity gathers of the one-hot probes'
-    shapes, on a CSR with empty segments; incidence_gather_sum's backward."""
+    shapes, on a CSR with empty segments and one with a long segment;
+    incidence_gather_sum's backward; the record-routed sum on coauthor_dblp,
+    SBM-60k and stream100k."""
     from hypergef_tpu_torch.ops.segment_sum import SegmentTable
 
-    hgd = dblp.device_data(device)
+    hgd = graphs["coauthor_dblp"].device_data(device)
     cases = []
     for seed, (stage, f) in enumerate([(s, f) for s in ("v2e", "e2v") for f in (32, 4, 3, 1425)]):
         cases.append({"graph": "coauthor_dblp", "stage": stage,
@@ -1393,7 +1465,19 @@ def segsum_phase(device, dblp) -> dict:
     indptr = np.concatenate([[0], np.cumsum(sizes)])
     table = SegmentTable.build(indptr, rng.integers(0, 7000, size=int(indptr[-1])), 7000, device)
     cases.append({"graph": "empty segments", **check_segsum(table, 32, 125, device)})
-    return {"cases": cases, "backward": check_incidence_backward(hgd, 32, device)}
+    sizes[17] = 12_000  # a run of one long segment, summed by the whole warp
+    indptr = np.concatenate([[0], np.cumsum(sizes)])
+    table = SegmentTable.build(indptr, rng.integers(0, 7000, size=int(indptr[-1])), 7000, device)
+    for f in (32, 1425):
+        cases.append({"graph": "a long segment", **check_segsum(table, f, 126 + f, device)})
+    records = [{"graph": name, **check_record(graphs[name].device_data(device), f, 130 + i,
+                                              device, dtype)}
+               for i, (name, f, dtype) in enumerate([
+                   ("coauthor_dblp", 32, torch.int64), ("coauthor_dblp", 6, torch.int32),
+                   ("coauthor_dblp", 3, torch.int32), ("sbm60k", 32, torch.int32),
+                   ("stream100k", 32, torch.int64)])]
+    return {"cases": cases, "records": records,
+            "backward": check_incidence_backward(hgd, 32, device)}
 
 
 def default_problem(hg, nfeat: int, nclass: int, **cfg):
@@ -1695,9 +1779,11 @@ def profile_steps(device, steps: int = 10) -> None:
         "max tree + aligned kernel": (mcfg, AggregationPlan(tree=plan_tree(hg), aligned=kernel)),
         "max aligned plain": (mcfg, AggregationPlan(aligned=al_plan)),
     }
-    # the pieces of the CSR-routed max backward (maxops.record_routed_dx) at
-    # SBM-60k F = 32, each alone: row gathers by h_edge in three forms, and
-    # the direct segment sum
+    # the max backward at SBM-60k F = 32 (segment_sum.record_routed_dx: one
+    # launch of the masked segment-sum kernel) beside the pieces of its plain
+    # twin, each alone: row gathers by h_edge in three forms, and the direct
+    # segment sum
+    from hypergef_tpu_torch.ops.segment_sum import record_routed_dx
     from hypergef_tpu_torch.ops.segments import segment_sum_sorted
     from hypergef_tpu_torch.utils.timing import cuda_time_ms
 
@@ -1713,6 +1799,7 @@ def profile_steps(device, steps: int = 10) -> None:
         "advanced index f32": lambda: g[hgd.h_edge],
         "torch.gather f32": lambda: torch.gather(g, 0, hgd.h_edge[:, None].expand(-1, 32)),
         "segment_sum_sorted": lambda: segment_sum_sorted(vals, hgd.h_indptr),
+        "record_routed_dx kernel": lambda: record_routed_dx(g, arg, hgd.e2v),
     }
     print("profile CSR backward pieces (ms, CUDA events behind a queued sleep, median of 20): "
           + json.dumps({k: cuda_time_ms(f, repeats=20, iters=10) for k, f in pieces.items()}),
@@ -1860,9 +1947,11 @@ def main() -> int:
     ladder = ladder_phase(device, ladder_graphs)
     print(f"phase 21 ladder (host seconds to plan): {json.dumps(ladder)}", flush=True)
     # 22. the segment-sum kernel against its plain version
-    segsum = segsum_phase(device, ladder_graphs["coauthor_dblp"])
+    segsum = segsum_phase(device, ladder_graphs)
     for c in segsum["cases"]:
         print(f"phase 22 segment-sum kernel vs plain: {json.dumps(c)}", flush=True)
+    for c in segsum["records"]:
+        print(f"phase 22 record-routed sum vs plain: {json.dumps(c)}", flush=True)
     print(f"phase 22 incidence_gather_sum backward: {json.dumps(segsum['backward'])}", flush=True)
     # 23. serve and train with no backend= and no plan=
     defaults = default_phases(device, ladder_graphs)
@@ -1884,6 +1973,7 @@ def main() -> int:
              "aligned_masked_argsum": maxed["argsum_times"],
              "bitstream_bitmm": streamed["bitmm_times"]["stream100k Ht F=32"],
              "gather_segment_sum": dtimes["segsum_times"]["v2e F=32"],
+             "record_routed_dx": maxed["record_times"],
              **probed["times"]}
     dblp_segsum = [defaults["served"]["coauthor_dblp"]["launches"]["segsum"]] + [
         t["launches"]["segsum"] for name, t in defaults["trained"].items()
@@ -1969,6 +2059,18 @@ def main() -> int:
         "e2v_plain_ms": dtimes["segsum_times"]["e2v F=32"]["plain"],
         "e2v_library_ms": dtimes["segsum_times"]["e2v F=32"]["library"],
         "e2v_bound_ms": dtimes["segsum_times"]["e2v F=32"]["bound_ms"],
+    }, {
+        "name": "record_routed_dx",
+        "route": "cuda",
+        "source": "hypergef_tpu_torch/csrc/segment_sum.cu",
+        # the max backward of the training paths: SBM-60k aligned (phase 15),
+        # stream100k bitstream (phase 19), coauthor_dblp cumsum (phase 23)
+        "launches": (maxed["trained"]["launches"]["recsum"]
+                     + streamed["trained"]["HGNN max"]["launches"]["recsum"]
+                     + defaults["trained"]["coauthor_dblp HGNN max"]["launches"]["recsum"]),
+        "max_abs_err": max(c["max_abs_err"] for c in segsum["records"]),
+        **{f"stream100k_{k}": streamed["record_times"][key]
+           for k, key in (("ms", "kernel"), ("plain_ms", "plain"), ("bound_ms", "bound_ms"))},
     }]
     # the probe kernels: their path is phase 25, the checked call of each case
     for name, source in (("row_gather", "probes.cu"), ("chunk_masked_sum", "probes.cu"),
@@ -1979,7 +2081,7 @@ def main() -> int:
                         "max_abs_err": probe_err[name]})
     for k in kernels:
         t = timed[k["name"]]
-        sites = KERNEL_SITES[k["name"]]
+        sites = KERNEL_SITES.get(k["name"], [RECORD_SUM_SITE])
         k.update({"replaces": sites[0], **({"also_replaces": sites[1:]} if sites[1:] else {}),
                   "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": t["bound_ms"],
                   "bound_by": t["bound_by"], "library_ms": t.get("library")})

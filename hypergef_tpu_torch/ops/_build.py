@@ -117,8 +117,9 @@ ENTRIES = {
     "hg_aligned_masked_argsum": [_PTR] * 8 + [_INT] * 6 + [_PTR],
     # words, x, out; m, kt_count, k, f; stream
     "hg_bitmm": [_PTR] * 3 + [_INT] * 4 + [_PTR],
-    # x, gather (or null), indptr, out; s, f, lanes; stream
-    "hg_gather_segment_sum": [_PTR] * 4 + [_INT] * 3 + [_PTR],
+    # x, arg (or null); arg_bytes; gather (or null), indptr, runs, out; n_runs, f, lanes,
+    # width; stream
+    "hg_gather_segment_sum": [_PTR] * 2 + [_INT] + [_PTR] * 4 + [_INT] * 4 + [_PTR],
     # x, idx, out; r, f, n_buf (0: direct), rows_per_warp; stream
     "hg_row_gather": [_PTR] * 3 + [_INT] * 4 + [_PTR],
     # src, gidx (or null: src is gathered [C, ngs, F]), mask, out; c, ngs, f, n_buf,

@@ -29,7 +29,8 @@ them with ``scatter_reduce``, so no [groups, G, W, F] intermediate is made.
 ``argmax_launches`` and ``argsum_launches`` count the kernels' launches.
 
 The autograd ops: :func:`v2e_max_aligned` (``:371-394``), whose backward is
-the record-routed CSR segment sum of :mod:`.maxops`, and
+the record-routed CSR segment sum (:func:`.segment_sum.record_routed_dx`,
+the masked segment-sum kernel on the card), and
 :func:`aligned_max_matvec` (``:349-368``), whose backward is the arg-sum over
 a uniform transpose stage (any other stage type raises ``TypeError``, as in
 JAX, ``:311-313``).
@@ -40,7 +41,8 @@ from __future__ import annotations
 import torch
 
 from hypergef_tpu_torch.ops.aligned_band import check_operand, kernel_table, raise_on_error
-from hypergef_tpu_torch.ops.maxops import NEG, record_routed_dx
+from hypergef_tpu_torch.ops.maxops import NEG
+from hypergef_tpu_torch.ops.segment_sum import SegmentTable, record_routed_dx
 from hypergef_tpu_torch.sparse.planner import AlignedStageBDev, AlignedStageDev
 
 argmax_launches = 0
@@ -210,21 +212,23 @@ def aligned_argsum(g, arg, st):
 
 class _V2EMaxAligned(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, e_stage, h_edge, h_segids, h_indptr):
+    def forward(ctx, x, e_stage, e2v):
         y, arg = aligned_max_with_arg(x, e_stage)
-        ctx.save_for_backward(arg, h_edge, h_segids, h_indptr)
+        ctx.save_for_backward(arg)
+        ctx.e2v = e2v
         return y
 
     @staticmethod
     def backward(ctx, g):
-        return record_routed_dx(g.contiguous(), *ctx.saved_tensors), None, None, None, None
+        (arg,) = ctx.saved_tensors
+        return record_routed_dx(g.contiguous(), arg, ctx.e2v), None, None
 
 
-def v2e_max_aligned(x, e_stage, h_edge, h_segids, h_indptr):
+def v2e_max_aligned(x, e_stage, e2v: SegmentTable):
     """``y[e, f] = max_{v ∈ e} x[v, f]`` over an aligned edge stage, with the
-    record-table backward over the vertex-major CSR (``h_edge``,
-    ``h_segids``, ``h_indptr``), as :func:`.maxops.v2e_max_tree`."""
-    return _V2EMaxAligned.apply(x, e_stage, h_edge, h_segids, h_indptr)
+    record-table backward over the vertex-major CSR ``e2v``
+    (``HypergraphData.e2v``), as :func:`.maxops.v2e_max_tree`."""
+    return _V2EMaxAligned.apply(x, e_stage, e2v)
 
 
 class _AlignedMaxMatvec(torch.autograd.Function):

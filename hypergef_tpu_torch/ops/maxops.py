@@ -10,9 +10,12 @@ cotangent to exactly that member:
   level: ``arg[e, f]`` is the first member in CSR order that reaches
   ``max_{v ∈ e} x[v, f]`` (argmax picks the first slot, slots and chunks
   run in CSR order). An empty hyperedge gives 0 and id -1.
-* **backward** — ``dx[v, f] = Σ_{e ∋ v} g[e, f] · [arg[e, f] == v]``: a
-  gather over the vertex-major CSR and the direct sorted segment sum of
-  :mod:`.segments` (deterministic, no atomics). The same backward serves
+* **backward** — ``dx[v, f] = Σ_{e ∋ v} g[e, f] · [arg[e, f] == v]`` over
+  the vertex-major CSR (``HypergraphData.e2v``):
+  :func:`.segment_sum.record_routed_dx`, one launch of the masked
+  segment-sum kernel on the card, the gathers and direct sorted segment sum
+  of its plain twin on the CPU (deterministic, no atomics). The tree's ids
+  are int64 and the kernel reads them as they are. The same backward serves
   the aligned stages (:mod:`.aligned_max`).
 """
 
@@ -20,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from hypergef_tpu_torch.ops.segments import segment_sum_sorted
+from hypergef_tpu_torch.ops.segment_sum import SegmentTable, record_routed_dx
 from hypergef_tpu_torch.sparse.planner import DeviceStage
 
 NEG = -3.0e38  # dead slots; inputs are taken as finite and above it
@@ -59,28 +62,22 @@ def tree_max_with_arg(x: torch.Tensor, stage: DeviceStage):
     return torch.where(alive, y, 0.0), torch.where(alive, arg, -1)
 
 
-def record_routed_dx(g, arg, h_edge, h_segids, h_indptr):
-    """``dx[v, f] = Σ_{e ∋ v} g[e, f] · [arg[e, f] == v]`` over the
-    vertex-major CSR (``_v2e_max_bwd``, ``:106-112``)."""
-    gg = g.index_select(0, h_edge)  # [nnz, F] cotangents of the owning edges
-    ga = arg.index_select(0, h_edge)  # [nnz, F] winning vertex per (e, f)
-    return segment_sum_sorted(torch.where(ga == h_segids[:, None], gg, 0.0), h_indptr)
-
-
 class _V2EMaxTree(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, e_stage, h_edge, h_segids, h_indptr):
+    def forward(ctx, x, e_stage, e2v):
         y, arg = tree_max_with_arg(x, e_stage)
-        ctx.save_for_backward(arg, h_edge, h_segids, h_indptr)
+        ctx.save_for_backward(arg)
+        ctx.e2v = e2v
         return y
 
     @staticmethod
     def backward(ctx, g):
-        return record_routed_dx(g.contiguous(), *ctx.saved_tensors), None, None, None, None
+        (arg,) = ctx.saved_tensors
+        return record_routed_dx(g.contiguous(), arg, ctx.e2v), None, None
 
 
-def v2e_max_tree(x, e_stage, h_edge, h_segids, h_indptr):
+def v2e_max_tree(x, e_stage, e2v: SegmentTable):
     """``y[e, f] = max_{v ∈ e} x[v, f]`` over the edge tree stage, with the
-    record-table backward over the vertex-major CSR (``h_edge``,
-    ``h_segids``, ``h_indptr``)."""
-    return _V2EMaxTree.apply(x, e_stage, h_edge, h_segids, h_indptr)
+    record-table backward over the vertex-major CSR ``e2v``
+    (``HypergraphData.e2v``)."""
+    return _V2EMaxTree.apply(x, e_stage, e2v)

@@ -1205,7 +1205,7 @@ class AggregationPlan:
 
 def plan_aggregation(
     hg,
-    device="cpu",
+    device="cuda",
     dense_threshold: int = DENSE_AUTO_THRESHOLD,
     with_tile: bool = False,
     with_bsr: Optional[bool] = None,
@@ -1227,9 +1227,11 @@ def plan_aggregation(
     * ``cumsum`` when nnz ≤ ``CUMSUM_PREFER_NNZ``;
     * ``tree`` otherwise.
 
-    The tables go to ``device`` (the int8 table and A here, the stage plans
-    and packs at their first use). The plan always holds the plain-form
-    tree, which max first aggregation reads. On a CUDA device the aligned
+    The tables go to ``device``, the card unless the caller asks for the
+    CPU (``device="cpu"``); without a card the default raises (the int8
+    table and A here, the stage plans and packs at their first use). The
+    plan always holds the plain-form tree, which max first aggregation
+    reads. On a CUDA device the aligned
     plan takes the kernel form (``form="pallas_auto"``, the band kernel);
     the route's name stays ``aligned``. The tiled, BSR and multihot forms
     are not ported: asking for one raises ``NotImplementedError``; the JAX
@@ -1242,6 +1244,9 @@ def plan_aggregation(
                 f"{name}=True asks for a plan form the port leaves out (ROADMAP.md, "
                 "'Do not port')")
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: plan_aggregation plans for the card unless it is "
+                           "given device='cpu'")
     n, e, nnz = hg.num_nodes, hg.num_edges, hg.nnz
     tree = plan_tree(hg, ngs=ngs, fan=fan)
     dense = precomp = aligned = bitstream = None

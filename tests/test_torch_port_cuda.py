@@ -24,6 +24,10 @@ Tolerances:
 * bit-packed product kernel: rtol 1e-5 and atol 1e-5·max|plain|. The
   products are exact (0/1 times bf16); the kernel sums each row in column
   order, the twin in its matmul's order.
+* segment-sum kernel and its masked form, the record-routed sum: rtol 1e-6
+  and atol 1e-6·max|plain| (the same f32 terms: every value is one lane's
+  f32 sum in CSR order, long segments included, against segment_reduce's
+  own order).
 """
 
 import dataclasses
@@ -767,6 +771,121 @@ def test_segment_sum_kernel_matches_plain(cuda, s, n, density, f, identity):
     assert torch.equal(got, again), "two runs differ"
     empty = torch.as_tensor(np.diff(indptr) == 0, device=cuda)
     assert not got[empty].any()
+
+
+def _long_csr(seed):
+    """Segments over 7000 rows: every third one empty, a 12,000-row one."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.poisson(3.0, size=3000)
+    sizes[::3] = 0
+    sizes[5] = 12_000
+    indptr = np.concatenate([[0], np.cumsum(sizes)])
+    return indptr, rng.integers(0, 7000, size=int(indptr[-1])).astype(np.int32)
+
+
+@pytest.mark.parametrize("f", [1, 3, 4, 6, 32, 100, 1425])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_segment_sum_kernel_on_a_long_segment_and_unaligned_rows(cuda, f, aligned):
+    """The warp runs' two modes (several segments a warp's lane groups; one
+    long segment a column a lane), on rows read 16 (or at F = 6, 8) bytes a
+    lane and, from an x 4 bytes past a 16-byte boundary, one float a lane:
+    rtol 1e-6 and atol 1e-6·max|plain|, repeats bitwise equal, one launch a
+    call."""
+    from hypergef_tpu_torch.ops import segment_sum
+
+    indptr, gather = _long_csr(f)
+    table = segment_sum.SegmentTable.build(indptr, gather, 7000, cuda)
+    vals = torch.as_tensor(np.random.default_rng(f).normal(size=(7000, f)).astype(np.float32),
+                           device=cuda)
+    buf = torch.empty(7000 * f + 1, device=cuda)
+    x = buf[1:].view(7000, f) if not aligned else buf[:-1].view(7000, f)
+    x.copy_(vals)
+    assert (x.data_ptr() % 16 == 0) == aligned
+    before = segment_sum.launches
+    got = segment_sum.gather_segment_sum(x, table)
+    again = segment_sum.gather_segment_sum(x, table)
+    torch.cuda.synchronize()
+    assert segment_sum.launches == before + 2
+    want = segment_sum.gather_segment_sum_plain(vals, table)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * float(want.abs().max()))
+    assert torch.equal(got, again), "two runs differ"
+    assert not got[torch.as_tensor(np.diff(indptr) == 0, device=cuda)].any()
+
+
+def _tree_record(cuda, seed, f):
+    """(g, arg int64, e2v) of a max V→E through the tree on a random graph,
+    tie-heavy (integers in [-2, 2]) so that ids of several members tie."""
+    from hypergef_tpu_torch.data.synthetic import random_hypergraph
+    from hypergef_tpu_torch.ops import maxops
+
+    hg = random_hypergraph(3000, 1700, avg_edge_size=6.0, seed=seed)
+    stage = planner.plan_tree(hg).device(cuda)[0]
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.integers(-2, 3, size=(hg.num_nodes, f)).astype(np.float32),
+                        device=cuda)
+    g = torch.as_tensor(rng.normal(size=(hg.num_edges, f)).astype(np.float32), device=cuda)
+    _, arg = maxops.tree_max_with_arg(x, stage)
+    return g, arg, hg.device_data(cuda).e2v
+
+
+@pytest.mark.parametrize("ids", ["tree", "int32"])
+@pytest.mark.parametrize("f", [32, 6, 3])
+def test_record_routed_sum_matches_plain(cuda, ids, f):
+    """The masked kernel on the tree's int64 record table and on its int32
+    copy (the aligned argmax's type): rtol 1e-6, atol 1e-6·max|plain|,
+    repeats bitwise equal, one record launch a call and no plain-sum launch."""
+    from hypergef_tpu_torch.ops import segment_sum
+
+    g, arg, e2v = _tree_record(cuda, 7 + f, f)
+    assert arg.dtype == torch.int64
+    if ids == "int32":
+        arg = arg.to(torch.int32)
+    before = (segment_sum.launches, segment_sum.record_launches)
+    got = segment_sum.record_routed_dx(g, arg, e2v)
+    again = segment_sum.record_routed_dx(g, arg, e2v)
+    torch.cuda.synchronize()
+    assert (segment_sum.launches, segment_sum.record_launches) == (before[0], before[1] + 2)
+    want = segment_sum.record_routed_dx_plain(g, arg, e2v)
+    assert bool((want != 0).any())
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * float(want.abs().max()))
+    assert torch.equal(got, again), "two runs differ"
+
+
+def test_segment_sum_kernels_run_on_two_streams_at_once(cuda):
+    """The plain and the masked sum over one table, queued on two streams
+    without waiting for each other: each gives its plain twin's result."""
+    from hypergef_tpu_torch.ops import segment_sum
+
+    g, arg, e2v = _tree_record(cuda, 3, 32)
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    calls = [lambda: segment_sum.gather_segment_sum(g, e2v),
+             lambda: segment_sum.record_routed_dx(g, arg, e2v)]
+    torch.cuda.synchronize()
+    outs = ([], [])
+    for _ in range(20):
+        for st, call, got in zip(streams, calls, outs):
+            with torch.cuda.stream(st):
+                got.append(call())
+    torch.cuda.synchronize()
+    wants = (segment_sum.gather_segment_sum_plain(g, e2v),
+             segment_sum.record_routed_dx_plain(g, arg, e2v))
+    for got, want in zip(outs, wants):
+        for o in got:
+            torch.testing.assert_close(o, want, rtol=1e-6, atol=1e-6 * float(want.abs().max()))
+
+
+def test_record_routed_sum_rejects_what_the_kernel_does_not_take(cuda):
+    from hypergef_tpu_torch.ops import segment_sum
+
+    g, arg, e2v = _tree_record(cuda, 5, 4)
+    with pytest.raises(TypeError, match="int32 or int64"):
+        segment_sum.record_routed_dx(g, arg.float(), e2v)
+    with pytest.raises(TypeError, match="int32 or int64"):
+        segment_sum.record_routed_dx(g, arg[:, :2].contiguous(), e2v)
+    with pytest.raises(ValueError, match="contiguous"):
+        segment_sum.record_routed_dx(g, arg.t().contiguous().t(), e2v)
+    with pytest.raises(TypeError, match="f32"):
+        segment_sum.record_routed_dx(g.double(), arg, e2v)
 
 
 def test_incidence_gather_sum_backward_is_the_transposed_csr(cuda):

@@ -112,8 +112,9 @@ def test_community_sorted_graph_takes_aligned():
     _same_plans(jplan, tplan)
     assert tplan.preferred_backend == "aligned" and tplan.aligned.form == "xla"
     jhg, thg = _random(6000, 5000, 3.0)
-    _same_plans(jplanner.plan_aggregation(jhg, **gates), planner.plan_aggregation(thg, **gates))
-    assert planner.plan_aggregation(thg, **gates).preferred_backend == "cumsum"
+    _same_plans(jplanner.plan_aggregation(jhg, **gates),
+                planner.plan_aggregation(thg, "cpu", **gates))
+    assert planner.plan_aggregation(thg, "cpu", **gates).preferred_backend == "cumsum"
 
 
 @pytest.mark.parametrize("stream_cap,want", [(None, "dense"), (1_000_000, "bitstream")])
@@ -126,7 +127,7 @@ def test_stream_branches_at_small_size(monkeypatch, stream_cap, want):
             monkeypatch.setattr(mod, "BITSTREAM_MAX_ENTRIES", 8 * stream_cap)
     jhg, thg = _random(3000, 1000, 10.0)
     args = dict(dense_threshold=1, with_precomp=False)
-    jplan, tplan = jplanner.plan_aggregation(jhg, **args), planner.plan_aggregation(thg, **args)
+    jplan, tplan = jplanner.plan_aggregation(jhg, **args), planner.plan_aggregation(thg, "cpu", **args)
     _same_plans(jplan, tplan)
     assert tplan.preferred_backend == want
 
@@ -135,7 +136,7 @@ def test_left_out_plan_forms_raise():
     _, thg = _random(120, 80, 5.0, seed=3)
     for flag in ("with_tile", "with_bsr", "with_multihot"):
         with pytest.raises(NotImplementedError, match="Do not port"):
-            planner.plan_aggregation(thg, **{flag: True})
+            planner.plan_aggregation(thg, "cpu", **{flag: True})
 
 
 @pytest.mark.parametrize("shape", [(700, 500, 4.0), (2708, 2708, 4.0)])

@@ -249,7 +249,7 @@ def test_v2e_max_aligned_grad_matches_jax(layout, form):
     (_, want), want_dx = jax.value_and_grad(loss, has_aux=True)(jnp.asarray(x))
     st = dataclasses.replace(tplan, form=form).device("cpu")[0]
     xt = torch.as_tensor(x).requires_grad_(True)
-    y = aligned_max.v2e_max_aligned(xt, st, td.h_edge, td.h_segids, td.h_indptr)
+    y = aligned_max.v2e_max_aligned(xt, st, td.e2v)
     (y * torch.as_tensor(cot)).sum().backward()
     assert torch.equal(y.detach(), torch.as_tensor(np.asarray(want)))
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want_dx), **F32_TOL)
@@ -270,7 +270,7 @@ def test_aligned_max_matvec_grad_matches_jax(form):
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want_dx), **F32_TOL)
     td = _graphs("sorted")[1].device_data("cpu")
     xc = torch.as_tensor(x).requires_grad_(True)
-    (aligned_max.v2e_max_aligned(xc, fe, td.h_edge, td.h_segids, td.h_indptr)
+    (aligned_max.v2e_max_aligned(xc, fe, td.e2v)
      * torch.as_tensor(cot)).sum().backward()
     torch.testing.assert_close(xt.grad, xc.grad, **EXACT)
 

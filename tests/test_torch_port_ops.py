@@ -121,7 +121,7 @@ def test_unported_routes_raise(backend):
     run on the ladder's plan and agree with the xla route (``precomp`` at
     the bf16 bar)."""
     _, thg, x, _ = _problem("small_f4", False)
-    plan = plan_port(thg)
+    plan = plan_port(thg, "cpu")
     hgd, xt = thg.device_data("cpu"), torch.as_tensor(x)
     if backend in fused.UNPORTED:
         with pytest.raises(NotImplementedError, match="left out"):
