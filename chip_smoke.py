@@ -80,7 +80,9 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    twin (edge stage, F = 32 and 4), the arg-sum kernel vs its twin
    (uniform vertex stage, F = 32), the record-routed sum (the max
    backward: the masked segment-sum kernel over SBM-60k's vertex-major CSR,
-   int32 ids, F = 32) vs its plain twin and its bound, the SBM-60k max
+   int32 ids, F = 32) vs its plain twin and its bound, the last two also vs
+   one ``torch.zeros(N, F).scatter_add_(0, ids, g)`` where no id is -1
+   (the library yardstick, ids cast to int64 before the window), the SBM-60k max
    training epoch on the aligned kernel form, on ``AggregationPlan(tree,
    aligned kernel form)`` (tree argmax V→E, band kernel E→V) and on the
    aligned plain form, and a max request.
@@ -90,9 +92,17 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    its bit packs and its tree plan, with their host times. Hold the
    bit-packed product kernel (``bitmm``) against its plain twin on both
    packs at F = 32, 4 and 3, on both packs of the pubmed_real box at
-   F = 32, and on ``bit_matvec``'s backward: rtol 1e-5, atol
+   F = 32, on ``bit_matvec``'s backward, and on packs of the kernel
+   layout's edge cases at F = 32, 4 and 3 (rows with no bit, a pack with
+   none, a word with all 32 bits set, rows with every word nonzero, 35 K
+   tiles a row, rows around the runs' cuts): rtol 1e-5, atol
    1e-5·max|plain| (exact 0/1 × bf16 products, f32 sums in another
-   order); two runs bitwise equal; one launch per call.
+   order); two runs bitwise equal; one launch per call. Each stream100k
+   layout (the nonzero words the kernel reads, ``BitLayout``) holds at most
+   1/16 of its pack's bytes, with its host build seconds and bytes printed;
+   and zero words go unread: the pubmed_real Hᵀ pack four times as wide
+   (zero words appended to each row, x padded with rows no bit names)
+   gives the same output bitwise and times within 1.2× of the pack.
 18. Serve five requests each of HGNN (sum) and UniGCNII on stream100k
    through ``bitstream`` (the server builds its own packs): the checks of
    phase 3, against the same model on the f32 ``tree`` route on the card
@@ -112,7 +122,9 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    as in JAX: tests/test_bitstream.py:86-89).
 20. Time, with CUDA events, median of 20 windows: the kernel vs its twin vs
    one ``torch.sparse.mm`` of the same CSR on bf16-rounded x, per pack at
-   F = 32, on stream100k and the pubmed_real box; the record-routed sum over
+   F = 32 and 4, on stream100k and the pubmed_real box, with two bounds
+   (the layout's bytes, what the kernel reads; the whole pack's, what a
+   kernel that streams the words must read); the record-routed sum over
    stream100k's vertex-major CSR (int64 ids, as the tree gives them) vs its
    twin and its bound; the stream100k training epoch on ``bitstream``,
    ``tree`` and ``pallas_sparse`` (HGNN sum), of HGNN max and of UniGCNII
@@ -146,7 +158,9 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    1e-2 of ``tree``; 20news trains on ``dense``.
 24. Time, with CUDA events, median of 20 windows: the segment-sum kernel vs
    its plain version vs one ``torch.sparse.mm`` of the same CSR per direction
-   at F = 32; the coauthor_dblp epoch on ``cumsum``, ``tree`` and
+   at F = 32; the record-routed sum on coauthor_dblp (int64 ids, F = 32) vs
+   its twin, ``scatter_add_`` and its bound; the coauthor_dblp epoch on
+   ``cumsum``, ``tree`` and
    ``pallas_sparse``, the cora epoch on ``precomp``, ``dense`` and
    ``pallas``; a request on each; beside the reference's RTX 3090 fused
    kernel times (not a claim).
@@ -1062,9 +1076,15 @@ def max_phases(device, card: str, aligned: dict) -> dict:
         argmax_times[f"edge F={f}"].update(bound(
             stage_table_bytes(stages["edge"]) + nbytes(xf) + sbm.num_edges * f * 8, live * f))
     g, arg = argsum_operands(uni_e, uni_v, 32, 71, device)
-    argsum_times = time_turns({
-        "kernel": lambda: aligned_max.aligned_masked_argsum(g, arg, uni_v),
-        "plain": lambda: aligned_max.aligned_argsum_plain(g, arg, uni_v)}, order)
+    fns = {"kernel": lambda: aligned_max.aligned_masked_argsum(g, arg, uni_v),
+           "plain": lambda: aligned_max.aligned_argsum_plain(g, arg, uni_v)}
+    library, why = scatter_yardstick(g, arg, uni_v.num_segments, fns["plain"]())
+    if library is not None:
+        fns["library"] = library
+    argsum_times = time_turns(fns, order + (("library", "library") if library else ()))
+    argsum_times["library"] = argsum_times.get("library")
+    if why:
+        argsum_times["library_note"] = why
     argsum_times.update(bound(stage_table_bytes(uni_v) + nbytes(g, arg) + sbm.num_nodes * 32 * 4,
                               stage_live(uni_v) * 32))
     record_times = time_record(sbm.device_data(device), 32, device, torch.int32)
@@ -1159,8 +1179,8 @@ def check_bitmm(pack, f: int, seed: int, device) -> dict:
     x = torch.as_tensor(np.random.default_rng(seed).normal(size=(pack.k, f))
                         .astype(np.float32), device=device)
     before = bitstream.launches
-    got = bitstream.bitmm(pack.words, x, pack.m, pack.k)
-    again = bitstream.bitmm(pack.words, x, pack.m, pack.k)
+    got = bitstream.bitmm(pack, x)
+    again = bitstream.bitmm(pack, x)
     torch.cuda.synchronize()
     check(bitstream.launches == before + 2, "one bitmm launch per call")
     want = bitstream.bitmm_plain(pack.words, x, pack.m, pack.k)
@@ -1169,6 +1189,77 @@ def check_bitmm(pack, f: int, seed: int, device) -> dict:
     check(torch.equal(got, again), "two bitmm runs are bitwise equal")
     return {"m": pack.m, "k": pack.k, "f": f, "max_abs_err": float((got - want).abs().max()),
             "max_abs_plain": scale}
+
+
+def bit_edge_packs(device) -> dict:
+    """Packs of the kernel layout's edge cases, on the card: rows with no
+    bit, a pack with none, a word with all 32 bits set, a row with every
+    word nonzero (and one with a bit in most words), 35 K tiles a row, and
+    rows of 0 to share + 1 bits, around the runs' cuts."""
+    import scipy.sparse as sp
+
+    from hypergef_tpu_torch.ops import bitstream
+
+    rng = np.random.default_rng(17)
+    share = max(bitstream.RUN_SHARES)
+    empty_rows = (rng.random((300, 5000)) < 0.01).astype(np.uint8)
+    empty_rows[::3] = 0
+    full_word = np.zeros((9, 3 * 4096 + 50), np.uint8)
+    full_word[2, 7::128] = 1
+    every_word = np.zeros((5, 9000), np.uint8)
+    every_word[1] = 1
+    every_word[3, ::130] = 1
+    around = np.zeros((110, 700), np.uint8)
+    for r in range(110):
+        around[r, rng.choice(700, size=r % (share + 2), replace=False)] = 1
+    cases = {"empty_rows": empty_rows, "all_zero": np.zeros((40, 5000), np.uint8),
+             "full_word": full_word, "every_word": every_word,
+             "multi_tile": (rng.random((133, 140000)) < 0.0005).astype(np.uint8),
+             "around_the_share": around}
+    packs = {}
+    for name, a in cases.items():
+        csr = sp.csr_matrix(a)
+        m, k = a.shape
+        words = bitstream.pack_bits_csr(csr.indptr, csr.indices, m, k)
+        packs[name] = bitstream.BitPack(np.pad(words, ((0, -m % 256), (0, 0))), m, k).to(device)
+    return packs
+
+
+def widened(pack, times: int):
+    """A host pack of the same set bits, ``times`` as wide: zero words
+    appended to each row (a column past the pack's is never set)."""
+    from hypergef_tpu_torch.ops import bitstream
+
+    w = np.asarray(pack.words)
+    wide = np.concatenate([w, np.zeros((w.shape[0], (times - 1) * w.shape[1]), w.dtype)], axis=1)
+    return bitstream.BitPack(wide, pack.m, times * pack.kp)
+
+
+def check_zero_words_unread(host_pack, pack, device, times: int = 4) -> dict:
+    """The kernel reads no zero word: the pack ``times`` as wide (zero words
+    appended to each row, x padded with rows no bit names) gives the same
+    output bitwise and times within 1.2× of the pack (CUDA events behind a
+    queued sleep, in turns), where a kernel that streams the words would
+    take about ``times`` as long."""
+    from hypergef_tpu_torch.ops import bitstream
+
+    wide = widened(host_pack, times).to(device)
+    rng = np.random.default_rng(18)
+    x = torch.as_tensor(rng.normal(size=(pack.k, 32)).astype(np.float32), device=device)
+    pad = rng.normal(size=(wide.k - pack.k, 32)).astype(np.float32)
+    x_wide = torch.cat([x, torch.as_tensor(pad, device=device)])
+    check(torch.equal(bitstream.bitmm(pack, x), bitstream.bitmm(wide, x_wide)),
+          "the widened pack gives the same output bitwise")
+    t = time_turns({"pack": lambda: bitstream.bitmm(pack, x),
+                    "wide": lambda: bitstream.bitmm(wide, x_wide)},
+                   ("pack", "wide", "wide", "pack"))
+    out = {"m": pack.m, "k": pack.k, "wide_k": wide.k, "pack_words": pack.words.numel(),
+           "wide_words": wide.words.numel(), "layout_bytes": pack.layout.nbytes(),
+           "wide_layout_bytes": wide.layout.nbytes(), "pack_ms": t["pack"],
+           "wide_ms": t["wide"], "ratio": t["wide"] / t["pack"]}
+    check(out["wide_layout_bytes"] == out["layout_bytes"], "the same layout bytes")
+    check(out["ratio"] <= 1.2, f"a pack {times}x as wide times within 1.2x: {out}")
+    return out
 
 
 def check_bit_matvec(packs, f: int, seed: int, device) -> dict:
@@ -1199,9 +1290,11 @@ def check_bit_matvec(packs, f: int, seed: int, device) -> dict:
 
 def time_bitmm(hg, pack, stage: str, f: int, device, iters: int) -> dict:
     """Kernel, plain twin and one ``torch.sparse.mm`` of the pack's CSR
-    matrix on bf16(x) (the library yardstick), in turns; the bound reads
-    the m rows' words, x, and writes the output once, with an add a feature
-    for each set bit."""
+    matrix on bf16(x) (the library yardstick), in turns. Two bounds, each
+    with an add a feature for each set bit, x read once and the output
+    written once: ``bound_ms`` reads the kernel's layout (its pairs, bit_ptr
+    and runs); ``pack_bound_ms`` reads the m rows' words, as a kernel that
+    streams the pack must."""
     from hypergef_tpu_torch.ops import bitstream
     from hypergef_tpu_torch.ops.fused_dense import bf16_round
 
@@ -1209,13 +1302,15 @@ def time_bitmm(hg, pack, stage: str, f: int, device, iters: int) -> dict:
                         device=device)
     xb = bf16_round(x)
     csr = incidence_csr(hg, stage, device)
-    fns = {"kernel": lambda: bitstream.bitmm(pack.words, x, pack.m, pack.k),
+    fns = {"kernel": lambda: bitstream.bitmm(pack, x),
            "plain": lambda: bitstream.bitmm_plain(pack.words, x, pack.m, pack.k),
            "library": lambda: torch.sparse.mm(csr, xb)}
     out = time_turns(fns, ("plain", "kernel", "library", "library", "kernel", "plain"),
                      iters=iters)
-    out.update(bound(pack.m * pack.words.shape[1] * 4 + nbytes(x) + pack.m * f * 4,
-                     hg.nnz * f))
+    rest, ops = nbytes(x) + pack.m * f * 4, hg.nnz * f
+    whole = bound(pack.m * pack.words.shape[1] * 4 + rest, ops)
+    out.update(bound(pack.layout.nbytes() + rest, ops))
+    out.update({"pack_bound_ms": whole["bound_ms"], "pack_bytes": whole["bytes"]})
     return out
 
 
@@ -1234,10 +1329,20 @@ def bitstream_phases(device, card: str, graphs) -> dict:
     t0 = time.perf_counter()
     packs = bit_packs(bits, device)
     torch.cuda.synchronize()
-    info["to_card_s"] = time.perf_counter() - t0
+    info["to_card_s"] = time.perf_counter() - t0  # the layouts' host builds included
+    info["layouts"] = {name: {"build_s": p.layout.build_s, "bytes": p.layout.nbytes(),
+                              "share": p.layout.share,
+                              "pairs": int(p.layout.pairs.shape[0]),
+                              "runs": int(p.layout.runs.shape[0]) - 1,
+                              "pack_bytes": p.m * p.words.shape[1] * 4}
+                       for name, p in packs.items()}
+    for name, lay in info["layouts"].items():
+        check(16 * lay["bytes"] <= lay["pack_bytes"],
+              f"the {name} layout holds at most 1/16 of its pack's bytes: {lay}")
     print(f"phase 17 graph: {json.dumps(info)}", flush=True)
     pub = graphs["pubmed_real"]
-    pub_packs = bit_packs(BitIncidence.from_hypergraph(pub), device)
+    pub_bits = BitIncidence.from_hypergraph(pub)
+    pub_packs = bit_packs(pub_bits, device)
     checks = []
     for seed, (name, f) in enumerate([(p, f) for p in ("Ht", "H") for f in (32, 4, 3)]):
         checks.append({"graph": "stream100k", "pack": name,
@@ -1245,8 +1350,15 @@ def bitstream_phases(device, card: str, graphs) -> dict:
     for name in ("Ht", "H"):
         checks.append({"graph": "pubmed_real", "pack": name,
                        **check_bitmm(pub_packs[name], 32, 90 + len(checks), device)})
+    for seed, (name, pack) in enumerate(bit_edge_packs(device).items()):
+        for f in (32, 4, 3):
+            checks.append({"graph": "edge case", "pack": name,
+                           **check_bitmm(pack, f, 100 + 3 * seed + f, device)})
     for c in checks:
         print(f"phase 17 bitmm kernel vs plain: {json.dumps(c)}", flush=True)
+    unread = check_zero_words_unread(pub_bits.ht_pack, pub_packs["Ht"], device)
+    print(f"phase 17 zero words unread, pubmed_real Ht F=32 (ms, CUDA events, median of 20): "
+          f"{json.dumps(unread)}", flush=True)
     matvec = check_bit_matvec(packs, 32, 95, device)
     print(f"phase 17 bit_matvec backward: {json.dumps(matvec)}", flush=True)
 
@@ -1292,9 +1404,10 @@ def bitstream_phases(device, card: str, graphs) -> dict:
     # 20. times
     bitmm_times = {}
     for gname, g, ps, iters in (("stream100k", hg, packs, 2), ("pubmed_real", pub, pub_packs, 10)):
-        for name, stage in (("Ht", "edge"), ("H", "vertex")):
-            bitmm_times[f"{gname} {name} F=32"] = time_bitmm(g, ps[name], stage, 32, device,
-                                                             iters)
+        for f in (32, 4):
+            for name, stage in (("Ht", "edge"), ("H", "vertex")):
+                bitmm_times[f"{gname} {name} F={f}"] = time_bitmm(g, ps[name], stage, f, device,
+                                                                  iters)
     trainers = {
         "HGNN bitstream": Trainer(base, hg, x, y, plan=AggregationPlan(bitstream=bits),
                                   device=device),
@@ -1314,13 +1427,14 @@ def bitstream_phases(device, card: str, graphs) -> dict:
     record_times = time_record(hg.device_data(device), 32, device, torch.int64)
     print(f"phase 20 times (ms, CUDA events, median of 20): card {card}; stream100k training "
           f"epoch (wall: 10 back-to-back steps, host included; device: behind a queued "
-          f"sleep): {json.dumps(epochs)}; bitmm kernel vs plain twin vs torch.sparse.mm: "
-          f"{json.dumps(bitmm_times)}; record-routed sum vs plain twin, vertex-major CSR, "
+          f"sleep): {json.dumps(epochs)}; bitmm kernel vs plain twin vs torch.sparse.mm, "
+          f"bound over the layout and over the whole pack: {json.dumps(bitmm_times)}; "
+          f"record-routed sum vs plain twin, vertex-major CSR, "
           f"int64 ids, F=32: {json.dumps(record_times)}; request on stream100k, bitstream: "
           f"{json.dumps(requests)}", flush=True)
     return {"checks": checks, "matvec": matvec, "served": served, "trained": trained,
             "parity": parity, "bitmm_times": bitmm_times, "record_times": record_times,
-            "epochs": epochs, "hg": hg}
+            "epochs": epochs, "hg": hg, "layouts": info["layouts"], "unread": unread}
 
 
 def ladder_phase(device, graphs) -> dict:
@@ -1422,19 +1536,46 @@ def check_record(hgd, f: int, seed: int, device, dtype) -> dict:
             "max_abs_plain": scale, "nonzero_share": float((want != 0).float().mean())}
 
 
+def scatter_yardstick(g, arg, rows: int, want):
+    """One PyTorch call of a record-routed sum, ``dx[arg[e, f], f] +=
+    g[e, f]``: ``torch.zeros(rows, F).scatter_add_(0, ids, g)``, the ids cast
+    to int64 before the window (scatter_add_ takes no int32 index); checked
+    once against ``want`` (rtol 1e-5: its atomics add in any order). None,
+    with the reason, where an id is negative (an edge with no member, -1):
+    scatter_add_ takes no such index."""
+    if int(arg.min()) < 0:
+        return None, "ids of -1 (edges with no member): scatter_add_ takes no negative index"
+    ids = arg.long()
+
+    def call():
+        return torch.zeros((rows, g.shape[1]), device=g.device).scatter_add_(0, ids, g)
+
+    torch.testing.assert_close(call(), want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    return call, None
+
+
 def time_record(hgd, f: int, device, dtype) -> dict:
-    """The record-routed sum's kernel and plain twin in turns; the bound
-    moves the rows of g and arg the CSR names, its int32 gather and row
-    pointer, and the output once, with a compare and an add a feature for
-    each entry."""
+    """The record-routed sum's kernel, plain twin and, where the ids allow,
+    one ``scatter_add_`` (the library yardstick) in turns; the bound moves
+    the rows of g and arg the CSR names, its int32 gather and row pointer,
+    and the output once, with a compare and an add a feature for each
+    entry."""
     from hypergef_tpu_torch.ops import segment_sum
     from hypergef_tpu_torch.tools.segment_sum_ab import record_operands
 
     g, arg = record_operands(hgd, f, 27, device, dtype)
     table = hgd.e2v
-    out = time_turns({"kernel": lambda: segment_sum.record_routed_dx(g, arg, table),
-                      "plain": lambda: segment_sum.record_routed_dx_plain(g, arg, table)},
-                     ("plain", "kernel", "kernel", "plain"))
+    fns = {"kernel": lambda: segment_sum.record_routed_dx(g, arg, table),
+           "plain": lambda: segment_sum.record_routed_dx_plain(g, arg, table)}
+    library, why = scatter_yardstick(g, arg, table.num_segments, fns["plain"]())
+    order = ("plain", "kernel", "kernel", "plain")
+    if library is not None:
+        fns["library"] = library
+        order = ("plain", "kernel", "library", "library", "kernel", "plain")
+    out = time_turns(fns, order)
+    out["library"] = out.get("library")
+    if why:
+        out["library_note"] = why
     read = rows_read_bytes(g, table.gather) + rows_read_bytes(arg, table.gather)
     out.update(bound(read + nbytes(table.gather, table.indptr) + table.num_segments * f * 4,
                      2 * table.nnz * f))
@@ -1584,6 +1725,7 @@ def default_times(device, card: str, graphs, problems) -> dict:
     dblp = graphs["coauthor_dblp"]
     segsum_times = {f"{stage} F=32": time_segsum(dblp, stage, 32, device)
                     for stage in ("v2e", "e2v")}
+    record_times = time_record(dblp.device_data(device), 32, device, torch.int64)
     cells = {"coauthor_dblp": ("coauthor_dblp HGNN sum", ("cumsum", "tree", "pallas_sparse"),
                                DBLP_NCLASS),
              "cora": ("cora HGNN", ("precomp", "dense", "pallas"), CORA_NCLASS)}
@@ -1597,12 +1739,15 @@ def default_times(device, card: str, graphs, problems) -> dict:
         reqs[cell] = (cfg, hg, x, nclass, routes, plans)
     requests = request_times(device, reqs)
     print(f"phase 24 times (ms, CUDA events, median of 20): card {card}; segment-sum kernel vs "
-          f"plain vs torch.sparse.mm, coauthor_dblp F=32: {json.dumps(segsum_times)}; training "
+          f"plain vs torch.sparse.mm, coauthor_dblp F=32: {json.dumps(segsum_times)}; "
+          f"record-routed sum vs plain twin vs scatter_add_, coauthor_dblp vertex-major CSR, "
+          f"int64 ids, F=32: {json.dumps(record_times)}; training "
           f"epoch (wall: 10 back-to-back steps, host included; device: behind a queued sleep): "
           f"{json.dumps(epochs)}; requests (host included): {json.dumps(requests)} (reference's "
           f"RTX 3090 fused kernel at F=32, not a claim: {json.dumps(REF_RTX3090_FUSED_MS)})",
           flush=True)
-    return {"segsum_times": segsum_times, "epochs": epochs, "requests": requests}
+    return {"segsum_times": segsum_times, "record_times": record_times, "epochs": epochs,
+            "requests": requests}
 
 
 def time_probe_kernels(device) -> dict:
@@ -2043,10 +2188,16 @@ def main() -> int:
                      + sum(t["launches"]["bitmm"] for t in streamed["trained"].values())),
         "max_abs_err": max([c["max_abs_err"] for c in streamed["checks"]]
                            + list(streamed["matvec"]["max_abs_err"].values())),
-        "h_ms": streamed["bitmm_times"]["stream100k H F=32"]["kernel"],
-        "h_plain_ms": streamed["bitmm_times"]["stream100k H F=32"]["plain"],
-        "h_library_ms": streamed["bitmm_times"]["stream100k H F=32"]["library"],
-        "h_bound_ms": streamed["bitmm_times"]["stream100k H F=32"]["bound_ms"],
+        # the Ht (V→E) stage is the line's own; the H (E→V) stage and F = 4
+        # beside it; bound_ms reads the layout, pack_bound_ms the whole pack
+        "pack_bound_ms": streamed["bitmm_times"]["stream100k Ht F=32"]["pack_bound_ms"],
+        **{f"{pre}{k}": streamed["bitmm_times"][f"stream100k {name}"][key]
+           for pre, name in (("h_", "H F=32"), ("f4_", "Ht F=4"), ("h_f4_", "H F=4"))
+           for k, key in (("ms", "kernel"), ("plain_ms", "plain"), ("library_ms", "library"),
+                          ("bound_ms", "bound_ms"), ("pack_bound_ms", "pack_bound_ms"))},
+        "layout_bytes": {n: lay["bytes"] for n, lay in streamed["layouts"].items()},
+        "layout_build_s": {n: lay["build_s"] for n, lay in streamed["layouts"].items()},
+        "wide_pack_ratio": streamed["unread"]["ratio"],
     }, {
         "name": "gather_segment_sum",
         "route": "cuda",
@@ -2069,8 +2220,11 @@ def main() -> int:
                      + streamed["trained"]["HGNN max"]["launches"]["recsum"]
                      + defaults["trained"]["coauthor_dblp HGNN max"]["launches"]["recsum"]),
         "max_abs_err": max(c["max_abs_err"] for c in segsum["records"]),
-        **{f"stream100k_{k}": streamed["record_times"][key]
-           for k, key in (("ms", "kernel"), ("plain_ms", "plain"), ("bound_ms", "bound_ms"))},
+        **{f"{g}_{k}": t[key]
+           for g, t in (("stream100k", streamed["record_times"]),
+                        ("coauthor_dblp", dtimes["record_times"]))
+           for k, key in (("ms", "kernel"), ("plain_ms", "plain"), ("library_ms", "library"),
+                          ("bound_ms", "bound_ms"))},
     }]
     # the probe kernels: their path is phase 25, the checked call of each case
     for name, source in (("row_gather", "probes.cu"), ("chunk_masked_sum", "probes.cu"),

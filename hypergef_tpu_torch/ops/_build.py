@@ -115,8 +115,8 @@ ENTRIES = {
     "hg_aligned_masked_argmax": [_PTR] * 8 + [_INT] * 6 + [_PTR],
     # g, arg, band, win, spill, src, groups, out; n_groups, g, b, n, s, f; stream
     "hg_aligned_masked_argsum": [_PTR] * 8 + [_INT] * 6 + [_PTR],
-    # words, x, out; m, kt_count, k, f; stream
-    "hg_bitmm": [_PTR] * 3 + [_INT] * 4 + [_PTR],
+    # pairs, bit_ptr, runs, x, out; n_runs, f, lanes, width; stream
+    "hg_bitmm": [_PTR] * 5 + [_INT] * 4 + [_PTR],
     # x, arg (or null); arg_bytes; gather (or null), indptr, runs, out; n_runs, f, lanes,
     # width; stream
     "hg_gather_segment_sum": [_PTR] * 2 + [_INT] + [_PTR] * 4 + [_INT] * 4 + [_PTR],

@@ -53,22 +53,22 @@ _INT32_MAX = 2**31 - 1
 RUN_SHARE = 32
 
 
-def warp_runs(indptr, share: int = RUN_SHARE) -> np.ndarray:
+def warp_runs(indptr, share: int = RUN_SHARE, alone: Optional[int] = None) -> np.ndarray:
     """The kernel's warp runs over a row pointer ``indptr`` [S+1]: int32
     [W+1, 2], each run's first segment and first entry, the last row
     (S, nnz).
 
     Merge-path style: a segment goes to the run of the ``share``-wide
     bucket in which its start falls, counting nnz + segments (each segment
-    costs its length plus one); a segment that costs more than ``share``
-    gets a run of its own. So every run holds whole consecutive segments,
-    the runs cover [0, S) in order, and a run costs at most ``share`` plus
-    its largest segment."""
+    costs its length plus one); a segment that costs more than ``alone``
+    (by default ``share``) gets a run of its own. So every run holds whole
+    consecutive segments, the runs cover [0, S) in order, and a run of
+    several segments costs less than ``share`` plus ``alone``."""
     indptr = np.asarray(indptr, dtype=np.int64)
     s = indptr.size - 1
     cost = np.diff(indptr) + 1
     start = indptr[:-1] + np.arange(s)  # nnz + segments before each segment
-    long = cost > share
+    long = cost > (share if alone is None else alone)
     cut = np.zeros(s + 1, dtype=bool)
     cut[[0, s]] = True
     bucket = start // share

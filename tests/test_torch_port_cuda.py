@@ -22,8 +22,9 @@ Tolerances:
 * masked arg-sum kernel: rtol 1e-6 and atol 1e-6·max|plain| (the same few
   f32 terms summed in another order).
 * bit-packed product kernel: rtol 1e-5 and atol 1e-5·max|plain|. The
-  products are exact (0/1 times bf16); the kernel sums each row in column
-  order, the twin in its matmul's order.
+  products are exact (0/1 times bf16); the kernel sums each row in its
+  layout's order (word ascending, then bit), the twin in its matmul's
+  order.
 * segment-sum kernel and its masked form, the record-routed sum: rtol 1e-6
   and atol 1e-6·max|plain| (the same f32 terms: every value is one lane's
   f32 sum in CSR order, long segments included, against segment_reduce's
@@ -634,45 +635,116 @@ def test_max_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 
 def _bit_pack(m, k, density, seed, device):
-    """A pack of a random 0/1 matrix [m, k] with every third row empty and
-    row 1 full, padded to 256 rows as BitIncidence pads them."""
-    import scipy.sparse as sp
-
+    """The device pack (words and the kernel's layout) of a random 0/1
+    matrix [m, k] with every third row empty and row 1 full, padded to 256
+    rows as BitIncidence pads them; and the matrix."""
     rng = np.random.default_rng(seed)
     a = (rng.random((m, k)) < density).astype(np.float32)
     a[::3] = 0
     if m > 1:
         a[1] = 1
+    return _pack_of(a, device), a
+
+
+def _pack_of(a, device):
+    import scipy.sparse as sp
+
+    m, k = a.shape
     csr = sp.csr_matrix(a)
     words = bitstream.pack_bits_csr(csr.indptr, csr.indices, m, k)
-    words = np.pad(words, ((0, -m % 256), (0, 0)))
-    return torch.as_tensor(words, device=device), a
+    return bitstream.BitPack(np.pad(words, ((0, -m % 256), (0, 0))), m, k).to(device)
 
 
-# m not a multiple of the kernel's 8 rows a CTA (1, 133, 257, 300, 4100);
-# k = 140000: rows of 35 K tiles (17.5 KB), so the tile loaded ahead and the
-# zero-tile skip run far along a row, with a partial last tile; row 1 full:
-# every word of every tile set
+def _edge_matrix(case):
+    """0/1 matrices of the layout's edge cases (as
+    tests/test_torch_port_bitstream.py builds them)."""
+    rng = np.random.default_rng(7)
+    if case == "all_zero":
+        return np.zeros((40, 5000), np.float32)
+    a = np.zeros((9, 3 * 4096 + 50), np.float32)
+    if case == "full_word":
+        a[2, 7::128] = 1  # word 7 of row 2: its 32 bits
+        a[5, 7:4096:128] = 1
+    elif case == "every_word":
+        a[1, :] = 1
+        a[4, ::130] = 1
+    elif case == "around_the_share":  # rows of 0 .. the largest share + 1 bits
+        a = np.zeros((110, 700), np.float32)
+        for r in range(110):
+            a[r, rng.choice(700, size=r % (max(bitstream.RUN_SHARES) + 2), replace=False)] = 1
+    return a
+
+
+def _check_bitmm(pack, a, f, device):
+    x = torch.as_tensor(np.random.default_rng(f).normal(size=(pack.k, f)).astype(np.float32),
+                        device=device)
+    before = bitstream.launches
+    got = bitstream.bitmm(pack, x)
+    again = bitstream.bitmm(pack, x)
+    torch.cuda.synchronize()
+    assert bitstream.launches == before + 2
+    want = bitstream.bitmm_plain(pack.words, x, pack.m, pack.k)
+    assert got.shape == want.shape == (pack.m, f)
+    scale = max(float(want.abs().max()), 1e-30)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+    assert torch.equal(got, again), "two runs differ"
+    assert not got[torch.as_tensor(a.sum(1) == 0, device=device)].any()  # empty rows
+    exact = torch.as_tensor(a, device=device).double() @ bitstream.bf16_round(x).double()
+    torch.testing.assert_close(got.double(), exact, rtol=1e-5,
+                               atol=1e-5 * max(float(exact.abs().max()), 1e-30))
+
+
+# m not a multiple of the kernel's 8 runs a CTA (1, 133, 257, 300, 4100);
+# k = 140000: rows of 35 K tiles, so a row's words span many windows of 32
+# pairs; row 1 full: every word of every tile set, its bits staged 64 at a
+# time
 @pytest.mark.parametrize("m,k,density", [(1, 1, 1.0), (300, 5000, 0.01), (257, 4096, 0.05),
                                          (1000, 9000, 0.002), (4100, 700, 0.03),
                                          (133, 140000, 0.0005)])
 @pytest.mark.parametrize("f", [1, 3, 4, 32, 100, 300])
 def test_bitmm_kernel_matches_plain(cuda, m, k, density, f):
-    words, a = _bit_pack(m, k, density, seed=m + k + f, device=cuda)
-    x = torch.as_tensor(np.random.default_rng(f).normal(size=(k, f)).astype(np.float32),
-                        device=cuda)
-    before = bitstream.launches
-    got = bitstream.bitmm(words, x, m, k)
-    again = bitstream.bitmm(words, x, m, k)
+    pack, a = _bit_pack(m, k, density, seed=m + k + f, device=cuda)
+    _check_bitmm(pack, a, f, cuda)
+
+
+@pytest.mark.parametrize("case", ["all_zero", "full_word", "every_word", "around_the_share"])
+@pytest.mark.parametrize("f", [1, 3, 4, 32, 100, 300])
+@pytest.mark.parametrize("largest_share", [False, True])
+def test_bitmm_kernel_matches_plain_on_the_layouts_edge_cases(cuda, case, f, largest_share):
+    """The card's own share (the smallest, at these sizes) and the largest,
+    the one stream100k's packs take."""
+    a = _edge_matrix(case)
+    pack = _pack_of(a, cuda)
+    if largest_share:
+        lay = bitstream.bit_layout(pack.words.cpu().numpy(), pack.m, pack.k, sms=0)
+        assert lay.share == max(bitstream.RUN_SHARES)
+        pack = dataclasses.replace(pack, layout=lay.to(cuda))
+    _check_bitmm(pack, a, f, cuda)
+
+
+def test_bitmm_kernel_runs_on_two_streams_at_once(cuda):
+    """Both packs of a graph queued on two streams without waiting for each
+    other: each gives its twin's result."""
+    from hypergef_tpu_torch.data.synthetic import random_hypergraph
+
+    hg = random_hypergraph(5000, 4500, avg_edge_size=6.0, seed=3)
+    packs = bitstream.BitIncidence.from_hypergraph(hg).device(cuda)
+    rng = np.random.default_rng(5)
+    xs = [torch.as_tensor(rng.normal(size=(p.k, 32)).astype(np.float32), device=cuda)
+          for p in packs]
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
     torch.cuda.synchronize()
-    assert bitstream.launches == before + 2
-    want = bitstream.bitmm_plain(words, x, m, k)
-    assert got.shape == want.shape == (m, f)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
-    assert torch.equal(got, again), "two runs differ"
-    assert not got[::3].any()  # empty rows
-    exact = torch.as_tensor(a, device=cuda).double() @ bitstream.bf16_round(x).double()
-    torch.testing.assert_close(got.double(), exact, rtol=1e-5, atol=1e-5 * float(exact.abs().max()))
+    outs = ([], [])
+    for _ in range(20):
+        for st, p, x, got in zip(streams, packs, xs, outs):
+            with torch.cuda.stream(st):
+                got.append(bitstream.bitmm(p, x))
+    torch.cuda.synchronize()
+    for p, x, got in zip(packs, xs, outs):
+        want = bitstream.bitmm_plain(p.words, x, p.m, p.k)
+        for o in got:
+            assert torch.equal(o, got[0])
+        torch.testing.assert_close(got[0], want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
 
 
 def test_bit_matvec_gradient_matches_the_twin(cuda):
@@ -695,26 +767,29 @@ def test_bit_matvec_gradient_matches_the_twin(cuda):
 
 
 def test_bitmm_wrapper_rejects_what_the_kernel_does_not_take(cuda):
-    words, _ = _bit_pack(300, 5000, 0.01, seed=1, device=cuda)
+    pack, _ = _bit_pack(300, 5000, 0.01, seed=1, device=cuda)
     x = torch.ones((5000, 4), device=cuda)
     with pytest.raises(ValueError, match="on the CPU"):
-        bitstream.bitmm(words, x.cpu(), 300, 5000)
+        bitstream.bitmm(pack, x.cpu())
     with pytest.raises(ValueError, match="pack is on"):
-        bitstream.bitmm(words.cpu(), x, 300, 5000)
+        bitstream.bitmm(dataclasses.replace(pack, words=pack.words.cpu()), x)
     with pytest.raises(TypeError):
-        bitstream.bitmm(words, x.double(), 300, 5000)
+        bitstream.bitmm(pack, x.double())
     with pytest.raises(TypeError):
-        bitstream.bitmm(words, x[:10], 300, 5000)
+        bitstream.bitmm(pack, x[:10])
     with pytest.raises(TypeError):
-        bitstream.bitmm(words.long(), x, 300, 5000)
+        bitstream.bitmm(dataclasses.replace(pack, words=pack.words.long()), x)
     with pytest.raises(ValueError, match="contiguous"):
-        bitstream.bitmm(words, torch.ones((4, 5000), device=cuda).t(), 300, 5000)
+        bitstream.bitmm(pack, torch.ones((4, 5000), device=cuda).t())
     with pytest.raises(ValueError, match="contiguous"):
-        bitstream.bitmm(words[:, :128], x[:4096], 300, 4096)
+        bitstream.bitmm(dataclasses.replace(pack, words=pack.words[:, :128], k=4096), x[:4096])
     with pytest.raises(ValueError, match="unsupported pack"):
-        bitstream.bitmm(words, torch.ones((9000, 4), device=cuda), 300, 9000)
+        bitstream.bitmm(dataclasses.replace(pack, k=9000), torch.ones((9000, 4), device=cuda))
     with pytest.raises(RuntimeError, match="bit_matvec"):
-        bitstream.bitmm(words, x.requires_grad_(True), 300, 5000)
+        bitstream.bitmm(pack, x.clone().requires_grad_(True))
+    # a device pack without the kernel's layout is refused, never summed by the twin
+    with pytest.raises(ValueError, match="BitIncidence.device"):
+        bitstream.bitmm(dataclasses.replace(pack, layout=None), x)
 
 
 def test_chip_smoke_imports_and_reads_the_card():
