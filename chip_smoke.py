@@ -61,15 +61,19 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    ``torch.sparse.mm`` per stage at F = 32.
 13. On phase 9's plans: hold the masked argmax kernel against its plain
    twin on both stages of the SBM-60k plan at F = 32, 4 and 3, with
-   tie-heavy inputs (integers in [-2, 2]) at F = 32, and on the uniform
-   and the small plans: values and ids bitwise equal, two runs bitwise
-   equal, one launch per stage apply. Hold the masked arg-sum kernel on the
-   uniform plan's vertex stage, with the arg table of the argmax kernel on
+   tie-heavy inputs (integers in [-2, 2]) at F = 32, on the edge stage at
+   F = 48 and 100 (passes of 32 features), and on the uniform and the small
+   plans: values and ids bitwise equal, two runs bitwise equal, one launch
+   per stage apply. Print each SBM-60k stage's live layout (the lists the
+   two kernels walk): its bytes and host build seconds beside the flat
+   tables' bytes. Hold the masked arg-sum kernel on the uniform plan's
+   vertex stage at F = 32 and 4, with the arg table of the argmax kernel on
    its edge stage: rtol 1e-6, atol 1e-6·max|plain|; two runs bitwise equal.
 14. Serve five HGNN max requests on SBM-60k through the kernel-form aligned
    plan: the checks of phase 3, against the plain form on the card;
    exactly 2 argmax and 2 band launches a request.
-15. Train 20 steps of HGNN max on SBM-60k, kernel form: finite losses,
+15. Train 20 steps of HGNN max on SBM-60k, kernel form (its stages carry
+   their live layouts): finite losses,
    exactly 2 argmax, 4 band, 2 record-routed sum and 0 arg-sum launches a
    step; 10 epochs without dropout, kernel form vs plain form on the card,
    losses within rtol 1e-3. One forward and backward of
@@ -77,12 +81,15 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    arg-sum launch, dx within rtol 1e-6, atol 1e-6·max of
    ``v2e_max_aligned``'s CSR-routed dx (the masked segment-sum kernel).
 16. Time, with CUDA events, median of 20 windows: the argmax kernel vs its
-   twin (edge stage, F = 32 and 4), the arg-sum kernel vs its twin
-   (uniform vertex stage, F = 32), the record-routed sum (the max
+   twin (edge stage, F = 32 and 4), the arg-sum kernel vs its twin and one
+   ``scatter_add_`` (uniform vertex stage, F = 32 and 4), each beside two
+   bounds (over the live layout the kernels read, and over the flat tables
+   the earlier design read), the record-routed sum (the max
    backward: the masked segment-sum kernel over SBM-60k's vertex-major CSR,
-   int32 ids, F = 32) vs its plain twin and its bound, the last two also vs
-   one ``torch.zeros(N, F).scatter_add_(0, ids, g)`` where no id is -1
-   (the library yardstick, ids cast to int64 before the window), the SBM-60k max
+   int32 ids, F = 32) vs its plain twin and its bound, and each arg-sum and
+   record-routed sum vs one ``torch.zeros(N, F).scatter_add_(0, ids, g)``
+   where no id is -1 (the library yardstick, ids cast to int64 before the
+   window), the SBM-60k max
    training epoch on the aligned kernel form, on ``AggregationPlan(tree,
    aligned kernel form)`` (tree argmax V→E, band kernel E→V) and on the
    aligned plain form, and a max request.
@@ -321,6 +328,25 @@ def stage_table_bytes(stage) -> int:
     sources and the directory."""
     t = stage.band
     return nbytes(t.band, t.win, t.spill, t.src, t.groups)
+
+
+def max_bounds(stage, moved: int, ops: int) -> dict:
+    """The max kernels' bound over the live layout they read (with the
+    spill sources its chunks name), and beside it the bound over the flat
+    band and spill tables they read before; ``moved``: the operands' and
+    outputs' bytes."""
+    live = stage.band.live
+    out = bound(live.nbytes() + nbytes(stage.band.src) + moved, ops)
+    out["tables_bound_ms"] = bound(stage_table_bytes(stage) + moved, ops)["bound_ms"]
+    return out
+
+
+def layout_info(stage) -> dict:
+    """The live layout's bytes and host build seconds beside the flat
+    tables' bytes."""
+    live = stage.band.live
+    return {"layout_bytes": live.nbytes(), "layout_build_s": live.build_s,
+            "chunks": int(live.chunks.shape[0]), "table_bytes": stage_table_bytes(stage)}
 
 
 def stage_live(stage) -> int:
@@ -1035,11 +1061,21 @@ def max_phases(device, card: str, aligned: dict) -> dict:
         for stage, st in zip(("edge", "vertex"), p.device(device)):
             argmaxes.append({"plan": name, "stage": stage, "layout": type(st).__name__,
                              **check_argmax(st, 32, 60 + len(argmaxes), device)})
+    for seed, f in enumerate((48, 100)):  # F past one pass of 32 features
+        argmaxes.append({"plan": "sbm60k", "stage": "edge",
+                         **check_argmax(stages["edge"], f, 80 + seed, device)})
     for a in argmaxes:
         print(f"phase 13 argmax kernel vs plain: {json.dumps(a)}", flush=True)
-    argsum = {"plan": "sbm60k uniform", "stage": "vertex",
-              **check_argsum(uni_e, uni_v, 32, 70, device)}
-    print(f"phase 13 arg-sum kernel vs plain: {json.dumps(argsum)}", flush=True)
+    layouts = {f"sbm60k {name}": layout_info(st) for name, st in stages.items()}
+    layouts.update({"sbm60k uniform edge": layout_info(uni_e),
+                    "sbm60k uniform vertex": layout_info(uni_v)})
+    print(f"phase 13 live layouts (bytes, host build seconds): {json.dumps(layouts)}",
+          flush=True)
+    argsums = [{"plan": "sbm60k uniform", "stage": "vertex",
+                **check_argsum(uni_e, uni_v, f, 70 + f, device)} for f in (32, 4)]
+    argsum = argsums[0]
+    for a in argsums:
+        print(f"phase 13 arg-sum kernel vs plain: {json.dumps(a)}", flush=True)
 
     # 14. serve max requests through the kernel-form aligned plan
     served = serve(device, sbm, "aligned",
@@ -1054,6 +1090,8 @@ def max_phases(device, card: str, aligned: dict) -> dict:
 
     # 15. train max, kernel form; then aligned_max_matvec's backward
     cfg, hg, x, y, split, plan = sbm_problem(sbm, al_plan)
+    check(all(st.band.live is not None for st in plan.aligned.device(device)),
+          "the max step's stages carry the kernels' live layouts")
     problems = {"sbm60k max": (dataclasses.replace(cfg, first_aggr="max"), hg, x, y, split,
                                plan)}
     trained = train(problems, device)["sbm60k max"]
@@ -1072,21 +1110,24 @@ def max_phases(device, card: str, aligned: dict) -> dict:
         "plain": lambda xf=xf: aligned_max.aligned_max_plain(xf, stages["edge"])}, order)
         for f, xf in xs.items()}
     live = stage_live(stages["edge"])
-    for f, xf in xs.items():  # tables, x, then val and arg written; a compare a feature
-        argmax_times[f"edge F={f}"].update(bound(
-            stage_table_bytes(stages["edge"]) + nbytes(xf) + sbm.num_edges * f * 8, live * f))
-    g, arg = argsum_operands(uni_e, uni_v, 32, 71, device)
-    fns = {"kernel": lambda: aligned_max.aligned_masked_argsum(g, arg, uni_v),
-           "plain": lambda: aligned_max.aligned_argsum_plain(g, arg, uni_v)}
-    library, why = scatter_yardstick(g, arg, uni_v.num_segments, fns["plain"]())
-    if library is not None:
-        fns["library"] = library
-    argsum_times = time_turns(fns, order + (("library", "library") if library else ()))
-    argsum_times["library"] = argsum_times.get("library")
-    if why:
-        argsum_times["library_note"] = why
-    argsum_times.update(bound(stage_table_bytes(uni_v) + nbytes(g, arg) + sbm.num_nodes * 32 * 4,
-                              stage_live(uni_v) * 32))
+    for f, xf in xs.items():  # layout, x, then val and arg written; a compare a feature
+        argmax_times[f"edge F={f}"].update(max_bounds(
+            stages["edge"], nbytes(xf) + sbm.num_edges * f * 8, live * f))
+    argsum_times = {}
+    for f in (32, 4):
+        g, arg = argsum_operands(uni_e, uni_v, f, 71, device)
+        fns = {"kernel": lambda g=g, arg=arg: aligned_max.aligned_masked_argsum(g, arg, uni_v),
+               "plain": lambda g=g, arg=arg: aligned_max.aligned_argsum_plain(g, arg, uni_v)}
+        library, why = scatter_yardstick(g, arg, uni_v.num_segments, fns["plain"]())
+        if library is not None:
+            fns["library"] = library
+        t = time_turns(fns, order + (("library", "library") if library else ()))
+        t["library"] = t.get("library")
+        if why:
+            t["library_note"] = why
+        t.update(max_bounds(uni_v, nbytes(g, arg) + sbm.num_nodes * f * 4,
+                            stage_live(uni_v) * f))
+        argsum_times[f"vertex F={f}"] = t
     record_times = time_record(sbm.device_data(device), 32, device, torch.int32)
     mcfg = problems["sbm60k max"][0]
     trainers = {
@@ -1103,11 +1144,12 @@ def max_phases(device, card: str, aligned: dict) -> dict:
     print(f"phase 16 times (ms, CUDA events, median of 20): card {card}; SBM-60k max training "
           f"epoch (wall: 10 back-to-back steps, host included; device: behind a queued "
           f"sleep): {json.dumps(epochs)}; argmax kernel vs plain twin: "
-          f"{json.dumps(argmax_times)}; arg-sum kernel vs plain twin, uniform vertex stage "
-          f"F=32: {json.dumps(argsum_times)}; record-routed sum vs plain twin, vertex-major "
+          f"{json.dumps(argmax_times)}; arg-sum kernel vs plain twin vs scatter_add_, uniform "
+          f"vertex stage: {json.dumps(argsum_times)}; record-routed sum vs plain twin, vertex-major "
           f"CSR, int32 ids, F=32: {json.dumps(record_times)}; HGNN max request on SBM-60k, "
           f"kernel form {served['request_ms']}", flush=True)
-    return {"argmaxes": argmaxes, "argsum": argsum, "served": served, "trained": trained,
+    return {"argmaxes": argmaxes, "argsum": argsum, "argsums": argsums, "layouts": layouts,
+            "served": served, "trained": trained,
             "matvec": matvec, "argmax_times": argmax_times, "argsum_times": argsum_times,
             "record_times": record_times, "epochs": epochs, "stages": stages,
             "uniform": (uni_e, uni_v)}
@@ -2115,7 +2157,7 @@ def main() -> int:
     timed = {"fused_dense_two_stage": times["20news"], "ell_gather_sum": gather_times["edge F=32"],
              "aligned_band": aligned["band_times"]["edge F=32"],
              "aligned_masked_argmax": maxed["argmax_times"]["edge F=32"],
-             "aligned_masked_argsum": maxed["argsum_times"],
+             "aligned_masked_argsum": maxed["argsum_times"]["vertex F=32"],
              "bitstream_bitmm": streamed["bitmm_times"]["stream100k Ht F=32"],
              "gather_segment_sum": dtimes["segsum_times"]["v2e F=32"],
              "record_routed_dx": maxed["record_times"],
@@ -2169,8 +2211,13 @@ def main() -> int:
         "launches": (maxed["served"]["launches"]["argmax"]
                      + maxed["trained"]["launches"]["argmax"] + maxed["matvec"]["argmax_launches"]),
         "max_abs_err": max(a["max_abs_err"] for a in maxed["argmaxes"]),
-        "f4_ms": maxed["argmax_times"]["edge F=4"]["kernel"],
-        "f4_plain_ms": maxed["argmax_times"]["edge F=4"]["plain"],
+        # bound_ms reads the live layout, tables_bound_ms the flat tables
+        "tables_bound_ms": maxed["argmax_times"]["edge F=32"]["tables_bound_ms"],
+        **{f"f4_{k}": maxed["argmax_times"]["edge F=4"][key]
+           for k, key in (("ms", "kernel"), ("plain_ms", "plain"), ("bound_ms", "bound_ms"),
+                          ("tables_bound_ms", "tables_bound_ms"))},
+        "layout_bytes": maxed["layouts"]["sbm60k edge"]["layout_bytes"],
+        "layout_build_s": maxed["layouts"]["sbm60k edge"]["layout_build_s"],
     }, {
         "name": "aligned_masked_argsum",
         "route": "cuda",
@@ -2178,7 +2225,13 @@ def main() -> int:
         # aligned_max_matvec's backward (the max training path routes its
         # backward through the CSR, as JAX's does)
         "launches": maxed["matvec"]["argsum_launches"],
-        "max_abs_err": maxed["argsum"]["max_abs_err"],
+        "max_abs_err": max(a["max_abs_err"] for a in maxed["argsums"]),
+        "tables_bound_ms": maxed["argsum_times"]["vertex F=32"]["tables_bound_ms"],
+        **{f"f4_{k}": maxed["argsum_times"]["vertex F=4"][key]
+           for k, key in (("ms", "kernel"), ("plain_ms", "plain"), ("library_ms", "library"),
+                          ("bound_ms", "bound_ms"), ("tables_bound_ms", "tables_bound_ms"))},
+        "layout_bytes": maxed["layouts"]["sbm60k uniform vertex"]["layout_bytes"],
+        "layout_build_s": maxed["layouts"]["sbm60k uniform vertex"]["layout_build_s"],
     }, {
         "name": "bitstream_bitmm",
         "route": "cuda",

@@ -1,10 +1,15 @@
 // Max first aggregation over an aligned stage, and its record-routed
 // backward, for Hopper (sm_90a).
 //
-// Two kernels, each one launch for a whole aligned stage, over the same
-// per-group directory (the wrapper's BandTable) that the band kernel
-// (aligned_band.cu) reads: a group's band offset, window blocks and width,
-// spill table and spill sources.
+// Two kernels, each one launch for a whole aligned stage, over the stage's
+// live layout (the wrapper's LiveLayout, ops/aligned_max.py::live_layout):
+// each group's slots (window slots win[g, k]*B + j, then the spill slots
+// src_g[j]) cut into chunks of at most kChunk consecutive slots of one
+// window block or of the spill, and for each (chunk, row of the group) the
+// row's live slots in ascending order, as uint16 offsets within the chunk.
+// A slot is live where its band or spill count is non-zero (the value does
+// not matter); sources at or past N (the window's padding, the spill zero
+// row N) and rows past S are never listed, so the kernels test for neither.
 //
 // 1. aligned_masked_argmax replaces the Pallas TPU kernel
 //    hypergef_tpu/ops/aligned_max.py::_masked_argmax_kernel (body :44-95,
@@ -15,16 +20,12 @@
 //        val[s, f] = max of x[v, f] over the live sources v of s
 //        arg[s, f] = the lowest source id v that reaches it
 //
-//    A source is live where its band or spill count is non-zero (the count's
-//    value does not matter); sources are the window slots win[g, k]*B + j and
-//    the spill slots src_g[j]; rows at or past N (the window's padding and the
-//    spill zero row N) are never live. Values are compared in f32, as they
-//    are. A segment with no live source gives val 0 and arg -1. The running
-//    maximum starts at JAX's sentinel -3e38, so a live value below it never
-//    wins, as in the TPU kernel: inputs are taken as finite (and above
-//    -3e38). The update rule, v > best or (v == best and a lower id), gives
-//    JAX's winner on such inputs: its lowest slot, then the lower id of
-//    band and spill, and window and spill slots ascend with the id.
+//    Values are compared in f32, as they are. A segment with no live source
+//    gives val 0 and arg -1. The running maximum starts at JAX's sentinel
+//    -3e38, so a live value below it never wins, as in the TPU kernel:
+//    inputs are taken as finite (and above -3e38). The update rule, v > best
+//    or (v == best and a lower id), gives JAX's winner whatever the order of
+//    the sources.
 //
 // 2. aligned_masked_argsum replaces hypergef_tpu/ops/aligned_max.py::
 //    _masked_argsum_kernel (body :247-276, pallas_call in
@@ -35,384 +36,581 @@
 //        dx[r, f] = sum of g[e, f] over the live sources e of r with
 //                   arg[e, f] == r
 //
-//    summed in slot order, window then spill, once per live slot. Each output
-//    row is summed in one fixed order, so repeats are bitwise equal.
+//    summed in slot order, window then spill, once per live slot: chunks
+//    follow the group's slots and each list ascends, so every output row is
+//    summed in one fixed order and repeats are bitwise equal.
 //
-// The TPU kernels held a group's [G, W] band plane and its [W, F] window in
-// VMEM and looped over F; the spill pieces and the merge were separate XLA
-// work, one pallas_call per bucket. Here CTAs own output rows of a group
-// whatever its bucket and write them in place: no assembly, no merge pass,
-// no atomics. The walk is the band kernel's (version F there): a grid of
-// (group, slab of 64 rows); a tile of 128 source slots at a time, its x (or
-// g and arg) values and the slab's 128 band bytes a row staged in shared
-// memory; a warp owns 8 rows, finds a row's non-zero band words with
-// __ballot_sync and hands each to every lane with __shfl_sync; lane l holds
-// feature l of the running (max, id) or sum in shared memory. The row loop
-// is rolled: unrolled around the data-dependent word loop, the band kernel
-// was bound by instruction fetch (PERF.md, Findings).
+// The design. A work item is kRowsPerCta rows of one group (a taller group
+// gives more items) with the group's chunks; the layout lists the items
+// costliest first, and a persistent grid (the CTAs the card holds at once)
+// deals them to its CTAs back and forth. A CTA is kWarps consumer warps and
+// one producer warp, over a ring of shared-memory stages (kStagesMax for
+// the argmax, kStagesSum for the arg-sum, whose stages hold two values a
+// slot) with a full and an empty mbarrier each. A stage holds a chunk's
+// source rows (x, or g and arg) for a pass of up to kPass features, the
+// item's row pointers and its lists. The producer's lane 0 brings the
+// pointers and the lists, and a window chunk's rows where they are whole
+// rows at 16-byte alignment, by 1-D TMA bulk copies (cp.async.bulk,
+// completion on the full barrier); its lanes gather other rows by cp.async,
+// in 16-byte pieces where the addresses allow, else 4 bytes (a spill chunk's
+// through its sources), and arrive on the full barrier as those land. The
+// consumers walk: a pass's features go to lanes four at a time (a float4
+// "quad"), in lane groups of the next power of two of the pass's quads
+// (8 lanes at F = 32, 1 at F = 4), each group a row; a warp takes 32 / that
+// many rows at once, so F = 4 keeps a warp's lanes busy. A lane group loads
+// its row's list that many offsets at a time and hands them out with
+// __shfl_sync; each lane then does one 16-byte shared-memory read (two for
+// the arg-sum) and four compare-and-selects (or adds). A lane group past
+// its row's list reads the stage's null row, which changes nothing, so the
+// walk has no test a slot. The running (max, id) or sum of a row stays in
+// registers along its list and in shared memory between chunks (its lane
+// group's own slots: no barrier). F past kPass runs in passes.
 //
-// What bounds them. Both read the stage's band and spill tables once a
-// feature chunk of 32: about 16 MB for the SBM-60k edge stage, with x
-// (60000 x 32 f32, 7.7 MB) and the output (30000 x 32 x (4 + 4) bytes,
-// 7.7 MB): about 31 MB, about 9 us at 3.35 TB/s. As the band kernel, they
-// are far from it: each CTA is a chain of dependent load rounds and one
-// warp-wide step per non-zero band word. The arg-sum kernel reads g only
-// where arg points into its slab (the hit is staged as an int8 row offset).
+// What bounds them. The previous design walked the flat band and spill
+// tables, 128 slots a tile, every byte of every row: at SBM-60k 17.9 MB for
+// the edge stage of which 2% are live. The layout there is 1.3 MB; the
+// kernels read it, the staged rows (about 118,000 x rows on the edge stage,
+// 15 MB at F = 32, mostly from L2) and write the outputs. On the H100 the
+// walk's instructions bound them, not the bytes (PERF.md, the kernel
+// table): about thirty a live entry and lane group for the argmax's
+// compares, with the lane groups of a warp stepping together to the
+// longest of their lists.
 //
-// No index is bounds-checked here: the wrapper checks the tables once, when
-// a plan is put on the card (window blocks in range, spill sources in
-// [0, N], directory offsets inside the tables).
+// kChunk, kChunkLive, kRowsPerCta, kStagesMax and kStagesSum are the
+// wrapper's CHUNK, CHUNK_LIVE, ROWS_PER_CTA and RING; hg_aligned_max_layout
+// gives them to it, which checks them before the first launch. No index is
+// bounds-checked here: the wrapper checks the layout once, when a plan is
+// put on the card (chunks inside x or the spill sources, at most kChunk
+// rows and kChunkLive entries, offsets inside their chunk, each work item
+// listed once).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 8;
-constexpr int kRowsPerCta = kWarps * kRowsPerWarp;  // output rows a CTA owns
-constexpr int kTile = 128;  // source slots (band columns) staged at a time
-constexpr int kWords = kTile / 4;  // band words a row of a staged tile
-constexpr int kFc = 32;     // features per chunk: lane f holds feature fc0 + f
+constexpr int kWarps = 16;                   // consumer warps: they walk the lists
+constexpr int kThreads = (kWarps + 1) * 32;  // and one producer warp: it stages the chunks
+constexpr int kChunk = 128;                  // source slots a chunk spans at most
+constexpr int kChunkLive = 2048;             // live entries a chunk lists at most
+constexpr int kRowsPerCta = 128;             // rows of a group a work item owns
+constexpr int kStagesMax = 3;                // ring depth of the argmax kernel
+constexpr int kStagesSum = 2;                // ring depth of the arg-sum kernel
+constexpr int kPass = 32;                    // features a pass
+constexpr int kCtasPerSm = 2;                // the launch bounds' minimum
 constexpr unsigned kFullMask = 0xffffffffu;
-constexpr float kNeg = -3.0e38f;      // JAX's sentinel (_NEG)
-constexpr int kNone = 0x7fffffff;     // no live source yet (JAX's _BIG)
+constexpr float kNeg = -3.0e38f;   // JAX's sentinel (_NEG)
+constexpr int kNone = 0x7fffffff;  // no live source yet (JAX's _BIG)
 
-// columns of the per-group directory (BandTable.groups)
-constexpr int kBandOff = 0, kWinOff = 1, kWidth = 2, kSpillOff = 3, kSrcOff = 4,
-              kSw = 5, kDirCols = 6;
-
-struct MaxSmem {
-  float xs[kTile][kFc];                // x values of the tile's sources
-  int ids[kTile];                      // their ids; -1: not a row of x
-  alignas(16) uint32_t band[kRowsPerCta][kWords];  // the CTA's rows of the tile's band
-  float best[kRowsPerCta][kFc];        // running max of the CTA's rows
-  int best_id[kRowsPerCta][kFc];       // and the id that reached it
+// A stage of the ring, in bytes: the chunk's source rows (x, or g then
+// arg), a spill chunk's source ids (argmax), the chunk's record, the work
+// item's row pointers (a 16-byte aligned window of them) and its lists
+// (likewise). Then the rows' running state, and a full and an empty
+// barrier a stage.
+template <bool Sum>
+struct Layout {
+  static constexpr int kStages = Sum ? kStagesSum : kStagesMax;
+  static constexpr int kVals = (kChunk + 1) * kPass * 4;  // and the null row past them
+  static constexpr int kRows = kVals * (Sum ? 2 : 1);
+  static constexpr int kIds = Sum ? 0 : kChunk * 4;
+  static constexpr int kMeta = 16;
+  static constexpr int kRp = (kRowsPerCta + 8) * 4;
+  static constexpr int kList = (kChunkLive + 16) * 2;
+  static constexpr int kStage = kRows + kIds + kMeta + kRp + kList;
+  static constexpr int kState = kRowsPerCta * kPass * 4 * (Sum ? 1 : 2);
+  static constexpr int kBars = kStages * kStage + kState;
+  static constexpr int kBytes = kBars + 2 * kStages * 8;
+  static_assert(kStage % 16 == 0 && kBars % 16 == 0, "16-byte aligned regions");
 };
 
-struct SumSmem {
-  float gs[kTile][kFc];                // g of the tile's sources, where hit
-  int8_t hit[kTile][kFc];              // arg - first row of the slab, or -1
-  alignas(16) uint32_t band[kRowsPerCta][kWords];
-  float acc[kRowsPerCta][kFc];         // running sums of the CTA's rows
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+template <int V>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  if constexpr (V == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+                 "n"(V)
+                 : "memory");
+}
+// arrive on `b` once this thread's cp.async copies so far have landed
+__device__ __forceinline__ void cp_arrive(uint64_t* b) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(b))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* b, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(b)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(b)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(b)),
+               "r"(bytes)
+               : "memory");
+}
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* b, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(b)),
+      "r"(parity)
+      : "memory");
+}
+// one 1-D TMA copy of `bytes` (a multiple of 16; both addresses 16-aligned)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+// the consumer warps' own barrier (named barrier 1; the producer runs on)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kWarps * 32) : "memory");
+}
+
+// The stage's live layout and operands.
+struct Live {
+  const int4* chunks;           // per chunk: first source, rows, spill, first slot
+  const int32_t* group_chunks;  // [n_groups + 1]
+  const int32_t* row_ptr;       // [n_chunks * G + 1], padded to 16-byte reads
+  const uint16_t* slots;        // offsets within the chunk, padded likewise
+  const int32_t* items;         // the work items, costliest first
+  const int32_t* src;           // the spill sources (BandTable.src)
+  const float* vals;            // x [n, f] (argmax) or g [n, f] (arg-sum)
+  const int32_t* arg;           // arg [n, f] (arg-sum)
+  int group_rows, n, s, f, n_items;
 };
 
-static_assert(sizeof(MaxSmem) <= 48 * 1024, "static shared memory");
-static_assert(sizeof(SumSmem) <= 48 * 1024, "static shared memory");
+// The CTA's k-th work item, or -1: the items, costliest first, dealt to the
+// CTAs back and forth (CTA c takes c, 2 * grid - 1 - c, 2 * grid + c, ...).
+__device__ __forceinline__ int item_of(const Live& lv, int k) {
+  const long long at = (long long)k * gridDim.x +
+                       ((k & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+  return at < lv.n_items ? __ldg(lv.items + at) : -1;
+}
 
-// Source rows of a tile's slots: consecutive rows of a window block, or the
-// spill sources of a group.
-struct WindowRows {
-  long long first;
-  __device__ __forceinline__ long long operator()(int j) const { return first + j; }
-};
-struct SpillRows {
-  const int32_t* __restrict__ src;
-  __device__ __forceinline__ long long operator()(int j) const { return __ldg(src + j); }
-};
+// A work item: kRowsPerCta rows of a group and the group's chunks.
+struct Item {
+  int g, row0, rows, cb, count;
 
-// sm.band[r][*] = bytes [col0, col0 + ncols) of table row row0 + r (zero
-// past ncols and for rows at or past `rows`); the table is row-major with
-// `stride` bytes a row. 16-byte loads where the tile allows them.
-__device__ __forceinline__ void stage_band(uint32_t (*band)[kWords],
-                                           const int8_t* __restrict__ table,
-                                           long long stride, long long col0,
-                                           int ncols, int row0, int rows) {
-  const int8_t* base = table + col0;
-  if (ncols == kTile && (((uintptr_t)base | (uintptr_t)stride) & 15) == 0) {
-    for (int idx = threadIdx.x; idx < kRowsPerCta * (kTile / 16); idx += kThreads) {
-      const int r = idx / (kTile / 16), q = idx % (kTile / 16);
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (row0 + r < rows)
-        v = __ldg(reinterpret_cast<const uint4*>(base + (long long)(row0 + r) * stride) + q);
-      reinterpret_cast<uint4*>(band[r])[q] = v;
-    }
-    return;
+  __device__ __forceinline__ Item(const Live& lv, int item) {
+    const int row_ctas = (lv.group_rows + kRowsPerCta - 1) / kRowsPerCta;
+    g = item / row_ctas;
+    row0 = (item % row_ctas) * kRowsPerCta;
+    rows = min(kRowsPerCta, lv.group_rows - row0);
+    cb = __ldg(lv.group_chunks + g);
+    count = __ldg(lv.group_chunks + g + 1) - cb;
   }
-  for (int idx = threadIdx.x; idx < kRowsPerCta * kWords; idx += kThreads) {
-    const int r = idx / kWords, q = idx % kWords;
-    uint32_t w = 0;
-    if (row0 + r < rows) {
-      const int8_t* p = base + (long long)(row0 + r) * stride;
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-        if (4 * q + t < ncols) w |= (uint32_t)(uint8_t)__ldg(p + 4 * q + t) << (8 * t);
+};
+
+// A pass: features [c0, c0 + fw), four a lane (a quad), in lane groups of
+// lp lanes (the next power of two of the pass's quads) that each take a
+// row; x rows staged with pitch xp floats (a multiple of 4), by bulk copies
+// (whole rows) or vec-byte pieces.
+struct Pass {
+  int c0, fw, lp, xp, vec;
+  bool bulk;
+
+  template <bool Sum>
+  __device__ __forceinline__ static Pass of(const Live& lv, int c0) {
+    Pass ps;
+    const uintptr_t va = reinterpret_cast<uintptr_t>(lv.vals) |
+                         (Sum ? reinterpret_cast<uintptr_t>(lv.arg) : 0);
+    ps.c0 = c0;
+    ps.fw = min(kPass, lv.f - c0);
+    ps.lp = 1;
+    while (4 * ps.lp < ps.fw) ps.lp *= 2;
+    const bool vec16 = lv.f % 4 == 0 && (va & 15) == 0;
+    ps.vec = vec16 ? 16 : 4;
+    ps.bulk = vec16 && ps.fw == lv.f;
+    ps.xp = ps.bulk ? lv.f : (ps.fw + 3) & ~3;
+    return ps;
+  }
+};
+
+// The producer warp stages chunk `chunk` (its record `rec`, the item's
+// first and last row pointer `ptr`) into stage buffer `buf`. Lane 0 arrives
+// on the stage's full barrier with the bulk bytes; every lane arrives once
+// its cp.async copies have landed.
+template <bool Sum>
+__device__ __forceinline__ void stage_chunk(const Live& lv, const int4& rec, const int2& ptr,
+                                            int chunk, const Item& it, const Pass& ps,
+                                            uint8_t* buf, uint64_t* full, int lane) {
+  using L = Layout<Sum>;
+  float* vs = reinterpret_cast<float*>(buf);
+  int32_t* as = reinterpret_cast<int32_t*>(buf + L::kVals);
+  int32_t* ids = reinterpret_cast<int32_t*>(buf + L::kRows);
+  const int first = rec.x, nrows = rec.y;
+  const bool spill = rec.z != 0;
+  const bool x_bulk = ps.bulk && !spill;
+  if (lane == 0) {
+    *reinterpret_cast<int4*>(buf + L::kRows + L::kIds) = rec;
+    const long long at = (long long)chunk * lv.group_rows + it.row0, ra = at & ~3LL;
+    const unsigned rp_bytes = (unsigned)(((at + it.rows + 1 - ra + 3) & ~3LL) * 4);
+    const int la = ptr.x & ~7, lb = (ptr.y + 7) & ~7;
+    const unsigned list_bytes = (unsigned)(lb - la) * 2;
+    const unsigned x_bytes = x_bulk ? (unsigned)nrows * lv.f * 4 : 0u;
+    mbar_expect_tx(full, rp_bytes + list_bytes + x_bytes * (Sum ? 2 : 1));
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    bulk_load(buf + L::kRows + L::kIds + L::kMeta, lv.row_ptr + ra, rp_bytes, full);
+    if (list_bytes)
+      bulk_load(buf + L::kRows + L::kIds + L::kMeta + L::kRp, lv.slots + la, list_bytes, full);
+    if (x_bytes) {
+      bulk_load(vs, lv.vals + (long long)first * lv.f, x_bytes, full);
+      if (Sum) bulk_load(as, lv.arg + (long long)first * lv.f, x_bytes, full);
     }
-    band[r][q] = w;
+  }
+  if (!x_bulk) {
+    const int per = ps.vec / 4, pieces = (ps.fw + per - 1) / per;
+    auto copy_row = [&](int j, long long row, int p) {
+      const long long at = row * lv.f + ps.c0 + p * per;
+      const int to = j * ps.xp + p * per;
+      if (ps.vec == 16) {
+        cp_async<16>(vs + to, lv.vals + at);
+        if (Sum) cp_async<16>(as + to, lv.arg + at);
+      } else {
+        cp_async<4>(vs + to, lv.vals + at);
+        if (Sum) cp_async<4>(as + to, lv.arg + at);
+      }
+    };
+    if (!spill) {
+      for (int idx = lane; idx < nrows * pieces; idx += 32)
+        copy_row(idx / pieces, first + idx / pieces, idx % pieces);
+    } else {  // gathered through the spill sources; the zero row N is never listed
+      for (int j = lane; j < nrows; j += 32) {
+        const int row = __ldg(lv.src + first + j);
+        if (!Sum) cp_async<4>(ids + j, lv.src + first + j);
+        if (row < lv.n)
+          for (int p = 0; p < pieces; ++p) copy_row(j, row, p);
+      }
+    }
+  }
+  cp_arrive(full);
+}
+
+// The producer warp: every chunk of the CTA's work items, pass by pass,
+// into the ring, each stage once its consumers have released it. A lane
+// holds the record and row pointers of one chunk of a batch of 32.
+template <bool Sum>
+__device__ void produce(const Live& lv, uint8_t* smem, uint64_t* full, uint64_t* empty) {
+  using L = Layout<Sum>;
+  constexpr int D = L::kStages;
+  const int lane = threadIdx.x % 32;
+  int u = 0;  // chunks staged so far: chunk u goes to stage u % D
+  for (int k = 0;; ++k) {
+    const int item = item_of(lv, k);
+    if (item < 0) break;
+    const Item it(lv, item);
+    for (int c0 = 0; c0 < lv.f; c0 += kPass) {
+      const Pass ps = Pass::of<Sum>(lv, c0);
+      for (int b0 = 0; b0 < it.count; b0 += 32) {
+        const int nb = min(32, it.count - b0);
+        int4 rec = make_int4(0, 0, 0, 0);
+        int2 ptr = make_int2(0, 0);
+        if (lane < nb) {
+          const long long at = (long long)(it.cb + b0 + lane) * lv.group_rows + it.row0;
+          rec = __ldg(lv.chunks + it.cb + b0 + lane);
+          ptr = make_int2(__ldg(lv.row_ptr + at), __ldg(lv.row_ptr + at + it.rows));
+        }
+        for (int i = 0; i < nb; ++i, ++u) {
+          const int4 r = make_int4(__shfl_sync(kFullMask, rec.x, i), __shfl_sync(kFullMask, rec.y, i),
+                                   __shfl_sync(kFullMask, rec.z, i), __shfl_sync(kFullMask, rec.w, i));
+          const int2 pt = make_int2(__shfl_sync(kFullMask, ptr.x, i), __shfl_sync(kFullMask, ptr.y, i));
+          if (u >= D) mbar_wait(empty + u % D, (u / D - 1) & 1);
+          stage_chunk<Sum>(lv, r, pt, it.cb + b0 + i, it, ps, smem + (u % D) * L::kStage,
+                           full + u % D, lane);
+        }
+      }
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");  // no copy outlives its thread
+}
+
+// The running state of one lane: four features of a row.
+struct Quad {
+  float4 v;  // max (argmax) or sum (arg-sum)
+  int4 id;   // the max's source id (argmax)
+};
+
+__device__ __forceinline__ void take_max(float& best, int& best_id, float v, int id) {
+  if (v > best || (v == best && id < best_id)) {
+    best = v;
+    best_id = id;
   }
 }
 
-// sm.ids[j] = the source id of slot j (-1 for a row at or past n, and past
-// ncols); sm.xs[j][c] = x[id, fc0 + c] for j < ncols, c < fcw (0 where the
-// slot is not a row of x).
-template <class Rows>
-__device__ __forceinline__ void stage_x(MaxSmem& sm, const float* __restrict__ x, Rows rows,
-                                        int n, int f, int fc0, int fcw, int ncols) {
-  for (int j = threadIdx.x; j < kTile; j += kThreads) {
-    const long long row = j < ncols ? rows(j) : (long long)n;
-    sm.ids[j] = row < n ? (int)row : -1;
-  }
-  for (int idx = threadIdx.x; idx < ncols * fcw; idx += kThreads) {
-    const int j = idx / fcw, c = idx % fcw;
-    const long long row = rows(j);
-    sm.xs[j][c] = row < n ? __ldg(x + row * f + fc0 + c) : 0.f;
+// Walk a staged chunk: the live lists of the item's rows. A lane group of
+// ps.lp lanes takes row r; lane q of it features c0 + 4q .. c0 + 4q + 3.
+// `st_f` (and `st_i`) hold each row's running max (and its ids) or sum,
+// [kRowsPerCta][kPass]; a row's entries are touched by its lane group only.
+template <bool Sum>
+__device__ __forceinline__ void walk_chunk(const uint8_t* buf, long long at, int rows,
+                                           long long seg0, const Pass& ps, float* st_f,
+                                           int* st_i, int warp, int lane) {
+  using L = Layout<Sum>;
+  const float* vs = reinterpret_cast<const float*>(buf);
+  const int32_t* as = reinterpret_cast<const int32_t*>(buf + L::kVals);
+  const int32_t* ids = reinterpret_cast<const int32_t*>(buf + L::kRows);
+  const int4 rec = *reinterpret_cast<const int4*>(buf + L::kRows + L::kIds);
+  const int32_t* rp =
+      reinterpret_cast<const int32_t*>(buf + L::kRows + L::kIds + L::kMeta) + (at & 3);
+  const uint16_t* list =
+      reinterpret_cast<const uint16_t*>(buf + L::kRows + L::kIds + L::kMeta + L::kRp) -
+      (rp[0] & ~7);
+  const bool spill = rec.z != 0;
+  const int lp = ps.lp, per_warp = 32 / lp, sub = lane / lp, q = lane % lp;
+  const bool quad = 4 * q < ps.fw;
+  for (int rb = warp * per_warp; rb < rows; rb += kWarps * per_warp) {
+    const int r = rb + sub;
+    const bool ok = r < rows;
+    const int p = ok ? rp[r] : 0, len = ok ? rp[r + 1] - p : 0;
+    const int most = __reduce_max_sync(kFullMask, len);
+    if (most == 0) continue;
+    const bool mine = ok && quad && len > 0;
+    Quad st;
+    float4* sf = reinterpret_cast<float4*>(st_f + r * kPass) + q;
+    int4* si = reinterpret_cast<int4*>(st_i + r * kPass) + q;
+    if (mine) {
+      st.v = *sf;
+      if (!Sum) st.id = *si;
+    }
+    const int rg = (int)(seg0 + r);  // the row's id (arg-sum: an output row)
+    for (int k0 = 0; k0 < most; k0 += lp) {
+      const int v = k0 + q < len ? list[p + k0 + q] : kChunk;  // past the list: the null row
+      const int nk = min(lp, most - k0);
+#pragma unroll 2
+      for (int k = 0; k < nk; ++k) {
+        const int off = __shfl_sync(kFullMask, v, k, lp);
+        // an offset past the row's list reads the null row, which changes nothing
+        const int at = (off == kChunk ? kChunk * kPass : off * ps.xp) + 4 * q;
+        const float4 xv = *reinterpret_cast<const float4*>(vs + at);
+        if constexpr (Sum) {
+          const int4 a = *reinterpret_cast<const int4*>(as + at);
+          if (a.x == rg) st.v.x += xv.x;
+          if (a.y == rg) st.v.y += xv.y;
+          if (a.z == rg) st.v.z += xv.z;
+          if (a.w == rg) st.v.w += xv.w;
+        } else {
+          const int id = spill ? ids[off] : rec.x + off;
+          take_max(st.v.x, st.id.x, xv.x, id);
+          take_max(st.v.y, st.id.y, xv.y, id);
+          take_max(st.v.z, st.id.z, xv.z, id);
+          take_max(st.v.w, st.id.w, xv.w, id);
+        }
+      }
+    }
+    if (mine) {
+      *sf = st.v;
+      if (!Sum) *si = st.id;
+    }
   }
 }
 
-// The warp's rows: fold the tile's live sources into (best, best_id). Lane
-// l holds band word l of a row and feature l of the running maximum. The
-// tests on a byte and on its id are warp-uniform; only the compare-and-
-// select is per lane.
-__device__ __forceinline__ void max_tile(MaxSmem& sm, int warp, int lane) {
-#pragma unroll 1
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int r = warp * kRowsPerWarp + i;
-    const uint32_t w = sm.band[r][lane];
-    unsigned live = __ballot_sync(kFullMask, w != 0);
-    if (!live) continue;
-    float best = sm.best[r][lane];
-    int best_id = sm.best_id[r][lane];
-    do {
-      const int word_idx = __ffs(live) - 1;
-      live &= live - 1;
-      const uint32_t word = __shfl_sync(kFullMask, w, word_idx);
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int j = 4 * word_idx + t;
-        const int id = sm.ids[j];
-        if (((word >> (8 * t)) & 0xffu) != 0u && id >= 0) {
-          const float v = sm.xs[j][lane];
-          if (v > best || (v == best && id < best_id)) {
-            best = v;
-            best_id = id;
+// The consumer warps: for each work item and pass, set the rows' state,
+// walk every staged chunk (releasing its stage), write the rows out.
+template <bool Sum>
+__device__ void consume(const Live& lv, uint8_t* smem, uint64_t* full, uint64_t* empty,
+                        float* __restrict__ out, int32_t* __restrict__ out_arg) {
+  using L = Layout<Sum>;
+  constexpr int D = L::kStages;
+  float* st_f = reinterpret_cast<float*>(smem + D * L::kStage);
+  int* st_i = reinterpret_cast<int*>(smem + D * L::kStage + kRowsPerCta * kPass * 4);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int f = lv.f;
+  int u = 0;  // chunks walked so far
+  for (int k = 0;; ++k) {
+    const int item = item_of(lv, k);
+    if (item < 0) break;
+    const Item it(lv, item);
+    const long long seg0 = (long long)it.g * lv.group_rows + it.row0;  // the item's first row
+    for (int c0 = 0; c0 < f; c0 += kPass) {
+      const Pass ps = Pass::of<Sum>(lv, c0);
+      const int per_warp = 32 / ps.lp, sub = lane / ps.lp, q = lane % ps.lp;
+      if (4 * q < ps.fw) {
+        for (int r = warp * per_warp + sub; r < it.rows; r += kWarps * per_warp) {
+          reinterpret_cast<float4*>(st_f + r * kPass)[q] =
+              Sum ? make_float4(0.f, 0.f, 0.f, 0.f) : make_float4(kNeg, kNeg, kNeg, kNeg);
+          if (!Sum)
+            reinterpret_cast<int4*>(st_i + r * kPass)[q] = make_int4(kNone, kNone, kNone, kNone);
+        }
+      }
+      for (int i = 0; i < it.count; ++i, ++u) {
+        mbar_wait(full + u % D, (u / D) & 1);
+        const long long at = (long long)(it.cb + i) * lv.group_rows + it.row0;
+        walk_chunk<Sum>(smem + (u % D) * L::kStage, at, it.rows, seg0, ps, st_f, st_i, warp,
+                        lane);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + u % D);
+      }
+      // the lane groups' rows, up to the last segment: a quad a lane
+      if (4 * q < ps.fw) {
+        const bool whole = f % 4 == 0 && 4 * q + 4 <= ps.fw;
+        for (int r = warp * per_warp + sub; r < it.rows; r += kWarps * per_warp) {
+          const long long seg = seg0 + r;
+          if (seg >= lv.s) continue;
+          const float4 v = reinterpret_cast<const float4*>(st_f + r * kPass)[q];
+          int4 id = make_int4(0, 0, 0, 0);
+          if (!Sum) {
+            id = reinterpret_cast<const int4*>(st_i + r * kPass)[q];
+            const bool nx = id.x == kNone, ny = id.y == kNone, nz = id.z == kNone,
+                       nw = id.w == kNone;
+            id = make_int4(nx ? -1 : id.x, ny ? -1 : id.y, nz ? -1 : id.z, nw ? -1 : id.w);
+          }
+          const float4 o = Sum ? v
+                               : make_float4(id.x < 0 ? 0.f : v.x, id.y < 0 ? 0.f : v.y,
+                                             id.z < 0 ? 0.f : v.z, id.w < 0 ? 0.f : v.w);
+          const long long at = seg * f + c0 + 4 * q;
+          if (whole) {
+            *reinterpret_cast<float4*>(out + at) = o;
+            if (!Sum) *reinterpret_cast<int4*>(out_arg + at) = id;
+          } else {
+            const float ov[4] = {o.x, o.y, o.z, o.w};
+            const int iv[4] = {id.x, id.y, id.z, id.w};
+            for (int t = 0; t < 4 && 4 * q + t < ps.fw; ++t) {
+              out[at + t] = ov[t];
+              if (!Sum) out_arg[at + t] = iv[t];
+            }
           }
         }
       }
-    } while (live);
-    sm.best[r][lane] = best;
-    sm.best_id[r][lane] = best_id;
-  }
-}
-
-// Grid: (group, slab of kRowsPerCta rows of the group).
-__global__ void __launch_bounds__(kThreads)
-aligned_masked_argmax_kernel(const float* __restrict__ x, const int8_t* __restrict__ band,
-                             const int32_t* __restrict__ win,
-                             const int8_t* __restrict__ spill,
-                             const int32_t* __restrict__ src,
-                             const long long* __restrict__ groups,
-                             float* __restrict__ val, int32_t* __restrict__ arg,
-                             int group_rows, int block_rows, int n, int s, int f) {
-  __shared__ MaxSmem sm;
-  const long long g = blockIdx.x;
-  const int row0 = blockIdx.y * kRowsPerCta;  // first row of the slab in the group
-  const long long* d = groups + g * kDirCols;
-  const long long band_off = d[kBandOff], win_off = d[kWinOff];
-  const int width = (int)d[kWidth];
-  const long long spill_off = d[kSpillOff], src_off = d[kSrcOff];
-  const int sw = (int)d[kSw];
-  const long long band_stride = (long long)width * block_rows;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  for (int fc0 = 0; fc0 < f; fc0 += kFc) {
-    const int fcw = min(kFc, f - fc0);
-#pragma unroll 1
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      sm.best[warp * kRowsPerWarp + i][lane] = kNeg;
-      sm.best_id[warp * kRowsPerWarp + i][lane] = kNone;
-    }
-    // the window, one tile of a source block at a time
-    for (int k = 0; k < width; ++k) {
-      const long long blk = __ldg(win + win_off + k);
-      for (int t0 = 0; t0 < block_rows; t0 += kTile) {
-        const int ncols = min(kTile, block_rows - t0);
-        __syncthreads();  // the previous tile has been consumed
-        stage_x(sm, x, WindowRows{blk * block_rows + t0}, n, f, fc0, fcw, ncols);
-        stage_band(sm.band, band + band_off, band_stride, (long long)k * block_rows + t0,
-                   ncols, row0, group_rows);
-        __syncthreads();
-        max_tile(sm, warp, lane);
-      }
-    }
-    // the spill slots; source n is the zero row, never live
-    for (int t0 = 0; t0 < sw; t0 += kTile) {
-      const int ncols = min(kTile, sw - t0);
-      __syncthreads();
-      stage_x(sm, x, SpillRows{src + src_off + t0}, n, f, fc0, fcw, ncols);
-      stage_band(sm.band, spill + spill_off, sw, t0, ncols, row0, group_rows);
-      __syncthreads();
-      max_tile(sm, warp, lane);
-    }
-    // the warp's rows, up to the last segment
-    if (lane < fcw) {
-#pragma unroll 1
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const int r = row0 + warp * kRowsPerWarp + i;
-        const long long seg = g * group_rows + r;
-        if (r < group_rows && seg < s) {
-          const int id = sm.best_id[r - row0][lane];
-          const bool none = id == kNone;
-          val[seg * f + fc0 + lane] = none ? 0.f : sm.best[r - row0][lane];
-          arg[seg * f + fc0 + lane] = none ? -1 : id;
-        }
-      }
+      consumers_sync();  // the next pass or item may map the rows to other lanes
     }
   }
 }
 
-// sm.hit[j][c] = arg[e, fc0 + c] - row_lo where that lies in [0,
-// kRowsPerCta), else -1, and sm.gs[j][c] = g[e, fc0 + c] where it does, for
-// the source e of slot j (j < ncols, c < fcw); a row at or past n (the
-// window's padding, the spill zero row) hits nothing and is not read.
-template <class Rows>
-__device__ __forceinline__ void stage_g(SumSmem& sm, const float* __restrict__ gr,
-                                        const int32_t* __restrict__ argr, Rows rows, int n,
-                                        int f, int fc0, int fcw, int ncols, long long row_lo) {
-  for (int idx = threadIdx.x; idx < ncols * fcw; idx += kThreads) {
-    const int j = idx / fcw, c = idx % fcw;
-    const long long row = rows(j);
-    float gv = 0.f;
-    int h = -1;
-    if (row < n) {
-      const long long off = row * f + fc0 + c;
-      const long long dr = (long long)__ldg(argr + off) - row_lo;
-      if (dr >= 0 && dr < kRowsPerCta) {
-        h = (int)dr;
-        gv = __ldg(gr + off);
-      }
-    }
-    sm.gs[j][c] = gv;
-    sm.hit[j][c] = (int8_t)h;
+// Grid: persistent CTAs, each taking work items blockIdx.x, + gridDim.x, ...
+template <bool Sum>
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
+aligned_max_kernel(Live lv, float* __restrict__ out, int32_t* __restrict__ out_arg) {
+  using L = Layout<Sum>;
+  constexpr int D = L::kStages;
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* empty = full + D;
+  // each stage's null row, past every chunk's rows at any pitch, so no copy
+  // touches it: a value that never wins (argmax) or an id of no row (arg-sum)
+  for (int t = threadIdx.x; t < D * kPass; t += kThreads) {
+    uint8_t* buf = smem + (t / kPass) * L::kStage;
+    const int at = kChunk * kPass + t % kPass;
+    reinterpret_cast<float*>(buf)[at] = Sum ? 0.f : -__int_as_float(0x7f800000);
+    if (Sum) reinterpret_cast<int32_t*>(buf + L::kVals)[at] = -1;
   }
+  if (threadIdx.x == 0) {
+    for (int d = 0; d < D; ++d) {
+      mbar_init(full + d, 1 + 32);   // the producer's expect_tx and its lanes' copies
+      mbar_init(empty + d, kWarps);  // a consumer warp each
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x / 32 == kWarps)
+    produce<Sum>(lv, smem, full, empty);
+  else
+    consume<Sum>(lv, smem, full, empty, out, out_arg);
 }
 
-// The warp's rows: acc[r] += g of the tile's live sources whose arg is r.
-__device__ __forceinline__ void sum_tile(SumSmem& sm, int warp, int lane) {
-#pragma unroll 1
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int r = warp * kRowsPerWarp + i;
-    const uint32_t w = sm.band[r][lane];
-    unsigned live = __ballot_sync(kFullMask, w != 0);
-    if (!live) continue;
-    float a = sm.acc[r][lane];
-    do {
-      const int word_idx = __ffs(live) - 1;
-      live &= live - 1;
-      const uint32_t word = __shfl_sync(kFullMask, w, word_idx);
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int j = 4 * word_idx + t;
-        if (((word >> (8 * t)) & 0xffu) != 0u && sm.hit[j][lane] == r) a += sm.gs[j][lane];
-      }
-    } while (live);
-    sm.acc[r][lane] = a;
-  }
-}
-
-// Grid: (group of the transpose stage, slab of kRowsPerCta rows).
-__global__ void __launch_bounds__(kThreads)
-aligned_masked_argsum_kernel(const float* __restrict__ gr, const int32_t* __restrict__ argr,
-                             const int8_t* __restrict__ band,
-                             const int32_t* __restrict__ win,
-                             const int8_t* __restrict__ spill,
-                             const int32_t* __restrict__ src,
-                             const long long* __restrict__ groups, float* __restrict__ out,
-                             int group_rows, int block_rows, int n, int s, int f) {
-  __shared__ SumSmem sm;
-  const long long g = blockIdx.x;
-  const int row0 = blockIdx.y * kRowsPerCta;
-  const long long row_lo = g * group_rows + row0;  // global id of the slab's first row
-  const long long* d = groups + g * kDirCols;
-  const long long band_off = d[kBandOff], win_off = d[kWinOff];
-  const int width = (int)d[kWidth];
-  const long long spill_off = d[kSpillOff], src_off = d[kSrcOff];
-  const int sw = (int)d[kSw];
-  const long long band_stride = (long long)width * block_rows;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  for (int fc0 = 0; fc0 < f; fc0 += kFc) {
-    const int fcw = min(kFc, f - fc0);
-#pragma unroll 1
-    for (int i = 0; i < kRowsPerWarp; ++i) sm.acc[warp * kRowsPerWarp + i][lane] = 0.f;
-    for (int k = 0; k < width; ++k) {
-      const long long blk = __ldg(win + win_off + k);
-      for (int t0 = 0; t0 < block_rows; t0 += kTile) {
-        const int ncols = min(kTile, block_rows - t0);
-        __syncthreads();
-        stage_g(sm, gr, argr, WindowRows{blk * block_rows + t0}, n, f, fc0, fcw, ncols,
-                row_lo);
-        stage_band(sm.band, band + band_off, band_stride, (long long)k * block_rows + t0,
-                   ncols, row0, group_rows);
-        __syncthreads();
-        sum_tile(sm, warp, lane);
-      }
-    }
-    for (int t0 = 0; t0 < sw; t0 += kTile) {
-      const int ncols = min(kTile, sw - t0);
-      __syncthreads();
-      stage_g(sm, gr, argr, SpillRows{src + src_off + t0}, n, f, fc0, fcw, ncols, row_lo);
-      stage_band(sm.band, spill + spill_off, sw, t0, ncols, row0, group_rows);
-      __syncthreads();
-      sum_tile(sm, warp, lane);
-    }
-    if (lane < fcw) {
-#pragma unroll 1
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const int r = row0 + warp * kRowsPerWarp + i;
-        const long long seg = g * group_rows + r;
-        if (r < group_rows && seg < s) out[seg * f + fc0 + lane] = sm.acc[r - row0][lane];
-      }
-    }
-  }
-}
-
-int check_grid(int n_groups, int group_rows, int block_rows, int n, int s, int f, dim3* grid) {
-  if (n_groups <= 0 || group_rows <= 0 || block_rows <= 0 || n < 0 || s < 0 || f <= 0)
+template <bool Sum>
+int launch(Live lv, int n_groups, float* out, int32_t* out_arg, void* stream) {
+  if (n_groups <= 0 || lv.group_rows <= 0 || lv.n < 0 || lv.s < 0 || lv.f <= 0)
     return (int)cudaErrorInvalidValue;
-  *grid = dim3(n_groups, (group_rows + kRowsPerCta - 1) / kRowsPerCta);
-  if (grid->y > 65535) return (int)cudaErrorInvalidValue;
-  return 0;
+  if (((reinterpret_cast<uintptr_t>(lv.chunks) | reinterpret_cast<uintptr_t>(lv.row_ptr) |
+        reinterpret_cast<uintptr_t>(lv.slots)) & 15) != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const long long items = (long long)n_groups * ((lv.group_rows + kRowsPerCta - 1) / kRowsPerCta);
+  if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  lv.n_items = (int)items;
+  constexpr int smem = Layout<Sum>::kBytes;
+  static int ctas = 0;  // the CTAs the card holds at once; above 48 KB a kernel must opt in
+  if (ctas == 0) {
+    cudaError_t e = cudaFuncSetAttribute(aligned_max_kernel<Sum>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    int dev = 0, sms = 0, per_sm = 0;
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, aligned_max_kernel<Sum>,
+                                                        kThreads, smem);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    ctas = sms * per_sm;
+  }
+  const int grid = (int)min(items, (long long)ctas);
+  aligned_max_kernel<Sum><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      lv, out, out_arg);
+  return (int)cudaGetLastError();
+}
+
+Live make_live(const void* chunks, const void* group_chunks, const void* row_ptr,
+               const void* slots, const void* items, const void* src, const void* vals,
+               const void* arg, int group_rows, int n, int s, int f) {
+  Live lv;
+  lv.chunks = static_cast<const int4*>(chunks);
+  lv.group_chunks = static_cast<const int32_t*>(group_chunks);
+  lv.row_ptr = static_cast<const int32_t*>(row_ptr);
+  lv.slots = static_cast<const uint16_t*>(slots);
+  lv.items = static_cast<const int32_t*>(items);
+  lv.src = static_cast<const int32_t*>(src);
+  lv.vals = static_cast<const float*>(vals);
+  lv.arg = static_cast<const int32_t*>(arg);
+  lv.group_rows = group_rows;
+  lv.n = n;
+  lv.s = s;
+  lv.f = f;
+  lv.n_items = 0;
+  return lv;
 }
 
 }  // namespace
 
+// The layout the wrapper builds for the kernels: the slots a chunk spans,
+// the entries a chunk lists, the rows of a group a CTA owns, and the ring
+// depths of the argmax and the arg-sum kernels.
+extern "C" int hg_aligned_max_layout(int* out) {
+  out[0] = kChunk;
+  out[1] = kChunkLive;
+  out[2] = kRowsPerCta;
+  out[3] = kStagesMax;
+  out[4] = kStagesSum;
+  return 0;
+}
+
 // Plain C entries, bound from Python with ctypes. The caller allocates the
-// outputs, passes the stage's checked tables and its current stream, and
-// raises on a non-zero return (a cudaError_t). One launch each.
+// outputs, passes the stage's checked live layout (16-byte aligned) and
+// spill sources and its current stream, and raises on a non-zero return (a
+// cudaError_t). One launch each.
 //
 // x f32 [n, f] -> val f32 [s, f], arg int32 [s, f].
-extern "C" int hg_aligned_masked_argmax(const void* x, const void* band, const void* win,
-                                        const void* spill, const void* src,
-                                        const void* groups, void* val, void* arg,
-                                        int n_groups, int group_rows, int block_rows,
+extern "C" int hg_aligned_masked_argmax(const void* x, const void* chunks,
+                                        const void* group_chunks, const void* row_ptr,
+                                        const void* slots, const void* items, const void* src,
+                                        void* val, void* arg, int n_groups, int group_rows,
                                         int n, int s, int f, void* stream) {
-  dim3 grid;
-  const int err = check_grid(n_groups, group_rows, block_rows, n, s, f, &grid);
-  if (err) return err;
-  aligned_masked_argmax_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const int8_t*>(band),
-      static_cast<const int32_t*>(win), static_cast<const int8_t*>(spill),
-      static_cast<const int32_t*>(src), static_cast<const long long*>(groups),
-      static_cast<float*>(val), static_cast<int32_t*>(arg), group_rows, block_rows, n, s, f);
-  return (int)cudaGetLastError();
+  const Live lv = make_live(chunks, group_chunks, row_ptr, slots, items, src, x, nullptr,
+                            group_rows, n, s, f);
+  return launch<false>(lv, n_groups, static_cast<float*>(val), static_cast<int32_t*>(arg),
+                       stream);
 }
 
 // Over the transpose stage: g f32 [n, f], arg int32 [n, f] (n = its
 // sources) -> out f32 [s, f].
-extern "C" int hg_aligned_masked_argsum(const void* g, const void* arg, const void* band,
-                                        const void* win, const void* spill, const void* src,
-                                        const void* groups, void* out, int n_groups,
-                                        int group_rows, int block_rows, int n, int s, int f,
-                                        void* stream) {
-  dim3 grid;
-  const int err = check_grid(n_groups, group_rows, block_rows, n, s, f, &grid);
-  if (err) return err;
-  aligned_masked_argsum_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g), static_cast<const int32_t*>(arg),
-      static_cast<const int8_t*>(band), static_cast<const int32_t*>(win),
-      static_cast<const int8_t*>(spill), static_cast<const int32_t*>(src),
-      static_cast<const long long*>(groups), static_cast<float*>(out), group_rows,
-      block_rows, n, s, f);
-  return (int)cudaGetLastError();
+extern "C" int hg_aligned_masked_argsum(const void* g, const void* arg, const void* chunks,
+                                        const void* group_chunks, const void* row_ptr,
+                                        const void* slots, const void* items, const void* src,
+                                        void* out, int n_groups, int group_rows, int n, int s,
+                                        int f, void* stream) {
+  const Live lv = make_live(chunks, group_chunks, row_ptr, slots, items, src, g, arg,
+                            group_rows, n, s, f);
+  return launch<true>(lv, n_groups, static_cast<float*>(out), nullptr, stream);
 }

@@ -111,10 +111,14 @@ ENTRIES = {
     "hg_aligned_band": [_PTR] * 10 + [_INT] * 7 + [_PTR],
     # out: int[3]
     "hg_aligned_band_layout": [_PTR],
-    # x, band, win, spill, src, groups, val, arg; n_groups, g, b, n, s, f; stream
-    "hg_aligned_masked_argmax": [_PTR] * 8 + [_INT] * 6 + [_PTR],
-    # g, arg, band, win, spill, src, groups, out; n_groups, g, b, n, s, f; stream
-    "hg_aligned_masked_argsum": [_PTR] * 8 + [_INT] * 6 + [_PTR],
+    # x, chunks, group_chunks, row_ptr, slots, items, src, val, arg; n_groups, g, n, s, f;
+    # stream
+    "hg_aligned_masked_argmax": [_PTR] * 9 + [_INT] * 5 + [_PTR],
+    # g, arg, chunks, group_chunks, row_ptr, slots, items, src, out; n_groups, g, n, s, f;
+    # stream
+    "hg_aligned_masked_argsum": [_PTR] * 9 + [_INT] * 5 + [_PTR],
+    # out: int[5]
+    "hg_aligned_max_layout": [_PTR],
     # pairs, bit_ptr, runs, x, out; n_runs, f, lanes, width; stream
     "hg_bitmm": [_PTR] * 5 + [_INT] * 4 + [_PTR],
     # x, arg (or null); arg_bytes; gather (or null), indptr, runs, out; n_runs, f, lanes,

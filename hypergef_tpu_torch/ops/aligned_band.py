@@ -32,7 +32,10 @@ The band kernel streams each group's band and spill tables as tiles: a
 tile is one slab of ``SLAB`` band columns for all G rows of the group,
 ``[G, SLAB]`` int8, contiguous, so one bulk copy brings it into shared
 memory. :func:`band_tiles` lays them out from the flat tables, only for a
-table on a CUDA device (:meth:`BandTable.with_kernel_layout`).
+table on a CUDA device (:meth:`BandTable.with_kernel_layout`), beside the
+max kernels' list of each group's live slots
+(:func:`.aligned_max.live_layout`). No kernel on the card reads the flat
+tables; the plain twins do.
 """
 
 from __future__ import annotations
@@ -40,12 +43,15 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 import numpy as np
 import torch
 
 from hypergef_tpu_torch.ops.fused_dense import bf16_round
+
+if TYPE_CHECKING:
+    from hypergef_tpu_torch.ops.aligned_max import LiveLayout
 
 launches = 0
 
@@ -167,12 +173,15 @@ class BandTable:
     tile_off: Optional[torch.Tensor] = None
     work: Optional[torch.Tensor] = None
     slots: int = 0
+    # the max kernels' list of each group's live slots
+    # (:func:`.aligned_max.live_layout`); None in a table on the CPU
+    live: Optional["LiveLayout"] = None
 
     @classmethod
     def build(cls, band, spill, windows, sources, num_inputs, num_segments, group_rows,
               block_rows) -> "BandTable":
         """Directory and int32 index tables for flat ``band``/``spill``
-        tables on a device, and on a CUDA device the band kernel's layout.
+        tables on a device, and on a CUDA device the kernels' layouts.
         ``windows`` lists (win_block [ng_b, w] int32, group ids) per band
         bucket and ``sources`` (spill_src [m_b, sw] int32, group ids) per
         spill bucket, in the order of the flat tables."""
@@ -210,12 +219,16 @@ class BandTable:
 
     def with_kernel_layout(self, ctas=None) -> "BandTable":
         """This table with the band kernel's tiles and work items, for a card
-        that holds ``ctas`` of its CTAs at once (None: no limit)."""
+        that holds ``ctas`` of its CTAs at once (None: no limit), and the
+        max kernels' live layout."""
+        from hypergef_tpu_torch.ops.aligned_max import live_layout
+
         d = self.groups.cpu().numpy()
         tiles, tile_off = band_tiles(self.band, self.spill, d, self.group_rows, self.block_rows)
         work, slots = band_work(d[:, _WIDTH], d[:, _SW], self.block_rows, self.group_rows, ctas)
         return dataclasses.replace(self, tiles=tiles, tile_off=tile_off,
-                                   work=torch.as_tensor(work, device=self.device), slots=slots)
+                                   work=torch.as_tensor(work, device=self.device), slots=slots,
+                                   live=live_layout(self))
 
     def __post_init__(self):
         kinds = (("band", torch.int8), ("win", torch.int32), ("spill", torch.int8),
@@ -274,6 +287,8 @@ class BandTable:
                         (off + slabs * tile)[live].max()) > self.tiles.numel()):
                     raise ValueError("the tile directory reaches past the tiles")
             self._check_work(width * -(-b_rows // SLAB) + (sw + SLAB - 1) // SLAB)
+        if self.live is not None:
+            self.live.check(self)
 
     def _check_work(self, slabs) -> None:
         """Every slab of every group in exactly one work item; a slot's two

@@ -353,10 +353,46 @@ def widen_spills(st, extra):
     return st._replace(spills=spills)
 
 
+def spill_only_rows(st):
+    """The same stage with the window counts of every row that spills set to
+    zero: those rows reach their sources through spill slots alone."""
+    if isinstance(st, planner.AlignedStage):
+        band = st.b_dense.copy()
+        band[(st.b_spill != 0).any(axis=2)] = 0
+        return st._replace(b_dense=band)
+    spilling = {int(g): (sp.b_spill[l] != 0).any(axis=1)
+                for sp in st.spills for l, g in enumerate(sp.group_ids)}
+    buckets = []
+    for b in st.buckets:
+        band = b.b_dense.copy()
+        for l, g in enumerate(b.group_ids):
+            if int(g) in spilling:
+                band[l][spilling[int(g)]] = 0
+        buckets.append(b._replace(b_dense=band))
+    return st._replace(buckets=tuple(buckets))
+
+
+def with_gaps(hg):
+    """``hg`` without the incidences of edges [128, 256) and vertices [256,
+    384): a group of each stage with no live slot."""
+    v = hg.ht_indices.astype(np.int64)
+    e = np.repeat(np.arange(hg.num_edges), np.diff(hg.ht_indptr))
+    keep = ~(((e >= 128) & (e < 256)) | ((v >= 256) & (v < 384)))
+    return Hypergraph.from_coo(v[keep], e[keep], num_nodes=hg.num_nodes, num_edges=hg.num_edges)
+
+
 @functools.lru_cache(maxsize=None)
 def aligned_plan(case):
     """The host plans the band kernel is held at: a small community graph
     in each form and layout, and the shapes that go wrong."""
+    if case == "dense":  # bands about half full: the max kernels' chunks cut by entries
+        return planner.plan_aligned(sorted_community_graph(600, 400, 2, 150, 0.0, 5))
+    if case == "gap":
+        return planner.plan_aligned(with_gaps(sorted_community_graph(2000, 1600, 25, 5, 0.02, 3)))
+    if case in ("spill_only", "uniform_spill_only"):
+        plan = aligned_plan("bucketed" if case == "spill_only" else "uniform")
+        return dataclasses.replace(plan, edge_stage=spill_only_rows(plan.edge_stage),
+                                   vertex_stage=spill_only_rows(plan.vertex_stage))
     if case == "empty":
         return planner.plan_aligned(Hypergraph.from_coo([], [], num_nodes=300, num_edges=200))
     if case == "past_n":  # N = 300 rows, windows of 4 blocks: block 3 holds no row
@@ -503,8 +539,75 @@ def _max_x(rows, f, seed, device):
     return torch.as_tensor(a.astype(np.float32), device=device)
 
 
-@pytest.mark.parametrize("case", ALIGNED_CASES)
-@pytest.mark.parametrize("f,seed", [(3, 1), (32, 2), (32, 3), (48, 4)])
+# the shapes the max kernels' live layout cuts differently: a group with no
+# live slot, rows that reach sources only through spill slots, blocks of 200
+# rows cut into chunks of 128 and 72 (a row's slots cross a chunk boundary),
+# and bands so full that chunks are cut by their entries
+MAX_CASES = ALIGNED_CASES + ("gap", "spill_only", "uniform_spill_only", "block200", "dense")
+MAX_WIDTHS = (3, 4, 32, 48, 100)
+
+
+def live_entries(table, live):
+    """Every entry a LiveLayout lists, in its order: (segment, source, slot
+    of the group, chunk, offset), int64 host arrays."""
+    g_rows = table.group_rows
+    c = live.chunks.cpu().numpy().astype(np.int64)
+    gc = live.group_chunks.cpu().numpy().astype(np.int64)
+    rp = live.row_ptr.cpu().numpy().astype(np.int64)[:len(c) * g_rows + 1]
+    at = np.repeat(np.arange(len(c) * g_rows), np.diff(rp))  # (chunk, row) of each entry
+    chunk, row = at // g_rows, at % g_rows
+    group = np.repeat(np.arange(len(gc) - 1), np.diff(gc))[chunk]
+    off = live.slots.cpu().numpy().astype(np.int64)[:rp[-1]]
+    first, spill = c[chunk, 0], c[chunk, 2] == 1
+    srcs = np.concatenate([table.src.cpu().numpy(), np.zeros(1, np.int32)])
+    src = np.where(spill, srcs[np.where(spill, first + off, 0)], first + off)
+    return group * g_rows + row, src, c[chunk, 3] + off, chunk, off
+
+
+def _walk(table, live, step):
+    """Call ``step(rows, sources)`` for the k-th entry of every row's list
+    of each chunk, chunk by chunk, k ascending: the kernels' order."""
+    seg, src, _, chunk, _ = live_entries(table, live)
+    for i in np.unique(chunk):
+        s, v = seg[chunk == i], src[chunk == i]
+        k = np.arange(len(s)) - np.searchsorted(s, s)  # position in its row's list
+        for at in range(int(k.max()) + 1):
+            step(s[k == at], v[k == at])
+
+
+def walk_argmax(x, table, live):
+    """The argmax kernel's walk over ``live``, on the host: (val, arg)."""
+    rows, f = table.num_groups * table.group_rows, x.shape[1]
+    best = np.full((rows, f), np.float32(-3.0e38), np.float32)
+    best_id = np.full((rows, f), 2**31 - 1, np.int64)
+
+    def step(r, ids):
+        xv = x[ids]
+        win = (xv > best[r]) | ((xv == best[r]) & (ids[:, None] < best_id[r]))
+        best[r] = np.where(win, xv, best[r])
+        best_id[r] = np.where(win, ids[:, None], best_id[r])
+
+    _walk(table, live, step)
+    none = best_id == 2**31 - 1
+    s = table.num_segments
+    return (np.where(none, 0.0, best).astype(np.float32)[:s],
+            np.where(none, -1, best_id).astype(np.int32)[:s])
+
+
+def walk_argsum(g, arg, table, live):
+    """The arg-sum kernel's walk over ``live``, on the host: each row's f32
+    sum, from +0, in chunk and list order (slot order)."""
+    out = np.zeros((table.num_groups * table.group_rows, g.shape[1]), np.float32)
+
+    def step(r, e):
+        out[r] = np.where(arg[e] == r[:, None], out[r] + g[e], out[r])
+
+    _walk(table, live, step)
+    return out[:table.num_segments]
+
+
+@pytest.mark.parametrize("case", MAX_CASES)
+@pytest.mark.parametrize("f,seed", [(3, 1), (4, 2), (32, 2), (32, 3), (48, 4), (100, 5)])
 def test_argmax_kernel_is_bitwise_plain(cuda, case, f, seed):
     plan = dataclasses.replace(aligned_plan(case), form="pallas_auto")
     for stage in plan.device(cuda):
@@ -522,11 +625,13 @@ def test_argmax_kernel_is_bitwise_plain(cuda, case, f, seed):
         assert torch.equal(val, val2) and torch.equal(arg, arg2), "two runs differ"
 
 
-@pytest.mark.parametrize("case", ["uniform", "past_n", "width32"])
-@pytest.mark.parametrize("f", [3, 32, 48])
+@pytest.mark.parametrize("case", MAX_CASES)
+@pytest.mark.parametrize("f", MAX_WIDTHS)
 def test_argsum_kernel_matches_plain(cuda, case, f):
-    """Over the uniform vertex stage, with the arg table of the argmax
-    kernel on the edge stage."""
+    """Over the vertex stage, with the arg table of the argmax kernel on the
+    edge stage: within 1e-6 of the twin, and bitwise equal to the host walk
+    over the live layout (every row summed in slot order, as the kernel
+    over the flat tables summed it)."""
     e_st, v_st = dataclasses.replace(aligned_plan(case), form="pallas_auto").device(cuda)
     _, arg = aligned_max.aligned_masked_argmax(_max_x(e_st.num_inputs, f, 5, cuda), e_st)
     g = _max_x(v_st.num_inputs, f, 7, cuda)
@@ -540,6 +645,8 @@ def test_argsum_kernel_matches_plain(cuda, case, f):
     scale = float(want.abs().max()) if want.numel() else 0.0
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * scale)
     assert torch.equal(got, again), "two runs differ"
+    walked = walk_argsum(g.cpu().numpy(), arg.cpu().numpy(), v_st.band, v_st.band.live)
+    assert torch.equal(got.cpu(), torch.as_tensor(walked))
 
 
 def test_max_kernels_read_no_row_past_n(cuda):
@@ -632,6 +739,12 @@ def test_max_wrappers_reject_what_the_kernels_do_not_take(cuda):
         aligned_max.aligned_masked_argsum(g.double(), arg, v_st)
     with pytest.raises(ValueError, match="kernel tables"):
         aligned_max.aligned_masked_argsum(g, arg, v_plain)
+    # a kernel-form stage whose table lost its live layout: no fallback
+    for fn, st, args in ((aligned_max.aligned_masked_argmax, e_st, (x,)),
+                         (aligned_max.aligned_masked_argsum, v_st, (g, arg))):
+        bare = dataclasses.replace(st, band=dataclasses.replace(st.band, live=None))
+        with pytest.raises(ValueError, match="BandTable.build"):
+            fn(*args, bare)
 
 
 def _bit_pack(m, k, density, seed, device):

@@ -192,7 +192,9 @@ def _emulate_argmax(x, table):
 
 
 def _emulate_argsum(g_in, arg, table):
-    """What the arg-sum kernel computes, read from its BandTable alone."""
+    """What the arg-sum kernel computes, read from its BandTable alone: each
+    row's f32 sum in slot order (window, then spill), from +0 (a running
+    sum in NumPy, whose ``cumsum`` adds strictly in order)."""
     n, f = g_in.shape
     g_rows = table.group_rows
     out = g_in.new_zeros((table.num_groups * g_rows, f))
@@ -202,7 +204,10 @@ def _emulate_argsum(g_in, arg, table):
         rows = torch.arange(g * g_rows, (g + 1) * g_rows)
         src = ids.clamp(max=n)
         hit = live[:, :, None] & (az[src][None] == rows[:, None, None])
-        out[g * g_rows:(g + 1) * g_rows] = torch.where(hit, gz[src][None], 0.0).sum(dim=1)
+        terms = torch.where(hit, gz[src][None], 0.0).numpy()  # [G, slots, F]
+        terms = np.concatenate([np.zeros((g_rows, 1, f), np.float32), terms], axis=1)
+        out[g * g_rows:(g + 1) * g_rows] = torch.as_tensor(
+            np.cumsum(terms, axis=1, dtype=np.float32)[:, -1])
     return out[: table.num_segments]
 
 
