@@ -79,14 +79,14 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    losses within rtol 1e-3. One forward and backward of
    ``aligned_max_matvec`` on the uniform plan at F = 32: one argmax and one
    arg-sum launch, dx within rtol 1e-6, atol 1e-6·max of
-   ``v2e_max_aligned``'s CSR-routed dx (the masked segment-sum kernel).
+   ``v2e_max_aligned``'s CSR-routed dx (the record-routed sum).
 16. Time, with CUDA events, median of 20 windows: the argmax kernel vs its
    twin (edge stage, F = 32 and 4), the arg-sum kernel vs its twin and one
    ``scatter_add_`` (uniform vertex stage, F = 32 and 4), each beside two
    bounds (over the live layout the kernels read, and over the flat tables
    the earlier design read), the record-routed sum (the max
-   backward: the masked segment-sum kernel over SBM-60k's vertex-major CSR,
-   int32 ids, F = 32) vs its plain twin and its bound, and each arg-sum and
+   backward: the kernel's two passes over SBM-60k's vertex-major CSR and its
+   layout, int32 ids, F = 32 and 4) vs its plain twin and its bound, and each arg-sum and
    record-routed sum vs one ``torch.zeros(N, F).scatter_add_(0, ids, g)``
    where no id is -1 (the library yardstick, ids cast to int64 before the
    window), the SBM-60k max
@@ -132,8 +132,9 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    F = 32 and 4, on stream100k and the pubmed_real box, with two bounds
    (the layout's bytes, what the kernel reads; the whole pack's, what a
    kernel that streams the words must read); the record-routed sum over
-   stream100k's vertex-major CSR (int64 ids, as the tree gives them) vs its
-   twin and its bound; the stream100k training epoch on ``bitstream``,
+   stream100k's vertex-major CSR (int32 ids, as the tree gives them; F = 32
+   and 4) vs its twin, ``scatter_add_`` and its bound; the stream100k
+   training epoch on ``bitstream``,
    ``tree`` and ``pallas_sparse`` (HGNN sum), of HGNN max and of UniGCNII
    on ``bitstream``; a request.
 21. The routing ladder on the card: ``plan_aggregation`` on 20news and
@@ -148,11 +149,15 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    (TS 8, R 64; TS 256, R 4096), on a CSR with empty segments and on a
    long one: rtol 1e-6, atol 1e-6·max|plain|; two runs bitwise equal; one
    launch per call; and ``incidence_gather_sum``'s backward (one launch
-   each way). Hold its masked form, the record-routed sum
-   (``record_routed_dx``), against its plain twin on the vertex-major CSRs
-   of coauthor_dblp (int64 ids at F = 32, int32 at F = 6 and 3), SBM-60k
-   (int32, F = 32) and stream100k (int64, F = 32), each id a member of
-   its edge: the same bar, repeats bitwise equal, one launch a call.
+   each way). Hold the record-routed sum (``record_routed_dx``: pass A
+   writes each member's won words through the host layout, pass B sums
+   the won values on the segment sum's walk) against its plain twin, at the
+   same bar, and bitwise against the sequential CSR-order sum
+   (``record_routed_dx_sequential``), on the vertex-major CSRs of
+   coauthor_dblp (int32 ids at F = 32, 4, 6 and 33, int64 at F = 3),
+   SBM-60k (int32, F = 32) and stream100k (int32 and int64, F = 32), each
+   id a member of its edge: repeats bitwise equal, one launch a call (both
+   passes); print each graph's layout bytes and host build seconds.
 23. Serve and train with ``TrainConfig()``'s defaults, no ``backend=`` and no
    ``plan=``: coauthor_dblp at AllSet's widths (1425 features, 6 classes),
    five HGNN requests (exactly 4 segment-sum launches each, within 1e-3 of
@@ -165,8 +170,8 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    1e-2 of ``tree``; 20news trains on ``dense``.
 24. Time, with CUDA events, median of 20 windows: the segment-sum kernel vs
    its plain version vs one ``torch.sparse.mm`` of the same CSR per direction
-   at F = 32; the record-routed sum on coauthor_dblp (int64 ids, F = 32) vs
-   its twin, ``scatter_add_`` and its bound; the coauthor_dblp epoch on
+   at F = 32; the record-routed sum on coauthor_dblp (int32 ids, F = 32 and
+   6) vs its twin, ``scatter_add_`` and its bound; the coauthor_dblp epoch on
    ``cumsum``, ``tree`` and
    ``pallas_sparse``, the cora epoch on ``precomp``, ``dense`` and
    ``pallas``; a request on each; beside the reference's RTX 3090 fused
@@ -1128,7 +1133,7 @@ def max_phases(device, card: str, aligned: dict) -> dict:
         t.update(max_bounds(uni_v, nbytes(g, arg) + sbm.num_nodes * f * 4,
                             stage_live(uni_v) * f))
         argsum_times[f"vertex F={f}"] = t
-    record_times = time_record(sbm.device_data(device), 32, device, torch.int32)
+    record_times = time_record(sbm.device_data(device), (32, NCLASS), device, torch.int32)
     mcfg = problems["sbm60k max"][0]
     trainers = {
         "aligned kernel": Trainer(mcfg, hg, x, y, plan=plan, device=device),
@@ -1146,7 +1151,7 @@ def max_phases(device, card: str, aligned: dict) -> dict:
           f"sleep): {json.dumps(epochs)}; argmax kernel vs plain twin: "
           f"{json.dumps(argmax_times)}; arg-sum kernel vs plain twin vs scatter_add_, uniform "
           f"vertex stage: {json.dumps(argsum_times)}; record-routed sum vs plain twin, vertex-major "
-          f"CSR, int32 ids, F=32: {json.dumps(record_times)}; HGNN max request on SBM-60k, "
+          f"CSR, int32 ids: {json.dumps(record_times)}; HGNN max request on SBM-60k, "
           f"kernel form {served['request_ms']}", flush=True)
     return {"argmaxes": argmaxes, "argsum": argsum, "argsums": argsums, "layouts": layouts,
             "served": served, "trained": trained,
@@ -1178,7 +1183,7 @@ def check_matvec(hg, e_stage, v_stage, device) -> dict:
     check(launched == (1, 1), f"aligned_max_matvec launched (argmax, arg-sum) {launched}")
     yc, arg = aligned_max.aligned_max_with_arg(x, e_stage)
     check(torch.equal(y, yc), "the two ops' forwards are bitwise equal")
-    want = segment_sum.record_routed_dx_plain(cot, arg, hgd.e2v)
+    want = segment_sum.record_routed_dx_plain(cot, arg, hgd.record)
     scale = float(want.abs().max())
     torch.testing.assert_close(dx, want, rtol=1e-6, atol=1e-6 * scale)
     return {"argmax_launches": launched[0], "argsum_launches": launched[1],
@@ -1466,13 +1471,13 @@ def bitstream_phases(device, card: str, graphs) -> dict:
     names = list(trainers)
     epochs = time_steps(trainers, split["train"], names + names[::-1], device)
     requests = {model: s["request_ms"] for model, s in served.items()}
-    record_times = time_record(hg.device_data(device), 32, device, torch.int64)
+    record_times = time_record(hg.device_data(device), (32, NCLASS), device, torch.int32)
     print(f"phase 20 times (ms, CUDA events, median of 20): card {card}; stream100k training "
           f"epoch (wall: 10 back-to-back steps, host included; device: behind a queued "
           f"sleep): {json.dumps(epochs)}; bitmm kernel vs plain twin vs torch.sparse.mm, "
           f"bound over the layout and over the whole pack: {json.dumps(bitmm_times)}; "
-          f"record-routed sum vs plain twin, vertex-major CSR, "
-          f"int64 ids, F=32: {json.dumps(record_times)}; request on stream100k, bitstream: "
+          f"record-routed sum vs plain twin vs scatter_add_, vertex-major CSR, "
+          f"int32 ids: {json.dumps(record_times)}; request on stream100k, bitstream: "
           f"{json.dumps(requests)}", flush=True)
     return {"checks": checks, "matvec": matvec, "served": served, "trained": trained,
             "parity": parity, "bitmm_times": bitmm_times, "record_times": record_times,
@@ -1555,27 +1560,33 @@ def check_incidence_backward(hgd, f: int, device) -> dict:
 
 
 def check_record(hgd, f: int, seed: int, device, dtype) -> dict:
-    """The record-routed sum (the masked segment-sum kernel) against its
-    plain twin over ``hgd.e2v``: rtol 1e-6, atol 1e-6·max|plain| (the same
-    f32 terms, zeros where an id differs, in another order); two runs
-    bitwise equal; one launch a call."""
+    """The record-routed sum against its plain twin over ``hgd.record``: rtol
+    1e-6, atol 1e-6·max|plain| (the same f32 terms, zeros where an id
+    differs, in another order), and bitwise against the sequential CSR-order
+    sum; two runs bitwise equal; one launch a call (its two passes)."""
     from hypergef_tpu_torch.ops import segment_sum
     from hypergef_tpu_torch.tools.segment_sum_ab import record_operands
 
     g, arg = record_operands(hgd, f, seed, device, dtype)
-    table = hgd.e2v
+    record = hgd.record
+    table = record.e2v
     before = segment_sum.record_launches
-    got = segment_sum.record_routed_dx(g, arg, table)
-    again = segment_sum.record_routed_dx(g, arg, table)
+    got = segment_sum.record_routed_dx(g, arg, record)
+    again = segment_sum.record_routed_dx(g, arg, record)
     torch.cuda.synchronize()
     check(segment_sum.record_launches == before + 2, "one record-sum launch per call")
-    want = segment_sum.record_routed_dx_plain(g, arg, table)
+    want = segment_sum.record_routed_dx_plain(g, arg, record)
     scale = float(want.abs().max())
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * scale)
     check(torch.equal(got, again), "two record-sum runs are bitwise equal")
+    seq = segment_sum.record_routed_dx_sequential(g, arg, record)
+    check(torch.equal(got.view(torch.int32), seq.view(torch.int32)),
+          "the record sum is bitwise the sequential CSR-order sum")
     return {"s": table.num_segments, "n": table.num_inputs, "nnz": table.nnz, "f": f,
             "ids": str(dtype).split(".")[-1], "max_abs_err": float((got - want).abs().max()),
-            "max_abs_plain": scale, "nonzero_share": float((want != 0).float().mean())}
+            "max_abs_plain": scale, "nonzero_share": float((want != 0).float().mean()),
+            "bitwise_sequential": True, "layout_bytes": record.layout.nbytes,
+            "layout_build_s": record.layout.build_s}
 
 
 def scatter_yardstick(g, arg, rows: int, want):
@@ -1596,31 +1607,38 @@ def scatter_yardstick(g, arg, rows: int, want):
     return call, None
 
 
-def time_record(hgd, f: int, device, dtype) -> dict:
+def time_record(hgd, widths, device, dtype) -> dict:
     """The record-routed sum's kernel, plain twin and, where the ids allow,
-    one ``scatter_add_`` (the library yardstick) in turns; the bound moves
-    the rows of g and arg the CSR names, its int32 gather and row pointer,
-    and the output once, with a compare and an add a feature for each
-    entry."""
+    one ``scatter_add_`` (the library yardstick) in turns, at each width
+    F of ``widths``; the bound moves the rows of g and arg the CSR names,
+    its int32 gather and row pointer, and the output once, with a compare
+    and an add a feature for each entry (the function's, unchanged since
+    the masked form of the sum: the layout's own bytes are given beside
+    it)."""
     from hypergef_tpu_torch.ops import segment_sum
     from hypergef_tpu_torch.tools.segment_sum_ab import record_operands
 
-    g, arg = record_operands(hgd, f, 27, device, dtype)
-    table = hgd.e2v
-    fns = {"kernel": lambda: segment_sum.record_routed_dx(g, arg, table),
-           "plain": lambda: segment_sum.record_routed_dx_plain(g, arg, table)}
-    library, why = scatter_yardstick(g, arg, table.num_segments, fns["plain"]())
-    order = ("plain", "kernel", "kernel", "plain")
-    if library is not None:
-        fns["library"] = library
-        order = ("plain", "kernel", "library", "library", "kernel", "plain")
-    out = time_turns(fns, order)
-    out["library"] = out.get("library")
-    if why:
-        out["library_note"] = why
-    read = rows_read_bytes(g, table.gather) + rows_read_bytes(arg, table.gather)
-    out.update(bound(read + nbytes(table.gather, table.indptr) + table.num_segments * f * 4,
-                     2 * table.nnz * f))
+    record = hgd.record
+    table = record.e2v
+    out = {}
+    for f in widths:
+        g, arg = record_operands(hgd, f, 27, device, dtype)
+        fns = {"kernel": lambda: segment_sum.record_routed_dx(g, arg, record),
+               "plain": lambda: segment_sum.record_routed_dx_plain(g, arg, record)}
+        library, why = scatter_yardstick(g, arg, table.num_segments, fns["plain"]())
+        order = ("plain", "kernel", "kernel", "plain")
+        if library is not None:
+            fns["library"] = library
+            order = ("plain", "kernel", "library", "library", "kernel", "plain")
+        t = time_turns(fns, order)
+        t["library"] = t.get("library")
+        if why:
+            t["library_note"] = why
+        read = rows_read_bytes(g, table.gather) + rows_read_bytes(arg, table.gather)
+        t.update(bound(read + nbytes(table.gather, table.indptr) + table.num_segments * f * 4,
+                       2 * table.nnz * f))
+        t["layout_bytes"] = record.layout.nbytes
+        out[f"F={f}"] = t
     return out
 
 
@@ -1656,9 +1674,10 @@ def segsum_phase(device, graphs) -> dict:
     records = [{"graph": name, **check_record(graphs[name].device_data(device), f, 130 + i,
                                               device, dtype)}
                for i, (name, f, dtype) in enumerate([
-                   ("coauthor_dblp", 32, torch.int64), ("coauthor_dblp", 6, torch.int32),
-                   ("coauthor_dblp", 3, torch.int32), ("sbm60k", 32, torch.int32),
-                   ("stream100k", 32, torch.int64)])]
+                   ("coauthor_dblp", 32, torch.int32), ("coauthor_dblp", 4, torch.int32),
+                   ("coauthor_dblp", 6, torch.int32), ("coauthor_dblp", 3, torch.int64),
+                   ("coauthor_dblp", 33, torch.int32), ("sbm60k", 32, torch.int32),
+                   ("stream100k", 32, torch.int32), ("stream100k", 32, torch.int64)])]
     return {"cases": cases, "records": records,
             "backward": check_incidence_backward(hgd, 32, device)}
 
@@ -1767,7 +1786,7 @@ def default_times(device, card: str, graphs, problems) -> dict:
     dblp = graphs["coauthor_dblp"]
     segsum_times = {f"{stage} F=32": time_segsum(dblp, stage, 32, device)
                     for stage in ("v2e", "e2v")}
-    record_times = time_record(dblp.device_data(device), 32, device, torch.int64)
+    record_times = time_record(dblp.device_data(device), (32, DBLP_NCLASS), device, torch.int32)
     cells = {"coauthor_dblp": ("coauthor_dblp HGNN sum", ("cumsum", "tree", "pallas_sparse"),
                                DBLP_NCLASS),
              "cora": ("cora HGNN", ("precomp", "dense", "pallas"), CORA_NCLASS)}
@@ -1783,7 +1802,7 @@ def default_times(device, card: str, graphs, problems) -> dict:
     print(f"phase 24 times (ms, CUDA events, median of 20): card {card}; segment-sum kernel vs "
           f"plain vs torch.sparse.mm, coauthor_dblp F=32: {json.dumps(segsum_times)}; "
           f"record-routed sum vs plain twin vs scatter_add_, coauthor_dblp vertex-major CSR, "
-          f"int64 ids, F=32: {json.dumps(record_times)}; training "
+          f"int32 ids: {json.dumps(record_times)}; training "
           f"epoch (wall: 10 back-to-back steps, host included; device: behind a queued sleep): "
           f"{json.dumps(epochs)}; requests (host included): {json.dumps(requests)} (reference's "
           f"RTX 3090 fused kernel at F=32, not a claim: {json.dumps(REF_RTX3090_FUSED_MS)})",
@@ -1946,15 +1965,18 @@ def profile_band(device) -> None:
 def profile_steps(device, steps: int = 10) -> None:
     """``--profile``: the SBM-60k training step of each aligned-route form,
     the default path's step on coauthor_dblp (``cumsum``) and cora
-    (``precomp``), and the 20news ``pallas`` step (phase 7's) under
-    ``torch.profiler`` (``steps`` steps after 5 warm-up ones): the device's
-    busy time a step, its kernel count, the kernels that take the most
-    device time and the fused dense kernel's share. Not part of the smoke
+    (``precomp``), the 20news ``pallas`` step (phase 7's) and the
+    stream100k HGNN max step (phase 19's) under ``torch.profiler`` (``steps``
+    steps after 5 warm-up ones): the device's busy time a step, its kernel
+    count, the kernels that take the most device time and the shares of the
+    fused dense kernel and of the record-routed sum. Not part of the smoke
     run."""
     from torch.profiler import ProfilerActivity, profile
 
+    from hypergef_tpu_torch.data.synthetic import random_features
     from hypergef_tpu_torch.sparse.planner import AggregationPlan, plan_tree
-    from hypergef_tpu_torch.train.trainer import Trainer
+    from hypergef_tpu_torch.train.splits import rand_train_test_idx
+    from hypergef_tpu_torch.train.trainer import TrainConfig, Trainer
 
     sbm, al_plan, _ = build_sbm60k()
     cfg, hg, x, y, split, plan = sbm_problem(sbm, al_plan)
@@ -1967,8 +1989,8 @@ def profile_steps(device, steps: int = 10) -> None:
         "max aligned plain": (mcfg, AggregationPlan(aligned=al_plan)),
     }
     # the max backward at SBM-60k F = 32 (segment_sum.record_routed_dx: one
-    # launch of the masked segment-sum kernel) beside the pieces of its plain
-    # twin, each alone: row gathers by h_edge in three forms, and the direct
+    # call of the kernel's two passes) beside the pieces of its plain twin,
+    # each alone: row gathers by h_edge in three forms, and the direct
     # segment sum
     from hypergef_tpu_torch.ops.segment_sum import record_routed_dx
     from hypergef_tpu_torch.ops.segments import segment_sum_sorted
@@ -1986,7 +2008,7 @@ def profile_steps(device, steps: int = 10) -> None:
         "advanced index f32": lambda: g[hgd.h_edge],
         "torch.gather f32": lambda: torch.gather(g, 0, hgd.h_edge[:, None].expand(-1, 32)),
         "segment_sum_sorted": lambda: segment_sum_sorted(vals, hgd.h_indptr),
-        "record_routed_dx kernel": lambda: record_routed_dx(g, arg, hgd.e2v),
+        "record_routed_dx kernel": lambda: record_routed_dx(g, arg, hgd.record),
     }
     print("profile CSR backward pieces (ms, CUDA events behind a queued sleep, median of 20): "
           + json.dumps({k: cuda_time_ms(f, repeats=20, iters=10) for k, f in pieces.items()}),
@@ -2000,6 +2022,14 @@ def profile_steps(device, steps: int = 10) -> None:
         trainers[f"{name} defaults"] = (Trainer(c, g, xd, yd, device=device), sp["train"])
     c, g, xd, yd, sp, p = train_problem("20news")
     trainers["20news pallas"] = (Trainer(c, g, xd, yd, plan=p, device=device), sp["train"])
+    # the stream100k HGNN max step (phase 19's): the tree's forward against
+    # the record-routed sum
+    s100k, bits, tree, _ = build_stream100k()
+    xd, yd = random_features(s100k.num_nodes, NFEAT, NCLASS, seed=1)
+    c = TrainConfig(model="HGNN", nhid=32, nlayer=2, first_aggr="max", backend="bitstream")
+    trainers["stream100k HGNN max bitstream"] = (
+        Trainer(c, s100k, xd, yd, plan=AggregationPlan(bitstream=bits, tree=tree),
+                device=device), rand_train_test_idx(yd, seed=2)["train"])
     for name, (tr, train_idx) in trainers.items():
         idx = torch.as_tensor(train_idx, device=device)
         for _ in range(5):
@@ -2017,8 +2047,12 @@ def profile_steps(device, steps: int = 10) -> None:
         top = sorted(rows, key=lambda e: -e.self_device_time_total)[:12]
         fused = sum(e.self_device_time_total for e in rows
                     if "fused_dense_kernel" in e.key) / steps / 1e3
+        # the record-routed sum's two passes
+        record = sum(e.self_device_time_total for e in rows
+                     if "record_won_kernel" in e.key or "record_sum_kernel" in e.key) / steps / 1e3
         print(f"profile {name}: device busy {busy:.5f} ms a step, {count:.1f} kernels a step, "
-              f"fused dense kernel {fused:.6f} ms a step ({fused / busy:.4f} of busy); "
+              f"fused dense kernel {fused:.6f} ms a step ({fused / busy:.4f} of busy), "
+              f"record-routed sum {record:.6f} ms a step ({record / busy:.4f} of busy); "
               + json.dumps({e.key[:90]: round(e.self_device_time_total / steps / 1e3, 6)
                             for e in top}), flush=True)
 
@@ -2160,7 +2194,7 @@ def main() -> int:
              "aligned_masked_argsum": maxed["argsum_times"]["vertex F=32"],
              "bitstream_bitmm": streamed["bitmm_times"]["stream100k Ht F=32"],
              "gather_segment_sum": dtimes["segsum_times"]["v2e F=32"],
-             "record_routed_dx": maxed["record_times"],
+             "record_routed_dx": maxed["record_times"]["F=32"],
              **probed["times"]}
     dblp_segsum = [defaults["served"]["coauthor_dblp"]["launches"]["segsum"]] + [
         t["launches"]["segsum"] for name, t in defaults["trained"].items()
@@ -2273,11 +2307,17 @@ def main() -> int:
                      + streamed["trained"]["HGNN max"]["launches"]["recsum"]
                      + defaults["trained"]["coauthor_dblp HGNN max"]["launches"]["recsum"]),
         "max_abs_err": max(c["max_abs_err"] for c in segsum["records"]),
-        **{f"{g}_{k}": t[key]
-           for g, t in (("stream100k", streamed["record_times"]),
+        # the line's own times are SBM-60k's at F = 32; every graph at F = 32
+        # and at its classes' width beside them
+        **{f"{g}_f{w[2:]}_{k}": t[w][key]
+           for g, t in (("sbm60k", maxed["record_times"]),
+                        ("stream100k", streamed["record_times"]),
                         ("coauthor_dblp", dtimes["record_times"]))
+           for w in t
            for k, key in (("ms", "kernel"), ("plain_ms", "plain"), ("library_ms", "library"),
                           ("bound_ms", "bound_ms"))},
+        "layout_bytes": {c["graph"]: c["layout_bytes"] for c in segsum["records"]},
+        "layout_build_s": {c["graph"]: c["layout_build_s"] for c in segsum["records"]},
     }]
     # the probe kernels: their path is phase 25, the checked call of each case
     for name, source in (("row_gather", "probes.cu"), ("chunk_masked_sum", "probes.cu"),

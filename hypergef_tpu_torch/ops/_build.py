@@ -121,9 +121,12 @@ ENTRIES = {
     "hg_aligned_max_layout": [_PTR],
     # pairs, bit_ptr, runs, x, out; n_runs, f, lanes, width; stream
     "hg_bitmm": [_PTR] * 5 + [_INT] * 4 + [_PTR],
-    # x, arg (or null); arg_bytes; gather (or null), indptr, runs, out; n_runs, f, lanes,
-    # width; stream
-    "hg_gather_segment_sum": [_PTR] * 2 + [_INT] + [_PTR] * 4 + [_INT] * 4 + [_PTR],
+    # x, gather (or null), indptr, runs, out; n_runs, f, lanes, width; stream
+    "hg_gather_segment_sum": [_PTR] * 5 + [_INT] * 4 + [_PTR],
+    # g, arg; arg_bytes; edge, members, slot; nnz; words, gather, indptr, runs, out; n_runs,
+    # f, lanes, width; stream
+    "hg_record_routed_dx": [_PTR] * 2 + [_INT] + [_PTR] * 3 + [_INT] + [_PTR] * 5
+                           + [_INT] * 4 + [_PTR],
     # x, idx, out; r, f, n_buf (0: direct), rows_per_warp; stream
     "hg_row_gather": [_PTR] * 3 + [_INT] * 4 + [_PTR],
     # src, gidx (or null: src is gathered [C, ngs, F]), mask, out; c, ngs, f, n_buf,

@@ -34,7 +34,7 @@ them with ``scatter_reduce``, so no [groups, G, W, F] intermediate is made.
 
 The autograd ops: :func:`v2e_max_aligned` (``:371-394``), whose backward is
 the record-routed CSR segment sum (:func:`.segment_sum.record_routed_dx`,
-the masked segment-sum kernel on the card), and
+its two passes on the card), and
 :func:`aligned_max_matvec` (``:349-368``), whose backward is the arg-sum over
 a uniform transpose stage (any other stage type raises ``TypeError``, as in
 JAX, ``:311-313``).
@@ -52,7 +52,7 @@ import torch
 
 from hypergef_tpu_torch.ops.aligned_band import check_operand, kernel_table, raise_on_error
 from hypergef_tpu_torch.ops.maxops import NEG
-from hypergef_tpu_torch.ops.segment_sum import SegmentTable, record_routed_dx
+from hypergef_tpu_torch.ops.segment_sum import RecordTable, record_routed_dx
 from hypergef_tpu_torch.sparse.planner import AlignedStageBDev, AlignedStageDev
 
 argmax_launches = 0
@@ -418,23 +418,23 @@ def aligned_argsum(g, arg, st):
 
 class _V2EMaxAligned(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, e_stage, e2v):
+    def forward(ctx, x, e_stage, record):
         y, arg = aligned_max_with_arg(x, e_stage)
         ctx.save_for_backward(arg)
-        ctx.e2v = e2v
+        ctx.record = record
         return y
 
     @staticmethod
     def backward(ctx, g):
         (arg,) = ctx.saved_tensors
-        return record_routed_dx(g.contiguous(), arg, ctx.e2v), None, None
+        return record_routed_dx(g.contiguous(), arg, ctx.record), None, None
 
 
-def v2e_max_aligned(x, e_stage, e2v: SegmentTable):
+def v2e_max_aligned(x, e_stage, record: RecordTable):
     """``y[e, f] = max_{v ∈ e} x[v, f]`` over an aligned edge stage, with the
-    record-table backward over the vertex-major CSR ``e2v``
-    (``HypergraphData.e2v``), as :func:`.maxops.v2e_max_tree`."""
-    return _V2EMaxAligned.apply(x, e_stage, e2v)
+    record-table backward over ``record`` (``HypergraphData.record``), as
+    :func:`.maxops.v2e_max_tree`."""
+    return _V2EMaxAligned.apply(x, e_stage, record)
 
 
 class _AlignedMaxMatvec(torch.autograd.Function):

@@ -228,9 +228,9 @@ def _hgnn_aggregate_max(hgd, x, wdiag, plan, b: str):
     mplan = _max_plan(plan, b)
     e_stage, v_stage = mplan.device(x.device)
     if isinstance(e_stage, (AlignedStageDev, AlignedStageBDev)):
-        xe = aligned_max.v2e_max_aligned(x, e_stage, hgd.e2v)
+        xe = aligned_max.v2e_max_aligned(x, e_stage, hgd.record)
     else:
-        xe = maxops.v2e_max_tree(x, e_stage, hgd.e2v)
+        xe = maxops.v2e_max_tree(x, e_stage, hgd.record)
     xe = xe * hgd.degE
     if wdiag is not None:
         xe = xe * wdiag

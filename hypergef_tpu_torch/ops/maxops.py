@@ -12,18 +12,19 @@ cotangent to exactly that member:
   run in CSR order). An empty hyperedge gives 0 and id -1.
 * **backward** — ``dx[v, f] = Σ_{e ∋ v} g[e, f] · [arg[e, f] == v]`` over
   the vertex-major CSR (``HypergraphData.e2v``):
-  :func:`.segment_sum.record_routed_dx`, one launch of the masked
-  segment-sum kernel on the card, the gathers and direct sorted segment sum
-  of its plain twin on the CPU (deterministic, no atomics). The tree's ids
-  are int64 and the kernel reads them as they are. The same backward serves
-  the aligned stages (:mod:`.aligned_max`).
+  :func:`.segment_sum.record_routed_dx` over ``HypergraphData.record``,
+  the kernel's two passes on the card (each cotangent and each id read
+  once), the gathers and direct sorted segment sum of its plain twin on the
+  CPU (deterministic, no atomics). The tree's ids are int32, as JAX's
+  (``:43-56``). The same backward serves the aligned stages
+  (:mod:`.aligned_max`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from hypergef_tpu_torch.ops.segment_sum import SegmentTable, record_routed_dx
+from hypergef_tpu_torch.ops.segment_sum import RecordTable, record_routed_dx
 from hypergef_tpu_torch.sparse.planner import DeviceStage
 
 NEG = -3.0e38  # dead slots; inputs are taken as finite and above it
@@ -31,7 +32,7 @@ NEG = -3.0e38  # dead slots; inputs are taken as finite and above it
 
 def _level_max(vals, args, g, m):
     """One fan-in level (``:40-56``): vals [P, F] partial maxima, args
-    [P, F] their source ids; g [C, fan] int64 gather table over P, m
+    [P, F] their int32 source ids; g [C, fan] int64 gather table over P, m
     [C, fan] live mask. Returns the level's (vals, args) [C, F]."""
     c, fan = g.shape
     f = vals.shape[1]
@@ -44,14 +45,15 @@ def _level_max(vals, args, g, m):
 
 def tree_max_with_arg(x: torch.Tensor, stage: DeviceStage):
     """Max-reduce ``x`` [N, F] over a tree stage: (y [S, F], arg [S, F]
-    int64), ``:59-87``. Level 0 seeds the ids from its gather table."""
+    int32), ``:59-87``. Level 0 seeds the ids from its gather table, cast
+    to int32 once; the later levels' gathers keep the type."""
     g0, m0 = stage.levels[0]
     c, ngs = g0.shape
     f = x.shape[1]
     cand = x.index_select(0, g0.reshape(-1)).reshape(c, ngs, f)
     cand = torch.where(m0[:, :, None] > 0, cand, NEG)
     k_star = cand.argmax(dim=1)
-    vals, args = cand.amax(dim=1), g0.gather(1, k_star)
+    vals, args = cand.amax(dim=1), g0.gather(1, k_star).to(torch.int32)
     for g, m in stage.levels[1:]:
         vals, args = _level_max(vals, args, g, m)
     y = vals.index_select(0, stage.final_idx)
@@ -64,20 +66,20 @@ def tree_max_with_arg(x: torch.Tensor, stage: DeviceStage):
 
 class _V2EMaxTree(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, e_stage, e2v):
+    def forward(ctx, x, e_stage, record):
         y, arg = tree_max_with_arg(x, e_stage)
         ctx.save_for_backward(arg)
-        ctx.e2v = e2v
+        ctx.record = record
         return y
 
     @staticmethod
     def backward(ctx, g):
         (arg,) = ctx.saved_tensors
-        return record_routed_dx(g.contiguous(), arg, ctx.e2v), None, None
+        return record_routed_dx(g.contiguous(), arg, ctx.record), None, None
 
 
-def v2e_max_tree(x, e_stage, e2v: SegmentTable):
+def v2e_max_tree(x, e_stage, record: RecordTable):
     """``y[e, f] = max_{v ∈ e} x[v, f]`` over the edge tree stage, with the
-    record-table backward over the vertex-major CSR ``e2v``
-    (``HypergraphData.e2v``)."""
-    return _V2EMaxTree.apply(x, e_stage, e2v)
+    record-table backward over ``record`` (``HypergraphData.record``: the
+    vertex-major CSR and the kernel's layout)."""
+    return _V2EMaxTree.apply(x, e_stage, record)

@@ -21,23 +21,26 @@ The kernel replaces the Pallas one-hot segment sums of the probe scripts
 summed directly in CSR order (no prefix difference), so repeats are
 bitwise equal and the error does not grow with nnz.
 
-The same kernel, masked, carries the max backward's record-routed sum
-(:func:`record_routed_dx`, JAX's ``ops/maxops.py::_v2e_max_bwd``
-``:106-112``): ``dx[v, f] = Σ_{k ∈ seg v} g[e_k, f]·[arg[e_k, f] == v]`` over
-the vertex-major CSR, with int32 (aligned argmax) or int64 (tree) ids.
+The max backward's record-routed sum (:func:`record_routed_dx`, JAX's
+``ops/maxops.py::_v2e_max_bwd`` ``:106-112``),
+``dx[v, f] = Σ_{k ∈ seg v} g[e_k, f]·[arg[e_k, f] == v]`` over the
+vertex-major CSR, with int32 or int64 ids, runs on the same walk: on the
+card in two passes over a :class:`RecordTable` (the CSR and a host-built
+:class:`RecordLayout`), so each cotangent and each id is read once.
 
 A :class:`SegmentTable` holds one CSR on one device, checked once (types,
 shapes, device, every index against N), so a call checks only ``x``. It
 refers to int64 tensors the caller may already hold (the incidence CSRs of
 :class:`~hypergef_tpu_torch.sparse.hypergraph.HypergraphData`) and adds only
 the kernel's int32 copies and, on a CUDA device, its warp runs
-(:func:`warp_runs`). ``launches`` counts the plain sum's launches,
-``record_launches`` the masked one's.
+(:func:`warp_runs`). ``launches`` counts the sum's launches,
+``record_launches`` the record-routed sum's (one a call: its two passes).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
@@ -51,6 +54,21 @@ _INT32_MAX = 2**31 - 1
 # several segments then holds at most 2·RUN_SHARE - 2 entries and RUN_SHARE
 # segments, within the kernel's kMaxEntries (64) and kMaxSegs (32)
 RUN_SHARE = 32
+# the record-routed sum's pass B walks runs of one of these shares (its runs
+# load few rows, so the runs' chains of round trips, not bytes, set its time):
+# the largest that still gives the card RECORD_FILL warps an SM
+# (record_run_share). A run of several segments then holds at most 126
+# entries and 64 segments, within kRecordEntries (128) and kRecordSegs (64).
+RECORD_RUN_SHARES = (32, 64)
+RECORD_FILL = 32  # pass B's warps an SM at the least (at 48 registers an SM holds 40)
+
+
+def record_run_share(cost: int, sms: int) -> int:
+    """Pass B's share for a CSR whose entries + segments are ``cost`` on a
+    card of ``sms`` SMs: the largest of RECORD_RUN_SHARES that still cuts it
+    into RECORD_FILL warps an SM, else the smallest."""
+    return next((s for s in sorted(RECORD_RUN_SHARES, reverse=True)
+                 if cost // s >= RECORD_FILL * sms), RECORD_RUN_SHARES[0])
 
 
 def warp_runs(indptr, share: int = RUN_SHARE, alone: Optional[int] = None) -> np.ndarray:
@@ -151,12 +169,84 @@ def gather_segment_sum_plain(x, table: SegmentTable):
     return gather_segment_sum_sorted(x, table.gather_long, table.indptr_long)
 
 
-def record_routed_dx_plain(g, arg, table: SegmentTable):
+def record_layout(h_indptr, h_indices):
+    """The record-routed sum's host layout over a vertex-major CSR (``h_indptr``
+    [V+1], ``h_indices`` [nnz] the edge of each entry): (edge, members,
+    perm), int32 [nnz] each, a member slot each.
+
+    The slots run edge by edge, each edge's members ascending and, among
+    duplicates of one member, in CSR order; ``edge`` and ``members`` name
+    each slot's edge and member, ``perm`` its entry in the vertex-major CSR.
+    For a graph of :meth:`Hypergraph.from_coo` the slots are the Hᵀ CSR's
+    entries (``members`` is its member table) and ``perm`` maps each Hᵀ
+    entry (e, v) to its H entry (v, e), the k-th duplicate of a member to
+    its k-th."""
+    h_indptr = np.asarray(h_indptr, dtype=np.int64)
+    edge = np.asarray(h_indices, dtype=np.int64)
+    vertex = np.repeat(np.arange(h_indptr.size - 1, dtype=np.int64), np.diff(h_indptr))
+    perm = np.lexsort((vertex, edge))  # stable: duplicates keep CSR order
+    return tuple(a.astype(np.int32) for a in (edge[perm], vertex[perm], perm))
+
+
+@dataclasses.dataclass(frozen=True)
+class RecordLayout:
+    """:func:`record_layout` on the card (what the kernel's pass A reads, a
+    thread a slot) and pass B's warp runs over the vertex-major CSR."""
+
+    edge: torch.Tensor  # int32 [nnz], each slot's edge
+    members: torch.Tensor  # int32 [nnz], each slot's member
+    slot: torch.Tensor  # int32 [nnz], each vertex-major entry's slot (perm's inverse)
+    runs: torch.Tensor  # int32 [W+1, 2], pass B's warp_runs (share: record_run_share)
+    build_s: float  # host seconds to build it (copies back to the host included)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.edge, self.members, self.slot, self.runs))
+
+
+@dataclasses.dataclass(frozen=True)
+class RecordTable:
+    """The vertex-major CSR of a max V→E (``e2v``: segments are vertices,
+    the gather names each entry's edge) and, on a CUDA device, the kernel's
+    layout of its edges (None on the CPU)."""
+
+    e2v: SegmentTable
+    layout: Optional[RecordLayout] = None
+
+    @classmethod
+    def over(cls, e2v: SegmentTable) -> "RecordTable":
+        """The table over ``e2v``; on a CUDA device the layout is built from
+        a host copy of it, once."""
+        if e2v.device.type != "cuda":
+            return cls(e2v)
+        if e2v.gather_long is None:
+            raise ValueError("the record-routed sum needs the CSR's edges (a gather)")
+        t0 = time.perf_counter()
+        indptr = e2v.indptr_long.cpu().numpy()
+        sms = torch.cuda.get_device_properties(e2v.device).multi_processor_count
+        share = record_run_share(e2v.nnz + e2v.num_segments, sms)
+        edge, members, perm = record_layout(indptr, e2v.gather_long.cpu().numpy())
+        slot = np.empty_like(perm)
+        slot[perm] = np.arange(perm.size, dtype=np.int32)
+        edge, members, slot, runs = (torch.as_tensor(a, device=e2v.device)
+                                     for a in (edge, members, slot, warp_runs(indptr, share)))
+        torch.cuda.synchronize(e2v.device)
+        return cls(e2v, RecordLayout(edge=edge, members=members, slot=slot, runs=runs,
+                                     build_s=time.perf_counter() - t0))
+
+    @property
+    def device(self) -> torch.device:
+        return self.e2v.device
+
+
+def record_routed_dx_plain(g, arg, record: RecordTable):
     """The record-routed sum in plain torch (any device): two row gathers by
     the CSR's entries, the compare with each entry's segment, the direct
     sorted segment sum (``_v2e_max_bwd``, ``maxops.py:106-112``)."""
     from hypergef_tpu_torch.ops.segments import segment_sum_sorted
 
+    table = record.e2v
     ip = table.indptr_long
     seg = torch.repeat_interleave(torch.arange(table.num_segments, device=ip.device),
                                   ip[1:] - ip[:-1], output_size=table.nnz)
@@ -168,8 +258,28 @@ def record_routed_dx_plain(g, arg, table: SegmentTable):
     return segment_sum_sorted(torch.where(ga == seg[:, None], gg, 0.0), ip)
 
 
+def record_routed_dx_sequential(g, arg, record: RecordTable):
+    """The record-routed sum in the kernel's order (any device): each
+    vertex's sum from +0.0, one f32 add an entry in CSR order where the
+    entry's edge was won by the vertex, nothing where it was lost. A check
+    of the kernel's bits, not a fast form: one step for each position of
+    the longest segment."""
+    table = record.e2v
+    ip = table.indptr_long
+    deg = ip[1:] - ip[:-1]
+    rows = table.gather_long
+    out = torch.zeros((table.num_segments, g.shape[1]), dtype=torch.float32, device=g.device)
+    for r in range(int(deg.max()) if deg.numel() else 0):
+        v = torch.nonzero(deg > r).squeeze(1)
+        k = ip[v] + r
+        e = k if rows is None else rows[k]
+        acc = out[v]
+        out[v] = torch.where(arg[e] == v[:, None], acc + g[e], acc)
+    return out
+
+
 def layout(f: int, tensors) -> tuple:
-    """The kernel's layout for width F over ``tensors`` (x, out and arg):
+    """The kernel's layout for width F over ``tensors`` (x and out):
     (width, lanes). A load reads ``width`` columns, 4 or 2 where F and every
     tensor's alignment allow, else 1; a segment's lane group has ``lanes``
     lanes, its loads a row rounded up to a power of two, at most 32."""
@@ -182,54 +292,86 @@ def layout(f: int, tensors) -> tuple:
     return width, lanes
 
 
-def _launch(x, table: SegmentTable, arg=None):
-    global launches, record_launches
-    from hypergef_tpu_torch.ops import _build
-
+def _check_rows(x, table: SegmentTable, name: str):
+    """The kernel's checks of a row operand over ``table``: its width F."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {dev}")
     if table.device != dev:
-        raise ValueError(f"the table is on {table.device}, x on {dev}")
+        raise ValueError(f"the table is on {table.device}, {name} on {dev}")
     n = table.num_inputs
     if x.dtype != torch.float32 or x.dim() != 2 or x.shape[0] != n:
-        raise TypeError(f"x must be f32 [{n}, F], got {x.dtype} {tuple(x.shape)}")
+        raise TypeError(f"{name} must be f32 [{n}, F], got {x.dtype} {tuple(x.shape)}")
     if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
+        raise ValueError(f"{name} must be contiguous")
     f = x.shape[1]
     if f <= 0 or f > _INT32_MAX:
         raise ValueError(f"unsupported width F={f}")
-    if arg is not None:
-        if arg.dtype not in (torch.int32, torch.int64) or arg.shape != x.shape:
-            raise TypeError(f"arg must be int32 or int64 {tuple(x.shape)}, got {arg.dtype} "
-                            f"{tuple(arg.shape)}")
-        if arg.device != dev or not arg.is_contiguous():
-            raise ValueError(f"arg must be a contiguous tensor on {dev}")
     if torch.cuda.get_device_capability(dev) != (9, 0):
         raise RuntimeError(
             f"the kernel is built for sm_90a (Hopper); {torch.cuda.get_device_name(dev)} "
             f"is sm_{''.join(map(str, torch.cuda.get_device_capability(dev)))}")
+    return f
+
+
+def _raise_on(err, lib, name):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: {lib.hg_error_string(err).decode()}")
+
+
+def _launch(x, table: SegmentTable):
+    global launches
+    from hypergef_tpu_torch.ops import _build
+
+    f = _check_rows(x, table, "x")
     s = table.num_segments
-    out = torch.empty((s, f), dtype=torch.float32, device=dev)
+    out = torch.empty((s, f), dtype=torch.float32, device=x.device)
     if s == 0:
         return out
-    width, lanes = layout(f, [x, out] + ([] if arg is None else [arg]))
+    width, lanes = layout(f, [x, out])
     lib = _build.load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(x.device):
         err = lib.hg_gather_segment_sum(
-            x.data_ptr(), 0 if arg is None else arg.data_ptr(),
-            0 if arg is None else arg.element_size(),
-            0 if table.gather is None else table.gather.data_ptr(), table.indptr.data_ptr(),
-            table.runs.data_ptr(), out.data_ptr(), table.runs.shape[0] - 1, f, lanes, width,
-            stream)
-    if err != 0:
-        name = "gather_segment_sum" if arg is None else "record_routed_dx"
-        raise RuntimeError(f"{name} launch failed: {lib.hg_error_string(err).decode()}")
-    if arg is None:
-        launches += 1
-    else:
-        record_launches += 1
+            x.data_ptr(), 0 if table.gather is None else table.gather.data_ptr(),
+            table.indptr.data_ptr(), table.runs.data_ptr(), out.data_ptr(),
+            table.runs.shape[0] - 1, f, lanes, width,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, lib, "gather_segment_sum")
+    launches += 1
+    return out
+
+
+def _launch_record(g, arg, record: RecordTable):
+    global record_launches
+    from hypergef_tpu_torch.ops import _build
+
+    table, lay = record.e2v, record.layout
+    f = _check_rows(g, table, "g")
+    if arg.dtype not in (torch.int32, torch.int64) or arg.shape != g.shape:
+        raise TypeError(f"arg must be int32 or int64 {tuple(g.shape)}, got {arg.dtype} "
+                        f"{tuple(arg.shape)}")
+    if arg.device != g.device or not arg.is_contiguous():
+        raise ValueError(f"arg must be a contiguous tensor on {g.device}")
+    if lay is None:
+        raise ValueError("the record table has no kernel layout: build it on the card "
+                         "(RecordTable.over a CUDA table, HypergraphData.record)")
+    s = table.num_segments
+    out = torch.empty((s, f), dtype=torch.float32, device=g.device)
+    if s == 0:
+        return out
+    # pass A writes every slot's won words, zeros too: no memset
+    words = torch.empty((table.nnz, -(-f // 32)), dtype=torch.int32, device=g.device)
+    width, lanes = layout(f, [g, out])
+    lib = _build.load_library()
+    with torch.cuda.device(g.device):
+        err = lib.hg_record_routed_dx(
+            g.data_ptr(), arg.data_ptr(), arg.element_size(), lay.edge.data_ptr(),
+            lay.members.data_ptr(), lay.slot.data_ptr(), table.nnz, words.data_ptr(),
+            table.gather.data_ptr(), table.indptr.data_ptr(), lay.runs.data_ptr(),
+            out.data_ptr(), lay.runs.shape[0] - 1, f, lanes, width,
+            torch.cuda.current_stream(g.device).cuda_stream)
+    _raise_on(err, lib, "record_routed_dx")
+    record_launches += 1
     return out
 
 
@@ -253,14 +395,16 @@ def gather_segment_sum(x, table: SegmentTable):
     return _launch(x, table)
 
 
-def record_routed_dx(g, arg, table: SegmentTable):
+def record_routed_dx(g, arg, record: RecordTable):
     """``dx[v, f] = Σ_{k ∈ seg v} g[gather[k], f]·[arg[gather[k], f] == v]``
-    over ``table`` (the vertex-major CSR ``HypergraphData.e2v``): g f32
-    [E, F], arg int32 or int64 [E, F] → f32 [V, F]. The max backward: one
-    launch of the masked kernel on CUDA tensors,
-    :func:`record_routed_dx_plain` on CPU tensors."""
+    over ``record.e2v`` (the vertex-major CSR; ``HypergraphData.record``):
+    g f32 [E, F], arg int32 or int64 [E, F] → f32 [V, F]. The max backward:
+    on CUDA tensors one call of the kernel's two passes (pass A, a thread a
+    member slot of the layout, writes the words of the features its member
+    won; pass B sums the won values over the CSR, reading each entry's words
+    through its slot), :func:`record_routed_dx_plain` on CPU tensors."""
     if g.device.type == "cpu":
-        if table.device.type != "cpu":
-            raise ValueError(f"g is on the CPU but the table is on {table.device}")
-        return record_routed_dx_plain(g, arg, table)
-    return _launch(g, table, arg)
+        if record.device.type != "cpu":
+            raise ValueError(f"g is on the CPU but the table is on {record.device}")
+        return record_routed_dx_plain(g, arg, record)
+    return _launch_record(g, arg, record)

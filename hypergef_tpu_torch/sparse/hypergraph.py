@@ -24,7 +24,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from hypergef_tpu_torch.ops.segment_sum import SegmentTable
+from hypergef_tpu_torch.ops.segment_sum import RecordTable, SegmentTable
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +59,12 @@ class HypergraphData:
     @functools.cached_property
     def e2v(self) -> SegmentTable:
         return SegmentTable.from_long(self.h_indptr, self.h_edge, self.num_edges)
+
+    # The max backward's table: ``e2v`` and, on a CUDA device, the
+    # record-routed sum's layout of the edges (built on first use).
+    @functools.cached_property
+    def record(self) -> RecordTable:
+        return RecordTable.over(self.e2v)
 
 
 @dataclasses.dataclass

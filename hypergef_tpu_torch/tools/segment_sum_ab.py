@@ -13,10 +13,12 @@ sleep (median of 20 windows of 10 calls):
   6 (the widths of the cumsum route's HGNN layers), checked against its
   plain version (rtol 1e-6, atol 1e-6·max|plain|);
 * the max backward's record-routed sum (``dx[v] = Σ_{e ∋ v} g[e]·[arg[e] ==
-  v]``, F = 32) over the vertex-major CSR of coauthor_dblp (int64 ids, as
-  the tree gives them), SBM-60k (int32, as the aligned argmax gives them)
-  and stream100k (int64), each id a member of its edge: the tree's own
-  ``record_routed_dx`` (the masked kernel, or in an older tree the plain
+  v]``, F = 32 and the classes' width: 6 at coauthor_dblp, 4 at SBM-60k and
+  stream100k) over the vertex-major CSR of each graph, with int32 ids (the
+  type the tree and the aligned argmax give) and int64 ids, each id a
+  member of its edge: the tree's own ``record_routed_dx`` (over
+  ``HypergraphData.record`` where the tree has it, else over ``.e2v``: the
+  masked form of the sum; or in a tree older than both the plain
   composition of two row gathers, a compare and a segment sum), checked
   against the plain composition;
 * training steps (wall: 10 back-to-back steps, host included; device: one
@@ -30,13 +32,16 @@ sleep (median of 20 windows of 10 calls):
 The first checkout's worker also times the plain versions and
 ``torch.sparse.mm`` of the segment sum's CSR (the library yardstick).
 Workers run in turns (A, B, B, A for two checkouts) so that a drift of the
-card shows. One JSON line a worker; a last line with the card.
+card shows. Each worker prints a digest of every kernel output; the last
+lines say whether each output is bitwise equal across the checkouts (exit
+1 if not) and name the card. One JSON line a worker.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -102,7 +107,11 @@ def worker(yardsticks: bool) -> dict:
 
     dev = torch.device("cuda", 0)
     _build.load_library()
-    res = {"tree": os.getcwd(), "segment_sum": {}, "record": {}, "steps": {}, "busy_ms": {}}
+    res = {"tree": os.getcwd(), "segment_sum": {}, "record": {}, "steps": {}, "busy_ms": {},
+           "digests": {}}
+
+    def digest(t) -> str:
+        return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
 
     def timed(fn):
         return cuda_time_ms(fn, repeats=20, iters=10)
@@ -120,7 +129,9 @@ def worker(yardsticks: bool) -> dict:
             x = torch.as_tensor(np.random.default_rng(f).normal(size=(table.num_inputs, f))
                                 .astype(np.float32), device=dev)
             want = segment_sum.gather_segment_sum_plain(x, table)
-            r = {"max_abs_err": held(segment_sum.gather_segment_sum(x, table), want),
+            got = segment_sum.gather_segment_sum(x, table)
+            res["digests"][f"segment_sum {stage} F={f}"] = digest(got)
+            r = {"max_abs_err": held(got, want),
                  "kernel_ms": timed(lambda: segment_sum.gather_segment_sum(x, table))}
             if yardsticks:
                 csr = cs.incidence_csr(dblp, "edge" if stage == "v2e" else "vertex", dev)
@@ -131,28 +142,34 @@ def worker(yardsticks: bool) -> dict:
     new = hasattr(segment_sum, "record_routed_dx")
     sbm, al_plan, _ = cs.build_sbm60k()
     s100k, bits, tree, _ = cs.build_stream100k()
-    graphs = {"coauthor_dblp": (dblp, torch.int64), "sbm60k": (sbm, torch.int32),
-              "stream100k": (s100k, torch.int64)}
-    for name, (hg, dtype) in graphs.items():
+    graphs = {"coauthor_dblp": (dblp, cs.DBLP_NCLASS), "sbm60k": (sbm, cs.NCLASS),
+              "stream100k": (s100k, cs.NCLASS)}
+    for name, (hg, nclass) in graphs.items():
         hgd = hg.device_data(dev)
-        g, arg = record_operands(hgd, F, 27, dev, dtype)
-        if new:
-            def call(g=g, arg=arg, hgd=hgd):
-                return segment_sum.record_routed_dx(g, arg, hgd.e2v)
+        table = getattr(hgd, "record", None) or hgd.e2v  # the tree's own table
+        for f in (F, nclass):
+            for dtype in (torch.int32, torch.int64):
+                g, arg = record_operands(hgd, f, 27, dev, dtype)
+                if new:
+                    def call(g=g, arg=arg):
+                        return segment_sum.record_routed_dx(g, arg, table)
 
-            def plain(g=g, arg=arg, hgd=hgd):
-                return segment_sum.record_routed_dx_plain(g, arg, hgd.e2v)
-        else:
-            def call(g=g, arg=arg, hgd=hgd):
-                return maxops.record_routed_dx(g, arg, hgd.h_edge, hgd.h_segids, hgd.h_indptr)
+                    def plain(g=g, arg=arg):
+                        return segment_sum.record_routed_dx_plain(g, arg, table)
+                else:
+                    def call(g=g, arg=arg, hgd=hgd):
+                        return maxops.record_routed_dx(g, arg, hgd.h_edge, hgd.h_segids,
+                                                       hgd.h_indptr)
 
-            def plain(g=g, arg=arg, hgd=hgd):
-                return plain_record(g, arg, hgd)
-        r = {"ids": str(dtype).split(".")[-1], "nnz": hg.nnz,
-             "max_abs_err": held(call(), plain()), "ms": timed(call)}
-        if yardsticks:
-            r["plain_ms"] = timed(plain)
-        res["record"][name] = r
+                    def plain(g=g, arg=arg, hgd=hgd):
+                        return plain_record(g, arg, hgd)
+                got = call()
+                key = f"{name} F={f} {str(dtype).split('.')[-1]}"
+                res["digests"][f"record {key}"] = digest(got)
+                r = {"nnz": hg.nnz, "max_abs_err": held(got, plain()), "ms": timed(call)}
+                if yardsticks:
+                    r["plain_ms"] = timed(plain)
+                res["record"][key] = r
 
     from hypergef_tpu_torch.data.synthetic import random_features
     from hypergef_tpu_torch.sparse.planner import AggregationPlan
@@ -198,7 +215,7 @@ def main() -> int:
         ap.error("name at least one checkout")
     runs = [[os.path.abspath(t)] + (["--yardsticks"] if i == 0 else [])
             for i, t in enumerate(args.trees)]
-    failed = 0
+    failed, digests = 0, {}
     for tree, *opts in runs + runs[::-1]:
         cmd = [sys.executable, os.path.abspath(__file__), "--worker", *opts]
         env = {**os.environ, "PYTHONPATH": tree}
@@ -208,12 +225,17 @@ def main() -> int:
             failed += 1
             print(json.dumps({"tree": tree, "opts": opts, "rc": proc.returncode,
                               "stderr": proc.stderr[-3000:]}), flush=True)
-        else:
-            print(proc.stdout.strip().splitlines()[-1], flush=True)
+            continue
+        line = proc.stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        for key, d in json.loads(line)["digests"].items():
+            digests.setdefault(key, set()).add(d)
+    equal = {key: len(ds) == 1 for key, ds in digests.items()}
+    print(json.dumps({"bitwise_equal_across_checkouts": equal}), flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=False).stdout.strip()
     print(f"card: {card}")
-    return 1 if failed else 0
+    return 1 if failed or not all(equal.values()) else 0
 
 
 if __name__ == "__main__":

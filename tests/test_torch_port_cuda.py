@@ -25,10 +25,12 @@ Tolerances:
   products are exact (0/1 times bf16); the kernel sums each row in its
   layout's order (word ascending, then bit), the twin in its matmul's
   order.
-* segment-sum kernel and its masked form, the record-routed sum: rtol 1e-6
-  and atol 1e-6·max|plain| (the same f32 terms: every value is one lane's
-  f32 sum in CSR order, long segments included, against segment_reduce's
-  own order).
+* segment-sum kernel: rtol 1e-6 and atol 1e-6·max|plain| (the same f32
+  terms: every value is one lane's f32 sum in CSR order, long segments
+  included, against segment_reduce's own order).
+* record-routed sum: bitwise equal to the sequential CSR-order sum
+  (``record_routed_dx_sequential``: each won value added in CSR order from
+  +0.0), and within the segment sum's 1e-6 of its plain twin.
 """
 
 import dataclasses
@@ -1001,7 +1003,7 @@ def test_segment_sum_kernel_on_a_long_segment_and_unaligned_rows(cuda, f, aligne
 
 
 def _tree_record(cuda, seed, f):
-    """(g, arg int64, e2v) of a max V→E through the tree on a random graph,
+    """(g, arg int32, record) of a max V→E through the tree on a random graph,
     tie-heavy (integers in [-2, 2]) so that ids of several members tie."""
     from hypergef_tpu_torch.data.synthetic import random_hypergraph
     from hypergef_tpu_torch.ops import maxops
@@ -1013,41 +1015,120 @@ def _tree_record(cuda, seed, f):
                         device=cuda)
     g = torch.as_tensor(rng.normal(size=(hg.num_edges, f)).astype(np.float32), device=cuda)
     _, arg = maxops.tree_max_with_arg(x, stage)
-    return g, arg, hg.device_data(cuda).e2v
+    return g, arg, hg.device_data(cuda).record
 
 
-@pytest.mark.parametrize("ids", ["tree", "int32"])
+@pytest.mark.parametrize("ids", ["tree", "int64"])
 @pytest.mark.parametrize("f", [32, 6, 3])
 def test_record_routed_sum_matches_plain(cuda, ids, f):
-    """The masked kernel on the tree's int64 record table and on its int32
-    copy (the aligned argmax's type): rtol 1e-6, atol 1e-6·max|plain|,
-    repeats bitwise equal, one record launch a call and no plain-sum launch."""
+    """The kernel on the tree's int32 record table and on its int64 copy:
+    bitwise equal to the sequential CSR-order sum, rtol 1e-6 and atol
+    1e-6·max|plain| of the plain twin, repeats bitwise equal, one record
+    launch a call and no plain-sum launch."""
     from hypergef_tpu_torch.ops import segment_sum
 
-    g, arg, e2v = _tree_record(cuda, 7 + f, f)
-    assert arg.dtype == torch.int64
-    if ids == "int32":
-        arg = arg.to(torch.int32)
+    g, arg, record = _tree_record(cuda, 7 + f, f)
+    assert arg.dtype == torch.int32
+    if ids == "int64":
+        arg = arg.to(torch.int64)
     before = (segment_sum.launches, segment_sum.record_launches)
-    got = segment_sum.record_routed_dx(g, arg, e2v)
-    again = segment_sum.record_routed_dx(g, arg, e2v)
+    got = segment_sum.record_routed_dx(g, arg, record)
+    again = segment_sum.record_routed_dx(g, arg, record)
     torch.cuda.synchronize()
     assert (segment_sum.launches, segment_sum.record_launches) == (before[0], before[1] + 2)
-    want = segment_sum.record_routed_dx_plain(g, arg, e2v)
+    want = segment_sum.record_routed_dx_plain(g, arg, record)
     assert bool((want != 0).any())
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * float(want.abs().max()))
     assert torch.equal(got, again), "two runs differ"
+    seq = segment_sum.record_routed_dx_sequential(g, arg, record)
+    assert torch.equal(got.view(torch.int32), seq.view(torch.int32))
+
+
+def _record_graph(name):
+    """Graphs of the layout's edge cases: duplicate members
+    (``from_coo(dedup=False)``), empty edges and isolated vertices, long
+    edges among short ones, and one edge holding every vertex."""
+    rng = np.random.default_rng(len(name))
+    if name == "duplicates":
+        v, e = rng.integers(0, 400, size=3000), rng.integers(0, 250, size=3000)
+        v, e = np.concatenate([v, v[:600], v[:150]]), np.concatenate([e, e[:600], e[:150]])
+        return Hypergraph.from_coo(v, e, 400, 250, dedup=False)
+    if name == "empty_edges":
+        v = rng.integers(0, 600, size=1500)
+        e = rng.choice(np.arange(0, 900, 3), size=1500)
+        return Hypergraph.from_coo(v, e, 700, 900)
+    if name == "long_edges":
+        sizes = np.concatenate([[150, 64, 65, 129, 2000], rng.integers(1, 40, size=300)])
+        e = np.repeat(np.arange(sizes.size), sizes)
+        v = np.concatenate([rng.permutation(3000)[:k] for k in sizes])
+        return Hypergraph.from_coo(v, e, 3000, sizes.size)
+    return Hypergraph.from_coo(np.arange(500), np.zeros(500, np.int64), 500, 1)  # one edge
+
+
+@pytest.mark.parametrize("graph", ["duplicates", "empty_edges", "long_edges", "one_edge"])
+@pytest.mark.parametrize("f", [1, 3, 4, 32, 33, 64])
+@pytest.mark.parametrize("ids", ["int32", "int64"])
+def test_record_routed_sum_is_the_sequential_sum_bitwise(cuda, graph, f, ids):
+    """Ids a member of their edge, of no member or -1; NaN in every other
+    edge's values that no member wins (never added): the kernel bitwise
+    equal to the sequential CSR-order sum and finite, repeats bitwise
+    equal, one launch a call."""
+    from hypergef_tpu_torch.ops import segment_sum
+
+    hg = _record_graph(graph)
+    hgd = hg.device_data(cuda)
+    record = hgd.record
+    rng = np.random.default_rng(f)
+    size = np.diff(hg.ht_indptr)
+    pick = hg.ht_indptr[:-1, None] + (rng.random((hg.num_edges, f)) * size[:, None]).astype(int)
+    arg = np.where(size[:, None] > 0, hg.ht_indices[np.minimum(pick, hg.nnz - 1)], -1)
+    draw = rng.random(arg.shape)
+    arg = np.where(draw < 0.1, rng.integers(0, hg.num_nodes, size=arg.shape), arg)
+    arg = np.where(draw > 0.95, -1, arg)
+    edge = np.repeat(np.arange(hg.num_edges), size)
+    won = np.zeros(arg.shape, dtype=bool)
+    np.logical_or.at(won, edge, arg[edge] == hg.ht_indices[:, None])
+    g = rng.normal(size=arg.shape).astype(np.float32)
+    g[~won & (np.arange(hg.num_edges)[:, None] % 2 == 0)] = np.nan
+    g = torch.as_tensor(g, device=cuda)
+    arg = torch.as_tensor(arg, dtype=getattr(torch, ids), device=cuda)
+    before = segment_sum.record_launches
+    got = segment_sum.record_routed_dx(g, arg, record)
+    again = segment_sum.record_routed_dx(g, arg, record)
+    torch.cuda.synchronize()
+    assert segment_sum.record_launches == before + 2
+    want = segment_sum.record_routed_dx_sequential(g, arg, record)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32)), "two runs differ"
+
+
+def test_record_layout_on_the_card_is_the_host_layout(cuda):
+    from hypergef_tpu_torch.ops import segment_sum
+
+    hg = _record_graph("duplicates")
+    lay = hg.device_data(cuda).record.layout
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    share = segment_sum.record_run_share(hg.nnz + hg.num_nodes, sms)
+    edge, members, perm = segment_sum.record_layout(hg.h_indptr, hg.h_indices)
+    host = (edge, members, np.argsort(perm), segment_sum.warp_runs(hg.h_indptr, share))
+    for got, want in zip((lay.edge, lay.members, lay.slot, lay.runs), host):
+        assert got.dtype == torch.int32 and got.device.type == "cuda"
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert lay.nbytes == 12 * hg.nnz + 4 * lay.runs.numel()
+    assert lay.build_s > 0
 
 
 def test_segment_sum_kernels_run_on_two_streams_at_once(cuda):
-    """The plain and the masked sum over one table, queued on two streams
-    without waiting for each other: each gives its plain twin's result."""
+    """The sum and the record-routed sum over one table, queued on two
+    streams without waiting for each other: each gives its plain twin's
+    result."""
     from hypergef_tpu_torch.ops import segment_sum
 
-    g, arg, e2v = _tree_record(cuda, 3, 32)
+    g, arg, record = _tree_record(cuda, 3, 32)
     streams = [torch.cuda.Stream(cuda) for _ in range(2)]
-    calls = [lambda: segment_sum.gather_segment_sum(g, e2v),
-             lambda: segment_sum.record_routed_dx(g, arg, e2v)]
+    calls = [lambda: segment_sum.gather_segment_sum(g, record.e2v),
+             lambda: segment_sum.record_routed_dx(g, arg, record)]
     torch.cuda.synchronize()
     outs = ([], [])
     for _ in range(20):
@@ -1055,8 +1136,8 @@ def test_segment_sum_kernels_run_on_two_streams_at_once(cuda):
             with torch.cuda.stream(st):
                 got.append(call())
     torch.cuda.synchronize()
-    wants = (segment_sum.gather_segment_sum_plain(g, e2v),
-             segment_sum.record_routed_dx_plain(g, arg, e2v))
+    wants = (segment_sum.gather_segment_sum_plain(g, record.e2v),
+             segment_sum.record_routed_dx_plain(g, arg, record))
     for got, want in zip(outs, wants):
         for o in got:
             torch.testing.assert_close(o, want, rtol=1e-6, atol=1e-6 * float(want.abs().max()))
@@ -1065,15 +1146,21 @@ def test_segment_sum_kernels_run_on_two_streams_at_once(cuda):
 def test_record_routed_sum_rejects_what_the_kernel_does_not_take(cuda):
     from hypergef_tpu_torch.ops import segment_sum
 
-    g, arg, e2v = _tree_record(cuda, 5, 4)
+    g, arg, record = _tree_record(cuda, 5, 4)
     with pytest.raises(TypeError, match="int32 or int64"):
-        segment_sum.record_routed_dx(g, arg.float(), e2v)
+        segment_sum.record_routed_dx(g, arg.float(), record)
     with pytest.raises(TypeError, match="int32 or int64"):
-        segment_sum.record_routed_dx(g, arg[:, :2].contiguous(), e2v)
+        segment_sum.record_routed_dx(g, arg[:, :2].contiguous(), record)
     with pytest.raises(ValueError, match="contiguous"):
-        segment_sum.record_routed_dx(g, arg.t().contiguous().t(), e2v)
+        segment_sum.record_routed_dx(g, arg.t().contiguous().t(), record)
     with pytest.raises(TypeError, match="f32"):
-        segment_sum.record_routed_dx(g.double(), arg, e2v)
+        segment_sum.record_routed_dx(g.double(), arg, record)
+    with pytest.raises(ValueError, match="no kernel layout"):
+        segment_sum.record_routed_dx(g, arg, segment_sum.RecordTable(record.e2v))
+    on_cpu = segment_sum.RecordTable.over(segment_sum.SegmentTable.build(
+        record.e2v.indptr_long.cpu(), record.e2v.gather_long.cpu(), g.shape[0], "cpu"))
+    with pytest.raises(ValueError, match="table is on"):
+        segment_sum.record_routed_dx(g, arg, on_cpu)
 
 
 def test_incidence_gather_sum_backward_is_the_transposed_csr(cuda):

@@ -134,6 +134,7 @@ def test_tree_max_with_arg_matches_jax(graph, ties):
     want_y, want_arg = jmaxops.tree_max_with_arg(jnp.asarray(x), jst)
     y, arg = maxops.tree_max_with_arg(torch.as_tensor(x), tst)
     assert torch.equal(y, torch.as_tensor(np.asarray(want_y)))
+    assert arg.dtype == torch.int32 and np.asarray(want_arg).dtype == np.int32
     np.testing.assert_array_equal(arg.numpy(), np.asarray(want_arg))
 
 
@@ -254,7 +255,7 @@ def test_v2e_max_aligned_grad_matches_jax(layout, form):
     (_, want), want_dx = jax.value_and_grad(loss, has_aux=True)(jnp.asarray(x))
     st = dataclasses.replace(tplan, form=form).device("cpu")[0]
     xt = torch.as_tensor(x).requires_grad_(True)
-    y = aligned_max.v2e_max_aligned(xt, st, td.e2v)
+    y = aligned_max.v2e_max_aligned(xt, st, td.record)
     (y * torch.as_tensor(cot)).sum().backward()
     assert torch.equal(y.detach(), torch.as_tensor(np.asarray(want)))
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want_dx), **F32_TOL)
@@ -275,7 +276,7 @@ def test_aligned_max_matvec_grad_matches_jax(form):
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want_dx), **F32_TOL)
     td = _graphs("sorted")[1].device_data("cpu")
     xc = torch.as_tensor(x).requires_grad_(True)
-    (aligned_max.v2e_max_aligned(xc, fe, td.e2v)
+    (aligned_max.v2e_max_aligned(xc, fe, td.record)
      * torch.as_tensor(cot)).sum().backward()
     torch.testing.assert_close(xt.grad, xc.grad, **EXACT)
 
