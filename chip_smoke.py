@@ -24,8 +24,9 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    request, with CUDA events, median of 20 runs.
 5. Hold the gather kernel (``ell_gather_sum``) against its plain loop on
    the level-0 tables of both stages of the pubmed_real
-   ``plan_pallas_sparse`` plan, at F = 32 and 3: bitwise equal, two runs
-   bitwise equal, one launch per call.
+   ``plan_pallas_sparse`` plan, at F = 32 and 3 and on an x that starts 4
+   bytes past a 16-byte boundary (the kernel's feature-a-lane form):
+   bitwise equal, two runs bitwise equal, one launch per call.
 6. Hold the fused dense op's backward (x, scale_e and scale_v all
    requiring grad) against the plain ``_fd_bwd`` formula at the shapes of
    phase 2: rtol 1e-2, atol 1e-2·max|plain|; count its launches.
@@ -38,8 +39,9 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    on the card.
 8. Time, with CUDA events, median of 20 windows: the training epoch of
    20news on ``pallas`` vs ``dense`` and of pubmed_real on
-   ``pallas_sparse`` vs ``tree``; the gather kernel vs its plain loop; the
-   fused dense backward vs its plain formula.
+   ``pallas_sparse`` vs ``tree``; the gather kernel vs its plain loop vs
+   ``torch.sparse.mm`` on both level-0 stages at F = 32 and 3; the fused
+   dense backward vs its plain formula.
 9. Build the clustered SBM-60k graph from raw input as bench.py's clustered
    leg does (generator, shuffle, ``community_reorder(method="coarsen")``)
    and its ``plan_aligned`` plan. Hold the band kernel (``aligned_band``)
@@ -534,13 +536,16 @@ def fused_route(backend, plan, hg) -> str:
     return fused.resolve_backend(backend, plan, hg.nnz)
 
 
-def check_gather(table, f: int, seed: int, device) -> dict:
-    """The gather kernel against its sequential plain loop: bitwise."""
+def check_gather(table, f: int, seed: int, device, aligned: bool = True) -> dict:
+    """The gather kernel against its sequential plain loop: bitwise. x is
+    16-byte aligned, or a view 4 bytes past an aligned start."""
     from hypergef_tpu_torch.ops import ell_gather
 
     rng = np.random.default_rng(seed)
-    x = torch.as_tensor(rng.normal(size=(table.num_inputs, f)).astype(np.float32),
-                        device=device)
+    xn = torch.as_tensor(rng.normal(size=(table.num_inputs, f)).astype(np.float32))
+    x = torch.empty(xn.numel() + (0 if aligned else 1), device=device)[
+        0 if aligned else 1:].view(xn.shape)
+    x.copy_(xn)
     before = ell_gather.launches
     got = ell_gather.ell_gather_sum(x, table)
     again = ell_gather.ell_gather_sum(x, table)
@@ -551,7 +556,10 @@ def check_gather(table, f: int, seed: int, device) -> dict:
     check(torch.equal(got, want), f"gather kernel bitwise equal to the plain loop ({err})")
     check(torch.equal(got, again), "two gather runs are bitwise equal")
     return {"chunks": int(table.gidx.shape[0]), "ngs": int(table.gidx.shape[1]),
-            "n": table.num_inputs, "f": f, "max_abs_err": err}
+            "n": table.num_inputs, "f": f, "aligned": aligned,
+            "schedule": ell_gather.gather_schedule(f, int(table.gidx.shape[1]),
+                                                   x.data_ptr() % 16 == 0)._asdict(),
+            "max_abs_err": err}
 
 
 def fd_backward_operands(hg, f: int, seed: int, device):
@@ -1850,7 +1858,9 @@ def r2_chunk_sum_bounds() -> dict:
     kernel or through the ring) at each of its scales, from the probe's own
     tables (``probes.probe_r2_gather``'s draw): the distinct x rows the gather
     names (masked slots too: a 0 times Inf is NaN), the index and mask tables
-    and the output, each moved once; a multiply-add a slot and feature."""
+    and the output, each moved once; a multiply-add a slot and feature. Beside
+    it ``bound_named_ms``: every named row read once, which a gather reaches
+    where x exceeds the L2 (the 2M-row scale's 256 MB against 50 MB)."""
     from hypergef_tpu_torch import probes
 
     out = {}
@@ -1858,8 +1868,20 @@ def r2_chunk_sum_bounds() -> dict:
         c = nnz // probes.NGS
         gidx = np.random.default_rng(0).integers(0, n, size=(c, probes.NGS)).astype(np.int32)
         rows = int(np.unique(gidx).size)
-        out[scale] = bound(rows * f * 4 + 2 * gidx.size * 4 + c * f * 4, 2 * gidx.size * f)
+        rest = 2 * gidx.size * 4 + c * f * 4
+        out[scale] = bound(rows * f * 4 + rest, 2 * gidx.size * f)
+        out[scale]["bound_named_ms"] = (gidx.size * f * 4 + rest) / HBM_BYTES_PER_S * 1e3
     return out
+
+
+def r2_big(probed, case: str) -> dict:
+    """A probe_r2_gather case at the 2M-row scale (phase 25): its time,
+    ``torch.sparse.mm``'s, and the two bounds (distinct rows, named rows)."""
+    (row,) = [r for r in probed["rows"]
+              if r["probe"] == "probe_r2_gather" and r["case"] == case]
+    b = probed["times"]["r2 chunk sum bounds"]["big"]
+    return {"big_ms": row["ms"], "big_library_ms": row["library_ms"],
+            "big_bound_ms": b["bound_ms"], "big_bound_named_ms": b["bound_named_ms"]}
 
 
 def probe_phase(device, card: str) -> dict:
@@ -2120,10 +2142,11 @@ def main() -> int:
 
     ps_plan = plan_pallas_sparse(graphs["pubmed_real"])
     tables = dict(zip(("edge", "vertex"), (st.gather0 for st in ps_plan.device(device))))
-    gathers = [check_gather(tables[stage], f, seed, device)
-               for seed, (stage, f) in enumerate(
-                   [("edge", 32), ("edge", 3), ("vertex", 32), ("vertex", 3)])]
-    for stage, g in zip(("edge", "edge", "vertex", "vertex"), gathers):
+    gather_cases = [("edge", 32, True), ("edge", 3, True), ("vertex", 32, True),
+                    ("vertex", 3, True), ("edge", 32, False)]
+    gathers = [check_gather(tables[stage], f, seed, device, aligned)
+               for seed, (stage, f, aligned) in enumerate(gather_cases)]
+    for (stage, _, _), g in zip(gather_cases, gathers):
         print(f"phase 5 gather vs plain ({stage} stage): {json.dumps(g)}", flush=True)
 
     # 6. fused dense backward against the plain _fd_bwd formula
@@ -2145,7 +2168,7 @@ def main() -> int:
     # 8. times
     epochs = time_epochs(problems, device)
     gather_times = {f"{stage} F={f}": time_gather(tables[stage], f, device)
-                    for stage, f in (("edge", 32), ("vertex", 32), ("vertex", 3))}
+                    for stage, f in (("edge", 32), ("edge", 3), ("vertex", 32), ("vertex", 3))}
     bwd_times = {name: time_fd_backward(graphs[name], 32, device) for name in GRAPHS}
     print(f"phase 8 times (ms, CUDA events, median of 20): card {card}; training epoch "
           f"(wall: 10 back-to-back steps, host included; device: behind a queued sleep): "
@@ -2224,6 +2247,13 @@ def main() -> int:
         # the ELL level-0 probes with x resident (phase 25)
         "probe_launches": probed["launches"]["ell_gather_sum"],
         "max_abs_err": max([g["max_abs_err"] for g in gathers] + [probe_err["ell_gather_sum"]]),
+        # the line's own times are the pubmed_real edge stage's at F = 32;
+        # the other stage and widths beside them, and the 2M-row scale
+        **{f"{stage}_f{w}_{k}": gather_times[f"{stage} F={w}"][key]
+           for stage, w in (("edge", 3), ("vertex", 32), ("vertex", 3))
+           for k, key in (("ms", "kernel"), ("plain_ms", "plain"), ("library_ms", "library"),
+                          ("bound_ms", "bound_ms"))},
+        **r2_big(probed, "big pallas_vmem"),
     }, {
         "name": "aligned_band",
         "route": "cuda",
@@ -2326,6 +2356,13 @@ def main() -> int:
                         "source": f"hypergef_tpu_torch/csrc/{source}",
                         "launches": probed["launches"][name],
                         "max_abs_err": probe_err[name]})
+    # the chunk sum's ring (pallas_dma_stage's form) at probe_r2_gather's
+    # 2M-row scale, each depth, beside the gathered form the line times
+    from hypergef_tpu_torch.probes import RING_DEPTHS
+
+    (chunk_sum,) = [k for k in kernels if k["name"] == "chunk_masked_sum"]
+    chunk_sum.update({f"ring_n_buf{nb}_{k}": v for nb in RING_DEPTHS
+                      for k, v in r2_big(probed, f"big pallas_dma n_buf={nb}").items()})
     for k in kernels:
         t = timed[k["name"]]
         sites = KERNEL_SITES.get(k["name"], [RECORD_SUM_SITE])

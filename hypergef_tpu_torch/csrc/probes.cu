@@ -19,12 +19,15 @@
 //   - from a gathered [C, ngs, F] tensor, a group of lanes a chunk
 //     (pallas_probe.py::run_k6 :176; pallas_probe2.py::e_call :151;
 //     pallas_probe3.py::e_call :85);
-//   - from x and a gather table gidx [C, ngs] through a cp.async ring of
-//     n_buf chunks of ngs rows each (probe_r2_gather.py::pallas_dma_stage
-//     :168; probe_r2b_bisect.py::k5 :184 at ngs 2).
+//   - from x and a gather table gidx [C, ngs] through a ring of chunk
+//     slots in shared memory that a producer warp fills by asynchronous copies
+//     (probe_r2_gather.py::pallas_dma_stage :168; probe_r2b_bisect.py::k5
+//     :184 at ngs 2): the card's form of the TPU's ring of row DMAs, x
+//     staying in HBM and whole rows coming into shared memory.
 //   Each chunk is summed over k in order, product and sum rounded apart
-//   (__fmul_rn, __fadd_rn), as the plain loop and the gather kernel
-//   (ell_gather.cu) do, so the three agree bitwise.
+//   (__fmul_rn, __fadd_rn), dead slots multiplied like live ones, as the
+//   plain loop and the gather kernel (ell_gather.cu) do, so the three agree
+//   bitwise.
 // * scaled copy, out = x * s, float4 loads over a grid-stride loop
 //   (probe_r2b_bisect.py::k0 :49).
 //
@@ -32,6 +35,42 @@
 // bytes over the memory rate, or L2 latency for the gathers, which the ring
 // forms answer by keeping more rows in flight. No float atomics anywhere;
 // every output element has one writer.
+//
+// The chunk-sum ring. A persistent grid of one block an SM (the wrapper's
+// probes.ring_plan), each block `pairs` pairs of a producer warp and a
+// consumer warp; each pair walks its own contiguous range of chunks through
+// its own ring of `slots` chunk slots in shared memory, a slot holding a
+// chunk's ngs rows of x and its mask row, with a full and an empty mbarrier.
+// The producer stages the range's gidx and mask rows ahead into a small
+// table ring (kRingTable steps, 4-byte cp.async copies), then takes the
+// rows `step` at a time: each lane stores its row's mask into the slot, all
+// 32 lanes copy the step's rows by 16-byte cp.async (F / 4 lanes a row, 32
+// at F >= 128; the row's index and place handed round by __shfl_sync), and
+// for each chunk that ends in the step every lane arrives on its full
+// barrier once its own copies have landed (cp.async.mbarrier.arrive.noinc),
+// and the lane of its last row once more, which releases the masks. A
+// chunk's first row waits until its slot's last chunk was summed. The
+// consumer's lanes form 32 / L groups, L = F / 4 lanes rounded up to a
+// power of two in [8, 32]; group g sums chunks g, g + 32 / L, ... on its
+// own: it waits on the slot's full barrier, sums in k order from shared
+// memory a float4 of features a lane, stores, and arrives on the empty
+// barrier. `slots` = n_buf, so n_buf is the chunk slots in flight a consumer
+// warp. The pairs a block holds follow from the block's 232,448 bytes at the
+// deepest ring (n_buf 16) and are the same at every depth: a deeper ring
+// fills more of the budget and costs no warps.
+// Design rounds (H100, 2M-row scale, n_buf 4 / 8 / 16, ms; PERF.md): one
+// producer warp a block copying each row by one cp.async.bulk a lane, 3.17
+// at every depth; the same with 16-byte cp.async from all lanes, 4.25-6.98
+// (two blocks an SM: 2.13-3.43), a %globaltimer trace of block 0 showing
+// about 0.17 us a cp.async instruction of four scattered rows in one warp,
+// so one producer could not keep 13 consumers fed; a producer for each
+// consumer, arming its chunks `lag` steps late after cp.async.wait_group,
+// 0.80 / 1.05 / 0.50; arming each chunk as its copies land, 0.79 / 0.49 /
+// 0.49; with steps of at most a quarter of the ring, 0.57 / 0.50 / 0.49.
+// The design before all of these gave each warp its own cp.async ring of
+// n_buf chunks, so a deeper ring cut the warps an SM held (1.0 / 1.1 / 2.6
+// waves at n_buf 4 / 8 / 16, 1.20 / 1.50 / 2.10) and only F / 4 lanes
+// copied.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -39,22 +78,60 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxRingWarps = 4;          // warps of a ring block
+constexpr int kMaxRingWarps = 4;          // warps of a row-ring block
+constexpr int kRingMaxPairs = 16;         // producer-consumer warp pairs of a chunk-ring block
+constexpr int kRingTable = 6;             // steps of table rows a ring producer stages ahead
+constexpr int kRingStepShare = 4;         // a ring producer's step: a quarter of its ring at most
+constexpr int kRingTableBytes = kRingTable * 32 * 8;
 constexpr int kSmemBudget = 232448;       // a block's shared memory on sm_90 (227 KB)
 constexpr int kSmemDefault = 48 * 1024;   // above this, dynamic memory needs an opt-in
+constexpr unsigned kFullMask = 0xffffffffu;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* b, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(b)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(b)) : "memory");
+}
+// arrive on `b` once this thread's cp.async copies so far have landed
+__device__ __forceinline__ void cp_arrive(uint64_t* b) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(b))
+               : "memory");
+}
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* b, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(b)),
+      "r"(parity)
+      : "memory");
 }
 
 // ---- row gather -----------------------------------------------------------
@@ -125,48 +202,152 @@ chunk_sum_gathered_kernel(const float* __restrict__ g, const float* __restrict__
   }
 }
 
-// The row ring of row_gather_ring_kernel with a chunk (ngs rows) a slot;
-// lanes sum their features of a landed chunk after a warp barrier, since
-// they read pieces other lanes copied.
-template <int NB>
-__global__ void chunk_sum_ring_kernel(const float* __restrict__ x,
-                                      const int32_t* __restrict__ gidx,
-                                      const float* __restrict__ mask, float* __restrict__ out,
-                                      int c_total, int ngs, int f, int chunks_per_warp) {
-  extern __shared__ float4 ring_smem[];
-  const int f4 = f / 4;
+// The chunk-sum ring (see the note above). A pair's shared memory: `slots`
+// slots (ngs rows of f floats, then the mask row padded to 16 bytes), the
+// producer's table ring (indices, then masks), the full and the empty
+// barriers. Chunk r of the pair's range goes to slot r % slots and to the
+// consumer's lane group r % cpw, cpw = ring_chunks_a_warp(f) (slots is a
+// multiple of cpw, so a slot has one lane group).
+__host__ __device__ inline int ring_chunks_a_warp(int f) {
+  int lanes = 8;
+  while (lanes < f / 4 && lanes < 32) lanes *= 2;
+  return 32 / lanes;
+}
+
+__host__ __device__ inline long long ring_slot_bytes(int ngs, int f) {
+  return (long long)ngs * f * 4 + ((ngs * 4 + 15) & ~15);
+}
+
+// The producer's rows a step. A chunk whose first row is in a step waits for
+// its slot's last chunk, whose copies must all have been issued, and its
+// arrivals with them, in an earlier step: that chunk ends (slots - 1) * ngs
+// rows or more before, so a step of at most (slots - 1) * ngs + 1 rows keeps
+// them apart. A chunk is armed only when its whole step has landed, so a
+// step holds at most a quarter of the ring (kRingStepShare), and whole
+// passes of `per_pass` rows where it can.
+__device__ __forceinline__ int ring_step(int slots, int ngs, int per_pass) {
+  const int reach =
+      min(min(32, (slots - 1) * ngs + 1), max(per_pass, slots * ngs / kRingStepShare));
+  return reach >= per_pass ? reach / per_pass * per_pass : reach;
+}
+
+__global__ void __launch_bounds__(kRingMaxPairs * 64, 1)
+chunk_sum_ring_kernel(const float* __restrict__ x, const int32_t* __restrict__ gidx,
+                      const float* __restrict__ mask, float* __restrict__ out, int c_total,
+                      int ngs, int f, int pairs, int slots, int per_pair) {
+  extern __shared__ __align__(16) uint8_t smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float4* ring = ring_smem + (size_t)warp * NB * ngs * f4;
-  const long long c0 = ((long long)blockIdx.x * (blockDim.x / 32) + warp) * chunks_per_warp;
-  const long long c1 = min(c0 + chunks_per_warp, (long long)c_total);
-  if (c0 >= c1) return;
-  const float4* x4 = reinterpret_cast<const float4*>(x);
-  auto issue = [&](long long c, int slot) {
-    float4* dst = ring + (size_t)slot * ngs * f4;
-    for (int k = 0; k < ngs; ++k) {
-      const float4* src = x4 + (size_t)__ldg(gidx + c * ngs + k) * f4;
-      for (int q = lane; q < f4; q += 32) cp_async16(dst + (size_t)k * f4 + q, src + q);
-    }
-  };
-  for (int j = 0; j < NB - 1; ++j) {
-    if (c0 + j < c1) issue(c0 + j, j);
-    cp_async_commit();
+  const int w = warp % pairs;  // the pair: consumer warp w, producer warp pairs + w
+  const int slot_bytes = (int)ring_slot_bytes(ngs, f);
+  const int pair_bytes = slots * (slot_bytes + 16) + kRingTableBytes;
+  uint8_t* ring = smem + w * pair_bytes;
+  int32_t* table = reinterpret_cast<int32_t*>(ring + slots * slot_bytes);
+  float* table_m = reinterpret_cast<float*>(table + kRingTable * 32);
+  uint64_t* full = reinterpret_cast<uint64_t*>(table_m + kRingTable * 32);
+  uint64_t* empty = full + slots;
+  // a thread a barrier: the full ones wait for the producer's lanes' copies
+  // and its release, the empty ones for the consumer lane group's release
+  for (int b = threadIdx.x; b < pairs * 2 * slots; b += blockDim.x) {
+    const int p = b / (2 * slots), s = b % (2 * slots);
+    mbar_init(reinterpret_cast<uint64_t*>(smem + p * pair_bytes + slots * slot_bytes +
+                                          kRingTableBytes) + s,
+              s < slots ? 33 : 1);
   }
-  for (long long c = c0; c < c1; ++c) {
-    const long long ahead = c + NB - 1;
-    if (ahead < c1) issue(ahead, (int)((ahead - c0) % NB));
-    cp_async_commit();
-    cp_async_wait<NB - 1>();
-    __syncwarp();
-    const float* buf = reinterpret_cast<const float*>(ring + (size_t)((c - c0) % NB) * ngs * f4);
-    const float* mrow = mask + (size_t)c * ngs;
-    for (int col = lane; col < f; col += 32) {
-      float acc = __fmul_rn(buf[col], __ldg(mrow));
-      for (int k = 1; k < ngs; ++k)
-        acc = __fadd_rn(acc, __fmul_rn(buf[(size_t)k * f + col], __ldg(mrow + k)));
-      out[(size_t)c * f + col] = acc;
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  __syncthreads();
+  const long long c0 = ((long long)blockIdx.x * pairs + w) * per_pair;
+  if (c0 >= c_total) return;
+  const int n = (int)min((long long)per_pair, c_total - c0);
+  const int f4 = f / 4;
+  const int row_bytes = f * 4;
+  const int rows_bytes = ngs * row_bytes;
+
+  if (warp >= pairs) {  // the producer
+    const int rows = n * ngs;
+    const int32_t* gb = gidx + c0 * ngs;
+    const float* mb = mask + c0 * ngs;
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    // a step's rows go to the lanes as 16-byte pieces: `per_row` lanes a
+    // row, 32 / per_row rows a pass
+    const int per_row = (f4 < 32 && 32 % f4 == 0) ? f4 : 32;
+    const int row_of_lane = lane / per_row, q0 = lane % per_row;
+    const int step = ring_step(slots, ngs, 32 / per_row);
+    // the table rows of step s land in table slot s % kRingTable, in copy
+    // group s: kRingTable - 1 steps ahead of their use
+    auto fetch = [&](int s) {
+      const int t = s * step + lane;
+      if (lane < step && t < rows) {
+        cp_async4(table + (s % kRingTable) * 32 + lane, gb + t);
+        cp_async4(table_m + (s % kRingTable) * 32 + lane, mb + t);
+      }
+      cp_async_commit();
+    };
+    for (int s = 0; s < kRingTable - 1; ++s) fetch(s);
+    // this lane's table row t0 + lane: its place k in its chunk and the
+    // chunk's slot, which it fills for the use-th time; advanced a step at
+    // a time
+    int k = lane % ngs, slot = (lane / ngs) % slots, use = (lane / ngs) / slots;
+    const int dr = step / ngs, dk = step % ngs;
+    for (int s = 0, t0 = 0; t0 < rows; ++s, t0 += step) {
+      cp_async_wait<kRingTable - 2>();  // step s's table (group s) has landed
+      const int nrows = min(step, rows - t0);
+      const bool valid = lane < nrows;
+      const int idx = table[(s % kRingTable) * 32 + lane];
+      const float m = table_m[(s % kRingTable) * 32 + lane];
+      const int at = slot * slot_bytes + k * row_bytes;  // the row's place in the ring
+      if (valid && k == 0 && use > 0) mbar_wait(empty + slot, (use - 1) & 1);
+      __syncwarp();
+      if (valid) reinterpret_cast<float*>(ring + slot * slot_bytes + rows_bytes)[k] = m;
+      for (int j0 = 0; j0 < nrows; j0 += 32 / per_row) {
+        const int j = j0 + row_of_lane;
+        const int src = __shfl_sync(kFullMask, idx, j & 31);
+        const int dst = __shfl_sync(kFullMask, at, j & 31);
+        if (j < nrows)
+          for (int q = q0; q < f4; q += per_row)
+            cp_async16(ring + dst + 16 * q, x4 + (size_t)src * f4 + q);
+      }
+      fetch(s + kRingTable - 1);
+      // each chunk that ends in this step: every lane arrives once its own
+      // copies have landed, and the lane of the last row once more after
+      // the warp's mask stores, which that arrive releases
+      const bool last = valid && k == ngs - 1;
+      for (unsigned ends = __ballot_sync(kFullMask, last); ends; ends &= ends - 1)
+        cp_arrive(full + __shfl_sync(kFullMask, slot, __ffs(ends) - 1));
+      __syncwarp();
+      if (last) mbar_arrive(full + slot);
+      k += dk, slot += dr;
+      if (k >= ngs) k -= ngs, ++slot;
+      while (slot >= slots) slot -= slots, ++use;
     }
-    __syncwarp();  // the slot is refilled in the next step
+  } else {  // the consumer: its lane groups walk their chunks apart
+    const int cpw = ring_chunks_a_warp(f);
+    const int lanes = 32 / cpw, group = lane / lanes, sub = lane % lanes;
+    const unsigned group_mask = (lanes == 32 ? kFullMask : (1u << lanes) - 1) << (group * lanes);
+    float4* o4 = reinterpret_cast<float4*>(out);
+    for (int r = group; r < n; r += cpw) {
+      const int slot = r % slots, use = r / slots;
+      mbar_wait(full + slot, use & 1);
+      const uint8_t* sb = ring + (size_t)slot * slot_bytes;
+      const float4* rows4 = reinterpret_cast<const float4*>(sb);
+      const float* ms = reinterpret_cast<const float*>(sb + rows_bytes);
+      for (int q = sub; q < f4; q += lanes) {
+        float m = ms[0];
+        float4 v = rows4[q];
+        float4 acc = make_float4(__fmul_rn(v.x, m), __fmul_rn(v.y, m), __fmul_rn(v.z, m),
+                                 __fmul_rn(v.w, m));
+        for (int kk = 1; kk < ngs; ++kk) {
+          m = ms[kk];
+          v = rows4[(size_t)kk * f4 + q];
+          acc.x = __fadd_rn(acc.x, __fmul_rn(v.x, m));
+          acc.y = __fadd_rn(acc.y, __fmul_rn(v.y, m));
+          acc.z = __fadd_rn(acc.z, __fmul_rn(v.z, m));
+          acc.w = __fadd_rn(acc.w, __fmul_rn(v.w, m));
+        }
+        o4[(size_t)(c0 + r) * f4 + q] = acc;
+      }
+      __syncwarp(group_mask);
+      if (sub == 0) mbar_arrive(empty + slot);
+    }
   }
 }
 
@@ -221,23 +402,6 @@ cudaError_t launch_row_ring(const float* x, const int32_t* idx, float* out, int 
   return cudaGetLastError();
 }
 
-template <int NB>
-cudaError_t launch_chunk_ring(const float* x, const int32_t* gidx, const float* mask,
-                              float* out, int c, int ngs, int f, int chunks_per_warp,
-                              cudaStream_t st) {
-  const long long per_warp = (long long)NB * ngs * f * 4;
-  const int warps = ring_warps(per_warp);
-  if (warps == 0) return cudaErrorInvalidValue;
-  const long long n_warps = (c + (long long)chunks_per_warp - 1) / chunks_per_warp;
-  const long long blocks = (n_warps + warps - 1) / warps;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const cudaError_t err = allow_smem(chunk_sum_ring_kernel<NB>, warps * per_warp);
-  if (err != cudaSuccess) return err;
-  chunk_sum_ring_kernel<NB><<<(unsigned)blocks, warps * 32, warps * per_warp, st>>>(
-      x, gidx, mask, out, c, ngs, f, chunks_per_warp);
-  return cudaGetLastError();
-}
-
 template <int G>
 cudaError_t launch_chunk_gathered(const float* g, const float* mask, float* out, int c,
                                   int ngs, int f, cudaStream_t st) {
@@ -280,43 +444,51 @@ extern "C" int hg_row_gather(const void* x, const void* idx, void* out, int r, i
   }
 }
 
-// gidx null: src is the gathered [c, ngs, f] tensor, `lanes` (4, 8, 16 or
-// 32) a chunk. Else src is x [N, f] and the ring of n_buf (4, 8 or 16)
-// chunks runs, `chunks_per_warp` chunks a warp.
-extern "C" int hg_chunk_masked_sum(const void* src, const void* gidx, const void* mask,
-                                   void* out, int c, int ngs, int f, int n_buf, int lanes,
-                                   int chunks_per_warp, void* stream) {
+// The chunk sum of a gathered [c, ngs, f] tensor, `lanes` (4, 8, 16 or 32)
+// a chunk.
+extern "C" int hg_chunk_masked_sum(const void* g, const void* mask, void* out, int c, int ngs,
+                                   int f, int lanes, void* stream) {
   if (c <= 0 || ngs <= 0 || f <= 0) return (int)cudaErrorInvalidValue;
-  const auto* sp = static_cast<const float*>(src);
-  const auto* gp = static_cast<const int32_t*>(gidx);
+  const auto* gp = static_cast<const float*>(g);
   const auto* mp = static_cast<const float*>(mask);
   auto* op = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  if (gp == nullptr) {
-    switch (lanes) {
-      case 4:
-        return (int)launch_chunk_gathered<4>(sp, mp, op, c, ngs, f, st);
-      case 8:
-        return (int)launch_chunk_gathered<8>(sp, mp, op, c, ngs, f, st);
-      case 16:
-        return (int)launch_chunk_gathered<16>(sp, mp, op, c, ngs, f, st);
-      case 32:
-        return (int)launch_chunk_gathered<32>(sp, mp, op, c, ngs, f, st);
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
-  }
-  if (f % 4 != 0 || chunks_per_warp <= 0) return (int)cudaErrorInvalidValue;
-  switch (n_buf) {
+  switch (lanes) {
     case 4:
-      return (int)launch_chunk_ring<4>(sp, gp, mp, op, c, ngs, f, chunks_per_warp, st);
+      return (int)launch_chunk_gathered<4>(gp, mp, op, c, ngs, f, st);
     case 8:
-      return (int)launch_chunk_ring<8>(sp, gp, mp, op, c, ngs, f, chunks_per_warp, st);
+      return (int)launch_chunk_gathered<8>(gp, mp, op, c, ngs, f, st);
     case 16:
-      return (int)launch_chunk_ring<16>(sp, gp, mp, op, c, ngs, f, chunks_per_warp, st);
+      return (int)launch_chunk_gathered<16>(gp, mp, op, c, ngs, f, st);
+    case 32:
+      return (int)launch_chunk_gathered<32>(gp, mp, op, c, ngs, f, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The chunk sum of x [N, f] through a gather table, by the ring, on the plan
+// of probes.ring_plan: `blocks` blocks of `pairs` producer-consumer warp
+// pairs, each pair `per_pair` consecutive chunks through `slots` slots.
+extern "C" int hg_chunk_sum_ring(const void* x, const void* gidx, const void* mask, void* out,
+                                 int c, int ngs, int f, int blocks, int pairs, int slots,
+                                 int per_pair, void* stream) {
+  if (c <= 0 || ngs <= 0 || f <= 0 || f % 4 != 0 || blocks <= 0 || per_pair <= 0 ||
+      (long long)per_pair * ngs > 0x7fffffffLL ||
+      (long long)blocks * pairs * per_pair < c || pairs < 1 || pairs > kRingMaxPairs ||
+      slots <= 0 || slots % ring_chunks_a_warp(f) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) & 15) != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const long long smem = pairs * (slots * (ring_slot_bytes(ngs, f) + 16) + kRingTableBytes);
+  if (smem > kSmemBudget) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem(chunk_sum_ring_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  chunk_sum_ring_kernel<<<blocks, pairs * 64, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const int32_t*>(gidx),
+      static_cast<const float*>(mask), static_cast<float*>(out), c, ngs, f, pairs, slots,
+      per_pair);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int hg_scaled_copy(const void* x, void* out, long long n, float s, void* stream) {

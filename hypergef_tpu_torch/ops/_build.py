@@ -104,8 +104,8 @@ ENTRIES = {
     "hg_dense_v2e": [_PTR] * 4 + [_INT] * 7 + [_PTR],
     # out: int[8]
     "hg_fused_dense_layout": [_PTR],
-    # x, gidx, mask, out; c, ngs, f, lanes; stream
-    "hg_ell_gather_sum": [_PTR] * 4 + [_INT] * 4 + [_PTR],
+    # x, gidx, mask, out; c, ngs, f, form, lanes, batch; stream
+    "hg_ell_gather_sum": [_PTR] * 4 + [_INT] * 6 + [_PTR],
     # x, tiles, tile_off, win, src, groups, work, counters, scratch, out; n_items,
     # slots, g, b, n, s, f; stream
     "hg_aligned_band": [_PTR] * 10 + [_INT] * 7 + [_PTR],
@@ -129,9 +129,10 @@ ENTRIES = {
                            + [_INT] * 4 + [_PTR],
     # x, idx, out; r, f, n_buf (0: direct), rows_per_warp; stream
     "hg_row_gather": [_PTR] * 3 + [_INT] * 4 + [_PTR],
-    # src, gidx (or null: src is gathered [C, ngs, F]), mask, out; c, ngs, f, n_buf,
-    # lanes, chunks_per_warp; stream
-    "hg_chunk_masked_sum": [_PTR] * 4 + [_INT] * 6 + [_PTR],
+    # g (gathered [C, ngs, F]), mask, out; c, ngs, f, lanes; stream
+    "hg_chunk_masked_sum": [_PTR] * 3 + [_INT] * 4 + [_PTR],
+    # x, gidx, mask, out; c, ngs, f, blocks, pairs, slots, per_pair; stream
+    "hg_chunk_sum_ring": [_PTR] * 4 + [_INT] * 7 + [_PTR],
     # x, out; count (floats), scale; stream
     "hg_scaled_copy": [_PTR] * 2 + [ctypes.c_longlong, ctypes.c_float, _PTR],
 }

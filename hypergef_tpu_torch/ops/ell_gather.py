@@ -12,7 +12,10 @@ f32 [C, ngs], in two forms:
 * :func:`ell_gather_sum` runs the hand-written CUDA kernel
   (``csrc/ell_gather.cu``) on a CUDA tensor and the plain version on a
   CPU tensor. On a CUDA tensor it launches the kernel or raises; it never
-  falls back.
+  falls back. The kernel's form follows from F and x's alignment
+  (:func:`gather_schedule`): a float4 of features a lane where F % 4 == 0
+  and x is 16-byte aligned, else a feature a lane; any contiguous x is
+  taken.
 * :func:`ell_gather_sum_plain` is the same sequential loop in plain torch.
   The kernel rounds each product and each sum as the loop does, so the
   two are bitwise equal.
@@ -25,6 +28,7 @@ so a call checks only ``x``. ``launches`` counts the kernel's launches.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
@@ -79,12 +83,40 @@ def ell_gather_sum_plain(x, gidx, mask):
     return acc
 
 
-def _lanes_per_chunk(f: int) -> int:
-    """F rounded up to a power of two in [4, 32]: a narrow F shares a warp."""
-    for lanes in (4, 8, 16):
-        if f <= lanes:
-            return lanes
-    return 32
+# slots a lane keeps in flight (the kernel's kMaxBatch): a chunk of ngs <= 16
+# is one batch
+MAX_BATCH = 16
+# the kernel's forms, by the code its entry takes
+FORMS = ("quad", "wide")
+
+
+class GatherSchedule(NamedTuple):
+    """How the kernel lays a chunk on lanes: ``lanes_per_chunk`` lanes own a
+    chunk, each issuing ``batch`` slots' row loads before its first add, in
+    one of two ``form``s: ``quad`` (a float4 of features a lane) or ``wide``
+    (a feature a lane)."""
+
+    lanes_per_chunk: int
+    batch: int
+    form: str
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def gather_schedule(f: int, ngs: int, x_aligned: bool) -> GatherSchedule:
+    """The kernel's schedule for width ``f``, ``ngs`` slots a chunk and an x
+    that is (or is not) 16-byte aligned. F % 4 == 0 with an aligned x takes
+    quads on F/4 lanes, otherwise features on F lanes, rounded up to a power
+    of two (at most 32: wider rows take passes). A batch is every slot up to
+    ``MAX_BATCH``."""
+    if f <= 0 or ngs <= 0:
+        raise ValueError(f"unsupported table: F={f}, ngs={ngs}")
+    batch = min(ngs, MAX_BATCH)
+    if f % 4 == 0 and x_aligned:
+        return GatherSchedule(min(_pow2_at_least(f // 4), 32), batch, "quad")
+    return GatherSchedule(min(_pow2_at_least(f), 32), batch, "wide")
 
 
 def _launch(x, table: GatherTable):
@@ -112,11 +144,12 @@ def _launch(x, table: GatherTable):
         )
     lib = _build.load_library()
     out = torch.empty((c, f), dtype=torch.float32, device=dev)
+    sched = gather_schedule(f, ngs, x.data_ptr() % 16 == 0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.hg_ell_gather_sum(
             x.data_ptr(), table.gidx.data_ptr(), table.mask.data_ptr(), out.data_ptr(),
-            c, ngs, f, _lanes_per_chunk(f), stream,
+            c, ngs, f, FORMS.index(sched.form), sched.lanes_per_chunk, sched.batch, stream,
         )
     if err != 0:
         raise RuntimeError(f"ell_gather_sum launch failed: {lib.hg_error_string(err).decode()}")

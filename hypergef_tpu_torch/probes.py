@@ -10,7 +10,9 @@ kernels), with a plain torch version beside it:
   ring of row DMAs);
 * :func:`chunk_masked_sum` — ``out[c] = Σ_k g[c, k] · mask[c, k]`` from a
   gathered ``[C, ngs, F]`` tensor, and :func:`chunk_masked_sum_ring`, the
-  same from ``x`` and a gather table through a ``cp.async`` ring of chunks;
+  same from ``x`` and a gather table through rings of chunk slots in
+  shared memory, each filled by a producer warp's asynchronous copies for
+  its consumer warp, on the launch plan of :func:`ring_plan`;
 * :func:`scaled_copy` — ``out = x · s``.
 
 The ELL level-0 probes whose x is resident run on
@@ -37,13 +39,13 @@ probe builds its tables, not on every call.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from hypergef_tpu_torch.ops import ell_gather, segment_sum
-from hypergef_tpu_torch.ops.ell_gather import GatherTable, _lanes_per_chunk
+from hypergef_tpu_torch.ops.ell_gather import GatherTable
 
 row_gather_launches = 0
 chunk_sum_launches = 0
@@ -51,7 +53,70 @@ scaled_copy_launches = 0
 
 RING_DEPTHS = (4, 8, 16)
 NGS = 8
-_WARPS_TARGET = 4096  # a ring run's warps: rows (or chunks) are split into this many runs
+_WARPS_TARGET = 4096  # a row ring's warps: rows are split into this many runs
+# the chunk ring (csrc/probes.cu): a block's shared memory on sm_90 (all an
+# SM holds, less the 1 KB the runtime keeps for the block), the
+# producer-consumer warp pairs a block holds at most (kSmemBudget,
+# kRingMaxPairs), and a pair's table ring: 6 steps of 32 (index, mask) pairs
+# (kRingTableBytes)
+RING_BUDGET = 232_448
+RING_MAX_PAIRS = 16
+RING_TABLE_BYTES = 6 * 32 * 8
+
+
+class RingPlan(NamedTuple):
+    """The chunk ring's launch: ``blocks`` blocks of ``pairs`` pairs of a
+    producer and a consumer warp, each pair ``per_pair`` consecutive chunks
+    through ``slots`` chunk slots; ``smem`` bytes of shared memory a block
+    (the pairs' slots and table rings)."""
+
+    blocks: int
+    pairs: int
+    slots: int
+    per_pair: int
+    smem: int
+
+
+def ring_chunks_a_warp(f: int) -> int:
+    """The chunks a consumer warp sums at once: F / 4 lanes a chunk, rounded
+    up to a power of two in [8, 32] (the kernel's ``ring_chunks_a_warp``)."""
+    lanes = 8
+    while lanes < f // 4 and lanes < 32:
+        lanes *= 2
+    return 32 // lanes
+
+
+def ring_slot_bytes(ngs: int, f: int) -> int:
+    """A slot's shared memory: ngs rows of F floats, the mask row padded to
+    16 bytes, and the slot's full and empty barriers."""
+    return ngs * f * 4 + -(-ngs * 4 // 16) * 16 + 16
+
+
+def ring_plan(c: int, ngs: int, f: int, n_buf: int, sms: int) -> RingPlan:
+    """One wave: a block an SM at most, each pair a contiguous range of
+    chunks. The pairs a block holds follow from its budget at the
+    deepest ring (``max(RING_DEPTHS)`` slots a pair), so they are the same at
+    every depth; ``n_buf`` slots a pair, fewer only where the budget holds
+    fewer. Slots come in multiples of the chunks a consumer warp sums at
+    once, so that each slot has one lane group; chunks too large for that
+    raise."""
+    if n_buf not in RING_DEPTHS:
+        raise ValueError(f"n_buf must be one of {RING_DEPTHS}, got {n_buf}")
+    if min(c, ngs, f, sms) <= 0:
+        raise ValueError(f"unsupported ring: C={c}, ngs={ngs}, F={f}, SMs={sms}")
+    slot = ring_slot_bytes(ngs, f)
+    pairs = max(1, min(RING_MAX_PAIRS,
+                       RING_BUDGET // (max(RING_DEPTHS) * slot + RING_TABLE_BYTES)))
+    cpw = ring_chunks_a_warp(f)
+    slots = min(n_buf, (RING_BUDGET // pairs - RING_TABLE_BYTES) // slot) // cpw * cpw
+    if slots <= 0:
+        raise ValueError(f"a chunk of {ngs} rows of F={f} exceeds the block's "
+                         f"{RING_BUDGET} bytes")
+    per_pair = -(-c // (sms * pairs))
+    n_pairs = -(-c // per_pair)
+    pairs = min(pairs, n_pairs)  # a block no larger than the chunks need
+    return RingPlan(-(-n_pairs // pairs), pairs, slots, per_pair,
+                    pairs * (slots * slot + RING_TABLE_BYTES))
 
 
 # ---- the kernels' wrappers and plain versions ----------------------------
@@ -76,6 +141,15 @@ def _ring_ready(x, n_buf: int) -> None:
         raise ValueError(f"n_buf must be one of {RING_DEPTHS}, got {n_buf}")
     if x.shape[1] % 4 or x.data_ptr() % 16:
         raise ValueError("the ring copies 16-byte pieces: F % 4 == 0 and x 16-byte aligned")
+
+
+def _lanes_per_chunk(f: int) -> int:
+    """The gathered chunk sum's lanes a chunk: F rounded up to a power of two
+    in [4, 32], so a narrow F shares a warp."""
+    for lanes in (4, 8, 16):
+        if f <= lanes:
+            return lanes
+    return 32
 
 
 def _raise(lib, err: int, what: str) -> None:
@@ -145,8 +219,8 @@ def chunk_masked_sum(g, mask):
     out = torch.empty((c, f), dtype=torch.float32, device=g.device)
     lib = _build.load_library()
     with torch.cuda.device(g.device):
-        err = lib.hg_chunk_masked_sum(g.data_ptr(), 0, mask.data_ptr(), out.data_ptr(), c, ngs,
-                                      f, 0, _lanes_per_chunk(f), 0, _stream(g.device))
+        err = lib.hg_chunk_masked_sum(g.data_ptr(), mask.data_ptr(), out.data_ptr(), c, ngs, f,
+                                      _lanes_per_chunk(f), _stream(g.device))
     _raise(lib, err, "chunk_masked_sum")
     chunk_sum_launches += 1
     return out
@@ -154,8 +228,10 @@ def chunk_masked_sum(g, mask):
 
 def chunk_masked_sum_ring(x, gidx, mask, n_buf: int):
     """``out[c] = Σ_k x[gidx[c, k]] · mask[c, k]``: x f32 [N, F], gidx int32
-    [C, ngs] in [0, N), mask f32 [C, ngs], with ``n_buf`` chunks a warp in
-    flight through a ``cp.async`` ring; bitwise equal to the plain loop
+    [C, ngs] in [0, N), mask f32 [C, ngs], with ``n_buf`` chunk slots a
+    consumer warp in flight through the ring (:func:`ring_plan`); F % 4 == 0
+    and x 16-byte aligned, since the producers copy rows in 16-byte pieces.
+    Bitwise equal to the plain loop
     (:func:`~hypergef_tpu_torch.ops.ell_gather.ell_gather_sum_plain`)."""
     global chunk_sum_launches
     if x.device.type == "cpu":
@@ -172,11 +248,12 @@ def chunk_masked_sum_ring(x, gidx, mask, n_buf: int):
     (c, ngs), f = gidx.shape, x.shape[1]
     out = torch.empty((c, f), dtype=torch.float32, device=x.device)
     lib = _build.load_library()
-    per_warp = max(n_buf, -(-c // _WARPS_TARGET))
+    plan = ring_plan(c, ngs, f, n_buf, torch.cuda.get_device_properties(x.device)
+                     .multi_processor_count)
     with torch.cuda.device(x.device):
-        err = lib.hg_chunk_masked_sum(x.data_ptr(), gidx.data_ptr(), mask.data_ptr(),
-                                      out.data_ptr(), c, ngs, f, n_buf, 0, per_warp,
-                                      _stream(x.device))
+        err = lib.hg_chunk_sum_ring(x.data_ptr(), gidx.data_ptr(), mask.data_ptr(),
+                                    out.data_ptr(), c, ngs, f, plan.blocks, plan.pairs,
+                                    plan.slots, plan.per_pair, _stream(x.device))
     _raise(lib, err, "chunk_masked_sum (ring)")
     chunk_sum_launches += 1
     return out

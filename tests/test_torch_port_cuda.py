@@ -11,8 +11,10 @@ Tolerances:
   Kernel and plain version round the same operands to bf16, but sum in
   different orders, so Xe can round to a neighbouring bf16 value (2^-8
   relative) before the second stage.
-* gather kernel: bitwise equal to the sequential plain loop, which rounds
-  each product and each sum in the same order.
+* gather kernel and the probes' chunk-sum ring: bitwise equal to the
+  sequential plain loop, which rounds each product and each sum in the same
+  order; a row holding Inf that only dead slots name gives NaN in the same
+  places.
 * band kernel (aligned stages): rtol 1e-5 and atol 1e-5·max|plain|. The
   products are exact in f32 in both forms; the kernel sums each row in one
   order (window, then spill), the plain chain in bmm's order and band and
@@ -146,6 +148,56 @@ def test_gather_kernel_is_bitwise_plain(cuda, n, c, ngs, f):
     assert got.shape == want.shape == (c, f)
     assert torch.equal(got, want), float((got - want).abs().max())
     assert torch.equal(got, again), "two runs differ"
+
+
+def _dead_inf_operands(n, c, ngs, f, seed, device, aligned=True):
+    """x, gidx, mask with row 0 of x all Inf, named only by dead slots (a
+    quarter of them), so 0·Inf makes NaN where the plain loop makes it; x
+    is 16-byte aligned or, with ``aligned`` False, a contiguous view 4 bytes
+    past an aligned start."""
+    rng = np.random.default_rng(seed)
+    xn = rng.normal(size=(n, f)).astype(np.float32)
+    xn[0] = np.inf
+    gidx = rng.integers(1, n, size=(c, ngs)).astype(np.int32)
+    mask = (rng.random((c, ngs)) > 0.3).astype(np.float32)
+    gidx[(mask == 0) & (rng.random((c, ngs)) < 0.25)] = 0
+    if aligned:
+        x = torch.as_tensor(xn, device=device)
+    else:
+        x = torch.empty(n * f + 1, device=device)[1:].view(n, f)
+        x.copy_(torch.as_tensor(xn))
+        assert x.data_ptr() % 16 == 4 and x.is_contiguous()
+    return (x, torch.as_tensor(gidx, device=device), torch.as_tensor(mask, device=device))
+
+
+def _assert_bitwise_with_nans(got, want):
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan), "NaN in other places than the plain loop's"
+    assert torch.equal(got[~nan], want[~nan]), float((got - want)[~nan].abs().max())
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("f", [1, 3, 4, 6, 32, 33, 128])
+@pytest.mark.parametrize("ngs", [1, 2, 5, 8, 16, 64])
+def test_gather_kernel_is_bitwise_plain_in_every_form(cuda, ngs, f, aligned):
+    """Every form of the schedule (quad, wide; vector or scalar
+    tables; several batches at ngs 64) on 1003 chunks, a multiple of no
+    warp's or block's chunks, with dead slots naming an Inf row."""
+    n, c = 517, 1003
+    x, gidx, mask = _dead_inf_operands(n, c, ngs, f, seed=ngs * 100 + f, device=cuda,
+                                       aligned=aligned)
+    table = ell_gather.GatherTable(gidx=gidx, gidx_long=gidx.long(), mask=mask, num_inputs=n)
+    sched = ell_gather.gather_schedule(f, ngs, x.data_ptr() % 16 == 0)
+    assert (sched.form == "quad") == (aligned and f % 4 == 0)
+    before = ell_gather.launches
+    got = ell_gather.ell_gather_sum(x, table)
+    again = ell_gather.ell_gather_sum(x, table)
+    torch.cuda.synchronize()
+    assert ell_gather.launches == before + 2
+    want = ell_gather.ell_gather_sum_plain(x, table.gidx_long, table.mask)
+    assert bool(torch.isnan(want).any()) and got.shape == want.shape == (c, f)
+    _assert_bitwise_with_nans(got, want)
+    _assert_bitwise_with_nans(again, got)
 
 
 def test_gather_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -1311,6 +1363,53 @@ def test_chunk_masked_sum_kernels_are_bitwise_plain(cuda, ngs, f):
             assert torch.equal(probes.chunk_masked_sum_ring(x, gidx, mask, nb), want)
     torch.cuda.synchronize()
     assert probes.chunk_sum_launches == before + 1 + (3 if f % 4 == 0 else 0)
+
+
+@pytest.mark.parametrize("n_buf", [4, 8, 16])
+@pytest.mark.parametrize("ngs,f", [(1, 4), (2, 128), (5, 32), (8, 32), (16, 4), (64, 128),
+                                   (8, 64)])
+def test_chunk_ring_is_bitwise_plain(cuda, ngs, f, n_buf):
+    """The ring at every depth on 3001 chunks (a multiple of no block's or
+    consumer's share), with dead slots naming an Inf row; one launch a call,
+    two runs bitwise equal."""
+    from hypergef_tpu_torch import probes
+
+    x, gidx, mask = _dead_inf_operands(900, 3001, ngs, f, seed=ngs * f + n_buf, device=cuda)
+    before = probes.chunk_sum_launches
+    got = probes.chunk_masked_sum_ring(x, gidx, mask, n_buf)
+    again = probes.chunk_masked_sum_ring(x, gidx, mask, n_buf)
+    torch.cuda.synchronize()
+    assert probes.chunk_sum_launches == before + 2
+    want = ell_gather.ell_gather_sum_plain(x, gidx.long(), mask)
+    assert bool(torch.isnan(want).any())
+    _assert_bitwise_with_nans(got, want)
+    _assert_bitwise_with_nans(again, got)
+
+
+@pytest.mark.parametrize("n_buf", [4, 8, 16])
+@pytest.mark.parametrize("c", [1, 7, 131])
+def test_chunk_ring_with_fewer_chunks_than_the_grid(cuda, c, n_buf):
+    from hypergef_tpu_torch import probes
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = probes.ring_plan(c, 8, 32, n_buf, sms)
+    assert plan.blocks * plan.pairs * plan.per_pair >= c and plan.per_pair == 1
+    x, gidx, mask = _dead_inf_operands(50, c, 8, 32, seed=c + n_buf, device=cuda)
+    got = probes.chunk_masked_sum_ring(x, gidx, mask, n_buf)
+    _assert_bitwise_with_nans(got, ell_gather.ell_gather_sum_plain(x, gidx.long(), mask))
+
+
+def test_chunk_ring_rejects_what_the_kernel_does_not_take(cuda):
+    from hypergef_tpu_torch import probes
+
+    x, gidx, mask = _dead_inf_operands(64, 40, 4, 8, seed=3, device=cuda)
+    with pytest.raises(ValueError, match="n_buf"):
+        probes.chunk_masked_sum_ring(x, gidx, mask, 5)
+    unaligned = torch.empty(64 * 8 + 1, device=cuda)[1:].view(64, 8)
+    with pytest.raises(ValueError, match="16-byte"):
+        probes.chunk_masked_sum_ring(unaligned, gidx, mask, 4)
+    with pytest.raises(ValueError, match="16-byte"):
+        probes.chunk_masked_sum_ring(x[:, :6].contiguous(), gidx, mask, 4)
 
 
 @pytest.mark.parametrize("numel", [1, 7, 4096, 1_000_003])
