@@ -182,7 +182,10 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    at their scripts' shapes, probe_r2_gather's 2M-row scale included: each
    case against its script's oracle (bitwise for gathers and copies, rtol
    1e-5 for sums) and timed against a library call; the row gather, chunk sum
-   and scaled copy kernels against their plain versions.
+   and scaled copy kernels against their plain versions; the row gather's
+   ring depths at pallas_probe3's take and every form at the 2M-row scale
+   against two bounds (distinct rows, every named row); the scaled copy at
+   [1,048,576, 128] against its bound, and an empty launch.
 
 Phases 8 and 12 also time one ``torch.sparse.mm`` of the gather table's
 and of each aligned stage's CSR matrix (the library yardstick; the port
@@ -1822,9 +1825,13 @@ def default_times(device, card: str, graphs, problems) -> dict:
 def time_probe_kernels(device) -> dict:
     """Each probe kernel against its plain version and a library call at a
     probe's shapes: the row gather at pallas_probe3's flat take (85,024 rows
-    of [19,717, 32]), the chunk sum at its e_call ([10,628, 8, 32]), the
-    scaled copy at probe_r2b_bisect's k0 ([1024, 128])."""
+    of [19,717, 32]; direct, and each ring depth beside it), the chunk sum
+    at its e_call ([10,628, 8, 32]), the scaled copy at probe_r2b_bisect's
+    k0 ([1024, 128]) and at [1,048,576, 128] (512 MiB each way, where bytes
+    rule), and an empty launch (``torch.cuda._sleep(0)``): the floor of any
+    launch, which k0's copy cannot beat."""
     from hypergef_tpu_torch import probes
+    from hypergef_tpu_torch.utils.timing import cuda_time_ms
 
     rng = np.random.default_rng(0)
     x = torch.as_tensor(rng.normal(size=(19717, 32)).astype(np.float32), device=device)
@@ -1833,11 +1840,15 @@ def time_probe_kernels(device) -> dict:
     g = torch.as_tensor(rng.normal(size=(10628, 8, 32)).astype(np.float32), device=device)
     m = torch.as_tensor((rng.random((10628, 8)) > 0.2).astype(np.float32), device=device)
     x0 = torch.as_tensor(rng.normal(size=(1024, 128)).astype(np.float32), device=device)
+    big = torch.as_tensor(rng.normal(size=(1_048_576, 128)).astype(np.float32), device=device)
     order = ("plain", "kernel", "library", "library", "kernel", "plain")
+    rings = {f"ring_n_buf{nb}": lambda nb=nb: probes.row_gather(x, idx, nb)
+             for nb in probes.RING_DEPTHS}
     out = {
         "row_gather": time_turns({"kernel": lambda: probes.row_gather(x, idx),
                                   "plain": lambda: probes.row_gather_plain(x, idx),
-                                  "library": lambda: x.index_select(0, idx_long)}, order),
+                                  "library": lambda: x.index_select(0, idx_long), **rings},
+                                 order[:3] + tuple(rings) + tuple(rings)[::-1] + order[3:]),
         "chunk_masked_sum": time_turns({
             "kernel": lambda: probes.chunk_masked_sum(g, m),
             "plain": lambda: probes.chunk_masked_sum_plain(g, m),
@@ -1846,10 +1857,33 @@ def time_probe_kernels(device) -> dict:
                                    "plain": lambda: x0 * 2.0,
                                    "library": lambda: torch.mul(x0, 2.0)}, order),
     }
+    large = time_turns({"kernel": lambda: probes.scaled_copy(big, 2.0),
+                        "plain": lambda: big * 2.0,
+                        "library": lambda: torch.mul(big, 2.0)}, order, iters=2)
     out["row_gather"].update(bound(rows_read_bytes(x, idx) + nbytes(idx) + idx.shape[0] * 32 * 4,
                                    0))
     out["chunk_masked_sum"].update(bound(nbytes(g, m) + 10628 * 32 * 4, 2 * g.numel()))
     out["scaled_copy"].update(bound(2 * nbytes(x0), x0.numel()))
+    out["scaled_copy"].update({f"large_{k}": v for k, v in
+                               {**large, **bound(2 * nbytes(big), big.numel())}.items()})
+    out["scaled_copy"]["empty_launch_ms"] = cuda_time_ms(lambda: torch.cuda._sleep(0),
+                                                         repeats=20, iters=10)
+    return out
+
+
+def r2_gather_bound() -> dict:
+    """The bound of probe_r2_gather's flat row gather at its 2M-row scale
+    (the probe's own table, flattened: 9,998,336 rows of a [2,000,000, 32]
+    x): the distinct rows named, each read once, with the index read and
+    the output written once; beside it ``bound_named_ms``, every named row
+    read once, which a gather of an x larger than the L2 can reach."""
+    from hypergef_tpu_torch import probes
+
+    n, nnz, f = probes.R2_SCALES["big"]
+    gidx = np.random.default_rng(0).integers(0, n, size=(nnz // probes.NGS, probes.NGS))
+    rest = nnz * 4 + nnz * f * 4
+    out = bound(int(np.unique(gidx).size) * f * 4 + rest, 0)
+    out["bound_named_ms"] = (nnz * f * 4 + rest) / HBM_BYTES_PER_S * 1e3
     return out
 
 
@@ -1902,6 +1936,7 @@ def probe_phase(device, card: str) -> dict:
         launches[r["kernel"]] = launches.get(r["kernel"], 0) + r["launches"]
     times = time_probe_kernels(device)
     times["r2 chunk sum bounds"] = r2_chunk_sum_bounds()
+    times["r2 gather bound"] = r2_gather_bound()
     print(f"phase 25 probes (ms, CUDA events behind a queued sleep, median of 20; card {card}): "
           + json.dumps([{k: r[k] for k in ("probe", "case", "kernel", "ok", "max_abs_err", "ms",
                                            "library_ms")} for r in rows]), flush=True)
@@ -2363,6 +2398,24 @@ def main() -> int:
     (chunk_sum,) = [k for k in kernels if k["name"] == "chunk_masked_sum"]
     chunk_sum.update({f"ring_n_buf{nb}_{k}": v for nb in RING_DEPTHS
                       for k, v in r2_big(probed, f"big pallas_dma n_buf={nb}").items()})
+    # the row gather: each ring depth at the take the line times, and every
+    # form at probe_r2_gather's 2M-row scale with its two bounds; the
+    # scaled copy at [1,048,576, 128] and an empty launch's time
+    (rows,) = [k for k in kernels if k["name"] == "row_gather"]
+    rows.update({f"ring_n_buf{nb}_ms": probed["times"]["row_gather"][f"ring_n_buf{nb}"]
+                 for nb in RING_DEPTHS})
+    big = {r["case"].removeprefix("big xla_gather "): r for r in probed["rows"]
+           if r["probe"] == "probe_r2_gather" and r["case"].startswith("big xla_gather")}
+    rows.update({f"big_{form.replace(' ', '_').replace('=', '')}_ms": r["ms"]
+                 for form, r in big.items()})
+    rows.update({"big_library_ms": big["direct"]["library_ms"],
+                 "big_bound_ms": probed["times"]["r2 gather bound"]["bound_ms"],
+                 "big_bound_named_ms": probed["times"]["r2 gather bound"]["bound_named_ms"]})
+    (copy,) = [k for k in kernels if k["name"] == "scaled_copy"]
+    copy.update({f"large_{k}": probed["times"]["scaled_copy"][f"large_{key}"]
+                 for k, key in (("ms", "kernel"), ("plain_ms", "plain"),
+                                ("library_ms", "library"), ("bound_ms", "bound_ms"))})
+    copy["empty_launch_ms"] = probed["times"]["scaled_copy"]["empty_launch_ms"]
     for k in kernels:
         t = timed[k["name"]]
         sites = KERNEL_SITES.get(k["name"], [RECORD_SUM_SITE])

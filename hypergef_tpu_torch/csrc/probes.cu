@@ -5,16 +5,37 @@
 // carried one construct (a row gather, a ring of DMAs, a masked chunk sum,
 // a blocked copy); each family here carries the card's form of it:
 //
-// * row gather, out[r, :] = x[idx[r], :]
-//   - "direct": one warp a row, lanes over features, loads through L2
-//     (scripts/pallas_probe.py::run_k1 :47, run_k2 :69;
+// * row gather, out[r, :] = x[idx[r], :], on the launch plan of
+//   probes.row_plan: each warp a contiguous range of rows (so its output is
+//   one contiguous block of memory), the rows spread over every SM first,
+//   and past 32 rows a direct warp or 64 a ring warp, more waves of blocks
+//   rather than longer ranges: the block scheduler then keeps the grid's
+//   reads and writes in one moving window, which measured faster at the
+//   2M-row scale than one wave of long ranges
+//   - "direct" (scripts/pallas_probe.py::run_k1 :47, run_k2 :69;
 //     pallas_probe2.py::b_call :59, c_call :81;
 //     probe_r2b_bisect.py::k1 :64, k1b :82, k2 :102, k3 :124, k4 :149,
-//     k6 :214);
-//   - "ring": a warp walks a run of rows and keeps n_buf of them in flight
-//     with cp.async into a ring in shared memory, the card's form of a ring
-//     of row DMAs (pallas_probe.py::run_k4 :147, 8 in flight;
-//     pallas_probe2.py::d_call :126, 16 in flight).
+//     k6 :214; pallas_probe3.py's and probe_r2_gather.py's flat take): the
+//     warp takes its range 32 rows at a time, each lane holding one row's
+//     index from one coalesced load (the next 32 loaded ahead) and handing
+//     it round by __shfl_sync; the 32 rows' pieces (float4s where F % 4 ==
+//     0 and x and out are 16-byte aligned, else floats) are dealt to the
+//     lanes in output order, kRowUnroll loads a lane issued before the
+//     first store, x read past L1 (.cg: a gathered row is seldom read
+//     again by its SM) and out stored evict-first (.cs: nothing reads it
+//     back);
+//   - "ring": n_buf rows a warp in flight through a ring in shared memory
+//     (pallas_probe.py::run_k4 :147, 8 in flight; pallas_probe2.py::d_call
+//     :126, 16 in flight): stages of `tile` consecutive rows (a warp's worth
+//     of 16-byte pieces, at most n_buf rows), copied in by the lanes'
+//     cp.async and stored by the lane that copied each piece, which then
+//     refills its stage: every row of the ring in flight but the stage
+//     being stored, and no lane waits for another. The warps a block follow
+//     from the block's 232,448 bytes at the deepest ring, so a deeper ring
+//     costs no warps. A first design wrote each stage out by one
+//     cp.async.bulk store from one lane: its time followed the number of
+//     bulk stores an SM issued, about 35-40 cycles each, whatever their
+//     size (PERF.md).
 // * masked chunk sum, out[c, :] = sum_k src[c, k, :] * mask[c, k]
 //   - from a gathered [C, ngs, F] tensor, a group of lanes a chunk
 //     (pallas_probe.py::run_k6 :176; pallas_probe2.py::e_call :151;
@@ -28,8 +49,10 @@
 //   (__fmul_rn, __fadd_rn), dead slots multiplied like live ones, as the
 //   plain loop and the gather kernel (ell_gather.cu) do, so the three agree
 //   bitwise.
-// * scaled copy, out = x * s, float4 loads over a grid-stride loop
-//   (probe_r2b_bisect.py::k0 :49).
+// * scaled copy, out = x * s (probe_r2b_bisect.py::k0 :49): a float4 a
+//   thread over every block the float4s need, out stored evict-first; the
+//   n % 4 tail by the first threads. One-wave grids whose threads keep 1-8
+//   loads in flight measured 4-34% slower at [1048576, 128] (PERF.md).
 //
 // All of them move bytes and do almost no arithmetic: the bound is the
 // bytes over the memory rate, or L2 latency for the gathers, which the ring
@@ -78,7 +101,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxRingWarps = 4;          // warps of a row-ring block
+constexpr int kDirectBlocks = 4;          // direct row-gather blocks an SM (<= 64 registers)
+constexpr int kRowUnroll = 8;             // pieces a lane loads before it stores them
+constexpr int kRowMaxWarps = 32;          // warps of a row-ring block
 constexpr int kRingMaxPairs = 16;         // producer-consumer warp pairs of a chunk-ring block
 constexpr int kRingTable = 6;             // steps of table rows a ring producer stages ahead
 constexpr int kRingStepShare = 4;         // a ring producer's step: a quarter of its ring at most
@@ -136,50 +161,125 @@ __device__ __forceinline__ void mbar_wait(uint64_t* b, unsigned parity) {
 
 // ---- row gather -----------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
-row_gather_direct_kernel(const float* __restrict__ x, const int32_t* __restrict__ idx,
-                         float* __restrict__ out, int r_total, int f) {
-  const long long r = ((long long)blockIdx.x * kThreads + threadIdx.x) / 32;
-  if (r >= r_total) return;
-  const int lane = threadIdx.x % 32;
-  const float* src = x + (size_t)__ldg(idx + r) * f;
-  float* dst = out + (size_t)r * f;
-  for (int c = lane; c < f; c += 32) dst[c] = __ldg(src + c);
+// Piece (j, q), row j and piece q of a row of p pieces, advanced by 32
+// pieces: the lanes deal a run of rows out in output order.
+__device__ __forceinline__ void next_piece(int& j, int& q, int p, int dj, int dq) {
+  j += dj;
+  q += dq;
+  if (q >= p) q -= p, ++j;
 }
 
-// A warp copies rows [r0, r1): NB - 1 rows are requested ahead; at row r it
-// requests row r + NB - 1 into the slot row r - 1 left, waits until at most
-// NB - 1 groups are pending (so row r's has landed), and stores row r. Each
-// lane reads back only the 16-byte pieces it copied itself.
+// V is float4 (p = F / 4) or float (p = F). The warp takes rows [r0, r0 + n)
+// 32 at a time: lane l holds the index of row l, and piece e of the 32 rows
+// (row e / p, piece e % p) is lane e % 32's, so consecutive lanes load
+// consecutive pieces of a row and store consecutive pieces of out.
+template <typename V>
+__global__ void __launch_bounds__(kThreads, kDirectBlocks)
+row_gather_direct_kernel(const V* __restrict__ x, const int32_t* __restrict__ idx,
+                         V* __restrict__ out, int r_total, int p, int per_warp) {
+  const long long r0 =
+      ((long long)blockIdx.x * (kThreads / 32) + threadIdx.x / 32) * per_warp;
+  if (r0 >= r_total) return;
+  const int n = (int)min((long long)per_warp, r_total - r0);
+  const int lane = threadIdx.x % 32;
+  // a / p for a <= 32 and p <= 32 by one reciprocal: (a * ceil(2^16 / p)) >>
+  // 16 errs by under a * 2^-16 < 1 / p, so it floors exactly; a row of more
+  // than 32 pieces starts every pass at row 0
+  const int inv = (65536 + p - 1) / p;
+  const int dj = p > 32 ? 0 : (32 * inv) >> 16, dq = 32 - dj * p;
+  const int j0 = p > 32 ? 0 : (lane * inv) >> 16, q0 = lane - j0 * p;
+  const int32_t* ib = idx + r0;
+  int ahead = __ldg(ib + min(lane, n - 1));
+  for (int b = 0; b < n; b += 32) {
+    const int mine = ahead;
+    ahead = __ldg(ib + min(b + 32 + lane, n - 1));  // the next 32 rows' indices
+    const int nb = min(32, n - b);
+    const int total = nb * p;
+    V* dst = out + (size_t)(r0 + b) * p;
+    int j = j0, q = q0;
+    for (int e0 = 0; e0 < total; e0 += 32 * kRowUnroll) {
+      V v[kRowUnroll];
+#pragma unroll
+      for (int u = 0; u < kRowUnroll; ++u) {
+        // a piece past the last row is neither loaded nor stored
+        const int src = __shfl_sync(kFullMask, mine, min(j, nb - 1));
+        v[u] = j < nb ? __ldcg(x + (size_t)src * p + q) : V{};
+        next_piece(j, q, p, dj, dq);
+      }
+#pragma unroll
+      for (int u = 0; u < kRowUnroll; ++u) {
+        const int e = e0 + 32 * u + lane;
+        if (e < total) __stcs(dst + e, v[u]);
+      }
+    }
+  }
+}
+
+// Until at most n of this thread's cp.async groups are pending (n < 16).
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 7: cp_async_wait<7>(); break;
+    default: cp_async_wait<15>(); break;
+  }
+}
+
+// A warp copies rows [r0, r0 + n) through its ring of NB rows: `stages` =
+// NB / tile stages of `tile` consecutive rows. Tile t lands in stage t %
+// stages by the lanes' cp.async copies (each lane's cp.async group t), and
+// every lane stores the pieces it copied itself, so no lane waits for
+// another. Each lane takes one row of a tile (row lane / f4, piece lane %
+// f4, where a tile's pieces fit a warp; else row 0, pieces lane, lane + 32,
+// ...). At step t a lane waits for its copies of tile t, stores them, and
+// refills the stage with tile t + stages: all NB rows in flight but the
+// tile being stored. The indices come 32 rows at a time, one coalesced
+// load, the next 32 loaded ahead, handed round by __shfl_sync (a tile,
+// a power of two of at most 16 rows, never straddles two such batches).
 template <int NB>
-__global__ void row_gather_ring_kernel(const float* __restrict__ x,
-                                       const int32_t* __restrict__ idx,
-                                       float* __restrict__ out, int r_total, int f4,
-                                       int rows_per_warp) {
+__global__ void __launch_bounds__(kRowMaxWarps * 32, 1)
+row_gather_ring_kernel(const float* __restrict__ x, const int32_t* __restrict__ idx,
+                       float* __restrict__ out, int r_total, int f4, int per_warp, int tile) {
   extern __shared__ float4 ring_smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long r0 = ((long long)blockIdx.x * (blockDim.x / 32) + warp) * per_warp;
+  if (r0 >= r_total) return;
+  const int n = (int)min((long long)per_warp, r_total - r0);
+  const int stages = NB / tile;
+  const int tiles = (n + tile - 1) / tile;
   float4* ring = ring_smem + (size_t)warp * NB * f4;
-  const long long r0 = ((long long)blockIdx.x * (blockDim.x / 32) + warp) * rows_per_warp;
-  const long long r1 = min(r0 + rows_per_warp, (long long)r_total);
-  if (r0 >= r1) return;
   const float4* x4 = reinterpret_cast<const float4*>(x);
-  float4* o4 = reinterpret_cast<float4*>(out);
-  auto issue = [&](long long r, int slot) {
-    const float4* src = x4 + (size_t)__ldg(idx + r) * f4;
-    float4* dst = ring + (size_t)slot * f4;
-    for (int q = lane; q < f4; q += 32) cp_async16(dst + q, src + q);
+  float4* o4 = reinterpret_cast<float4*>(out) + (size_t)r0 * f4;
+  const int32_t* ib = idx + r0;
+  const int j = f4 <= 32 ? lane / f4 : 0;
+  const int q0 = f4 <= 32 ? lane % f4 : lane;
+  int batch = 0;
+  int mine = __ldg(ib + min(lane, n - 1));
+  int ahead = __ldg(ib + min(32 + lane, n - 1));
+  auto issue = [&](int t) {
+    if (t * tile / 32 != batch) {  // the same step on every lane
+      ++batch;
+      mine = ahead;
+      ahead = __ldg(ib + min(32 * (batch + 1) + lane, n - 1));
+    }
+    const int src = __shfl_sync(kFullMask, mine, (t * tile + j) & 31);
+    if (t < tiles && j < min(tile, n - t * tile)) {
+      float4* dst = ring + (size_t)((t % stages) * tile + j) * f4;
+      for (int q = q0; q < f4; q += 32) cp_async16(dst + q, x4 + (size_t)src * f4 + q);
+    }
+    cp_async_commit();
   };
-  for (int j = 0; j < NB - 1; ++j) {
-    if (r0 + j < r1) issue(r0 + j, j);
-    cp_async_commit();
-  }
-  for (long long r = r0; r < r1; ++r) {
-    const long long ahead = r + NB - 1;
-    if (ahead < r1) issue(ahead, (int)((ahead - r0) % NB));
-    cp_async_commit();
-    cp_async_wait<NB - 1>();
-    const float4* src = ring + (size_t)((r - r0) % NB) * f4;
-    for (int q = lane; q < f4; q += 32) o4[(size_t)r * f4 + q] = src[q];
+  for (int t = 0; t < stages; ++t) issue(t);
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait_upto(stages - 1);  // this lane's copies of tile t have landed
+    if (j < min(tile, n - t * tile)) {
+      const float4* src = ring + (size_t)((t % stages) * tile + j) * f4;
+      float4* dst = o4 + ((size_t)t * tile + j) * f4;
+      for (int q = q0; q < f4; q += 32) __stcs(dst + q, src[q]);
+    }
+    // the stores took their values from the stage before it is refilled
+    issue(t + stages);
   }
 }
 
@@ -353,30 +453,20 @@ chunk_sum_ring_kernel(const float* __restrict__ x, const int32_t* __restrict__ g
 
 // ---- scaled copy ----------------------------------------------------------
 
+// A float4 a thread over as many blocks as the float4s need: the block
+// scheduler keeps the grid's reads and writes in one moving window, which
+// measured faster than any one-wave grid-stride form (PERF.md).
 __global__ void __launch_bounds__(kThreads)
-scaled_copy_kernel(const float* __restrict__ x, float* __restrict__ out, long long n,
-                   float s) {
-  const long long stride = (long long)gridDim.x * kThreads;
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+scaled_copy_kernel(const float* __restrict__ x, float* __restrict__ out, long long n, float s) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   const long long n4 = n / 4;
-  const float4* x4 = reinterpret_cast<const float4*>(x);
-  float4* o4 = reinterpret_cast<float4*>(out);
-  for (long long i = t; i < n4; i += stride) {
-    float4 v = __ldg(x4 + i);
-    v.x = __fmul_rn(v.x, s);
-    v.y = __fmul_rn(v.y, s);
-    v.z = __fmul_rn(v.z, s);
-    v.w = __fmul_rn(v.w, s);
-    o4[i] = v;
+  if (i < n4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(x) + i);
+    __stcs(reinterpret_cast<float4*>(out) + i,
+           make_float4(__fmul_rn(v.x, s), __fmul_rn(v.y, s), __fmul_rn(v.z, s),
+                       __fmul_rn(v.w, s)));
   }
-  for (long long i = n4 * 4 + t; i < n; i += stride) out[i] = __fmul_rn(__ldg(x + i), s);
-}
-
-// Warps a ring block can hold within a block's shared memory, or 0.
-int ring_warps(long long bytes_per_warp) {
-  if (bytes_per_warp <= 0 || bytes_per_warp > kSmemBudget) return 0;
-  const long long w = kSmemBudget / bytes_per_warp;
-  return (int)(w < kMaxRingWarps ? w : kMaxRingWarps);
+  if (i < n - n4 * 4) out[n4 * 4 + i] = __fmul_rn(__ldg(x + n4 * 4 + i), s);
 }
 
 // Lets `kernel` take `bytes` of dynamic shared memory (an opt-in above 48 KB).
@@ -388,17 +478,14 @@ cudaError_t allow_smem(K kernel, long long bytes) {
 
 template <int NB>
 cudaError_t launch_row_ring(const float* x, const int32_t* idx, float* out, int r, int f,
-                            int rows_per_warp, cudaStream_t st) {
-  const long long per_warp = (long long)NB * f * 4;
-  const int warps = ring_warps(per_warp);
-  if (warps == 0) return cudaErrorInvalidValue;
-  const long long n_warps = (r + (long long)rows_per_warp - 1) / rows_per_warp;
-  const long long blocks = (n_warps + warps - 1) / warps;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const cudaError_t err = allow_smem(row_gather_ring_kernel<NB>, warps * per_warp);
+                            int blocks, int warps, int per_warp, int tile, cudaStream_t st) {
+  const long long smem = (long long)warps * NB * f * 4;
+  if (smem > kSmemBudget || tile <= 0 || NB % tile != 0 || (tile > 1 && tile * (f / 4) > 32))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem(row_gather_ring_kernel<NB>, smem);
   if (err != cudaSuccess) return err;
-  row_gather_ring_kernel<NB><<<(unsigned)blocks, warps * 32, warps * per_warp, st>>>(
-      x, idx, out, r, f / 4, rows_per_warp);
+  row_gather_ring_kernel<NB><<<blocks, warps * 32, smem, st>>>(x, idx, out, r, f / 4, per_warp,
+                                                                tile);
   return cudaGetLastError();
 }
 
@@ -417,28 +504,45 @@ cudaError_t launch_chunk_gathered(const float* g, const float* mask, float* out,
 // output, passes its current stream, and raises on a non-zero return (a
 // cudaError_t). The ring forms need f % 4 == 0 and 16-byte aligned x and out.
 
-// n_buf 0: direct; 4, 8 or 16: the cp.async ring, `rows_per_warp` rows a warp.
+// On the plan of probes.row_plan: `blocks` blocks of `warps` warps, each warp
+// `per_warp` consecutive rows. n_buf 0: direct (warps = kThreads / 32),
+// float4 pieces where f % 4 == 0 and x and out are 16-byte aligned, else
+// floats; 4, 8 or 16: the ring, n_buf rows a warp in flight in stages of
+// `tile` rows.
 extern "C" int hg_row_gather(const void* x, const void* idx, void* out, int r, int f,
-                             int n_buf, int rows_per_warp, void* stream) {
-  if (r <= 0 || f <= 0) return (int)cudaErrorInvalidValue;
-  const auto* xp = static_cast<const float*>(x);
+                             int n_buf, int blocks, int warps, int per_warp, int tile,
+                             void* stream) {
+  if (r <= 0 || f <= 0 || blocks <= 0 || warps <= 0 || per_warp <= 0 ||
+      (long long)blocks * warps * per_warp < r)
+    return (int)cudaErrorInvalidValue;
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
   const auto* ip = static_cast<const int32_t*>(idx);
-  auto* op = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   if (n_buf == 0) {
-    const long long blocks = ((long long)r * 32 + kThreads - 1) / kThreads;
-    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    row_gather_direct_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(xp, ip, op, r, f);
+    if (warps != kThreads / 32) return (int)cudaErrorInvalidValue;
+    if (f % 4 == 0 && aligned)
+      row_gather_direct_kernel<float4><<<blocks, kThreads, 0, st>>>(
+          static_cast<const float4*>(x), ip, static_cast<float4*>(out), r, f / 4, per_warp);
+    else
+      row_gather_direct_kernel<float><<<blocks, kThreads, 0, st>>>(
+          static_cast<const float*>(x), ip, static_cast<float*>(out), r, f, per_warp);
     return (int)cudaGetLastError();
   }
-  if (f % 4 != 0 || rows_per_warp <= 0) return (int)cudaErrorInvalidValue;
+  if (f % 4 != 0 || warps > kRowMaxWarps) return (int)cudaErrorInvalidValue;
+  if (!aligned) return (int)cudaErrorMisalignedAddress;
+  const auto* xp = static_cast<const float*>(x);
+  auto* op = static_cast<float*>(out);
   switch (n_buf) {
     case 4:
-      return (int)launch_row_ring<4>(xp, ip, op, r, f, rows_per_warp, st);
+      return (int)launch_row_ring<4>(xp, ip, op, r, f, blocks, warps, per_warp, tile,
+                                         st);
     case 8:
-      return (int)launch_row_ring<8>(xp, ip, op, r, f, rows_per_warp, st);
+      return (int)launch_row_ring<8>(xp, ip, op, r, f, blocks, warps, per_warp, tile,
+                                         st);
     case 16:
-      return (int)launch_row_ring<16>(xp, ip, op, r, f, rows_per_warp, st);
+      return (int)launch_row_ring<16>(xp, ip, op, r, f, blocks, warps, per_warp, tile,
+                                         st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -491,11 +595,12 @@ extern "C" int hg_chunk_sum_ring(const void* x, const void* gidx, const void* ma
   return (int)cudaGetLastError();
 }
 
+// ceil(n / 4 / kThreads) blocks, at least one (the tail's).
 extern "C" int hg_scaled_copy(const void* x, void* out, long long n, float s, void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  const long long want = (n / 4 + kThreads - 1) / kThreads;
-  const unsigned blocks = (unsigned)(want < 1 ? 1 : (want > 132 * 16 ? 132 * 16 : want));
-  scaled_copy_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out), n, s);
+  const long long blocks = (n / 4 + kThreads - 1) / kThreads;
+  if (n <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  scaled_copy_kernel<<<(unsigned)(blocks > 0 ? blocks : 1), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(static_cast<const float*>(x),
+                                                            static_cast<float*>(out), n, s);
   return (int)cudaGetLastError();
 }

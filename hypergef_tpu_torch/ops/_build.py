@@ -127,8 +127,8 @@ ENTRIES = {
     # f, lanes, width; stream
     "hg_record_routed_dx": [_PTR] * 2 + [_INT] + [_PTR] * 3 + [_INT] + [_PTR] * 5
                            + [_INT] * 4 + [_PTR],
-    # x, idx, out; r, f, n_buf (0: direct), rows_per_warp; stream
-    "hg_row_gather": [_PTR] * 3 + [_INT] * 4 + [_PTR],
+    # x, idx, out; r, f, n_buf (0: direct), blocks, warps, per_warp, tile; stream
+    "hg_row_gather": [_PTR] * 3 + [_INT] * 7 + [_PTR],
     # g (gathered [C, ngs, F]), mask, out; c, ngs, f, lanes; stream
     "hg_chunk_masked_sum": [_PTR] * 3 + [_INT] * 4 + [_PTR],
     # x, gidx, mask, out; c, ngs, f, blocks, pairs, slots, per_pair; stream

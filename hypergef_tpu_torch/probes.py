@@ -5,15 +5,18 @@ a TPU, each in a Pallas kernel that carries one construct. Here each
 construct runs in a kernel of ``csrc/probes.cu`` (or in the port's gather
 kernels), with a plain torch version beside it:
 
-* :func:`row_gather` — ``out[r] = x[idx[r]]``, ``direct`` (a warp a row)
-  or a ``cp.async`` ring of ``n_buf`` rows in flight (the card's form of a
-  ring of row DMAs);
+* :func:`row_gather` — ``out[r] = x[idx[r]]``, on the launch plan of
+  :func:`row_plan` (each warp a contiguous range of rows): ``direct``
+  (each lane several rows' pieces loaded into registers before it stores
+  them) or a ring of ``n_buf`` rows a warp in flight in shared memory,
+  copied in by ``cp.async`` and stored by the lane that copied each piece
+  (the card's form of a ring of row DMAs);
 * :func:`chunk_masked_sum` — ``out[c] = Σ_k g[c, k] · mask[c, k]`` from a
   gathered ``[C, ngs, F]`` tensor, and :func:`chunk_masked_sum_ring`, the
   same from ``x`` and a gather table through rings of chunk slots in
   shared memory, each filled by a producer warp's asynchronous copies for
   its consumer warp, on the launch plan of :func:`ring_plan`;
-* :func:`scaled_copy` — ``out = x · s``.
+* :func:`scaled_copy` — ``out = x · s``, a float4 a thread.
 
 The ELL level-0 probes whose x is resident run on
 :func:`hypergef_tpu_torch.ops.ell_gather.ell_gather_sum`, which computes
@@ -53,7 +56,18 @@ scaled_copy_launches = 0
 
 RING_DEPTHS = (4, 8, 16)
 NGS = 8
-_WARPS_TARGET = 4096  # a row ring's warps: rows are split into this many runs
+# the row gather (csrc/probes.cu): threads of a direct block and direct
+# blocks an SM (kThreads, kDirectBlocks), warps of a ring block at most
+# (kRowMaxWarps)
+ROW_DIRECT_WARPS = 256 // 32
+ROW_DIRECT_BLOCKS = 4
+ROW_MAX_WARPS = 32
+# the most rows a warp takes in each form: more rows go to more waves of
+# blocks, which keep the grid's reads and writes in one moving window; and
+# the least a direct warp takes, so a small gather is not all warp set-up
+ROW_DIRECT_MAX = 32
+ROW_RING_MAX = 64
+ROW_DIRECT_MIN = 4
 # the chunk ring (csrc/probes.cu): a block's shared memory on sm_90 (all an
 # SM holds, less the 1 KB the runtime keeps for the block), the
 # producer-consumer warp pairs a block holds at most (kSmemBudget,
@@ -119,6 +133,56 @@ def ring_plan(c: int, ngs: int, f: int, n_buf: int, sms: int) -> RingPlan:
                     pairs * (slots * slot + RING_TABLE_BYTES))
 
 
+class RowPlan(NamedTuple):
+    """The row gather's launch: ``blocks`` blocks of ``warps`` warps, each
+    warp ``per_warp`` consecutive rows; in the ring, stages of ``tile``
+    rows and ``smem`` bytes of shared memory a block (0 and 0 direct)."""
+
+    blocks: int
+    warps: int
+    per_warp: int
+    tile: int
+    smem: int
+
+
+def row_tile(f: int, n_buf: int) -> int:
+    """The ring's stage: the most rows whose 16-byte pieces the 32 lanes
+    copy at once, at most ``n_buf`` and a power of two (so stages divide the
+    ring); 1 where a row alone has 32 pieces or more."""
+    tile = 1
+    while tile * 2 <= min(n_buf, 32 // (f // 4)):
+        tile *= 2
+    return tile
+
+
+def row_plan(r: int, f: int, n_buf: int, sms: int) -> RowPlan:
+    """Each warp a contiguous range of rows: the rows of one wave, at most
+    ``ROW_DIRECT_MAX`` (direct) or ``ROW_RING_MAX`` (ring) a warp, more rows
+    taking more waves. Direct (``n_buf`` 0): at least ``ROW_DIRECT_MIN``
+    rows a warp, blocks of ``ROW_DIRECT_WARPS`` warps, ``ROW_DIRECT_BLOCKS``
+    an SM. Ring: a block an SM, its warps as many as the budget holds at
+    the deepest ring (``max(RING_DEPTHS)`` rows of F a warp), so the same at
+    every depth, and no more than spread the rows over every SM; a row too
+    wide for ``n_buf`` of them in the budget raises."""
+    if n_buf != 0 and n_buf not in RING_DEPTHS:
+        raise ValueError(f"n_buf must be 0 or one of {RING_DEPTHS}, got {n_buf}")
+    if min(r, f, sms) <= 0:
+        raise ValueError(f"unsupported row gather: R={r}, F={f}, SMs={sms}")
+    if n_buf == 0:
+        warps = ROW_DIRECT_WARPS
+        per_warp = min(max(-(-r // (sms * ROW_DIRECT_BLOCKS * warps)), ROW_DIRECT_MIN),
+                       ROW_DIRECT_MAX)
+        return RowPlan(-(-r // (per_warp * warps)), warps, per_warp, 0, 0)
+    if n_buf * f * 4 > RING_BUDGET:
+        raise ValueError(f"{n_buf} rows of F={f} exceed the block's {RING_BUDGET} bytes")
+    warps = max(1, min(ROW_MAX_WARPS, RING_BUDGET // (max(RING_DEPTHS) * f * 4)))
+    per_warp = min(-(-r // (sms * warps)), ROW_RING_MAX)
+    n_warps = -(-r // per_warp)
+    warps = min(warps, -(-n_warps // sms))  # every SM a block before any SM more warps
+    return RowPlan(-(-n_warps // warps), warps, per_warp, row_tile(f, n_buf),
+                   warps * n_buf * f * 4)
+
+
 # ---- the kernels' wrappers and plain versions ----------------------------
 
 
@@ -134,6 +198,10 @@ def _card(*tensors) -> None:
         raise RuntimeError(
             f"the kernels are built for sm_90a (Hopper); {torch.cuda.get_device_name(dev)} "
             f"is sm_{''.join(map(str, torch.cuda.get_device_capability(dev)))}")
+
+
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _ring_ready(x, n_buf: int) -> None:
@@ -166,9 +234,11 @@ def row_gather_plain(x, idx):
 
 
 def row_gather(x, idx, n_buf: int = 0):
-    """``out[r] = x[idx[r]]``: x f32 [N, F], idx int32 [R] in [0, N).
-    ``n_buf`` 0 loads each row directly; 4, 8 or 16 keeps that many rows a
-    warp in flight through a ``cp.async`` ring (F % 4 == 0)."""
+    """``out[r] = x[idx[r]]``: x f32 [N, F], idx int32 [R] in [0, N), on
+    the plan of :func:`row_plan`. ``n_buf`` 0 loads each row directly
+    (float4 pieces where F % 4 == 0 and x is 16-byte aligned, else floats);
+    4, 8 or 16 keeps that many rows a warp in flight through a ring in
+    shared memory (F % 4 == 0 and x 16-byte aligned, else it raises)."""
     global row_gather_launches
     if x.device.type == "cpu":
         return row_gather_plain(x, idx)
@@ -185,10 +255,11 @@ def row_gather(x, idx, n_buf: int = 0):
     if r == 0:
         return out
     lib = _build.load_library()
-    per_warp = max(n_buf, -(-r // _WARPS_TARGET))
+    plan = row_plan(r, f, n_buf, _sms(x.device))
     with torch.cuda.device(x.device):
         err = lib.hg_row_gather(x.data_ptr(), idx.data_ptr(), out.data_ptr(), r, f, n_buf,
-                                per_warp, _stream(x.device))
+                                plan.blocks, plan.warps, plan.per_warp, plan.tile,
+                                _stream(x.device))
     _raise(lib, err, "row_gather")
     row_gather_launches += 1
     return out
@@ -248,8 +319,7 @@ def chunk_masked_sum_ring(x, gidx, mask, n_buf: int):
     (c, ngs), f = gidx.shape, x.shape[1]
     out = torch.empty((c, f), dtype=torch.float32, device=x.device)
     lib = _build.load_library()
-    plan = ring_plan(c, ngs, f, n_buf, torch.cuda.get_device_properties(x.device)
-                     .multi_processor_count)
+    plan = ring_plan(c, ngs, f, n_buf, _sms(x.device))
     with torch.cuda.device(x.device):
         err = lib.hg_chunk_sum_ring(x.data_ptr(), gidx.data_ptr(), mask.data_ptr(),
                                     out.data_ptr(), c, ngs, f, plan.blocks, plan.pairs,

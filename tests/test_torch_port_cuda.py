@@ -1330,19 +1330,49 @@ def test_plan_aggregation_takes_the_aligned_kernel_form_on_the_card(cuda):
 
 @pytest.mark.parametrize("f", [1, 4, 32, 64, 128, 132])
 @pytest.mark.parametrize("n_buf", [0, 4, 8, 16])
-def test_row_gather_kernel_is_bitwise_plain(cuda, f, n_buf):
+# 5001 rows; one row; fewer rows than a ring tile (n_buf / 4 rows) or a
+# warp's least range (8); a range that is no multiple of a tile; and more
+# rows than one wave of warps at the least range, so each warp takes 9
+@pytest.mark.parametrize("r", [5001, 1, 3, 6, 13, 132 * 32 * 8 + 5])
+def test_row_gather_kernel_is_bitwise_plain(cuda, f, n_buf, r):
+    """Repeated indices (R draws from 3000 rows), one launch a call, two
+    runs bitwise equal."""
     from hypergef_tpu_torch import probes
 
     if n_buf and f % 4:
         pytest.skip("the ring takes F % 4 == 0")
     rng = np.random.default_rng(f + n_buf)
     x = torch.as_tensor(rng.normal(size=(3000, f)).astype(np.float32), device=cuda)
-    idx = torch.as_tensor(rng.integers(0, 3000, size=5001).astype(np.int32), device=cuda)
+    idx = torch.as_tensor(rng.integers(0, 3000, size=r).astype(np.int32), device=cuda)
     before = probes.row_gather_launches
     got = probes.row_gather(x, idx, n_buf)
+    again = probes.row_gather(x, idx, n_buf)
+    torch.cuda.synchronize()
+    assert probes.row_gather_launches == before + 2
+    assert torch.equal(got, probes.row_gather_plain(x, idx))
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("f", [4, 32, 128])
+def test_row_gather_of_an_offset_x(cuda, f):
+    """x one float past a 16-byte boundary: the direct form gathers it by
+    floats, bitwise; the ring, which copies 16-byte pieces, raises."""
+    from hypergef_tpu_torch import probes
+
+    rng = np.random.default_rng(f)
+    x = torch.empty(700 * f + 1, device=cuda)[1:].view(700, f)
+    x.copy_(torch.as_tensor(rng.normal(size=(700, f)).astype(np.float32)))
+    assert x.data_ptr() % 16 == 4 and x.is_contiguous()
+    idx = torch.as_tensor(rng.integers(0, 700, size=1001).astype(np.int32), device=cuda)
+    before = probes.row_gather_launches
+    got = probes.row_gather(x, idx)
     torch.cuda.synchronize()
     assert probes.row_gather_launches == before + 1
     assert torch.equal(got, probes.row_gather_plain(x, idx))
+    for nb in probes.RING_DEPTHS:
+        with pytest.raises(ValueError, match="16-byte"):
+            probes.row_gather(x, idx, nb)
+    assert probes.row_gather_launches == before + 1
 
 
 @pytest.mark.parametrize("ngs,f", [(2, 3), (8, 32), (8, 128), (5, 33)])
@@ -1412,13 +1442,25 @@ def test_chunk_ring_rejects_what_the_kernel_does_not_take(cuda):
         probes.chunk_masked_sum_ring(x[:, :6].contiguous(), gidx, mask, 4)
 
 
-@pytest.mark.parametrize("numel", [1, 7, 4096, 1_000_003])
+@pytest.mark.parametrize("numel", [1, 7, 4096, 1_000_003, 1_048_576 * 128 + 3])
 def test_scaled_copy_kernel_is_bitwise_plain(cuda, numel):
     from hypergef_tpu_torch import probes
 
     x = torch.as_tensor(np.random.default_rng(numel).normal(size=numel).astype(np.float32),
                         device=cuda)
+    before = probes.scaled_copy_launches
     assert torch.equal(probes.scaled_copy(x, 2.0), x * 2.0)
+    assert probes.scaled_copy_launches == before + 1
+
+
+def test_scaled_copy_refuses_an_offset_view(cuda):
+    from hypergef_tpu_torch import probes
+
+    x = torch.ones(4097, device=cuda)[1:]
+    before = probes.scaled_copy_launches
+    with pytest.raises(ValueError, match="16-byte"):
+        probes.scaled_copy(x, 2.0)
+    assert probes.scaled_copy_launches == before
 
 
 def test_probes_hold_against_their_oracles_on_the_card(cuda):
