@@ -186,6 +186,34 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    ring depths at pallas_probe3's take and every form at the 2M-row scale
    against two bounds (distinct rows, every named row); the scaled copy at
    [1,048,576, 128] against its bound, and an empty launch.
+26. The compiled step (``hypergef_tpu_torch.utils.graphs``): for each
+   training cell of phases 8, 12, 16, 20, 23 and 24, a Trainer with
+   ``compiled=False`` against one with ``compiled=True`` from the same
+   seeded weights, default dropout: 5 losses bitwise equal; wall and device
+   ms a step in turns (eager, captured, captured, eager); the host ms to
+   issue one eager step and one replay; the host seconds the recording
+   took and the MiB its graph's pool holds (what dropping the graph gives
+   back to the card); the captured step's ``epoch_device_time_stats``
+   (20 iterations, 5 windows, 3 repeats); the host µs of one route
+   dispatch. The plain aligned max form must refuse to be captured
+   (CaptureError) and is timed eagerly. For each request cell of phases 3,
+   10, 14, 18 and 23: two requests bitwise equal to eager ones, the first
+   answer unchanged by the second, wall and device ms in turns, the
+   recording's seconds and its graph's MiB. A
+   checkpoint round trip: a captured 20news Trainer saves in the
+   background, another restores into the tensors its graph reads and goes
+   on bitwise.
+
+Phases 1-25 drive the default step and request: on the card a CUDA-graph
+replay (``Trainer``'s and ``ServingModel``'s ``compiled=None``); the plain
+aligned max form and the references the phases compare against run
+eagerly. A wrapper counts where it launches its kernel: each eager call,
+and once when a graph records it; a replay calls no wrapper. So a path's
+counts are set to 0 before its server is built or its steps begin (the
+recording inside that span) and checked exactly, and a recorded graph,
+written as a DOT file (``graphs.DUMP_DIR``, set for phases 1-25), must
+hold the same launches a request or a step as kernel nodes: what each of
+its replays launches (``replayed`` in a path's line).
 
 Phases 8 and 12 also time one ``torch.sparse.mm`` of the gather table's
 and of each aligned stage's CSR matrix (the library yardstick; the port
@@ -214,6 +242,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import gc
 import json
 import subprocess
 import sys
@@ -284,6 +313,7 @@ RECORD_SUM_SITE = "hypergef_tpu/ops/maxops.py:106"
 REQUESTS = 5
 TRAIN_STEPS = 20
 PARITY_EPOCHS = 10
+COMPILED_EPOCHS = 5
 # the reference's HGNN inference and training epochs on 20news, RTX 3090
 # (BASELINE.md:41)
 REF_RTX3090_INFER_MS = 0.395
@@ -417,6 +447,37 @@ def cuda_kernels_per_call(fn) -> int:
     return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
+# each hand-written kernel's name in a recorded graph, and the counters
+# (``kernel_counters``' names) whose every launch runs it once
+GRAPH_KERNELS = {
+    "fused_dense_kernel": ("fused",), "ell_gather_sum_kernel": ("gather",),
+    "aligned_band_kernel": ("band",), "aligned_max_kernel": ("argmax", "argsum"),
+    "bitmm_kernel": ("bitmm",), "segment_sum_kernel": ("segsum",),
+    "record_sum_kernel": ("recsum",), "row_gather_": ("row_gather",),
+    "chunk_sum_": ("chunk_sum",), "scaled_copy_kernel": ("scaled_copy",),
+}
+
+
+def graph_kernels(captured) -> dict:
+    """For each kernel of ``GRAPH_KERNELS``, its nodes in ``captured``'s
+    recording: what each replay launches. The recording's DOT file
+    (``graphs.DUMP_DIR``) has a line for each kernel node, naming it."""
+    with open(captured.dot) as f:
+        lines = f.read().splitlines()
+    return {kernel: sum(kernel in line for line in lines) for kernel in GRAPH_KERNELS}
+
+
+def check_replays(where: str, nodes: dict, counters, per: dict, replays: int) -> dict:
+    """Each kernel of ``counters`` (names of ``kernel_counters``) has
+    ``per[name]`` nodes in a recording (``nodes``, from
+    :func:`graph_kernels`); returns the launches ``replays`` replays made."""
+    for kernel, n in nodes.items():
+        if any(c in GRAPH_KERNELS[kernel] for c in counters):
+            want = sum(per.get(c, 0) for c in GRAPH_KERNELS[kernel])
+            check(n == want, f"{where}: the recording holds {n} {kernel} nodes, want {want}")
+    return {kernel: replays * n for kernel, n in nodes.items() if n}
+
+
 def check_kernel(hg, f: int, seed: int, device) -> dict:
     from hypergef_tpu_torch.ops import fused_dense
 
@@ -473,11 +534,14 @@ def serve(device, hg, backend, counters, plan=None, plain_plan=None, plain_devic
     """Five requests through ``backend`` (None: ``TrainConfig``'s default,
     no ``backend=``). ``counters`` maps a kernel's name to (module, counter
     attribute, launches a request); every count is set to 0 just before the
-    requests and read just after. Each answer is checked against the same
-    model on the kernels' plain versions (``plain_plan`` on
-    ``plain_device``), or on ``ref_backend`` if given, within ``ref_atol``,
-    and on the f32 segment-reduce route: argmax agreement, and with
-    ``xla_atol`` the log-probs within ``xla_atol`` of it."""
+    server is built (a captured server records its forward there) and read
+    just after the requests. A captured server's recording must hold each
+    kernel's launches a request as nodes, which every replay launches.
+    Each answer is checked against the same model on the kernels' plain
+    versions (``plain_plan`` on ``plain_device``), or on ``ref_backend`` if
+    given, within ``ref_atol``, and on the f32 segment-reduce route: argmax
+    agreement, and with ``xla_atol`` the log-probs within ``xla_atol`` of
+    it."""
     from hypergef_tpu_torch.data.synthetic import random_features
     from hypergef_tpu_torch.serve import ServingModel
     from hypergef_tpu_torch.train.trainer import TrainConfig
@@ -486,12 +550,6 @@ def serve(device, hg, backend, counters, plan=None, plain_plan=None, plain_devic
     cfg = TrainConfig(model=model, nhid=32, nlayer=2, first_aggr=first_aggr)
     if backend is not None:
         cfg = dataclasses.replace(cfg, backend=backend)
-    server = ServingModel(cfg, hg, nfeat, nclass, device, plan=plan)
-    params = {k: v.detach().cpu() for k, v in server.model.state_dict().items()}
-    ref_cfg = dataclasses.replace(cfg, backend=ref_backend or cfg.backend)
-    plain = ServingModel(ref_cfg, hg, nfeat, nclass, plain_device, params=params, plan=plain_plan)
-    xla = ServingModel(dataclasses.replace(cfg, backend="xla"), hg, nfeat, nclass, device,
-                       params=params)
     feats = [random_features(hg.num_nodes, nfeat, nclass, seed=100 + i)[0]
              for i in range(REQUESTS)]
     xs = [torch.as_tensor(a, device=device) for a in feats]
@@ -499,13 +557,31 @@ def serve(device, hg, backend, counters, plan=None, plain_plan=None, plain_devic
 
     for module, attr, _ in counters.values():
         setattr(module, attr, 0)
+    server = ServingModel(cfg, hg, nfeat, nclass, device, plan=plan)
     answers = [server.predict(x) for x in xs]
     torch.cuda.synchronize()
     launches = {name: getattr(module, attr) for name, (module, attr, _) in counters.items()}
+    # the wrappers ran for each eager request, or for the captured server's
+    # warm-up forward and its recording, whose every replay launches the
+    # recording's kernel nodes again
+    calls = 2 if server.compiled else REQUESTS
     for name, (_, _, per_request) in counters.items():
-        check(launches[name] == REQUESTS * per_request,
-              f"{REQUESTS} requests launched {name} {REQUESTS * per_request} times, "
+        check(launches[name] == calls * per_request,
+              f"{calls} forwards launched {name} {calls * per_request} times, "
               f"got {launches[name]}")
+    replayed = {}
+    if server.compiled:
+        replayed = check_replays(
+            "the request graph", graph_kernels(server._graph), counters,
+            {name: per for name, (_, _, per) in counters.items()}, REQUESTS)
+
+    params = {k: v.detach().cpu() for k, v in server.model.state_dict().items()}
+    ref_cfg = dataclasses.replace(cfg, backend=ref_backend or cfg.backend)
+    # the references answer eagerly (the plain aligned max form cannot be captured)
+    plain = ServingModel(ref_cfg, hg, nfeat, nclass, plain_device, params=params, plan=plain_plan,
+                         compiled=False)
+    xla = ServingModel(dataclasses.replace(cfg, backend="xla"), hg, nfeat, nclass, device,
+                       params=params, compiled=False)
 
     worst = {"plain_abs": 0.0, "xla_abs": 0.0, "xla_scale": 0.0, "agree": 1.0}
     for logp, a, x in zip(answers, feats, xs):
@@ -529,7 +605,8 @@ def serve(device, hg, backend, counters, plan=None, plain_plan=None, plain_devic
 
     request_ms = cuda_time_ms(lambda: server.predict(xs[0]), repeats=20, queue_ahead=False)
     return {"route": fused_route(cfg.backend, server.plan, hg), "launches": launches,
-            "worst": worst, "request_ms": request_ms}
+            "replayed": replayed, "compiled": server.compiled, "worst": worst,
+            "request_ms": request_ms}
 
 
 def fused_route(backend, plan, hg) -> str:
@@ -668,13 +745,23 @@ def train(problems, device) -> dict:
         launched = {k: getattr(module, attr) for k, (module, attr) in counters.items()}
         check(fused_dense.v2e_launches == 0, "a frozen wdiag needs no d scale_e")
         route = fused_route(cfg.backend, tr.plan, hg)
-        want = {k: TRAIN_STEPS * per_step[cfg.model, route, cfg.first_aggr].get(k, 0)
-                for k in counters}
-        check(launched == want, f"{name}: {TRAIN_STEPS} steps launched {launched}, want {want}")
+        per = per_step[cfg.model, route, cfg.first_aggr]
+        # the wrappers ran for each eager step, or for the captured step's
+        # eager warm-up steps and its recording, whose every replay
+        # launches the recording's kernel nodes again
+        calls = res["capture_warmup"] + 1 if res["step"] == "captured" else TRAIN_STEPS
+        want = {k: calls * per.get(k, 0) for k in counters}
+        check(launched == want, f"{name}: {calls} step calls launched {launched}, want {want}")
+        replayed = {}
+        if res["step"] == "captured":
+            (step,) = tr._steps.values()
+            replayed = check_replays(f"{name}'s step graph", graph_kernels(step), counters,
+                                     per, TRAIN_STEPS)
         check(bool(np.isfinite(res["losses"]).all()), f"{name}: finite losses")
         out[name] = {"model": cfg.model, "backend": cfg.backend, "route": route,
-                     "first_aggr": cfg.first_aggr,
-                     "launches": launched,
+                     "first_aggr": cfg.first_aggr, "step": res["step"],
+                     "capture_s": res["capture_s"],
+                     "launches": launched, "replayed": replayed,
                      "losses": res["losses"].tolist(),
                      "train_acc": tr.evaluate(split)["train_acc"]}
     return out
@@ -704,15 +791,16 @@ def train_parity(problems, device) -> dict:
 
 
 def loss_parity(name, run, ref, problem, rtol, ref_name, first_rtol=None) -> dict:
-    """Losses of PARITY_EPOCHS no-dropout epochs of ``run`` and ``ref``, each
-    (cfg, plan, device), from the same seeded weights: within ``rtol``, and
-    the first (the forward before any update) within ``first_rtol`` if
-    given."""
+    """Losses of PARITY_EPOCHS no-dropout epochs of ``run`` (the default step:
+    captured on the card) and ``ref`` (eager), each (cfg, plan, device), from
+    the same seeded weights: within ``rtol``, and the first (the forward
+    before any update) within ``first_rtol`` if given."""
     from hypergef_tpu_torch.train.trainer import Trainer
 
     hg, x, y, split = problem
-    got, want = (Trainer(cfg, hg, x, y, plan=plan, device=dev).fit(
-        split["train"], epochs=PARITY_EPOCHS, warmup=0)["losses"] for cfg, plan, dev in (run, ref))
+    got, want = (Trainer(cfg, hg, x, y, plan=plan, device=dev, compiled=compiled).fit(
+        split["train"], epochs=PARITY_EPOCHS, warmup=0)["losses"]
+        for (cfg, plan, dev), compiled in ((run, None), (ref, False)))
     rels = np.abs(got - want) / np.abs(want)
     rel = float(np.max(rels))
     check(bool(np.allclose(got, want, rtol=rtol, atol=0.0)),
@@ -1151,8 +1239,9 @@ def max_phases(device, card: str, aligned: dict) -> dict:
         "tree + aligned kernel": Trainer(
             mcfg, hg, x, y, plan=AggregationPlan(tree=plan_tree(hg), aligned=al_kernel),
             device=device),
+        # the plain aligned max form reads the device from the host: eager only
         "aligned plain": Trainer(mcfg, hg, x, y, plan=AggregationPlan(aligned=al_plan),
-                                 device=device),
+                                 device=device, compiled=False),
     }
     epoch_order = ("aligned plain", "aligned kernel", "tree + aligned kernel",
                    "tree + aligned kernel", "aligned kernel", "aligned plain")
@@ -1492,7 +1581,8 @@ def bitstream_phases(device, card: str, graphs) -> dict:
           f"{json.dumps(requests)}", flush=True)
     return {"checks": checks, "matvec": matvec, "served": served, "trained": trained,
             "parity": parity, "bitmm_times": bitmm_times, "record_times": record_times,
-            "epochs": epochs, "hg": hg, "layouts": info["layouts"], "unread": unread}
+            "epochs": epochs, "hg": hg, "layouts": info["layouts"], "unread": unread,
+            "bits": bits, "tree": tree, "configs": configs, "problem": (x, y, split)}
 
 
 def ladder_phase(device, graphs) -> dict:
@@ -1956,6 +2046,282 @@ BAND_ABLATIONS = {
 }
 
 
+def host_enqueue_ms(fn, calls: int = 10) -> float:
+    """Host milliseconds to issue one call of ``fn``: the median over
+    ``calls`` back-to-back calls, each timed alone on the host clock, the
+    card running behind (few enough calls that its queue never fills)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def dispatch_us(cfg, plan, hg, calls: int = 1000) -> float:
+    """Host microseconds of one route dispatch (``fused.resolve_backend``,
+    what each aggregation call runs before its route's work)."""
+    from hypergef_tpu_torch.ops import fused
+
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fused.resolve_backend(cfg.backend, plan, hg.nnz)
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def reserved_mb(device) -> float:
+    """MiB the caching allocator holds once garbage is collected and its
+    free cached blocks are returned: live tensors and the private pools of
+    live CUDA graphs."""
+    gc.collect()
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved(device) / 2**20
+
+
+def graph_mb(device, drop) -> float:
+    """MiB that ``drop()`` (which lets go of a recorded graph) returns to the
+    card: the graph's private pool, which holds every tensor its recording
+    allocated, its output among them."""
+    held = reserved_mb(device)
+    drop()
+    mb = held - reserved_mb(device)
+    check(mb >= 0, f"dropping a graph returned {mb} MiB")
+    return mb
+
+
+def compiled_train_cell(problem, device, capturable: bool = True) -> dict:
+    """Eager against captured on one training cell, from the same seeded
+    weights with dropout on: COMPILED_EPOCHS losses bitwise equal; wall
+    and device ms a step in turns (eager, captured, captured, eager); the
+    host ms to issue one step of each; the captured step's
+    ``epoch_device_time_stats``; the host seconds and the memory its
+    recording holds (its pool, measured when the graph is dropped at the
+    end). Where the route cannot be captured (``capturable``
+    False), the captured Trainer must raise CaptureError, and the eager
+    step alone is timed."""
+    from hypergef_tpu_torch.train.trainer import Trainer
+    from hypergef_tpu_torch.utils.graphs import CaptureError
+
+    cfg, hg, x, y, split, plan = problem
+    eager = Trainer(cfg, hg, x, y, plan=plan, device=device, compiled=False)
+    want = eager.fit(split["train"], epochs=COMPILED_EPOCHS, warmup=0)["losses"]
+    out = {"model": cfg.model, "first_aggr": cfg.first_aggr,
+           "route": fused_route(cfg.backend, eager.plan, hg),
+           "dispatch_us": dispatch_us(cfg, eager.plan, hg)}
+    idx = torch.as_tensor(split["train"], device=device)
+    captured = Trainer(cfg, hg, x, y, plan=plan, device=device, compiled=True)
+    if not capturable:
+        try:
+            captured.fit(split["train"], epochs=1, warmup=0)
+            raised = None
+        except CaptureError as e:
+            raised = str(e)
+        check(raised is not None, f"{out['route']} {cfg.first_aggr}: capture refused")
+        out["capture_error"] = raised
+        out["eager"] = time_steps({"eager": eager}, split["train"], ("eager", "eager"),
+                                  device)["eager"]
+        out["eager"]["enqueue_ms"] = host_enqueue_ms(functools.partial(eager.step, idx))
+        return out
+    got = captured.fit(split["train"], epochs=COMPILED_EPOCHS, warmup=0)
+    check(got["step"] == "captured", "the captured Trainer replays its step")
+    out["capture_s"] = got["capture_s"]
+    rel = float(np.max(np.abs(got["losses"] - want) / np.abs(want)))
+    out["losses_equal"] = bool(np.array_equal(got["losses"], want))
+    out["max_rel"] = rel
+    check(out["losses_equal"], f"{out['route']} {cfg.model} {cfg.first_aggr}: captured losses "
+                               f"bitwise equal to eager ({rel})")
+    turns = time_steps({"eager": eager, "captured": captured}, split["train"],
+                       ("eager", "captured", "captured", "eager"), device)
+    for name, tr in (("eager", eager), ("captured", captured)):
+        turns[name]["enqueue_ms"] = host_enqueue_ms(functools.partial(tr.step, idx))
+    out.update(turns)
+    out["stats"] = captured.epoch_device_time_stats(split["train"], iters=20, windows=5,
+                                                    repeats=3)
+    out["capture_mb"] = graph_mb(device, captured._steps.clear)
+    return out
+
+
+def compiled_request_cell(cfg, hg, nfeat: int, nclass: int, plan, device) -> dict:
+    """Eager against captured on one request cell, the same weights: two
+    requests bitwise equal, the first answer unchanged by the second; wall
+    ms (host included) and device ms a request in turns; host ms to issue
+    one; the seconds the recording took and the memory its graph holds."""
+    from hypergef_tpu_torch.data.synthetic import random_features
+    from hypergef_tpu_torch.serve import ServingModel
+    from hypergef_tpu_torch.utils.timing import cuda_time_ms
+
+    eager = ServingModel(cfg, hg, nfeat, nclass, device, plan=plan, compiled=False)
+    params = {k: v.detach().cpu() for k, v in eager.model.state_dict().items()}
+    captured = ServingModel(cfg, hg, nfeat, nclass, device, params=params, plan=plan,
+                            compiled=True)
+    out = {"route": fused_route(cfg.backend, eager.plan, hg), "model": cfg.model,
+           "first_aggr": cfg.first_aggr, "capture_s": captured.capture_s}
+    xs = [torch.as_tensor(random_features(hg.num_nodes, nfeat, nclass, seed=200 + i)[0],
+                          device=device) for i in range(2)]
+    got = [captured.predict(x) for x in xs]
+    want = [eager.predict(x) for x in xs]
+    out["equal"] = all(torch.equal(g, w) for g, w in zip(got, want))
+    check(out["equal"], f"{out['route']}: captured requests bitwise equal to eager")
+    check(not torch.equal(got[0], got[1]), "two requests, two answers")
+    fns = {"eager": eager, "captured": captured}
+    walls = {k: [] for k in fns}
+    devs = {k: [] for k in fns}
+    for name in ("eager", "captured", "captured", "eager"):
+        call = functools.partial(fns[name].predict, xs[0])
+        walls[name].append(cuda_time_ms(call, repeats=20, queue_ahead=False))
+        devs[name].append(cuda_time_ms(call, repeats=20, queue_ahead=True))
+    for name, server in fns.items():
+        out[name] = {"wall_ms": float(np.median(walls[name])),
+                     "device_ms": float(np.median(devs[name])),
+                     "enqueue_ms": host_enqueue_ms(functools.partial(server.predict, xs[0]))}
+    out["capture_mb"] = graph_mb(device, lambda: setattr(captured, "_graph", None))
+    return out
+
+
+def checkpoint_cell(problem, device) -> dict:
+    """A checkpoint round trip on the card: a captured Trainer saves (in the
+    background) and trains on; another, its step already recorded, restores
+    into the tensors its graph reads and gives the same losses bitwise."""
+    import shutil
+    from pathlib import Path
+
+    from hypergef_tpu_torch.train.trainer import Trainer
+
+    cfg, hg, x, y, split, plan = problem
+    directory = Path(__file__).resolve().parent / "build" / "chip_smoke_checkpoints"
+    shutil.rmtree(directory, ignore_errors=True)
+    a, b = (Trainer(cfg, hg, x, y, plan=plan, device=device) for _ in range(2))
+    try:
+        a.fit(split["train"], epochs=3, warmup=0)
+        t0 = time.perf_counter()
+        a.save(str(directory), step=3, wait=False)
+        save_s = time.perf_counter() - t0
+        want = a.fit(split["train"], epochs=3, warmup=0)["losses"]
+        b.fit(split["train"], epochs=2, warmup=0)
+        ptrs = [t.data_ptr() for t in b._state()]
+        t0 = time.perf_counter()
+        step = b.restore(str(directory))
+        restore_s = time.perf_counter() - t0
+        check(step == 3, f"restored step {step}")
+        check([t.data_ptr() for t in b._state()] == ptrs, "restore keeps every tensor in place")
+        got = b.fit(split["train"], epochs=3, warmup=0)["losses"]
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    check(np.array_equal(got, want), "a restored captured Trainer goes on bitwise")
+    return {"route": fused_route(cfg.backend, a.plan, hg), "step": "captured",
+            "save_s": save_s, "restore_s": restore_s, "losses": got.tolist()}
+
+
+def compiled_cells(problems, aligned, streamed, default_problems, graphs):
+    """Phase 26's cells: (training cells, request cells, training cells
+    whose route cannot be captured), from the earlier phases' problems."""
+    from hypergef_tpu_torch.sparse.planner import (
+        AggregationPlan, plan_pallas_sparse, plan_tree,
+    )
+    from hypergef_tpu_torch.train.trainer import TrainConfig
+
+    def on(problem, backend=None, plan=None, **cfg):
+        c, hg, x, y, split, _ = problem
+        if backend is not None:
+            cfg["backend"] = backend
+        return dataclasses.replace(c, **cfg), hg, x, y, split, plan
+
+    news, pub = problems["20news"], problems["pubmed_real"]
+    sbm, al_plan = aligned["sbm"], aligned["plan"]
+    sbm_sum = sbm_problem(sbm, al_plan)
+    al_kernel = sbm_sum[5].aligned
+    sbm_max = on(sbm_sum, plan=sbm_sum[5], first_aggr="max")
+    s100k, bits, tree = streamed["hg"], streamed["bits"], streamed["tree"]
+    sx, sy, ssplit = streamed["problem"]
+    scfg = streamed["configs"]
+    stream = {name: (scfg[name], s100k, sx, sy, ssplit, None) for name in scfg}
+    dblp, cora = default_problems["coauthor_dblp HGNN sum"], default_problems["cora HGNN"]
+    train_cells = {
+        "20news pallas": news, "20news dense": on(news, "dense"),
+        "pubmed_real pallas_sparse": pub, "pubmed_real tree": on(pub, "tree"),
+        "SBM-60k sum aligned kernel": sbm_sum,
+        "SBM-60k sum aligned plain": on(sbm_sum, plan=AggregationPlan(aligned=al_plan)),
+        "SBM-60k sum pallas_sparse": on(sbm_sum, "pallas_sparse", plan_pallas_sparse(sbm)),
+        "SBM-60k max aligned kernel": sbm_max,
+        "SBM-60k max tree + aligned kernel": on(
+            sbm_max, plan=AggregationPlan(tree=plan_tree(sbm), aligned=al_kernel)),
+        "stream100k HGNN bitstream": on(stream["HGNN sum"],
+                                        plan=AggregationPlan(bitstream=bits)),
+        "stream100k HGNN tree": on(stream["HGNN sum"], "tree", AggregationPlan(tree=tree)),
+        "stream100k HGNN pallas_sparse": on(stream["HGNN sum"], "pallas_sparse",
+                                            plan_pallas_sparse(s100k)),
+        "stream100k HGNN max bitstream": on(stream["HGNN max"],
+                                            plan=AggregationPlan(bitstream=bits, tree=tree)),
+        "stream100k UniGCNII bitstream": on(stream["UniGCNII"],
+                                            plan=AggregationPlan(bitstream=bits)),
+        "coauthor_dblp HGNN sum cumsum (auto)": dblp,
+        "coauthor_dblp HGNN max cumsum (auto)": default_problems["coauthor_dblp HGNN max"],
+        "coauthor_dblp UniGCNII cumsum (auto)": default_problems["coauthor_dblp UniGCNII"],
+        "coauthor_dblp HGNN sum tree": on(dblp, "tree"),
+        "coauthor_dblp HGNN sum pallas_sparse": on(dblp, "pallas_sparse",
+                                                   plan_pallas_sparse(dblp[1])),
+        "cora HGNN precomp (auto)": cora, "cora HGNN dense": on(cora, "dense"),
+        "cora HGNN pallas": on(cora, "pallas"),
+        "20news HGNN dense (auto)": default_problems["20news HGNN"],
+    }
+    refused = {"SBM-60k max aligned plain": on(sbm_max, plan=AggregationPlan(aligned=al_plan))}
+    base = TrainConfig(model="HGNN", nhid=32, nlayer=2)
+    request_cells = {
+        "20news pallas": (dataclasses.replace(base, backend="pallas"), graphs["20news"], NFEAT,
+                          NCLASS, None),
+        "SBM-60k sum aligned kernel": (dataclasses.replace(base, backend="aligned"), sbm, NFEAT,
+                                       NCLASS, AggregationPlan(aligned=al_kernel)),
+        "SBM-60k max aligned kernel": (dataclasses.replace(base, backend="aligned",
+                                                           first_aggr="max"), sbm, NFEAT,
+                                       NCLASS, AggregationPlan(aligned=al_kernel)),
+        "stream100k HGNN bitstream": (dataclasses.replace(base, backend="bitstream"), s100k,
+                                      NFEAT, NCLASS, AggregationPlan(bitstream=bits)),
+        "stream100k UniGCNII bitstream": (dataclasses.replace(base, model="UniGCNII",
+                                                              backend="bitstream"), s100k,
+                                          NFEAT, NCLASS, AggregationPlan(bitstream=bits)),
+        "coauthor_dblp HGNN cumsum (auto)": (base, dblp[1], DBLP_NFEAT, DBLP_NCLASS, None),
+        "cora HGNN precomp (auto)": (base, cora[1], CORA_NFEAT, CORA_NCLASS, None),
+    }
+    return train_cells, request_cells, refused
+
+
+def compiled_phase(device, card: str, train_cells: dict, request_cells: dict,
+                   refused: dict) -> dict:
+    """Phase 26: the compiled step and request, eager against captured."""
+    out = {"train": {}, "requests": {}, "refused": {}}
+    for name, problem in train_cells.items():
+        out["train"][name] = compiled_train_cell(problem, device)
+        print(f"phase 26 train {name} (card {card}): {json.dumps(out['train'][name])}",
+              flush=True)
+    for name, problem in refused.items():
+        out["refused"][name] = compiled_train_cell(problem, device, capturable=False)
+        print(f"phase 26 train {name}, not capturable (card {card}): "
+              f"{json.dumps(out['refused'][name])}", flush=True)
+    for name, cell in request_cells.items():
+        out["requests"][name] = compiled_request_cell(*cell, device)
+        print(f"phase 26 request {name} (card {card}): {json.dumps(out['requests'][name])}",
+              flush=True)
+    out["checkpoint"] = checkpoint_cell(train_cells["20news pallas"], device)
+    print(f"phase 26 checkpoint round trip: {json.dumps(out['checkpoint'])}", flush=True)
+    cols = ("wall_ms", "device_ms", "enqueue_ms")
+    summary = {f"{kind} {name}": {f"{form} {c}": round(cell[form][c], 6)
+                                  for form in ("eager", "captured") for c in cols}
+               for kind, cells in (("step", out["train"]), ("request", out["requests"]))
+               for name, cell in cells.items()}
+    print(f"phase 26 summary (ms; wall: host included; device: behind a queued sleep; "
+          f"enqueue: host time to issue one; card {card}): {json.dumps(summary)}", flush=True)
+    sbm = out["train"]["SBM-60k sum aligned kernel"]
+    print(f"phase 26 SBM-60k sum step, aligned kernel form: eager wall {sbm['eager']['wall_ms']} "
+          f"ms, host time to issue it {sbm['eager']['enqueue_ms']} ms, its device time "
+          f"{sbm['eager']['device_ms']} ms; captured wall {sbm['captured']['wall_ms']} ms",
+          flush=True)
+    return out
+
+
 def band_ablation_source(name: str, source: str) -> str:
     """The band kernel's ``source`` with ablation ``name`` applied."""
     for old, new in BAND_ABLATIONS[name]:
@@ -2035,6 +2401,8 @@ def profile_steps(device, steps: int = 10) -> None:
     from hypergef_tpu_torch.train.splits import rand_train_test_idx
     from hypergef_tpu_torch.train.trainer import TrainConfig, Trainer
 
+    # the eager step's kernels, one by one (a replay would show as one graph)
+    Trainer = functools.partial(Trainer, compiled=False)  # noqa: N806
     sbm, al_plan, _ = build_sbm60k()
     cfg, hg, x, y, split, plan = sbm_problem(sbm, al_plan)
     kernel = plan.aligned
@@ -2123,10 +2491,19 @@ def main() -> int:
         profile_band(torch.device("cuda", 0))
         profile_steps(torch.device("cuda", 0))
         return 0
+    import shutil
+    from pathlib import Path
+
     from hypergef_tpu_torch.ops import _build
+    from hypergef_tpu_torch.utils import graphs as cuda_graphs
 
     device = torch.device("cuda", 0)
     card = card_line()
+    # phases 1-25 write each recorded graph out, to read its kernel nodes
+    dumps = Path(__file__).resolve().parent / "build" / "chip_smoke_graphs"
+    shutil.rmtree(dumps, ignore_errors=True)
+    dumps.mkdir(parents=True)
+    cuda_graphs.DUMP_DIR = str(dumps)
     print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     # 1. build
@@ -2157,7 +2534,7 @@ def main() -> int:
 
     # 3. serve
     served = serve(device, make_graph("20news"), "pallas",
-                   {"fused_dense": (fused_dense, "launches", 2)})
+                   {"fused": (fused_dense, "launches", 2)})
     print(f"phase 3 serve: {json.dumps(served)}", flush=True)
 
     # 4. times
@@ -2245,6 +2622,15 @@ def main() -> int:
     probed = probe_phase(device, card)
     print(f"phases 21-25: {time.perf_counter() - t0:.2f} s", flush=True)
 
+    # 26. the compiled step: eager against captured on each training and
+    # request cell of phases 3-24, its recordings timed without dumps
+    cuda_graphs.DUMP_DIR = None
+    shutil.rmtree(dumps, ignore_errors=True)
+    t0 = time.perf_counter()
+    compiled_phase(device, card, *compiled_cells(problems, aligned, streamed,
+                                                   defaults["problems"], graphs))
+    print(f"phase 26: {time.perf_counter() - t0:.2f} s", flush=True)
+
     fd_bwd_err = max(max(c["max_abs_err"].values()) for c in bwd)
     timed = {"fused_dense_two_stage": times["20news"], "ell_gather_sum": gather_times["edge F=32"],
              "aligned_band": aligned["band_times"]["edge F=32"],
@@ -2265,7 +2651,7 @@ def main() -> int:
         "route": "cuda",
         "source": "hypergef_tpu_torch/csrc/fused_dense.cu",
         # forward and backward launches of the serving and the pallas training paths
-        "launches": served["launches"]["fused_dense"] + trained["20news"]["launches"]["fused"],
+        "launches": served["launches"]["fused"] + trained["20news"]["launches"]["fused"],
         "max_abs_err": max(max(c["max_abs_err"] for c in cases), fd_bwd_err),
         "cuda_kernels_per_call": fd_kernels,
         **{f"{g}_{k}": times[g][key] for g in ("cora", "pubmed_real")

@@ -54,6 +54,7 @@ from hypergef_tpu_torch.ops.aligned_band import check_operand, kernel_table, rai
 from hypergef_tpu_torch.ops.maxops import NEG
 from hypergef_tpu_torch.ops.segment_sum import RecordTable, record_routed_dx
 from hypergef_tpu_torch.sparse.planner import AlignedStageBDev, AlignedStageDev
+from hypergef_tpu_torch.utils.graphs import refuse_capture
 
 argmax_launches = 0
 argsum_launches = 0
@@ -255,7 +256,11 @@ def _inverse(slot, n_slots):
 def live_pairs(st):
     """(segment, source) int64 [P] of every live entry of an aligned stage,
     window then spill; sources at or past N (padding, the zero row) are
-    left out."""
+    left out. It reads which entries are live back to the host (a boolean
+    ``nonzero``), so it refuses to run inside a CUDA graph."""
+    refuse_capture("the plain aligned max form (live_pairs)",
+                   "give the aligned plan a pallas_* form to run the max kernels, or build "
+                   "the Trainer or ServingModel with compiled=False")
     g_rows = st.group_rows
     pieces = []
     if isinstance(st, AlignedStageDev):

@@ -4,12 +4,16 @@ Port of the serving side of ``hypergef_tpu/serve.py``. A request supplies
 the node features ``x``; the model, its weights, the graph and its plan
 are the deployment (``serve.py:50-77``). :class:`ServingModel` holds them on
 one device and answers ``predict`` (``:192-205``) under
-``torch.inference_mode()``. Artifact export and load (``:50-163``) come
-later (ROADMAP.md queue 1, "Serving export and checkpoints").
+``torch.inference_mode()``. On the card a request is one replay of the
+forward recorded into a CUDA graph when the server is built, the
+counterpart of JAX's ``jax.jit(exported.call)`` (``:190``). Artifact export
+and load (``:50-163``) come later (ROADMAP.md queue 1, "Serving export and
+checkpoints").
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
@@ -19,6 +23,7 @@ from hypergef_tpu_torch import __version__
 from hypergef_tpu_torch.models.zoo import build_model
 from hypergef_tpu_torch.sparse.planner import AggregationPlan
 from hypergef_tpu_torch.train.trainer import default_plan, device_plans
+from hypergef_tpu_torch.utils.graphs import Captured
 
 
 class ServingModel:
@@ -36,6 +41,11 @@ class ServingModel:
     aggregation) and the plain-form ``plan_aligned(hg)`` for ``aligned``;
     pass a ``pallas_*`` form plan to run the band and argmax kernels there,
     and ``pallas_sparse`` its plan. A plan's tables go to ``device`` here.
+
+    ``compiled`` is the Trainer's switch: None records the forward into a
+    CUDA graph here on a CUDA device (``capture_s`` host seconds, warm-up
+    included) and serves eagerly on the CPU; False serves eagerly; True on
+    the CPU raises.
     """
 
     def __init__(
@@ -47,8 +57,14 @@ class ServingModel:
         device,
         params: Optional[Mapping[str, Any]] = None,
         plan: Optional[AggregationPlan] = None,
+        compiled: Optional[bool] = None,
     ):
         self.device = torch.device(device)
+        if compiled and self.device.type != "cuda":
+            raise ValueError(
+                f"compiled=True needs a CUDA device (a CUDA graph records the card's "
+                f"kernels); on {self.device} the server runs eagerly")
+        self.compiled = self.device.type == "cuda" if compiled is None else bool(compiled)
         if plan is None:
             plan = default_plan(cfg.backend, hg, self.device, cfg.first_aggr)
         self.plan = plan
@@ -82,11 +98,28 @@ class ServingModel:
             "nnz": int(hg.nnz),
             "platforms": [self.device.type],
             "hypergef_version": __version__,
-            "payload_bytes": None,  # no serialized artifact yet
+            "payload_bytes": None,  # None until export is ported (ROADMAP.md queue 1)
         }
+        self._graph: Optional[Captured] = None
+        self.capture_s = 0.0
+        if self.compiled:
+            t0 = time.perf_counter()
+            self._x = torch.zeros(tuple(self.meta["input_shape"]), dtype=torch.float32,
+                                  device=self.device)
+            self._graph = Captured(lambda: self._forward(self._x), self.device,
+                                   warmup=lambda: self._forward(self._x))
+            self.capture_s = time.perf_counter() - t0
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return self.model(x, self.hgd, self.plan)
 
     def predict(self, x) -> torch.Tensor:
-        """Full-graph log-probabilities ``[num_nodes, nclass]`` on the device."""
+        """Full-graph log-probabilities ``[num_nodes, nclass]`` on the device.
+
+        Captured, ``x`` is copied into the graph's input and the graph
+        replayed; the answer is a copy that the next request leaves alone,
+        as JAX returns a new array."""
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         expect = tuple(self.meta["input_shape"])
         if tuple(x.shape) != expect:
@@ -95,8 +128,11 @@ class ServingModel:
                 f"{expect} (the server is built for one graph; build another "
                 "for a different graph)"
             )
+        if self._graph is None:
+            return self._forward(x.contiguous())
+        self._x.copy_(x)
         with torch.inference_mode():
-            return self.model(x.contiguous(), self.hgd, self.plan)
+            return self._graph.replay().clone()
 
     def predict_labels(self, x) -> np.ndarray:
         return self.predict(x).argmax(dim=1).cpu().numpy()

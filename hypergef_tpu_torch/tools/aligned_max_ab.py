@@ -49,10 +49,13 @@ def worker(yardsticks: bool) -> dict:
 
     import chip_smoke as cs
     from hypergef_tpu_torch.ops import _build, aligned_max
+    from ab_eager import eager
     from hypergef_tpu_torch.serve import ServingModel
+    ServingModel = eager(ServingModel)  # noqa: N806
     from hypergef_tpu_torch.sparse.planner import plan_aligned
     from hypergef_tpu_torch.tools.segment_sum_ab import busy_ms
     from hypergef_tpu_torch.train.trainer import Trainer
+    Trainer = eager(Trainer)  # noqa: N806
     from hypergef_tpu_torch.utils.timing import cuda_time_ms
 
     dev = torch.device("cuda", 0)

@@ -94,10 +94,13 @@ def worker(yardsticks: bool) -> dict:
                 res["kernels"][f"{gname} {name} F={f}"] = r
 
     from hypergef_tpu_torch.data.synthetic import random_features
+    from ab_eager import eager
     from hypergef_tpu_torch.serve import ServingModel
+    ServingModel = eager(ServingModel)  # noqa: N806
     from hypergef_tpu_torch.sparse.planner import AggregationPlan
     from hypergef_tpu_torch.train.splits import rand_train_test_idx
     from hypergef_tpu_torch.train.trainer import TrainConfig, Trainer
+    Trainer = eager(Trainer)  # noqa: N806
 
     x, y = random_features(s100k.num_nodes, cs.NFEAT, cs.NCLASS, seed=1)
     idx = rand_train_test_idx(y, seed=2)["train"]

@@ -157,7 +157,9 @@ def worker(yardsticks: bool) -> dict:
     ring_cases("k5 two buffers", *(torch.as_tensor(a, device=dev) for a in (xn, pair, ones)))
 
     cfg, hg, x, y, split, plan = cs.train_problem("pubmed_real")
+    from ab_eager import eager
     from hypergef_tpu_torch.train.trainer import Trainer
+    Trainer = eager(Trainer)  # noqa: N806
 
     trainer = Trainer(cfg, hg, x, y, plan=plan, device=dev)
     name = "pubmed_real HGNN pallas_sparse"

@@ -174,7 +174,9 @@ def worker(yardsticks: bool) -> dict:
     from hypergef_tpu_torch.data.synthetic import random_features
     from hypergef_tpu_torch.sparse.planner import AggregationPlan
     from hypergef_tpu_torch.train.splits import rand_train_test_idx
+    from ab_eager import eager
     from hypergef_tpu_torch.train.trainer import TrainConfig, Trainer
+    Trainer = eager(Trainer)  # noqa: N806
 
     trainers, idx = {}, {}
     cfg, hg, x, y, split, plan = cs.sbm_problem(sbm, al_plan)

@@ -3,16 +3,16 @@
 Counterpart of ``hypergef_tpu/utils/timing.py::device_time_per_iter``
 (``:76-140``). CUDA events are recorded in stream order, so they need none
 of the TPU runtime's value-fetch fencing. :func:`cuda_time_ms` raises
-without a CUDA device; :class:`Window` reads the host clock on the CPU and
-says so in ``timer``: a time from the CPU is never reported as a device
-time.
+without a CUDA device; :class:`Window` and :func:`differenced_windows` read
+the host clock on the CPU and say so in ``timer``: a time from the CPU is
+never reported as a device time.
 """
 
 from __future__ import annotations
 
 import statistics
 import time
-from typing import Callable, Optional
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -88,3 +88,59 @@ class Window:
         else:
             self.seconds = time.perf_counter() - self._t0
         return False
+
+
+def differenced_windows(
+    run: Callable[[int], object],
+    device,
+    iters: int,
+    windows: int,
+    repeats: int,
+    before: Optional[Callable[[], object]] = None,
+) -> Tuple[List[float], str]:
+    """Seconds per call of ``run``'s body, one sample a window, and the timer.
+
+    The differenced window of JAX's ``Trainer._epoch_windows``
+    (``hypergef_tpu/train/trainer.py:240-290``): ``run(n)`` issues ``n``
+    back-to-back calls, ``t(n)`` is the least of ``repeats`` runs, and a
+    sample is ``(t(iters + 1) - t(1)) / iters``, so the work that a run
+    does once (its first call's start, the final wait) cancels out.
+    ``before``, if given, runs ahead of each timed run, outside the
+    window. On a CUDA device each run starts behind a queued sleep and
+    is timed by CUDA events (``timer`` ``"cuda_events"``): the window
+    holds the card's work, and the host's only where enqueuing the run
+    takes longer than the sleep. On the CPU it is the host clock
+    (``"host_clock"``).
+    """
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+
+    def once(n: int) -> float:
+        if before is not None:
+            before()
+        if not cuda:
+            t0 = time.perf_counter()
+            run(n)
+            return time.perf_counter() - t0
+        stream = torch.cuda.current_stream(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.device(device):
+            torch.cuda._sleep(_QUEUE_AHEAD_CYCLES)
+        start.record(stream)
+        run(n)
+        end.record(stream)
+        end.synchronize()
+        return start.elapsed_time(end) / 1000.0
+
+    def timed(n: int) -> float:
+        return min(once(n) for _ in range(max(repeats, 1)))
+
+    once(1)  # first calls: lazy set-up out of the windows
+    once(iters + 1)
+    samples = []
+    for _ in range(max(windows, 1)):
+        t_short = timed(1)
+        t_long = timed(iters + 1)
+        samples.append(max(t_long - t_short, 0.0) / iters)
+    return samples, "cuda_events" if cuda else "host_clock"

@@ -33,6 +33,9 @@ Tolerances:
 * record-routed sum: bitwise equal to the sequential CSR-order sum
   (``record_routed_dx_sequential``: each won value added in CSR order from
   +0.0), and within the segment sum's 1e-6 of its plain twin.
+* the compiled step and request (``utils/graphs.py``): a CUDA-graph replay
+  bitwise equal to the eager step or request under the same seed, dropout
+  on: the graph launches the same kernels on the same inputs.
 """
 
 import dataclasses
@@ -1475,3 +1478,161 @@ def test_probes_hold_against_their_oracles_on_the_card(cuda):
         bad = [(r["case"], r["max_abs_err"]) for r in rows if not r["ok"]]
         assert not bad, f"{name}: {bad}"
         assert all(r["launches"] == 1 for r in rows), name
+
+
+# --------------------------------------------------------------------------
+# The compiled step and request: CUDA-graph replays against eager calls
+
+COMPILED_CASES = [("cumsum", "sum"), ("cumsum", "max"), ("tree", "sum"), ("tree", "max"),
+                  ("dense", "sum"), ("pallas", "sum"), ("pallas", "max"),
+                  ("pallas_sparse", "sum"), ("aligned", "sum"), ("aligned", "max"),
+                  ("bitstream", "sum"), ("bitstream", "max"), ("precomp", "sum")]
+
+
+@functools.lru_cache(maxsize=None)
+def _compiled_graphs():
+    from hypergef_tpu_torch.data.synthetic import random_features, random_hypergraph
+
+    hg = random_hypergraph(3000, 1200, avg_edge_size=6.0, seed=4)
+    sbm = sorted_community_graph(3000, 2000, 30, 6, 0.02, 5)
+    return {g: (h, *random_features(h.num_nodes, 24, 4, seed=6)) for g, h in
+            (("random", hg), ("community", sbm))}
+
+
+def _compiled_problem(route, aggr, model="HGNN", **cfg):
+    from hypergef_tpu_torch.train.splits import rand_train_test_idx
+    from hypergef_tpu_torch.train.trainer import TrainConfig
+
+    hg, x, y = _compiled_graphs()["community" if route == "aligned" else "random"]
+    plan = None
+    if route == "aligned":
+        kernel = dataclasses.replace(planner.plan_aligned(hg), form="pallas_auto")
+        plan = planner.AggregationPlan(aligned=kernel)
+    elif route == "pallas_sparse":
+        plan = planner.plan_pallas_sparse(hg)
+    tcfg = TrainConfig(model=model, nhid=16, first_aggr=aggr, backend=route, **cfg)
+    return tcfg, hg, x, y, rand_train_test_idx(y, seed=2)["train"], plan
+
+
+def _trainers(route, aggr, model="HGNN", **cfg):
+    from hypergef_tpu_torch.train.trainer import Trainer
+
+    tcfg, hg, x, y, idx, plan = _compiled_problem(route, aggr, model, **cfg)
+    return [Trainer(tcfg, hg, x, y, nclass=4, plan=plan, device="cuda", compiled=c)
+            for c in (False, True)], idx
+
+
+@pytest.mark.parametrize("route,aggr", COMPILED_CASES)
+def test_captured_fit_equals_eager(cuda, route, aggr):
+    """Five epochs with dropout: the captured step's losses bitwise equal
+    the eager step's, again after fit re-seeds the registered generator,
+    and the captured forward's log-probs equal the eager one's."""
+    (eager, captured), idx = _trainers(route, aggr)
+    assert (eager.compiled, captured.compiled) == (False, True)
+    for _ in range(2):
+        want, got = (t.fit(idx, epochs=5, warmup=1) for t in (eager, captured))
+        assert (want["step"], got["step"]) == ("eager", "captured")
+        np.testing.assert_array_equal(got["losses"], want["losses"])
+    assert torch.equal(captured.predict(), eager.predict())
+    for a, b in zip(captured._state(), eager._state()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("model", ["UniGIN", "UniGCNII"])
+def test_captured_unignn_fit_equals_eager(cuda, model):
+    (eager, captured), idx = _trainers("bitstream", "sum", model)
+    want, got = (t.fit(idx, epochs=4) for t in (eager, captured))
+    np.testing.assert_array_equal(got["losses"], want["losses"])
+
+
+def test_recording_counts_and_replays_run_the_kernels(cuda, tmp_path, monkeypatch):
+    """The wrapper counts the warm-up step's launches and the recording's,
+    and no replay's; the recording holds the step's 8 segment sums as
+    kernel nodes, which every replay launches, and a graph kept to be
+    written out gives the eager losses too; a second fit records nothing."""
+    from hypergef_tpu_torch.ops import segment_sum
+    from hypergef_tpu_torch.train.trainer import CAPTURE_WARMUP
+    from hypergef_tpu_torch.utils import graphs
+
+    monkeypatch.setattr(graphs, "DUMP_DIR", str(tmp_path))
+    (eager, captured), idx = _trainers("cumsum", "sum")
+    want = eager.fit(idx, epochs=4, warmup=0)["losses"]
+    segment_sum.launches = 0
+    res = captured.fit(idx, epochs=4, warmup=0)
+    assert res["capture_warmup"] == CAPTURE_WARMUP and res["capture_s"] > 0
+    assert segment_sum.launches == 8 * (CAPTURE_WARMUP + 1)
+    np.testing.assert_array_equal(res["losses"], want)
+    (step,) = captured._steps.values()
+    lines = Path(step.dot).read_text().splitlines()
+    assert sum("segment_sum_kernel" in line for line in lines) == 8
+    segment_sum.launches = 0
+    assert captured.fit(idx, epochs=3, warmup=0)["capture_s"] == 0.0
+    assert segment_sum.launches == 0
+
+
+@pytest.mark.parametrize("route,aggr", [("cumsum", "sum"), ("pallas", "sum"),
+                                        ("aligned", "max"), ("bitstream", "sum")])
+def test_captured_requests_equal_eager(cuda, route, aggr):
+    """A captured request equals the eager one bitwise, and an answer
+    survives the next request."""
+    from hypergef_tpu_torch.serve import ServingModel
+
+    cfg, hg, x, _, _, plan = _compiled_problem(route, aggr)
+    eager, captured = (ServingModel(cfg, hg, x.shape[1], 4, "cuda", plan=plan, compiled=c)
+                       for c in (False, True))
+    assert captured.capture_s > 0 and eager.capture_s == 0.0
+    x1 = torch.as_tensor(x, device="cuda")
+    x2 = torch.flip(x1, dims=[0]).contiguous()
+    a1 = captured.predict(x1)
+    a2 = captured.predict(x2)
+    assert torch.equal(a1, eager.predict(x1)) and torch.equal(a2, eager.predict(x2))
+    assert not torch.equal(a1, a2)
+    assert torch.equal(a1, captured.predict(x1))
+
+
+def test_plain_aligned_max_raises_under_capture(cuda):
+    """The plain aligned max form reads the device from the host: captured,
+    the Trainer and the server raise CaptureError; eager, they run."""
+    from hypergef_tpu_torch.serve import ServingModel
+    from hypergef_tpu_torch.train.trainer import Trainer
+    from hypergef_tpu_torch.utils.graphs import CaptureError
+
+    cfg, hg, x, y, idx, _ = _compiled_problem("aligned", "max")
+    plain = planner.AggregationPlan(aligned=planner.plan_aligned(hg))
+    with pytest.raises(CaptureError, match="compiled=False"):
+        Trainer(cfg, hg, x, y, nclass=4, plan=plain, device="cuda").fit(idx, epochs=1)
+    with pytest.raises(CaptureError, match="compiled=False"):
+        ServingModel(cfg, hg, x.shape[1], 4, "cuda", plan=plain)
+    eager = Trainer(cfg, hg, x, y, nclass=4, plan=plain, device="cuda", compiled=False)
+    assert np.isfinite(eager.fit(idx, epochs=1)["losses"]).all()
+
+
+def test_restore_into_a_captured_trainer_continues_bitwise(cuda, tmp_path):
+    """A restore copies into the tensors the graphs read: a captured Trainer
+    that restores goes on with the saved run's losses bitwise."""
+    (_, a), idx = _trainers("cumsum", "sum")
+    (_, b), _ = _trainers("cumsum", "sum")
+    a.fit(idx, epochs=3)
+    a.save(str(tmp_path / "ck"), step=3, wait=False)
+    want = a.fit(idx, epochs=3)["losses"]
+    b.fit(idx, epochs=2)  # its graph recorded, and a state of its own
+    ptrs = [t.data_ptr() for t in b._state()]
+    assert b.restore(str(tmp_path / "ck")) == 3
+    assert [t.data_ptr() for t in b._state()] == ptrs
+    np.testing.assert_array_equal(b.fit(idx, epochs=3)["losses"], want)
+
+
+@pytest.mark.parametrize("compiled", [False, True])
+def test_epoch_device_time_keeps_the_state_on_the_card(cuda, compiled):
+    from hypergef_tpu_torch.train.trainer import Trainer
+
+    tcfg, hg, x, y, idx, plan = _compiled_problem("cumsum", "sum")
+    tr = Trainer(tcfg, hg, x, y, nclass=4, device="cuda", compiled=compiled)
+    tr.fit(idx, epochs=2)
+    before = [t.clone() for t in tr._state()], tr.generator.get_state()
+    st = tr.epoch_device_time_stats(idx, iters=4, windows=3, repeats=2)
+    assert st["timer"] == "cuda_events" and st["windows"] == 3 and st["median_s"] > 0
+    assert tr.epoch_device_time(idx, iters=4) > 0
+    for a, b in zip(tr._state(), before[0]):
+        assert torch.equal(a, b)
+    assert torch.equal(tr.generator.get_state(), before[1])

@@ -189,7 +189,7 @@ def test_optimizer_is_adam_with_l2_in_the_gradient():
     np.testing.assert_allclose(p.detach().numpy(), want, rtol=1e-6)
 
 
-def test_trainer_plans_and_unported_options():
+def test_trainer_plans_and_unported_options(tmp_path):
     _, thg, x, y, _ = _problem(240, 120, seed=5)
     assert default_plan("xla", thg, "cpu") is None
     assert default_plan("pallas", thg, "cpu").dense is not None
@@ -203,10 +203,15 @@ def test_trainer_plans_and_unported_options():
                 TrainConfig(backend="tree", plan_cache="")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(cfg, thg, x, y, device="cpu")
+    # checkpoints are ported: a round trip into a Trainer of another seed
     tr = Trainer(TrainConfig(backend="xla"), thg, x, y, device="cpu")
-    for call in (lambda: tr.save("ckpt"), lambda: tr.restore("ckpt")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(FileNotFoundError):
+        tr.restore(str(tmp_path / "ckpt"))
+    tr.save(str(tmp_path / "ckpt"), step=4)
+    other = Trainer(TrainConfig(backend="xla", seed=9), thg, x, y, device="cpu")
+    assert other.restore(str(tmp_path / "ckpt")) == 4
+    for a, b in zip(tr.model.state_dict().values(), other.model.state_dict().values()):
+        assert torch.equal(a, b)
 
 
 def test_trainer_runs_on_the_card_by_default():
