@@ -44,7 +44,10 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    dense backward vs its plain formula.
 9. Build the clustered SBM-60k graph from raw input as bench.py's clustered
    leg does (generator, shuffle, ``community_reorder(method="coarsen")``)
-   and its ``plan_aligned`` plan. Hold the band kernel (``aligned_band``)
+   and its ``plan_aligned`` plan. The coarsening order runs in the native
+   host library (``sparse/native.py``, built by g++ at first use; its
+   build seconds apart) and again in NumPy: the two orders must be equal,
+   and both host times are printed. Hold the band kernel (``aligned_band``)
    against its plain twin on both stages at F = 32, 4 and 3, on the
    uniform-form plan of the same graph and on a small single-bucket plan, and
    at F = 100 (two passes of the kernel's 64 features) on the SBM-60k plan:
@@ -203,6 +206,22 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    checkpoint round trip: a captured 20news Trainer saves in the
    background, another restores into the tensors its graph reads and goes
    on bitwise.
+27. The training CLI (``hypergef_tpu_torch.train.cli``), called in this
+   process (each kernel count set to 0 just before a call and read just
+   after) and once as ``python -m hypergef_tpu_torch.train.cli``; every file
+   it writes goes to a temporary directory. (a) A powerlaw graph at
+   coauthor_dblp's dimensions and AllSet's widths (``CLI_DBLP``): the
+   ladder's route (``CLI_PICKS``), segment-sum launches, finite losses, a
+   CSV row of 9 fields in JAX's order; (b) the same with ``--tune``: a
+   sweep, each candidate's time, then a run that reads the record and
+   makes none; (c) with ``--plan-cache DIR``: a build, then a load, losses
+   bitwise equal, the set-up seconds of each; (d) 5000×3000 with
+   ``--backend pallas`` (fused dense launches) and ``--first-aggr max``
+   (record-routed sum launches); (e) each of the 13 fixture datasets
+   (``tests/fixtures/data``, copied) trained 20 epochs, finite losses; (f)
+   each with ``--validate-parity``: exit 0, format and oracle (on the
+   card) PASS, shape and accuracy SKIP under the FIXTURE marker; (g) (a)
+   with ``--profile``: the device memory in use and at peak, in MiB.
 
 Phases 1-25 drive the default step and request: on the card a CUDA-graph
 replay (``Trainer``'s and ``ServingModel``'s ``compiled=None``); the plain
@@ -318,6 +337,17 @@ COMPILED_EPOCHS = 5
 # (BASELINE.md:41)
 REF_RTX3090_INFER_MS = 0.395
 REF_RTX3090_EPOCH_MS = 1.471
+# phase 27, the training CLI: coauthor_dblp's dimensions and AllSet's widths
+# on a powerlaw graph, and a small one; the ladder's pick for each
+# (powerlaw_hypergraph at the CLI's seed 1; JAX's plan_aggregation,
+# held against JAX by tests/test_torch_port_cli.py); the CSV row's fields
+# (hgsys.py:207-211)
+CLI_DBLP = ["--synthetic", "powerlaw", "--n", "41302", "--e", "22363", "--feat", "1425",
+            "--classes", "6", "--nhid", "32", "--nlayer", "2", "--epochs", "20"]
+CLI_5K = ["--synthetic", "powerlaw", "--n", "5000", "--e", "3000", "--epochs", "20"]
+CLI_PICKS = {"coauthor_dblp": "cumsum", "5000x3000": "precomp"}
+CLI_ROW = ("backend", "model", "dname", "nlayer", "nhid", "nhead", "first_aggr",
+           "train_epoch_time_s", "inference_time_s")
 
 
 def card_line() -> str:
@@ -906,22 +936,35 @@ def time_fd_backward(hg, f: int, device) -> dict:
 
 def build_sbm60k():
     """SBM-60k from raw input (bench.py:172-176) and its aligned plan, with
-    the seconds of the reorder and of the plan."""
+    the seconds of the reorder and of the plan. The coarsening order runs in
+    the native host library (the default), once more in NumPy, and the two
+    orders must be equal; the library's build seconds are apart."""
     from hypergef_tpu_torch.data.synthetic import community_hypergraph
+    from hypergef_tpu_torch.sparse import native
     from hypergef_tpu_torch.sparse.planner import plan_aligned
-    from hypergef_tpu_torch.sparse.reorder import apply_vertex_order, community_reorder
+    from hypergef_tpu_torch.sparse.reorder import apply_vertex_order, community_order
 
     hg = community_hypergraph(**SBM60K)
     perm = np.random.default_rng(7).permutation(hg.num_nodes)
     hg, _ = apply_vertex_order(hg, perm, sort_edges=False)  # raw order
     t0 = time.perf_counter()
-    hg, _ = community_reorder(hg, method="coarsen")
+    native.load_library()
+    native_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    order = community_order(hg, method="coarsen")
     reorder_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    order_numpy = community_order(hg, method="coarsen", use_native=False)
+    reorder_numpy_s = time.perf_counter() - t0
+    check(np.array_equal(order, order_numpy), "SBM-60k: the native coarsening order equals "
+          "the NumPy one")
+    hg, _ = apply_vertex_order(hg, order)  # community_reorder's graph
     t0 = time.perf_counter()
     plan = plan_aligned(hg)
     plan_s = time.perf_counter() - t0
     info = {"graph": "sbm60k", "n": hg.num_nodes, "e": hg.num_edges, "nnz": hg.nnz,
-            "reorder_s": reorder_s, "plan_s": plan_s}
+            "reorder_s": reorder_s, "reorder_numpy_s": reorder_numpy_s,
+            "orders_equal": True, "native_build_s": native_build_s, "plan_s": plan_s}
     for name, st in (("edge", plan.edge_stage), ("vertex", plan.vertex_stage)):
         info[name] = {
             "buckets": [list(b.win_block.shape) for b in st.buckets],  # [groups, width]
@@ -2322,6 +2365,200 @@ def compiled_phase(device, card: str, train_cells: dict, request_cells: dict,
     return out
 
 
+def cli_counts_run(argv, counters, out=None):
+    """``cli.main(argv)`` in this process with every kernel count set to 0
+    just before, and the counts it launched read just after (the recording
+    of its captured step and forward, and its eager warm-up steps: replays
+    call no wrapper). ``out`` collects its standard output."""
+    import contextlib
+    import io
+
+    from hypergef_tpu_torch.train import cli
+
+    torch.cuda.synchronize()
+    for module, attr in counters.values():
+        setattr(module, attr, 0)
+    buf = io.StringIO()
+    code = 0
+    with contextlib.redirect_stdout(buf):
+        try:
+            res = cli.main(argv)
+        except SystemExit as e:  # --validate-parity exits with its verdict
+            res, code = None, e.code
+    torch.cuda.synchronize()
+    launched = {k: getattr(module, attr) for k, (module, attr) in counters.items()}
+    if out is not None:
+        out.append(buf.getvalue())
+    return res, code, {k: v for k, v in launched.items() if v}
+
+
+def cli_run_line(res, launched, launches: list) -> dict:
+    """What a training run of the CLI reports: its route, times and setup;
+    its launches are added to ``launches``."""
+    check(bool(np.isfinite(res["losses"]).all()), "the CLI's losses are finite")
+    launches.append(launched)
+    return {"route": res["route"], "step": res["step"], "timer": res["timer"],
+            "setup_s": res["setup_s"], "capture_s": res["capture_s"],
+            "train_epoch_time_s": res["train_epoch_time_s"],
+            "inference_time_s": res.get("inference_time_s"), "final_loss": res["final_loss"],
+            "test_acc": res.get("test_acc"), "launches": launched}
+
+
+def cli_phase(device, card: str) -> dict:
+    """Phase 27: the training CLI (``hypergef_tpu_torch.train.cli``) on the
+    card, in this process and once as ``python -m``; every file it writes
+    (data copies, tune and plan caches, CSV rows) goes to a temporary
+    directory."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from hypergef_tpu_torch.data.datasets import EXISTING_DATASETS
+    from hypergef_tpu_torch.sparse import autotune
+
+    counters = kernel_counters()
+    out, launches = {}, []
+    saved_env = {k: os.environ.get(k) for k in ("HYPERGEF_TORCH_TUNE_DIR",
+                                                "HYPERGEF_TORCH_PLAN_CACHE")}
+    real_sweep = autotune.sweep
+    sweeps = []
+
+    def counted_sweep(*a, **k):
+        sweeps.append(1)
+        return real_sweep(*a, **k)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        tmp = Path(tmp)
+        os.environ["HYPERGEF_TORCH_TUNE_DIR"] = str(tmp / "tune")
+        os.environ["HYPERGEF_TORCH_PLAN_CACHE"] = str(tmp / "plans_default")
+        autotune.sweep = counted_sweep
+        try:
+            # a. coauthor_dblp's dimensions on the ladder's route, with the CSV row
+            csv = tmp / "rows.csv"
+            res, _, launched = cli_counts_run(CLI_DBLP + ["--output", str(csv)], counters)
+            a = cli_run_line(res, launched, launches)
+            check(a["route"] == CLI_PICKS["coauthor_dblp"] and a["step"] == "captured",
+                  f"the CLI's dblp run: route {a['route']}, step {a['step']}")
+            check(launched.get("segsum", 0) > 0, f"the CLI's dblp run launched {launched}")
+            (row,) = csv.read_text().splitlines()
+            fields = row.split(",")
+            check(len(fields) == len(CLI_ROW) and fields[0] == "auto"
+                  and fields[1] == "HGNN" and fields[3] == "nlayer=2"
+                  and fields[4] == " nhid=32" and fields[6] == "first_aggr=sum"
+                  and float(fields[7]) == res["train_epoch_time_s"]
+                  and float(fields[8]) == res["inference_time_s"], f"the CSV row {row!r}")
+            a["csv_row"] = row
+            out["a"] = a
+            # the segment-sum kernel on this graph's two tables at F = 32: a
+            # segment is one warp's walk, so the longest one sets the time
+            from hypergef_tpu_torch.data.synthetic import powerlaw_hypergraph
+            from hypergef_tpu_torch.train import cli
+
+            args = cli.parse(CLI_DBLP)
+            hg = powerlaw_hypergraph(args.n, args.e, seed=args.seed)
+            out["segsum"] = {
+                stage: {"longest_segment": int(longest.max()), "nnz": hg.nnz,
+                        **time_segsum(hg, stage, 32, device)}
+                for stage, longest in (("v2e", hg.edge_sizes()), ("e2v", hg.vertex_degrees()))}
+            del hg
+            # b. --tune: the sweep, then a second run reads its record
+            res, _, launched = cli_counts_run(CLI_DBLP + ["--tune"], counters)
+            check(len(sweeps) == 1, "the first --tune run sweeps")
+            (rec_file,) = (tmp / "tune").iterdir()
+            rec = json.loads(rec_file.read_text())
+            res2, _, launched2 = cli_counts_run(CLI_DBLP + ["--tune"], counters)
+            check(len(sweeps) == 1, "the second --tune run reads the record, no sweep")
+            check(res2["route"] == rec["backend"] == res["route"], "the tuned route")
+            out["b"] = {"sweep_us": {f"{r['backend']} {json.dumps(r['params'])}":
+                                     r["per_iter_s"] * 1e6 for r in rec["all"]},
+                        "pick": rec["backend"], "pick_params": rec["params"],
+                        "ladder_pick": CLI_PICKS["coauthor_dblp"], "device": rec["device"],
+                        "first": cli_run_line(res, launched, launches),
+                        "second": cli_run_line(res2, launched2, launches)}
+            # c. --plan-cache DIR: a build, then a load in a fresh Trainer
+            runs = [cli_counts_run(CLI_DBLP + ["--plan-cache", str(tmp / "plans")], counters)
+                    for _ in range(2)]
+            check(len(list((tmp / "plans").iterdir())) == 1, "one cached plan")
+            check(np.array_equal(runs[0][0]["losses"], runs[1][0]["losses"]),
+                  "a loaded plan trains to the built plan's losses, bitwise")
+            out["c"] = {"build_setup_s": runs[0][0]["setup_s"],
+                        "load_setup_s": runs[1][0]["setup_s"],
+                        "losses_bitwise_equal": True,
+                        "build": cli_run_line(runs[0][0], runs[0][2], launches),
+                        "load": cli_run_line(runs[1][0], runs[1][2], launches)}
+            # d. the fused dense kernel (--backend pallas) and the max backward
+            res, _, launched = cli_counts_run(CLI_5K + ["--backend", "pallas"], counters)
+            check(res["route"] == "pallas" and launched.get("fused", 0) > 0,
+                  f"the CLI's pallas run launched {launched}")
+            out["d pallas"] = cli_run_line(res, launched, launches)
+            res, _, launched = cli_counts_run(CLI_5K + ["--first-aggr", "max"], counters)
+            check(res["route"] == CLI_PICKS["5000x3000"] and launched.get("recsum", 0) > 0,
+                  f"the CLI's max run: route {res['route']}, launched {launched}")
+            out["d max"] = cli_run_line(res, launched, launches)
+            # e, f. the 13 fixtures: trained, then validated
+            root = tmp / "data"
+            fixtures = Path(__file__).resolve().parent / "tests" / "fixtures" / "data"
+            for name in EXISTING_DATASETS:
+                shutil.copytree(fixtures / name, root / name)
+            out["e"], out["f"] = {}, {}
+            for name in EXISTING_DATASETS:
+                res, _, launched = cli_counts_run(
+                    ["--dname", name, "--data-path", str(root), "--epochs", "20"], counters)
+                out["e"][name] = cli_run_line(res, launched, launches)
+                printed = []
+                _, code, _ = cli_counts_run(["--dname", name, "--data-path", str(root),
+                                             "--validate-parity"], counters, printed)
+                # CheckResult.line(): "[STATUS] check: detail"
+                statuses = {ln[7:].split(":")[0]: ln[1:5].strip()
+                            for ln in printed[0].splitlines() if ln.startswith("[")}
+                check(code == 0 and statuses == {"format": "PASS", "shape": "SKIP",
+                                                 "oracle": "PASS", "accuracy": "SKIP"},
+                      f"{name}: --validate-parity exit {code}, {printed[0]!r}")
+                oracle = [ln for ln in printed[0].splitlines() if "] oracle:" in ln]
+                check("on cuda" in oracle[0], f"{name}: the oracle ran on the card")
+                out["f"][name] = oracle[0]
+            # g. --profile: the device's memory, the earlier runs' tensors freed
+            gc.collect()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated(device)
+            printed = []
+            res, _, launched = cli_counts_run(CLI_DBLP + ["--profile", "1"], counters, printed)
+            check(0 < res["device_memory_bytes"] <= res["device_memory_peak_bytes"],
+                  "device memory in use and peak")
+            out["g"] = {"in_use_mib": res["device_memory_bytes"] / 2**20,
+                        "peak_mib": res["device_memory_peak_bytes"] / 2**20,
+                        "before_mib": before / 2**20,
+                        "printed": [ln for ln in printed[0].splitlines()
+                                    if ln.startswith(("epoch time", "device memory"))],
+                        "launches": launched}
+            launches.append(launched)
+            # the entry point as a user runs it
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "hypergef_tpu_torch.train.cli", *CLI_5K,
+                 "--output", str(tmp / "sub.csv")],
+                capture_output=True, text=True, timeout=300, check=False,
+                cwd=str(Path(__file__).resolve().parent),
+                env={**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)})
+            check(proc.returncode == 0, f"python -m hypergef_tpu_torch.train.cli: "
+                  f"{proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+            (row,) = (tmp / "sub.csv").read_text().splitlines()
+            check(len(row.split(",")) == len(CLI_ROW), f"the subprocess's CSV row {row!r}")
+            out["subprocess"] = {"seconds": time.perf_counter() - t0, "csv_row": row,
+                                 "stdout_tail": proc.stdout.strip().splitlines()[-5:]}
+        finally:
+            autotune.sweep = real_sweep
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    out["launches"] = {k: sum(run.get(k, 0) for run in launches)
+                       for k in ("segsum", "fused", "recsum")}
+    return out
+
+
 def band_ablation_source(name: str, source: str) -> str:
     """The band kernel's ``source`` with ablation ``name`` applied."""
     for old, new in BAND_ABLATIONS[name]:
@@ -2631,6 +2868,30 @@ def main() -> int:
                                                    defaults["problems"], graphs))
     print(f"phase 26: {time.perf_counter() - t0:.2f} s", flush=True)
 
+    # 27. the training CLI on the card
+    t0 = time.perf_counter()
+    clied = cli_phase(device, card)
+    for key in ("a", "segsum", "b", "c", "d pallas", "d max", "g", "subprocess"):
+        print(f"phase 27 cli {key} (card {card}): {json.dumps(clied[key])}", flush=True)
+    for name, line in clied["e"].items():
+        print(f"phase 27 cli e {name}: {json.dumps(line)}", flush=True)
+    for name, line in clied["f"].items():
+        print(f"phase 27 cli f {name} --validate-parity: {line}", flush=True)
+    a, b, c, g = clied["a"], clied["b"], clied["c"], clied["g"]
+    print(f"phase 27 summary (card {card}): coauthor_dblp-sized powerlaw run on "
+          f"{a['route']}: epoch {a['train_epoch_time_s'] * 1e3} ms, request "
+          f"{a['inference_time_s'] * 1e3} ms (CUDA events, host included); tune sweep "
+          f"(us a call, F=32): {json.dumps(b['sweep_us'])}, pick {b['pick']} "
+          f"{json.dumps(b['pick_params'])} against the ladder's {b['ladder_pick']}; plan "
+          f"cache: Trainer set-up {c['build_setup_s']} s building, {c['load_setup_s']} s "
+          f"loading; --profile: {g['in_use_mib']} MiB in use, {g['peak_mib']} MiB peak; "
+          f"segment-sum kernel at F=32 (ms, V→E / E→V, longest segment "
+          f"{clied['segsum']['v2e']['longest_segment']} / "
+          f"{clied['segsum']['e2v']['longest_segment']}): "
+          f"{clied['segsum']['v2e']['kernel']} / {clied['segsum']['e2v']['kernel']}; "
+          f"launches {json.dumps(clied['launches'])}", flush=True)
+    print(f"phase 27: {time.perf_counter() - t0:.2f} s", flush=True)
+
     fd_bwd_err = max(max(c["max_abs_err"].values()) for c in bwd)
     timed = {"fused_dense_two_stage": times["20news"], "ell_gather_sum": gather_times["edge F=32"],
              "aligned_band": aligned["band_times"]["edge F=32"],
@@ -2650,8 +2911,11 @@ def main() -> int:
         "name": "fused_dense_two_stage",
         "route": "cuda",
         "source": "hypergef_tpu_torch/csrc/fused_dense.cu",
-        # forward and backward launches of the serving and the pallas training paths
-        "launches": served["launches"]["fused"] + trained["20news"]["launches"]["fused"],
+        # forward and backward launches of the serving and the pallas training
+        # paths, and of the CLI's pallas run (phase 27)
+        "launches": (served["launches"]["fused"] + trained["20news"]["launches"]["fused"]
+                     + clied["launches"]["fused"]),
+        "cli_launches": clied["launches"]["fused"],
         "max_abs_err": max(max(c["max_abs_err"] for c in cases), fd_bwd_err),
         "cuda_kernels_per_call": fd_kernels,
         **{f"{g}_{k}": times[g][key] for g in ("cora", "pubmed_real")
@@ -2741,7 +3005,9 @@ def main() -> int:
         "route": "cuda",
         "source": "hypergef_tpu_torch/csrc/segment_sum.cu",
         # the cumsum route's serving and training paths on coauthor_dblp (phase 23)
-        "launches": sum(dblp_segsum),
+        # and the CLI's runs on the cumsum route (phase 27)
+        "launches": sum(dblp_segsum) + clied["launches"]["segsum"],
+        "cli_launches": clied["launches"]["segsum"],
         "max_abs_err": max([c["max_abs_err"] for c in segsum["cases"]]
                            + list(segsum["backward"]["max_abs_err"].values())),
         "e2v_ms": dtimes["segsum_times"]["e2v F=32"]["kernel"],
@@ -2756,7 +3022,10 @@ def main() -> int:
         # stream100k bitstream (phase 19), coauthor_dblp cumsum (phase 23)
         "launches": (maxed["trained"]["launches"]["recsum"]
                      + streamed["trained"]["HGNN max"]["launches"]["recsum"]
-                     + defaults["trained"]["coauthor_dblp HGNN max"]["launches"]["recsum"]),
+                     + defaults["trained"]["coauthor_dblp HGNN max"]["launches"]["recsum"]
+                     + clied["launches"]["recsum"]),
+        # the CLI's max run (phase 27)
+        "cli_launches": clied["launches"]["recsum"],
         "max_abs_err": max(c["max_abs_err"] for c in segsum["records"]),
         # the line's own times are SBM-60k's at F = 32; every graph at F = 32
         # and at its classes' width beside them

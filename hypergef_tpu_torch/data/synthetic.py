@@ -1,6 +1,6 @@
 """Synthetic hypergraph generators.
 
-Port of ``hypergef_tpu/data/synthetic.py`` (``:18-34``, ``:62-109``) and of
+Port of ``hypergef_tpu/data/synthetic.py`` (``:18-109``) and of
 the SBM generator of ``experiments/clustered_bench.py`` (``:30-55``): the
 same NumPy RNG calls in the same order, so a seed gives the same graph and
 features in both packages.
@@ -27,6 +27,31 @@ def random_hypergraph(
     sizes = np.minimum(sizes, num_nodes)
     edge = np.repeat(np.arange(num_edges, dtype=np.int64), sizes)
     vertex = rng.integers(0, num_nodes, size=edge.shape[0], dtype=np.int64)
+    return Hypergraph.from_coo(
+        vertex, edge, num_nodes=num_nodes, num_edges=num_edges, name=name
+    )
+
+
+def powerlaw_hypergraph(
+    num_nodes: int,
+    num_edges: int,
+    alpha: float = 2.0,
+    max_edge_size: int | None = None,
+    seed: int = 0,
+    name: str = "powerlaw",
+) -> Hypergraph:
+    """Heavy-tailed hyperedge sizes (Zipf exponent ``alpha``, capped at
+    ``max_edge_size``, by default a quarter of the vertices) and members
+    drawn with heavy-tailed vertex popularity (``:37-60``): the Zipf sizes
+    first, then the popularity, then the members, as JAX draws them."""
+    rng = np.random.default_rng(seed)
+    if max_edge_size is None:
+        max_edge_size = max(num_nodes // 4, 2)
+    sizes = np.minimum(rng.zipf(alpha, size=num_edges), max_edge_size)
+    edge = np.repeat(np.arange(num_edges, dtype=np.int64), sizes)
+    pop = rng.zipf(alpha, size=num_nodes).astype(np.float64)
+    pop /= pop.sum()
+    vertex = rng.choice(num_nodes, size=edge.shape[0], p=pop).astype(np.int64)
     return Hypergraph.from_coo(
         vertex, edge, num_nodes=num_nodes, num_edges=num_edges, name=name
     )

@@ -273,6 +273,15 @@ class Hypergraph:
             shape=(self.num_nodes, self.num_edges),
         )
 
+    def store_mtx(self, path: str) -> str:
+        """Write H as MatrixMarket to ``path + name + ".mtx"``
+        (``hypergraph.py:305-311``); returns the file's name."""
+        from hypergef_tpu_torch.sparse import mtx
+
+        file_name = str(path) + self.name + ".mtx"
+        mtx.write_mtx(file_name, self)
+        return file_name
+
     def __repr__(self) -> str:
         return (
             f"Hypergraph(name={self.name!r}, |V|={self.num_nodes}, "

@@ -819,9 +819,11 @@ ALIGNED_SPILL_PAD_GATHER_S = 4e-9
 def _group_windows_opt(grp, blk, cnt_per_group, nb, max_width, G,
                        feat_bytes=64,
                        widths=(1, 2, 3, 4, 6, 8, 12, 16, 24, 32),
-                       block_rows=128, spill_fudge=256):
-    """Per-group cost-optimal (offset, width) (``:1405-1489``, the NumPy
-    loop; the JAX package's native twin is held bit-identical to it).
+                       block_rows=128, spill_fudge=256, use_native=True):
+    """Per-group cost-optimal (offset, width) (``:1405-1489``): with
+    ``use_native`` (the default, as JAX's ``:1449-1452``) the native host
+    library's per-group sweep (``hg_aligned_windows``), else the NumPy loop
+    below; the two are bit-identical.
 
     For each candidate width w a group's best window covers the most of its
     entries; the modeled cost per group is
@@ -846,6 +848,11 @@ def _group_windows_opt(grp, blk, cnt_per_group, nb, max_width, G,
     j = np.arange(len(gs), dtype=np.int64)
     block_cost = G * block_rows + block_rows * feat_bytes
     spill_cost = G + feat_bytes + spill_fudge
+    if use_native and len(gs):
+        from hypergef_tpu_torch.sparse import native
+
+        return native.aligned_windows_native(
+            starts, bs, nb, np.asarray(widths, np.int64), block_cost, spill_cost)
     best_cost = np.full(n_groups, np.inf)
     best_off = np.zeros(n_groups, dtype=np.int64)
     best_w = np.full(n_groups, widths[0], dtype=np.int64)

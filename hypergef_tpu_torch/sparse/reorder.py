@@ -8,11 +8,16 @@ refuses others); :func:`community_reorder` makes one from raw input.
 Two methods:
 
 * ``labelprop`` (:func:`community_order_numpy`, ``:68-80``): synchronous
-  hypergraph label propagation. The JAX package runs it in its native C++
-  library when that is built and falls back to this NumPy twin, which it
-  holds bit-identical (``tests/test_native.py``); the port has the twin only.
+  hypergraph label propagation;
 * ``coarsen`` (:func:`coarsen_order`, ``:174-230``): multilevel best-friend
-  star coarsening, the default. The port has its NumPy path only.
+  star coarsening, the default.
+
+Each runs in the port's native host library
+(:mod:`hypergef_tpu_torch.sparse.native`) by default, as the JAX package
+runs them in its own, and in NumPy with ``use_native=False``; the two are
+bit-identical (``tests/test_torch_port_native.py``). Where the JAX package
+falls back to NumPy when its library is not built, the port builds the
+library and raises if the build fails.
 """
 
 from __future__ import annotations
@@ -67,16 +72,23 @@ def community_order_numpy(hg, iters: int = 8) -> np.ndarray:
     return np.argsort(vlab, kind="stable").astype(np.int32)
 
 
-def community_order(hg, iters: int = 8, method: str = "labelprop") -> np.ndarray:
+def community_order(hg, iters: int = 8, method: str = "labelprop",
+                    use_native: bool = True) -> np.ndarray:
     """Vertex order (``order[i]`` = old id at new position i; ``:83-101``).
 
     ``method="labelprop"``: synchronous label propagation, fast but it
     floods across noise links on weakly separated graphs.
     ``method="coarsen"``: multilevel best-friend star coarsening
     (:func:`coarsen_order`), slower but it recovers planted SBM structure.
+    ``use_native`` runs either in the native host library (the default, as
+    JAX's ``:98``) or, when False, in NumPy.
     """
     if method == "coarsen":
-        return coarsen_order(hg)
+        return coarsen_order(hg, use_native=use_native)
+    if use_native:
+        from hypergef_tpu_torch.sparse import native
+
+        return native.community_order_native(hg, iters)
     return community_order_numpy(hg, iters)
 
 
@@ -157,11 +169,13 @@ def coarsen_order(hg, edge_cap: int = 64, max_levels: int = 40,
     supernode → rebuild the coarse hypergraph. The order is the dendrogram
     leaf order: by top-level ancestor, then recursively by each lower level.
 
-    ``use_native`` is kept for the JAX package's call; the port has only
-    the NumPy path, which the JAX package holds bit-identical to its native
-    C++ one, so the flag changes nothing here.
+    ``use_native`` (the default) runs it in the native host library
+    (``hg_coarsen_order``), bit-identical to the NumPy below.
     """
-    del use_native
+    if use_native:
+        from hypergef_tpu_torch.sparse import native
+
+        return native.coarsen_order_native(hg, edge_cap, max_levels)
     indptr = np.asarray(hg.ht_indptr, dtype=np.int64)
     indices = np.asarray(hg.ht_indices, dtype=np.int64)
     n = hg.num_nodes
@@ -228,7 +242,7 @@ def apply_vertex_order(hg, order: np.ndarray, sort_edges: bool = True):
 
 
 def community_reorder(hg, iters: int = 8, sort_edges: bool = True,
-                      method: str = "coarsen"):
+                      method: str = "coarsen", use_native: bool = True):
     """One-call locality pass: ``(reordered_hg, vertex_rank)``
     (``:267-273``)."""
-    return apply_vertex_order(hg, community_order(hg, iters, method), sort_edges)
+    return apply_vertex_order(hg, community_order(hg, iters, method, use_native), sort_edges)

@@ -1,0 +1,215 @@
+"""Training CLI, with the flag surface of the reference's driver ``hgsys.py``.
+
+Port of ``hypergef_tpu/train/cli.py`` (``:1-268``): the same flags, with the
+same names, destinations and defaults, and the same CSV row
+(``hgsys.py:207-211``) when ``--output`` is given. It runs on the card
+unless ``--platform cpu`` is given (without a card, anything else raises,
+as the ``Trainer`` does).
+
+    python -m hypergef_tpu_torch.train.cli --dname cora --data-path DIR
+    python -m hypergef_tpu_torch.train.cli --synthetic powerlaw --n 5000 --e 3000
+    python -m hypergef_tpu_torch.train.cli --synthetic random --platform cpu --epochs 20
+
+``--tune`` plans by measurement (:mod:`hypergef_tpu_torch.sparse.autotune`,
+its records under ``~/.cache/hypergef_tpu_torch/tune``), ``--plan-cache
+[DIR]`` keeps the plan on disk (:mod:`hypergef_tpu_torch.sparse.plancache`,
+by default under ``~/.cache/hypergef_tpu_torch/plans``), and
+``--validate-parity`` checks a dataset (:mod:`hypergef_tpu_torch.data.parity`)
+and exits 1 on any FAIL. ``--shards``, ``--minibatch-edges`` and
+``--export`` raise ``NotImplementedError``: their modules are not ported
+yet (ROADMAP.md queue 1, items 8, 7 and 6).
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+
+
+def parse(argv=None):
+    p = argparse.ArgumentParser(description="hypergef_tpu_torch trainer")
+    # the reference's surface (hgsys.py:22-70)
+    p.add_argument("--dname", default="walmart-trips")
+    p.add_argument("--model", type=str, default="HGNN", help="HGNN | UniGIN | UniGCNII")
+    p.add_argument("--data-path", type=str, default="data/")
+    p.add_argument("--add-self-loop", action="store_true")
+    p.add_argument("--activation", type=str, default="relu")
+    p.add_argument("--nlayer", type=int, default=2)
+    p.add_argument("--first-aggr", type=str, default="sum", choices=["sum", "mean", "max"])
+    p.add_argument("--nhid", type=int, default=32)
+    p.add_argument("--nhead", type=int, default=1)
+    p.add_argument("--dropout", type=float, default=0.6)
+    p.add_argument("--input-drop", type=float, default=0.6)
+    p.add_argument("--feature_noise", default="1", type=str)
+    p.add_argument("--train_prop", type=float, default=0.5)
+    p.add_argument("--valid_prop", type=float, default=0.25)
+    p.add_argument("--lr", type=float, default=0.01)
+    p.add_argument("--wd", type=float, default=5e-4)
+    p.add_argument("--epochs", type=int, default=200)
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--output", type=str, default=None)
+    p.add_argument("--profile", type=int, default=0)
+    # the JAX package's extensions
+    p.add_argument("--tune", action="store_true",
+                   help="plan by a measured per-graph sweep of routes and parameters "
+                        "(sparse/autotune.py), kept in a persistent cache")
+    p.add_argument("--backend", type=str, default="auto",
+                   help="auto|xla|cumsum|dense|pallas|tree|pallas_sparse|aligned|bitstream|"
+                        "precomp")
+    p.add_argument("--plan-cache", type=str, default=None, nargs="?", const="",
+                   help="keep built plans in this directory, keyed by the graph's content "
+                        "(no DIR: the default user cache); reruns load instead of building")
+    p.add_argument("--platform", type=str, default=None,
+                   help="cpu runs on the CPU; anything else (the default) on the card")
+    p.add_argument("--export", type=str, default=None, metavar="PATH",
+                   help="serving export: not ported yet (ROADMAP.md queue 1, item 6)")
+    p.add_argument("--export-platforms", type=str, default=None,
+                   help="with --export: not ported yet")
+    p.add_argument("--validate-parity", action="store_true",
+                   help="load --dname from --data-path and check format, shape, the fused "
+                        "op against its oracle and the accuracy band "
+                        "(hypergef_tpu_torch.data.parity); exit 1 on any FAIL")
+    p.add_argument("--parity-record", type=str, default=None, metavar="JSON",
+                   help="with --validate-parity: write the raw files' sha256 fingerprints "
+                        "and the loaded stats to this JSON")
+    p.add_argument("--minibatch-edges", type=int, default=0,
+                   help=">0: hyperedge-sampled minibatches: not ported yet (ROADMAP.md "
+                        "queue 1, item 7)")
+    p.add_argument("--shards", type=int, default=0,
+                   help=">0: edge-partitioned distributed training: not ported yet "
+                        "(ROADMAP.md queue 1, item 8)")
+    p.add_argument("--feature-shards", type=int, default=1,
+                   help="with --shards: the feature mesh axis size")
+    p.add_argument("--synthetic", type=str, default=None,
+                   choices=[None, "random", "powerlaw", "homophilic"],
+                   help="use a synthetic graph instead of --dname")
+    p.add_argument("--n", type=int, default=5000)
+    p.add_argument("--e", type=int, default=3000)
+    p.add_argument("--feat", type=int, default=32)
+    p.add_argument("--classes", type=int, default=5)
+    return p.parse_args(argv)
+
+
+def load_problem(args):
+    """(hypergraph, features, labels) of the arguments (``:94-127``)."""
+    from hypergef_tpu_torch.data import synthetic
+
+    if args.synthetic:
+        if args.synthetic == "homophilic":
+            hg, y = synthetic.homophilic_hypergraph(args.n, args.e, args.classes, seed=args.seed)
+            x = np.random.default_rng(args.seed).normal(size=(args.n, args.feat)).astype(
+                np.float32)
+        else:
+            gen = (synthetic.powerlaw_hypergraph if args.synthetic == "powerlaw"
+                   else synthetic.random_hypergraph)
+            hg = gen(args.n, args.e, seed=args.seed)
+            x, y = synthetic.random_features(args.n, args.feat, args.classes, seed=args.seed)
+        return hg, x, y
+    from hypergef_tpu_torch.data.datasets import load_dataset
+
+    ds = load_dataset(args.dname, root=args.data_path, feature_noise=float(args.feature_noise))
+    hg = ds.hg
+    if args.add_self_loop:
+        from hypergef_tpu_torch.data.transforms import add_self_loops
+
+        hg = add_self_loops(hg)
+    return hg, ds.features, ds.labels
+
+
+def _unported(args) -> None:
+    """The paths whose modules are not ported raise; none falls through to
+    full-batch training."""
+    for flag, on, item, what in (
+            ("--shards", args.shards > 0, 8, "distributed training"),
+            ("--minibatch-edges", args.minibatch_edges > 0, 7, "minibatch training"),
+            ("--export", args.export is not None, 6, "serving export")):
+        if on:
+            raise NotImplementedError(
+                f"{flag}: {what} is not ported yet (ROADMAP.md queue 1, item {item})")
+
+
+def main(argv=None):
+    args = parse(argv)
+    device = "cpu" if args.platform == "cpu" else "cuda"
+
+    from hypergef_tpu_torch.ops import fused
+    from hypergef_tpu_torch.train import TrainConfig, rand_train_test_idx
+    from hypergef_tpu_torch.train.trainer import Trainer
+
+    if args.validate_parity:
+        from hypergef_tpu_torch.data.parity import validate
+
+        results = validate(args.dname, root=args.data_path,
+                           feature_noise=float(args.feature_noise), seed=args.seed,
+                           record=args.parity_record, device=device)
+        for r in results:
+            print(r.line())
+        failed = [r for r in results if r.status == "FAIL"]
+        print(f"parity[{args.dname}]: {'FAIL' if failed else 'PASS'} "
+              f"({sum(r.status == 'PASS' for r in results)} pass, {len(failed)} fail, "
+              f"{sum(r.status == 'SKIP' for r in results)} skip)")
+        sys.exit(1 if failed else 0)
+    _unported(args)
+    hg, x, y = load_problem(args)
+    print(hg)
+    np.random.seed(args.seed)
+    split = rand_train_test_idx(y, train_prop=args.train_prop, valid_prop=args.valid_prop,
+                                seed=args.seed)
+    cfg = TrainConfig(
+        model=args.model, nhid=args.nhid, nlayer=args.nlayer, nhead=args.nhead,
+        first_aggr=args.first_aggr, dropout=args.dropout, input_drop=args.input_drop,
+        activation=args.activation, lr=args.lr, wd=args.wd, epochs=args.epochs,
+        seed=args.seed, backend=args.backend, tune=args.tune, plan_cache=args.plan_cache,
+    )
+    if args.profile and device == "cuda":
+        import torch
+
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, hg, x, y, device=device)
+    setup_s = time.perf_counter() - t0
+    route = fused.resolve_backend(cfg.backend, tr.plan, nnz=hg.nnz)
+    if args.profile:
+        # the reference's --profile path (hgsys.py:146-159): the raw epoch
+        # loop without the warm-up, then the device's memory
+        # (hgsys.py:169-170,191)
+        t0 = time.perf_counter()
+        res = tr.fit(split["train"], epochs=args.epochs, warmup=0)
+        print(f"epoch time: {time.perf_counter() - t0:.4f}")
+        res.update(route=route, setup_s=setup_s)
+        if device == "cuda":
+            import torch
+
+            res["device_memory_bytes"] = torch.cuda.memory_allocated()
+            res["device_memory_peak_bytes"] = torch.cuda.max_memory_allocated()
+            print(f"device memory: {res['device_memory_bytes'] / 2**20:.1f} MiB in use, "
+                  f"{res['device_memory_peak_bytes'] / 2**20:.1f} MiB peak")
+        return res
+    res = tr.fit(split["train"])
+    res["inference_time_s"] = tr.time_inference(iters=max(args.epochs // 2, 1))
+    res.update(tr.evaluate(split))
+    res.update(route=route, setup_s=setup_s)
+    train_time = res["train_epoch_time_s"]
+    infer_time = res["inference_time_s"]
+    backend = cfg.backend
+    print(f"backend {backend} (route {route}): avg epoch time {train_time:.6f}")
+    for k in ("train_acc", "valid_acc", "test_acc", "final_loss"):
+        if k in res:
+            print(f"{k}: {res[k]:.4f}" if isinstance(res[k], float) else f"{k}: {res[k]}")
+    if args.output:
+        # the CSV row of hgsys.py:207-211
+        with open(args.output, "a") as f:
+            print(
+                f"{backend},{args.model},{args.dname},nlayer={args.nlayer},"
+                f" nhid={args.nhid}, nhead={args.nhead},"
+                f"first_aggr={args.first_aggr},{train_time},{infer_time}",
+                file=f,
+            )
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -52,9 +52,11 @@ class TrainConfig:
     options. ``model`` is HGNN, UniGIN or UniGCNII. ``backend="auto"`` (the
     default) trains on the route the ladder picks
     (:func:`~hypergef_tpu_torch.sparse.planner.plan_aggregation`); ``None``
-    takes the process-global default route (``cumsum``). ``tune`` and
-    ``plan_cache`` need modules that are not ported yet (ROADMAP.md queue 1,
-    "Autotune and the plan cache")."""
+    takes the process-global default route (``cumsum``). ``tune`` plans by
+    measurement (:mod:`~hypergef_tpu_torch.sparse.autotune`) and
+    ``plan_cache`` (a directory, ``""`` for the default one) keeps the plan
+    on disk (:mod:`~hypergef_tpu_torch.sparse.plancache`):
+    :func:`trainer_plan`."""
 
     model: str = "HGNN"
     nhid: int = 32
@@ -156,6 +158,33 @@ def default_plan(backend: Optional[str], hg, device, first_aggr: str = "sum"):
     raise AssertionError(backend)
 
 
+def trainer_plan(cfg: "TrainConfig", hg, device):
+    """The plan a Trainer builds when it is given none (JAX's ``:82-99``).
+    With ``cfg.tune`` it is the measured one
+    (:func:`~hypergef_tpu_torch.sparse.autotune.autotune_plan` at the hidden
+    width, which the aggregations of every layer but the first run at).
+    With ``cfg.plan_cache`` set (``""``: the default directory) and a route
+    other than ``xla`` and ``cumsum``, the ladder's plan comes from the plan
+    cache (:func:`~hypergef_tpu_torch.sparse.plancache.cached_plan_aggregation`)
+    for the routes that read it (``auto``, None, ``precomp``), and any other
+    route's :func:`default_plan` from the same cache under a key naming the
+    route. Else it is :func:`default_plan`."""
+    if cfg.tune:
+        from hypergef_tpu_torch.sparse.autotune import autotune_plan
+
+        return autotune_plan(hg, feature_size=cfg.nhid, device=device)
+    if cfg.plan_cache is not None and cfg.backend not in ("xla", "cumsum"):
+        from hypergef_tpu_torch.sparse import plancache
+
+        cache_dir = cfg.plan_cache or None
+        if cfg.backend in (None, "auto", "precomp"):
+            return plancache.cached_plan_aggregation(hg, cache_dir=cache_dir, device=device)
+        return plancache.cached_plan(
+            hg, lambda: default_plan(cfg.backend, hg, device, cfg.first_aggr),
+            cache_dir=cache_dir, device=device, route=cfg.backend, first_aggr=cfg.first_aggr)
+    return default_plan(cfg.backend, hg, device, cfg.first_aggr)
+
+
 def device_plans(plan):
     """The stage plans, bit packs and propagation matrix of ``plan``, whose
     tables go to the device when a Trainer or a server is built, not inside
@@ -203,19 +232,11 @@ class Trainer:
             raise ValueError(
                 f"compiled=True needs a CUDA device (a CUDA graph records the card's "
                 f"kernels); on {self.device} the Trainer runs eagerly")
-        if cfg.tune:
-            raise NotImplementedError(
-                "tune (the measured autotune) is not ported yet (ROADMAP.md queue 1, "
-                "'Autotune and the plan cache')")
-        if cfg.plan_cache is not None:
-            raise NotImplementedError(
-                "plan_cache is not ported yet (ROADMAP.md queue 1, 'Autotune and the plan "
-                "cache')")
         self.cfg = cfg
         self.hg = hg
         self.compiled = self.device.type == "cuda" if compiled is None else bool(compiled)
         if plan is None:
-            plan = default_plan(cfg.backend, hg, self.device, cfg.first_aggr)
+            plan = trainer_plan(cfg, hg, self.device)
         self.plan = plan
         for p in device_plans(self.plan):
             p.device(self.device)  # tables put on the device and checked once, here

@@ -90,6 +90,34 @@ class Window:
         return False
 
 
+def _run_seconds(run: Callable[[int], object], device: torch.device,
+                 before: Optional[Callable[[], object]] = None) -> Callable[[int], float]:
+    """``once(n)``: seconds of ``run(n)``, ``before`` run ahead outside the
+    window; behind a queued sleep and between CUDA events on a card, on
+    the host clock on the CPU."""
+    cuda = device.type == "cuda"
+
+    def once(n: int) -> float:
+        if before is not None:
+            before()
+        if not cuda:
+            t0 = time.perf_counter()
+            run(n)
+            return time.perf_counter() - t0
+        stream = torch.cuda.current_stream(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.device(device):
+            torch.cuda._sleep(_QUEUE_AHEAD_CYCLES)
+        start.record(stream)
+        run(n)
+        end.record(stream)
+        end.synchronize()
+        return start.elapsed_time(end) / 1000.0
+
+    return once
+
+
 def differenced_windows(
     run: Callable[[int], object],
     device,
@@ -113,25 +141,7 @@ def differenced_windows(
     (``"host_clock"``).
     """
     device = torch.device(device)
-    cuda = device.type == "cuda"
-
-    def once(n: int) -> float:
-        if before is not None:
-            before()
-        if not cuda:
-            t0 = time.perf_counter()
-            run(n)
-            return time.perf_counter() - t0
-        stream = torch.cuda.current_stream(device)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        with torch.cuda.device(device):
-            torch.cuda._sleep(_QUEUE_AHEAD_CYCLES)
-        start.record(stream)
-        run(n)
-        end.record(stream)
-        end.synchronize()
-        return start.elapsed_time(end) / 1000.0
+    once = _run_seconds(run, device, before)
 
     def timed(n: int) -> float:
         return min(once(n) for _ in range(max(repeats, 1)))
@@ -143,4 +153,23 @@ def differenced_windows(
         t_short = timed(1)
         t_long = timed(iters + 1)
         samples.append(max(t_long - t_short, 0.0) / iters)
-    return samples, "cuda_events" if cuda else "host_clock"
+    return samples, "cuda_events" if device.type == "cuda" else "host_clock"
+
+
+def per_iter_time(run: Callable[[int], object], device, iters: int = 20,
+                  repeats: int = 5) -> dict:
+    """JAX's ``device_time_per_iter`` (``hypergef_tpu/utils/timing.py:76-140``)
+    over ``run(n)``, ``n`` back-to-back calls: one differenced window
+    (``per_iter_s``), the one-call window ``t(1)`` (``short_s``, JAX's
+    ``dispatch_s``), and ``noisy`` where the difference is under half of
+    ``t(1)``. Timed as :func:`differenced_windows` times (``timer``)."""
+    device = torch.device(device)
+    once = _run_seconds(run, device)
+    once(1)
+    once(iters + 1)
+    t_short = min(once(1) for _ in range(max(repeats, 1)))
+    t_long = min(once(iters + 1) for _ in range(max(repeats, 1)))
+    window = t_long - t_short
+    return {"per_iter_s": max(window, 0.0) / iters, "short_s": t_short,
+            "noisy": bool(window < 0.5 * t_short), "iters": iters,
+            "timer": "cuda_events" if device.type == "cuda" else "host_clock"}

@@ -41,6 +41,7 @@ Tolerances:
 import dataclasses
 import functools
 import importlib.util
+import os
 from pathlib import Path
 
 import numpy as np
@@ -1636,3 +1637,92 @@ def test_epoch_device_time_keeps_the_state_on_the_card(cuda, compiled):
     for a, b in zip(tr._state(), before[0]):
         assert torch.equal(a, b)
     assert torch.equal(tr.generator.get_state(), before[1])
+
+
+def test_autotune_sweep_on_the_card_takes_the_aligned_kernel_form(cuda, tmp_path):
+    """The sweep on the card times every candidate, the kernel-form
+    ``aligned`` one among them (a community-sorted graph), and its pick
+    runs."""
+    from hypergef_tpu_torch.sparse import autotune
+
+    hg = sorted_community_graph(2000, 1600, 25, 5, 0.02, 3)
+    cands = autotune.default_candidates(hg)
+    assert ("aligned", {}) in cands
+    plan = autotune._build_plan(hg, "aligned", {}, cuda)
+    assert plan.form == "pallas_auto"
+    before = aligned_band.launches
+    res = autotune.sweep(hg, feature_size=32, iters=4, device=cuda)
+    assert aligned_band.launches > before  # the band kernel was timed
+    assert sorted(r.backend for r in res) == sorted(b for b, _ in cands)
+    assert res == sorted(res, key=lambda r: r.per_iter_s)
+    tuned = autotune.autotune_plan(hg, feature_size=32, cache_dir=str(tmp_path), device=cuda)
+    rec = autotune.load_cached(autotune.graph_key(hg, 32, cuda), str(tmp_path))
+    assert rec["device"] == torch.cuda.get_device_name(cuda)
+    assert tuned.preferred_backend == rec["backend"]
+    x = torch.randn(hg.num_nodes, 32, device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    hgd = hg.device_data(cuda)
+    got = fused.hgnn_aggregate(hgd, x, None, "sum", plan=tuned, backend="auto")
+    want = fused.hgnn_aggregate(hgd, x, None, "sum", backend="xla")
+    torch.testing.assert_close(got, want, rtol=3e-2, atol=3e-2 * float(want.abs().max()))
+
+
+def test_plan_cache_round_trip_onto_the_card(cuda, tmp_path):
+    """A kernel-form aligned plan and the ladder's plan saved and loaded onto
+    the card: the same host tables, tensors on the card, the same output
+    bitwise; a Trainer with ``plan_cache`` builds, then loads, and trains to
+    the same losses bitwise."""
+    from hypergef_tpu_torch.sparse import plancache
+    from hypergef_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    hg = sorted_community_graph(2000, 1600, 25, 5, 0.02, 3)
+
+    def build():
+        return planner.AggregationPlan(aligned=dataclasses.replace(
+            planner.plan_aligned(hg), form="pallas_auto"), preferred_backend="aligned")
+
+    plan = plancache.cached_plan(hg, build, cache_dir=str(tmp_path), device=cuda, route="k")
+    assert plan.aligned.form == "pallas_auto"
+    back = plancache.cached_plan(hg, build, cache_dir=str(tmp_path), device=cuda, route="k")
+    assert back is not plan and back.aligned.form == "pallas_auto" and back.aligned._device == {}
+    for st, bst in ((plan.aligned.edge_stage, back.aligned.edge_stage),
+                    (plan.aligned.vertex_stage, back.aligned.vertex_stage)):
+        for b, bb in zip(st.buckets, bst.buckets):
+            np.testing.assert_array_equal(b.b_dense, bb.b_dense)
+    small = planner.plan_aggregation(Hypergraph.from_coo(
+        np.arange(40) % 30, np.arange(40) // 2, num_nodes=30, num_edges=20), cuda)
+    loaded = plancache.load_plan(plancache.save_plan(small, str(tmp_path / "s.npz")), cuda)
+    assert loaded.precomp.a.device.type == "cuda" and loaded.precomp.a.dtype == torch.bfloat16
+    assert torch.equal(loaded.precomp.a, small.precomp.a)
+    x = torch.randn(hg.num_nodes, 32, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+    hgd = hg.device_data(cuda)
+    before = aligned_band.launches
+    a = fused.hgnn_aggregate(hgd, x, None, "sum", plan=plan, backend="auto")
+    b = fused.hgnn_aggregate(hgd, x, None, "sum", plan=back, backend="auto")
+    assert aligned_band.launches == before + 4 and torch.equal(a, b)
+    rng = np.random.default_rng(2)
+    feats = rng.normal(size=(hg.num_nodes, 16)).astype(np.float32)
+    y = rng.integers(0, 4, size=hg.num_nodes)
+    idx = np.arange(hg.num_nodes // 2)
+    losses = [Trainer(TrainConfig(epochs=3, warmup=0, plan_cache=str(tmp_path / "tr")), hg,
+                      feats, y, device=cuda).fit(idx)["losses"] for _ in range(2)]
+    assert len(os.listdir(tmp_path / "tr")) == 1
+    np.testing.assert_array_equal(losses[0], losses[1])
+
+
+def test_cli_platform_on_the_card(cuda, tmp_path, capsys):
+    """``--platform cpu`` trains on the CPU, anything else on the card; a
+    run writes the CSV row, ``--profile`` reports the device's memory."""
+    from hypergef_tpu_torch.train import cli
+
+    small = ["--synthetic", "powerlaw", "--n", "500", "--e", "300", "--feat", "8",
+             "--classes", "3", "--nhid", "8", "--epochs", "4"]
+    on_cpu = cli.main(small + ["--platform", "cpu"])
+    assert on_cpu["timer"] == "host_clock" and on_cpu["step"] == "eager"
+    out = str(tmp_path / "res.csv")
+    for platform in ([], ["--platform", "cuda"], ["--platform", "gpu"]):
+        res = cli.main(small + platform + ["--output", out])
+        assert res["timer"] == "cuda_events" and res["step"] == "captured"
+    assert len(open(out).read().splitlines()) == 3
+    res = cli.main(small + ["--profile", "1"])
+    assert 0 < res["device_memory_bytes"] <= res["device_memory_peak_bytes"]
+    assert "MiB peak" in capsys.readouterr().out

@@ -17,6 +17,7 @@ interpret mode, as its own tests do. Tolerances:
 
 import dataclasses
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -189,7 +190,7 @@ def test_optimizer_is_adam_with_l2_in_the_gradient():
     np.testing.assert_allclose(p.detach().numpy(), want, rtol=1e-6)
 
 
-def test_trainer_plans_and_unported_options(tmp_path):
+def test_trainer_plans_and_unported_options(tmp_path, monkeypatch):
     _, thg, x, y, _ = _problem(240, 120, seed=5)
     assert default_plan("xla", thg, "cpu") is None
     assert default_plan("pallas", thg, "cpu").dense is not None
@@ -199,10 +200,18 @@ def test_trainer_plans_and_unported_options(tmp_path):
     # auto takes the ladder's plan and cumsum none, as in JAX (trainer.py:88-99)
     assert Trainer(TrainConfig(backend="auto"), thg, x, y, device="cpu").plan.preferred_backend
     assert Trainer(TrainConfig(backend="cumsum"), thg, x, y, device="cpu").plan is None
-    for cfg in (TrainConfig(backend="tree", tune=True),
-                TrainConfig(backend="tree", plan_cache="")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(cfg, thg, x, y, device="cpu")
+    # tune and plan_cache are ported (trainer.py:82-99): a measured plan, and a
+    # plan kept in the default directory (here a temporary one)
+    from hypergef_tpu_torch.sparse import autotune
+
+    monkeypatch.setenv("HYPERGEF_TORCH_TUNE_DIR", str(tmp_path / "tune"))
+    monkeypatch.setenv("HYPERGEF_TORCH_PLAN_CACHE", str(tmp_path / "plans"))
+    monkeypatch.setattr(autotune, "sweep",  # the sweep is timed in test_torch_port_autotune.py
+                        lambda *a, **k: [autotune.TuneResult("tree", {"ngs": 8}, 1e-6)])
+    tuned = Trainer(TrainConfig(tune=True), thg, x, y, device="cpu")
+    assert tuned.plan.preferred_backend == "tree" and len(os.listdir(tmp_path / "tune")) == 1
+    cached = Trainer(TrainConfig(backend="tree", plan_cache=""), thg, x, y, device="cpu")
+    assert cached.plan.tree.form == "xla" and len(os.listdir(tmp_path / "plans")) == 1
     # checkpoints are ported: a round trip into a Trainer of another seed
     tr = Trainer(TrainConfig(backend="xla"), thg, x, y, device="cpu")
     with pytest.raises(FileNotFoundError):
