@@ -222,6 +222,32 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    each with ``--validate-parity``: exit 0, format and oracle (on the
    card) PASS, shape and accuracy SKIP under the FIXTURE marker; (g) (a)
    with ``--profile``: the device memory in use and at peak, in MiB.
+28. The serving export (``serve.export_trainer``, ``ServingModel.load``)
+   of six cells, one a forward kernel (``EXPORT_CELLS``), reusing the
+   earlier phases' graphs: export, the header read back, a load (captured)
+   and an eager load; five requests each, bitwise equal to the built
+   server's on the card, captured and eager (a cell that is not is held to
+   1e-5·max|ref| and printed with its difference); one eager exported
+   request launches what one eager built request launches, each cell's
+   kernels at least once, and the two recordings hold the same kernel
+   nodes; the artifact's bytes, export, load and capture seconds, and p50,
+   p90, p99 request walls (CUDA events, host included) over 50 requests in
+   turns with the built server's. Once: a fresh ``python3 -c`` process
+   loads the coauthor_dblp artifact and answers, with neither
+   ``hypergef_tpu_torch.models`` nor ``.train`` imported; an artifact with
+   ``platforms=["cuda", "cpu"]``: its CPU program on the CPU within 1e-3
+   of its card program.
+29. Minibatch training (``MinibatchTrainer``, the ``cumsum`` route), one
+   epoch each of (a) ``experiments/minibatch_bench.py``'s ``dblp_shaped``
+   workload at 512 edges a batch and (b) stream100k at 2048: pad shapes,
+   ``compile_count``, batches/s, sampler seconds a batch, each batch's
+   ghost-segment length beside its step's device ms, 8 segment-sum launches
+   a step, the mean loss of the last batches below that of the first, a
+   step's peak device memory above what the process held (and, for (a),
+   a full-batch ``cumsum`` step's), ``evaluate_full``'s accuracies; with
+   dropout 0, three batches' losses on the card within rtol 1e-4 of the
+   same batches on the CPU; for (a), a batch of every edge gives the
+   full-graph forward's log-probs on its real rows within 1e-5·max|ref|.
 
 Phases 1-25 drive the default step and request: on the card a CUDA-graph
 replay (``Trainer``'s and ``ServingModel``'s ``compiled=None``); the plain
@@ -262,6 +288,7 @@ import ctypes
 import dataclasses
 import functools
 import gc
+import itertools
 import json
 import subprocess
 import sys
@@ -2070,11 +2097,20 @@ def probe_phase(device, card: str) -> dict:
     times = time_probe_kernels(device)
     times["r2 chunk sum bounds"] = r2_chunk_sum_bounds()
     times["r2 gather bound"] = r2_gather_bound()
+    # each probe_r2b_bisect site at its own shape: kernel, bound (the bytes
+    # its case moves, once), and the library call of its case
+    bisect = [{"case": r["case"], "kernel": r["kernel"], "ms": r["ms"],
+               "library_ms": r["library_ms"], **bound(r["moved_bytes"], 0)}
+              for r in rows if r["probe"] == "probe_r2b_bisect"]
     print(f"phase 25 probes (ms, CUDA events behind a queued sleep, median of 20; card {card}): "
           + json.dumps([{k: r[k] for k in ("probe", "case", "kernel", "ok", "max_abs_err", "ms",
                                            "library_ms")} for r in rows]), flush=True)
     print(f"phase 25 probe kernels vs plain vs library: {json.dumps(times)}", flush=True)
-    return {"rows": rows, "launches": launches, "times": times}
+    print(f"phase 25 probe_r2b_bisect sites (ms, CUDA events behind a queued sleep, median of "
+          f"20; bound: the case's bytes once over 3.35 TB/s; library: index_select for a row "
+          f"gather, torch.sparse.mm for a chunk sum or an ELL stage, torch.mul for the copy; "
+          f"card {card}): {json.dumps(bisect)}", flush=True)
+    return {"rows": rows, "launches": launches, "times": times, "bisect": bisect}
 
 
 # ``--profile``'s variants of the band kernel: csrc/aligned_band.cu without
@@ -2558,6 +2594,312 @@ def cli_phase(device, card: str) -> dict:
                        for k in ("segsum", "fused", "recsum")}
     return out
 
+# phase 28, the serving export: a cell a forward kernel, and the counters
+# (``kernel_counters``' names) each cell's request must launch
+EXPORT_KERNELS = {
+    "20news pallas": ("fused",), "pubmed_real pallas_sparse": ("gather",),
+    "SBM-60k aligned kernel": ("band",), "SBM-60k max aligned kernel": ("argmax", "band"),
+    "stream100k bitstream": ("bitmm",), "coauthor_dblp cumsum (auto)": ("segsum",),
+}
+EXPORT_TIMED = 50
+# phase 29: experiments/minibatch_bench.py's dblp_shaped workload (:39-44,
+# :85-89): homophilic_hypergraph(n, e, classes, avg, seed=11), 64 random
+# features (seed 12), the split of seed 13, HGNN nhid 32, --batch-edges 512
+MB_DBLP = dict(n=41302, e=22363, classes=6, avg=4.5, feat=64)
+MB_BATCH_EDGES = {"dblp_shaped": 512, "stream100k": 2048}
+
+
+def export_cells(problems, aligned, streamed, default_problems) -> dict:
+    """Phase 28's cells, name -> (cfg, graph, x, y, split, plan), from the
+    problems of the earlier phases."""
+    from hypergef_tpu_torch.sparse.planner import AggregationPlan
+
+    sbm_sum = sbm_problem(aligned["sbm"], aligned["plan"])
+    cfg, hg, x, y, split, plan = sbm_sum
+    sx, sy, ssplit = streamed["problem"]
+    return {
+        "20news pallas": problems["20news"],
+        "pubmed_real pallas_sparse": problems["pubmed_real"],
+        "SBM-60k aligned kernel": sbm_sum,
+        "SBM-60k max aligned kernel": (dataclasses.replace(cfg, first_aggr="max"), hg, x, y,
+                                       split, plan),
+        "stream100k bitstream": (streamed["configs"]["HGNN sum"], streamed["hg"], sx, sy,
+                                 ssplit, AggregationPlan(bitstream=streamed["bits"])),
+        "coauthor_dblp cumsum (auto)": default_problems["coauthor_dblp HGNN sum"],
+    }
+
+
+def request_walls(servers: dict, x, n: int) -> dict:
+    """p50/p90/p99 ms of ``n`` requests a server, in turns, each between two
+    CUDA events with the card idle before it (host time included)."""
+    walls = {name: [] for name in servers}
+    for server in servers.values():
+        server.predict(x)
+    for _ in range(n):
+        for name, server in servers.items():
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            server.predict(x)
+            end.record()
+            end.synchronize()
+            walls[name].append(start.elapsed_time(end))
+    return {name: {f"p{q}": float(np.percentile(w, q)) for q in (50, 90, 99)}
+            for name, w in walls.items()}
+
+
+def eager_launches(server, x, counters) -> dict:
+    """The kernels one eager request of ``server`` launches."""
+    torch.cuda.synchronize()
+    for module, attr in counters.values():
+        setattr(module, attr, 0)
+    server.predict(x)
+    torch.cuda.synchronize()
+    return {k: getattr(module, attr) for k, (module, attr) in counters.items()}
+
+
+def export_cell(name: str, problem, device, root: str) -> dict:
+    """Export one cell's Trainer, load the artifact and hold it against the
+    built server (phase 28's checks)."""
+    import os
+
+    from hypergef_tpu_torch import serve
+    from hypergef_tpu_torch.data.synthetic import random_features
+    from hypergef_tpu_torch.train.trainer import Trainer
+
+    cfg, hg, x, y, split, plan = problem
+    counters = kernel_counters()
+    tr = Trainer(cfg, hg, x, y, plan=plan, device=device)
+    nfeat, nclass = int(tr.x.shape[1]), tr.nclass
+    params = tr.model.state_dict()
+    path = os.path.join(root, name.replace(" ", "_") + ".hgefsrv")
+    t0 = time.perf_counter()
+    meta = serve.export_trainer(tr, path)
+    out = {"route": fused_route(cfg.backend, tr.plan, hg), "export_s": time.perf_counter() - t0,
+           "artifact_bytes": os.path.getsize(path), "payload_bytes": meta["payload_bytes"]}
+    header, _ = serve.read_artifact(path)
+    check(header == {**meta, "format_version": 1} and header["platforms"] == ["cuda"],
+          f"{name}: the header reads back")
+    xs = [torch.as_tensor(random_features(hg.num_nodes, nfeat, nclass, seed=300 + i)[0],
+                          device=device) for i in range(REQUESTS)]
+    eager_loaded = serve.ServingModel.load(path, compiled=False)
+    eager_built = serve.ServingModel(cfg, hg, nfeat, nclass, device, params=params, plan=tr.plan,
+                                     compiled=False)
+    # check 2: one eager request each launches the same kernels, the cell's at least once
+    per = eager_launches(eager_loaded, xs[0], counters)
+    check(per == eager_launches(eager_built, xs[0], counters),
+          f"{name}: an exported request launches what a built one does ({per})")
+    check(all(per[k] > 0 for k in EXPORT_KERNELS[name]), f"{name}: kernels launched {per}")
+    out["request_launches"] = per
+    # the exported path alone: a captured load (warm-up and recording) and
+    # the eager and captured requests, counts set to 0 just before
+    torch.cuda.synchronize()
+    for module, attr in counters.values():
+        setattr(module, attr, 0)
+    t0 = time.perf_counter()
+    loaded = serve.ServingModel.load(path)
+    load_s = time.perf_counter() - t0
+    got = [(loaded.predict(xq), eager_loaded.predict(xq)) for xq in xs]
+    torch.cuda.synchronize()
+    launched = {k: getattr(module, attr) for k, (module, attr) in counters.items()}
+    check(launched == {k: v * (2 + REQUESTS) for k, v in per.items()},
+          f"{name}: the exported path launched {launched}")
+    out.update(load_s=load_s - loaded.capture_s, capture_s=loaded.capture_s)
+    built = serve.ServingModel(cfg, hg, nfeat, nclass, device, params=params, plan=tr.plan)
+    out["built_capture_s"] = built.capture_s
+    # check 1: bitwise equal to the built server's, captured and eager
+    diff, scale = 0.0, 0.0
+    for xq, (cap, eag) in zip(xs, got):
+        for a, b in ((cap, built.predict(xq)), (eag, eager_built.predict(xq))):
+            scale = max(scale, float(b.abs().max()))
+            if not torch.equal(a, b):
+                diff = max(diff, float((a - b).abs().max()))
+    out["bitwise"] = diff == 0.0
+    if diff:
+        ops = sorted({str(n.target) for n in loaded.program.graph.nodes
+                      if n.op == "call_function"})
+        out.update(max_abs_diff=diff, max_abs_ref=scale, program_ops=ops)
+        check(diff <= 1e-5 * scale, f"{name}: exported answers within 1e-5·max|ref| ({diff})")
+    nodes = graph_kernels(loaded._graph)
+    check(nodes == graph_kernels(built._graph),
+          f"{name}: the two recordings hold the same kernel nodes ({nodes})")
+    check(all(nodes[kernel] > 0 for kernel, names in GRAPH_KERNELS.items()
+              if any(k in names for k in EXPORT_KERNELS[name])), f"{name}: graph nodes {nodes}")
+    out["walls_ms"] = request_walls({"exported": loaded, "built": built}, xs[0], EXPORT_TIMED)
+    out["launches"] = {k: v + per[k] for k, v in launched.items()}
+    out["replayed"] = {k: n * (REQUESTS + EXPORT_TIMED + 1) for k, n in nodes.items() if n}
+    return out
+
+
+def export_phase(device, card: str, cells: dict) -> dict:
+    """Phase 28: the serving export of each cell, a fresh process's load,
+    and a two-platform artifact."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    from hypergef_tpu_torch import serve
+    from hypergef_tpu_torch.train.trainer import Trainer
+
+    out = {}
+    repo = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as root:
+        for name, problem in cells.items():
+            out[name] = export_cell(name, problem, device, root)
+            print(f"phase 28 export {name} (card {card}): {json.dumps(out[name])}", flush=True)
+        # a process that imports no model code loads an artifact and answers
+        path = os.path.join(root, "coauthor_dblp_cumsum_(auto).hgefsrv")
+        code = (
+            "import json, sys, torch\n"
+            "from hypergef_tpu_torch.serve import ServingModel\n"
+            f"m = ServingModel.load({path!r})\n"
+            "y = m.predict(torch.ones(m.meta['input_shape'], device='cuda'))\n"
+            "torch.cuda.synchronize()\n"
+            "print(json.dumps({'shape': list(y.shape), 'finite': bool(torch.isfinite(y).all()),"
+            " 'imported': sorted(k for k in sys.modules if k.startswith(("
+            "'hypergef_tpu_torch.models', 'hypergef_tpu_torch.train', 'jax', "
+            "'hypergef_tpu.')))}))\n")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], cwd=repo, capture_output=True,
+                              text=True, timeout=300,
+                              env={**os.environ, "PYTHONPATH": str(repo)})
+        check(proc.returncode == 0, f"the fresh process failed: {proc.stderr[-2000:]}")
+        fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+        fresh["seconds"] = time.perf_counter() - t0
+        check(fresh["imported"] == [] and fresh["finite"], f"the fresh process: {fresh}")
+        out["fresh process"] = fresh
+        # one artifact for the card and the CPU: each program on its device
+        cfg, hg, x, y, split, plan = cells["coauthor_dblp cumsum (auto)"]
+        tr = Trainer(cfg, hg, x, y, plan=plan, device=device)
+        both = os.path.join(root, "both.hgefsrv")
+        meta = serve.export_trainer(tr, both, platforms=["cuda", "cpu"])
+        card_answer = serve.ServingModel.load(both).predict(x).cpu()
+        host_answer = serve.ServingModel.load(both, device="cpu").predict(x)
+        err = float((host_answer - card_answer).abs().max())
+        check(bool(torch.allclose(host_answer, card_answer, rtol=1e-3, atol=1e-3)),
+              f"the CPU program within 1e-3 of the card's ({err})")
+        out["two platforms"] = {"platforms": meta["platforms"], "bytes": os.path.getsize(both),
+                                "max_abs_err": err}
+    print(f"phase 28 fresh process: {json.dumps(out['fresh process'])}; cuda+cpu artifact: "
+          f"{json.dumps(out['two platforms'])}", flush=True)
+    return out
+
+
+def minibatch_problem(name: str, streamed):
+    """(graph, x, y, split) of a phase-29 cell."""
+    from hypergef_tpu_torch.data.synthetic import homophilic_hypergraph, random_features
+    from hypergef_tpu_torch.train.splits import rand_train_test_idx
+
+    if name == "stream100k":
+        return (streamed["hg"], *streamed["problem"])
+    d = MB_DBLP
+    hg, y = homophilic_hypergraph(d["n"], d["e"], d["classes"], avg_edge_size=d["avg"], seed=11)
+    x, _ = random_features(hg.num_nodes, d["feat"], d["classes"], seed=12)
+    return hg, x, y, rand_train_test_idx(y, seed=13)
+
+
+def step_peak_mib(step, device) -> float:
+    """MiB one call of ``step`` holds at its peak above what the process
+    held before it."""
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    step()
+    torch.cuda.synchronize(device)
+    return (torch.cuda.max_memory_allocated(device) - base) / 2**20
+
+
+def minibatch_cell(name: str, problem, device) -> dict:
+    """One epoch of minibatch training and phase 29's checks."""
+    from hypergef_tpu_torch.train.minibatch import MinibatchTrainer
+    from hypergef_tpu_torch.train.trainer import TrainConfig, Trainer
+    from hypergef_tpu_torch.utils.timing import cuda_time_ms
+
+    hg, x, y, split = problem
+    cfg = TrainConfig(model="HGNN", nhid=32, seed=3)
+    counters = kernel_counters()
+    t0 = time.perf_counter()
+    tr = MinibatchTrainer(cfg, hg, x, y, split["train"], batch_edges=MB_BATCH_EDGES[name],
+                          device=device)
+    out = {"setup_s": time.perf_counter() - t0, "nnz": int(hg.nnz)}
+    torch.cuda.synchronize()
+    for module, attr in counters.values():
+        setattr(module, attr, 0)
+    tr.generator.manual_seed(cfg.seed + 1)
+    batches, losses, sampler_s = [], [], []
+    it = tr.epoch_batches()
+    t0 = time.perf_counter()
+    while True:
+        ts = time.perf_counter()
+        batch = next(it, None)
+        if batch is None:
+            break
+        sampler_s.append(time.perf_counter() - ts)
+        batches.append(batch)
+        losses.append(tr.step(batch))
+    losses = torch.stack(losses).cpu().numpy()
+    wall = time.perf_counter() - t0
+    launched = {k: getattr(module, attr) for k, (module, attr) in counters.items()}
+    n = len(batches)
+    check(launched == {k: 8 * n if k == "segsum" else 0 for k in counters},
+          f"{name}: {n} steps launched {launched}, want 8 segment sums a step")
+    check(bool(np.isfinite(losses).all()), f"{name}: finite losses")
+    k = min(10, n // 2)
+    first, last = float(losses[:k].mean()), float(losses[-k:].mean())
+    check(last < first, f"{name}: the last {k} batches' mean loss {last} below the first's {first}")
+    out.update(pad_shapes=list(tr.pad_shapes), compile_count=tr.compile_count, batches=n,
+               batches_per_s=n / wall, sampler_s_a_batch=float(np.mean(sampler_s)),
+               first_mean_loss=first, last_mean_loss=last, batches_compared=k,
+               segsum_a_step=launched["segsum"] / n)
+    # each batch's ghost segment beside its step's device time (behind a queued sleep)
+    out["ghost_and_device_ms"] = [
+        [b.ghost_entries, cuda_time_ms(functools.partial(tr.step, b), repeats=3)]
+        for b in batches]
+    out["step_wall_ms"] = cuda_time_ms(functools.partial(tr.step, batches[-1]), repeats=5,
+                                       queue_ahead=False)
+    out["step_peak_mib"] = step_peak_mib(functools.partial(tr.step, batches[-1]), device)
+    out["accuracy"] = tr.evaluate_full(split)
+    # check 2: dropout 0, the same three batches on the card and on the CPU
+    cfg0 = dataclasses.replace(cfg, dropout=0.0, input_drop=0.0)
+    params = {key: v.detach().cpu() for key, v in tr.model.state_dict().items()}
+    twins = [MinibatchTrainer(cfg0, hg, x, y, split["train"], batch_edges=MB_BATCH_EDGES[name],
+                              sampler_seed=7, device=d, params=params) for d in (device, "cpu")]
+    pair = [[t.step(b) for b in itertools.islice(t.epoch_batches(), 3)] for t in twins]
+    card_l, host_l = (np.asarray([float(v) for v in ls]) for ls in pair)
+    check(bool(np.allclose(card_l, host_l, rtol=1e-4, atol=0)),
+          f"{name}: card losses {card_l} within rtol 1e-4 of the CPU's {host_l}")
+    out["card_vs_cpu_losses"] = [card_l.tolist(), host_l.tolist()]
+    if name == "dblp_shaped":
+        # check 3: a batch of every edge is the full graph (its HT factor 1)
+        card = twins[0]
+        b = card.sampler.induce(np.arange(hg.num_edges))
+        rows = torch.as_tensor(b.vertex_ids[: b.num_real_vertices].astype(np.int64), device=device)
+        card.model.eval()
+        with torch.no_grad():
+            zb = card.model(card.batch_inputs(b)[0], b.data, None)[: b.num_real_vertices]
+            zf = card.model(card.x, hg.device_data(device), None).index_select(0, rows)
+        err, ref = float((zb - zf).abs().max()), float(zf.abs().max())
+        check(err <= 1e-5 * ref, f"{name}: the whole-graph batch within 1e-5·max|ref| ({err})")
+        out["whole_batch"] = {"max_abs_err": err, "max_abs_ref": ref,
+                              "real_rows": b.num_real_vertices, "ghost_entries": b.ghost_entries}
+        full = Trainer(dataclasses.replace(cfg, backend="cumsum"), hg, x, y, device=device,
+                       compiled=False)
+        idx = torch.as_tensor(split["train"], device=device)
+        out["full_batch_step_peak_mib"] = step_peak_mib(functools.partial(full.step, idx),
+                                                        device)
+    out["launches"] = {k: getattr(module, attr) for k, (module, attr) in counters.items()}
+    return out
+
+
+def minibatch_phase(device, card: str, streamed) -> dict:
+    """Phase 29: minibatch training on its two cells."""
+    out = {}
+    for name in MB_BATCH_EDGES:
+        out[name] = minibatch_cell(name, minibatch_problem(name, streamed), device)
+        print(f"phase 29 minibatch {name} (card {card}): {json.dumps(out[name])}", flush=True)
+    return out
+
+
 
 def band_ablation_source(name: str, source: str) -> str:
     """The band kernel's ``source`` with ablation ``name`` applied."""
@@ -2892,6 +3234,19 @@ def main() -> int:
           f"launches {json.dumps(clied['launches'])}", flush=True)
     print(f"phase 27: {time.perf_counter() - t0:.2f} s", flush=True)
 
+    # 28. the serving export; 29. minibatch training
+    cuda_graphs.DUMP_DIR = str(dumps)
+    dumps.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    exported = export_phase(device, card, export_cells(problems, aligned, streamed,
+                                                       defaults["problems"]))
+    cuda_graphs.DUMP_DIR = None
+    shutil.rmtree(dumps, ignore_errors=True)
+    print(f"phase 28: {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    minibatched = minibatch_phase(device, card, streamed)
+    print(f"phase 29: {time.perf_counter() - t0:.2f} s", flush=True)
+
     fd_bwd_err = max(max(c["max_abs_err"].values()) for c in bwd)
     timed = {"fused_dense_two_stage": times["20news"], "ell_gather_sum": gather_times["edge F=32"],
              "aligned_band": aligned["band_times"]["edge F=32"],
@@ -3071,6 +3426,18 @@ def main() -> int:
                  for k, key in (("ms", "kernel"), ("plain_ms", "plain"),
                                 ("library_ms", "library"), ("bound_ms", "bound_ms"))})
     copy["empty_launch_ms"] = probed["times"]["scaled_copy"]["empty_launch_ms"]
+    # phases 28-29: the exported requests and the minibatch steps
+    counter_of = {"fused_dense_two_stage": "fused", "ell_gather_sum": "gather",
+                  "aligned_band": "band", "aligned_masked_argmax": "argmax",
+                  "aligned_masked_argsum": "argsum", "bitstream_bitmm": "bitmm",
+                  "gather_segment_sum": "segsum", "record_routed_dx": "recsum"}
+    for k in kernels:
+        c = counter_of.get(k["name"])
+        if c is not None:
+            k["export_launches"] = sum(cell["launches"][c] for cell in exported.values()
+                                       if "launches" in cell)
+            k["minibatch_launches"] = sum(cell["launches"][c] for cell in minibatched.values())
+            k["launches"] += k["export_launches"] + k["minibatch_launches"]
     for k in kernels:
         t = timed[k["name"]]
         sites = KERNEL_SITES.get(k["name"], [RECORD_SUM_SITE])

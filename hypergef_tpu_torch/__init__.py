@@ -7,7 +7,9 @@ other on the same NumPy inputs. This package imports ``torch`` and never
 first use; on CPU tensors each kernel's plain torch version runs instead.
 
 What runs today is training (``Trainer``, ``train_full_batch``, on the card
-unless given ``device="cpu"``) and serving (``ServingModel``) of HGNN (sum,
+unless given ``device="cpu"``; hyperedge-sampled minibatches with
+``train.minibatch.MinibatchTrainer``), serving (``ServingModel``) and its
+export (``serve.export_trainer``, ``ServingModel.load``) of HGNN (sum,
 mean or max first aggregation), UniGIN and UniGCNII on the ``xla``,
 ``cumsum``, ``dense``, ``pallas``, ``tree``, ``pallas_sparse``, ``aligned``,
 ``bitstream`` and ``precomp`` routes. By default (``backend="auto"``) the

@@ -43,11 +43,12 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import TYPE_CHECKING, Optional
+from typing import TYPE_CHECKING, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from hypergef_tpu_torch.ops import library
 from hypergef_tpu_torch.ops.fused_dense import bf16_round
 
 if TYPE_CHECKING:
@@ -391,6 +392,54 @@ def aligned_band_plain(x, st):
     return apply_aligned_plain(x, st)
 
 
+def flat_classes(groups, col_off, col_w):
+    """The groups of a directory (int64 [n_groups, 6], on the host) by the
+    width in column ``col_w``: (width, group ids in the order of their
+    offsets in column ``col_off``) for each width above 0. The groups of one
+    width are those of one bucket of the plain form, in its order."""
+    d = np.asarray(groups)
+    out = []
+    for w in np.unique(d[:, col_w][d[:, col_w] > 0]).tolist():
+        gids = np.flatnonzero(d[:, col_w] == w)
+        out.append((int(w), gids[np.argsort(d[gids, col_off], kind="stable")]))
+    return out
+
+
+def flat_rows(flat, starts, length: int):
+    """``flat[starts[i] : starts[i] + length]`` for each start: [len(starts), length]."""
+    starts = torch.as_tensor(starts, device=flat.device)
+    return flat[starts[:, None] + torch.arange(length, device=flat.device)[None, :]]
+
+
+def flat_band_plain(x, band, win, spill, src, groups, group_rows: int, block_rows: int,
+                    num_segments: int):
+    """The plain twin over a :class:`BandTable`'s flat tables and directory
+    (the ``aligned_band`` op's CPU form): the products of
+    :func:`apply_aligned_b_plain` for the groups of each width, then each
+    spilling group's spill product added, so the result is that function's,
+    bitwise, for either stage form."""
+    d = groups.cpu().numpy()
+    n, f = x.shape
+    g_rows, blk = group_rows, block_rows
+    num_blocks = max(-(-n // blk), int(win.max()) + 1 if win.numel() else 0, 1)
+    xb = _blocks(x, num_blocks, blk)
+    out = x.new_zeros((len(d), g_rows, f))
+    for w, gids in flat_classes(d, _BAND_OFF, _WIDTH):
+        table = flat_rows(band, d[gids, _BAND_OFF], g_rows * w * blk).view(-1, g_rows, w * blk)
+        blocks = flat_rows(win, d[gids, _WIN_OFF], w).long()
+        rows = xb.index_select(0, blocks.reshape(-1)).reshape(len(gids), w * blk, f)
+        out[torch.as_tensor(gids)] = _band_dot(table, rows)
+    if spill.numel():
+        xz = _with_zero_row(x)
+        for sw, gids in flat_classes(d, _SPILL_OFF, _SW):
+            table = flat_rows(spill, d[gids, _SPILL_OFF], g_rows * sw).view(-1, g_rows, sw)
+            sources = flat_rows(src, d[gids, _SRC_OFF], sw).long()
+            rows = xz.index_select(0, sources.reshape(-1)).reshape(len(gids), sw, f)
+            at = torch.as_tensor(gids)
+            out[at] = out[at] + _band_dot(table, rows)
+    return out.reshape(-1, f)[:num_segments]
+
+
 def kernel_table(st, dev) -> BandTable:
     """The :class:`BandTable` of stage ``st`` for a kernel launch on
     ``dev``. Raises unless ``dev`` is a Hopper card and ``st`` holds kernel
@@ -478,14 +527,42 @@ def launch_band(lib, x, table: BandTable, work, slots: int):
     return out
 
 
-def _launch(x, table: BandTable):
+class KernelStage(NamedTuple):
+    """What the band kernel reads of a :class:`BandTable`, as the
+    ``aligned_band`` op (:mod:`.library`) passes it."""
+
+    tiles: torch.Tensor
+    tile_off: torch.Tensor
+    win: torch.Tensor
+    src: torch.Tensor
+    groups: torch.Tensor
+    group_rows: int
+    block_rows: int
+    num_inputs: int
+    num_segments: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.tiles.device
+
+
+def launch_kernel(x, stage: KernelStage, work, slots: int):
+    """The band kernel over ``stage`` and its work items: the CUDA
+    implementation of the ``aligned_band`` op."""
     global launches
-    check_operand(x, torch.float32, table, "x")
-    if table.tiles is None:
-        raise ValueError("the table holds no band tiles: build it on a CUDA device")
-    out = launch_band(_library(), x, table, table.work, table.slots)
+    check_operand(x, torch.float32, stage, "x")
+    out = launch_band(_library(), x, stage, work, slots)
     launches += 1
     return out
+
+
+def _launch(x, table: BandTable):
+    if table.tiles is None:
+        raise ValueError("the table holds no band tiles: build it on a CUDA device")
+    return library.OPS["aligned_band"](
+        x, table.win, table.src, table.groups, table.tiles, table.tile_off, table.work, None,
+        None, table.slots, table.group_rows, table.block_rows, table.num_inputs,
+        table.num_segments)
 
 
 def aligned_band(x, st):
@@ -494,7 +571,8 @@ def aligned_band(x, st):
     ``st`` is a device stage of an aligned plan
     (``planner.AlignedStageBDev`` or ``planner.AlignedStageDev``). On CUDA
     tensors this launches the kernel once, with the stage's
-    :class:`BandTable` (a plan of a ``pallas_*`` form); on CPU tensors it
+    :class:`BandTable` (a plan of a ``pallas_*`` form), through the
+    ``aligned_band`` op (:mod:`.library`); on CPU tensors it
     runs :func:`aligned_band_plain`. It carries no autograd rule of its own,
     so it refuses an ``x`` that requires grad: the tree op's backward
     applies the transposed stage (:mod:`hypergef_tpu_torch.ops.tree`).

@@ -50,7 +50,11 @@ import time
 import numpy as np
 import torch
 
-from hypergef_tpu_torch.ops.aligned_band import check_operand, kernel_table, raise_on_error
+from hypergef_tpu_torch.ops import library
+from hypergef_tpu_torch.ops.aligned_band import (
+    _BAND_OFF, _SPILL_OFF, _SRC_OFF, _SW, _WIDTH, _WIN_OFF, check_operand, flat_classes,
+    flat_rows, kernel_table, raise_on_error,
+)
 from hypergef_tpu_torch.ops.maxops import NEG
 from hypergef_tpu_torch.ops.segment_sum import RecordTable, record_routed_dx
 from hypergef_tpu_torch.sparse.planner import AlignedStageBDev, AlignedStageDev
@@ -100,6 +104,12 @@ class LiveLayout:
     # row CTAs + row CTA), by falling cost (chunks, then listed entries)
     items: torch.Tensor
     build_s: float = 0.0  # host seconds to lay it out
+
+    @functools.cached_property
+    def slots16(self) -> torch.Tensor:
+        """``slots`` viewed as int16 (the same bytes), as the
+        ``aligned_masked_argmax`` op takes it: made once, outside any trace."""
+        return self.slots.view(torch.int16)
 
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size()
@@ -298,7 +308,48 @@ def aligned_max_plain(x, st):
     """The plain twin of the masked argmax: (val f32 [S, F], arg int32
     [S, F]). ``amax`` and ``amin`` do not depend on the order of the pairs."""
     seg, src = live_pairs(st)
-    s, f = st.num_segments, x.shape[1]
+    return max_over_pairs(x, seg, src, st.num_segments)
+
+
+def flat_pairs(band, win, spill, src, groups, group_rows: int, block_rows: int,
+               num_inputs: int, num_segments: int):
+    """:func:`live_pairs` read from a :class:`~.aligned_band.BandTable`'s
+    flat tables and directory instead of the stage's buckets (the same set
+    of pairs, in another order)."""
+    d = groups.cpu().numpy()
+    g_rows, blk = group_rows, block_rows
+    segs, srcs = [], []
+    for w, gids in flat_classes(d, _BAND_OFF, _WIDTH):
+        table = flat_rows(band, d[gids, _BAND_OFF], g_rows * w * blk).view(-1, g_rows, w * blk)
+        blocks = flat_rows(win, d[gids, _WIN_OFF], w).long()
+        i, r, c = (table != 0).nonzero(as_tuple=True)
+        segs.append(torch.as_tensor(gids)[i] * g_rows + r)
+        srcs.append(blocks[i, c // blk] * blk + c % blk)
+    for sw, gids in flat_classes(d, _SPILL_OFF, _SW):
+        table = flat_rows(spill, d[gids, _SPILL_OFF], g_rows * sw).view(-1, g_rows, sw)
+        sources = flat_rows(src, d[gids, _SRC_OFF], sw).long()
+        i, r, j = (table != 0).nonzero(as_tuple=True)
+        segs.append(torch.as_tensor(gids)[i] * g_rows + r)
+        srcs.append(sources[i, j])
+    seg, source = torch.cat(segs), torch.cat(srcs)
+    keep = (source < num_inputs) & (seg < num_segments)
+    return seg[keep], source[keep]
+
+
+def flat_max_plain(x, band, win, spill, src, groups, group_rows: int, block_rows: int,
+                   num_inputs: int, num_segments: int):
+    """The plain twin over a table's flat tables (the ``aligned_masked_argmax``
+    op's CPU form): :func:`aligned_max_plain`'s result, bitwise."""
+    seg, source = flat_pairs(band, win, spill, src, groups, group_rows, block_rows,
+                             num_inputs, num_segments)
+    return max_over_pairs(x, seg, source, num_segments)
+
+
+def max_over_pairs(x, seg, src, s: int):
+    """(val, arg) over live (segment, source) pairs: each segment's max of
+    ``x[source]`` and its lowest source reaching it; 0 and -1 where a
+    segment has none."""
+    f = x.shape[1]
     vals = x.index_select(0, src)  # [P, F]
     idx = seg[:, None].expand(-1, f)
     best = x.new_full((s, f), NEG).scatter_reduce(0, idx, vals, "amax")
@@ -346,10 +397,40 @@ def _live(table):
     return table.live
 
 
+def launch_argmax(x, src, groups, chunks, group_chunks, row_ptr, slots, items,
+                  group_rows: int, num_inputs: int, num_segments: int):
+    """The masked argmax kernel over a stage's live layout (``slots`` an
+    int16 view of its uint16 table) and spill sources: the CUDA
+    implementation of the ``aligned_masked_argmax`` op (:mod:`.library`)."""
+    global argmax_launches
+    n = num_inputs
+    if x.device != src.device:
+        raise ValueError(f"the table is on {src.device}, x on {x.device}")
+    if x.dtype != torch.float32 or x.dim() != 2 or x.shape[0] != n:
+        raise TypeError(f"x must be {torch.float32} [{n}, F], got {x.dtype} {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    f = x.shape[1]
+    if f <= 0 or f > _INT32_MAX:
+        raise ValueError(f"unsupported width F={f}")
+    lib = _library()
+    val = torch.empty((num_segments, f), dtype=torch.float32, device=x.device)
+    arg = torch.empty((num_segments, f), dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.hg_aligned_masked_argmax(
+            x.data_ptr(), chunks.data_ptr(), group_chunks.data_ptr(), row_ptr.data_ptr(),
+            slots.data_ptr(), items.data_ptr(), src.data_ptr(), val.data_ptr(), arg.data_ptr(),
+            int(groups.shape[0]), group_rows, n, num_segments, f,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    raise_on_error(err, lib, "aligned_masked_argmax")
+    argmax_launches += 1
+    return val, arg
+
+
 def aligned_masked_argmax(x, st):
     """(val, arg) of the masked argmax over stage ``st``: one kernel launch
-    on a CUDA ``x`` (a ``pallas_*``-form stage), the twin on a CPU one."""
-    global argmax_launches
+    on a CUDA ``x`` (a ``pallas_*``-form stage), through the
+    ``aligned_masked_argmax`` op (:mod:`.library`); the twin on a CPU one."""
     if x.device.type == "cpu":
         if st.counts.device.type != "cpu":
             raise ValueError(f"x is on the CPU but the stage is on {st.counts.device}")
@@ -357,20 +438,10 @@ def aligned_masked_argmax(x, st):
     table = kernel_table(st, x.device)
     check_operand(x, torch.float32, table, "x")
     live = _live(table)
-    f = x.shape[1]
-    lib = _library()
-    val = torch.empty((table.num_segments, f), dtype=torch.float32, device=x.device)
-    arg = torch.empty((table.num_segments, f), dtype=torch.int32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.hg_aligned_masked_argmax(
-            x.data_ptr(), live.chunks.data_ptr(), live.group_chunks.data_ptr(),
-            live.row_ptr.data_ptr(), live.slots.data_ptr(), live.items.data_ptr(),
-            table.src.data_ptr(), val.data_ptr(), arg.data_ptr(), table.num_groups, table.group_rows,
-            table.num_inputs, table.num_segments, f,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    raise_on_error(err, lib, "aligned_masked_argmax")
-    argmax_launches += 1
-    return val, arg
+    return library.OPS["aligned_masked_argmax"](
+        x, table.win, table.src, table.groups, live.chunks, live.group_chunks, live.row_ptr,
+        live.slots16, live.items, None, None, table.group_rows,
+        table.block_rows, table.num_inputs, table.num_segments)
 
 
 def aligned_masked_argsum(g, arg, st):

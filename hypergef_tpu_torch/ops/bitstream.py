@@ -40,6 +40,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from hypergef_tpu_torch.ops import library
 from hypergef_tpu_torch.ops.fused_dense import bf16_round
 from hypergef_tpu_torch.ops.segment_sum import warp_runs
 
@@ -291,7 +292,9 @@ def bitmm_plain(words, x, m: int, k: int, block_elems: int = _PLAIN_BLOCK_ELEMS)
     return out
 
 
-def _launch(pack: BitPack, x):
+def launch_kernel(x, pairs, bit_ptr, runs, m: int, k: int):
+    """The kernel over a pack's layout (:class:`BitLayout` on the card) of
+    A [m, k]: the CUDA implementation of the ``bitmm`` op (:mod:`.library`)."""
     global launches
     from hypergef_tpu_torch.ops import _build
     from hypergef_tpu_torch.ops.aligned_band import raise_on_error
@@ -300,16 +303,8 @@ def _launch(pack: BitPack, x):
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {dev}")
-    if pack.words.device != dev:
-        raise ValueError(f"the pack is on {pack.words.device}, x on {dev}")
-    _check_pack(pack)
-    lay = pack.layout
-    if lay is None:
-        raise ValueError("the pack has no kernel layout: put it on the card with "
-                         "BitIncidence.device (or BitPack.to)")
-    if lay.runs.device != dev:
-        raise ValueError(f"the pack's layout is on {lay.runs.device}, x on {dev}")
-    m, k = pack.m, pack.k
+    if runs.device != dev:
+        raise ValueError(f"the pack's layout is on {runs.device}, x on {dev}")
     if x.dtype != torch.float32 or x.dim() != 2 or x.shape[0] != k:
         raise TypeError(f"x must be f32 [{k}, F], got {x.dtype} {tuple(x.shape)}")
     if not x.is_contiguous():
@@ -327,23 +322,36 @@ def _launch(pack: BitPack, x):
     width, lanes = layout(f, [x, out])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.hg_bitmm(lay.pairs.data_ptr(), lay.bit_ptr.data_ptr(), lay.runs.data_ptr(),
-                           x.data_ptr(), out.data_ptr(), lay.runs.shape[0] - 1, f, lanes, width,
+        err = lib.hg_bitmm(pairs.data_ptr(), bit_ptr.data_ptr(), runs.data_ptr(),
+                           x.data_ptr(), out.data_ptr(), runs.shape[0] - 1, f, lanes, width,
                            stream)
     raise_on_error(err, lib, "bitmm")
     launches += 1
     return out
 
 
+def _launch(pack: BitPack, x):
+    dev = x.device
+    if pack.words.device != dev:
+        raise ValueError(f"the pack is on {pack.words.device}, x on {dev}")
+    _check_pack(pack)
+    lay = pack.layout
+    if lay is None:
+        raise ValueError("the pack has no kernel layout: put it on the card with "
+                         "BitIncidence.device (or BitPack.to)")
+    return library.OPS["bitmm"](x, None, lay.pairs, lay.bit_ptr, lay.runs, pack.m, pack.k)
+
+
 def bitmm(pack: BitPack, x):
     """``A @ bf16(x)`` for the first ``pack.m`` rows of the pack: x f32
     [k, F] → f32 [m, F].
 
-    On CUDA tensors this launches the kernel over the pack's layout (a pack
-    without one raises); on CPU tensors it runs :func:`bitmm_plain` on the
-    words. It carries no autograd rule of its own, so it refuses an ``x``
-    that requires grad: differentiate through :func:`bit_matvec`, whose
-    backward swaps the packs.
+    On CUDA tensors this launches the kernel over the pack's layout, through
+    the ``bitmm`` op (:mod:`.library`; a pack without a layout raises); on
+    CPU tensors it runs :func:`bitmm_plain` on the words. It carries no
+    autograd rule of its own, so it refuses an ``x`` that requires grad:
+    differentiate through :func:`bit_matvec`, whose backward swaps the
+    packs.
     """
     if x.requires_grad and torch.is_grad_enabled():
         raise RuntimeError(

@@ -32,6 +32,8 @@ from typing import NamedTuple
 
 import torch
 
+from hypergef_tpu_torch.ops import library
+
 launches = 0
 
 _INT32_MAX = 2**31 - 1
@@ -119,21 +121,23 @@ def gather_schedule(f: int, ngs: int, x_aligned: bool) -> GatherSchedule:
     return GatherSchedule(min(_pow2_at_least(f), 32), batch, "wide")
 
 
-def _launch(x, table: GatherTable):
+def _launch(x, gidx, mask, num_inputs: int):
+    """The kernel over a :class:`GatherTable`'s int32 ``gidx`` and ``mask``:
+    the CUDA implementation of the ``ell_gather_sum`` op (:mod:`.library`)."""
     global launches
     from hypergef_tpu_torch.ops import _build
 
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {dev}")
-    if table.device != dev:
-        raise ValueError(f"the table is on {table.device}, x on {dev}")
-    n = table.num_inputs
+    if gidx.device != dev or mask.device != dev:
+        raise ValueError(f"the table is on {gidx.device}, x on {dev}")
+    n = num_inputs
     if x.dtype != torch.float32 or x.dim() != 2 or x.shape[0] != n:
         raise TypeError(f"x must be f32 [{n}, F], got {x.dtype} {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    c, ngs = table.gidx.shape
+    c, ngs = gidx.shape
     f = x.shape[1]
     if f <= 0 or f > _INT32_MAX:
         raise ValueError(f"unsupported width F={f}")
@@ -148,7 +152,7 @@ def _launch(x, table: GatherTable):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.hg_ell_gather_sum(
-            x.data_ptr(), table.gidx.data_ptr(), table.mask.data_ptr(), out.data_ptr(),
+            x.data_ptr(), gidx.data_ptr(), mask.data_ptr(), out.data_ptr(),
             c, ngs, f, FORMS.index(sched.form), sched.lanes_per_chunk, sched.batch, stream,
         )
     if err != 0:
@@ -160,10 +164,11 @@ def _launch(x, table: GatherTable):
 def ell_gather_sum(x, table: GatherTable):
     """``out[c] = Σ_k x[gidx[c,k]]·mask[c,k]``: x f32 [N, F] → f32 [C, F].
 
-    On CUDA tensors this launches the kernel; on CPU tensors it runs
-    :func:`ell_gather_sum_plain`. It carries no autograd rule of its own,
-    so it refuses an ``x`` that requires grad: the tree op's backward
-    applies the transposed stage (:mod:`hypergef_tpu_torch.ops.tree`).
+    On CUDA tensors this launches the kernel, through the ``ell_gather_sum``
+    op (:mod:`.library`); on CPU tensors it runs :func:`ell_gather_sum_plain`.
+    It carries no autograd rule of its own, so it refuses an ``x`` that
+    requires grad: the tree op's backward applies the transposed stage
+    (:mod:`hypergef_tpu_torch.ops.tree`).
     """
     if x.requires_grad and torch.is_grad_enabled():
         raise RuntimeError(
@@ -173,4 +178,4 @@ def ell_gather_sum(x, table: GatherTable):
         if table.device.type != "cpu":
             raise ValueError(f"x is on the CPU but the table is on {table.device}")
         return ell_gather_sum_plain(x, table.gidx_long, table.mask)
-    return _launch(x, table)
+    return library.OPS["ell_gather_sum"](x, table.gidx, table.mask, table.num_inputs)

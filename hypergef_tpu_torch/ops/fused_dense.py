@@ -27,6 +27,7 @@ import functools
 
 import torch
 
+from hypergef_tpu_torch.ops import library
 from hypergef_tpu_torch.sparse.planner import DenseIncidence
 
 launches = 0
@@ -243,6 +244,8 @@ def _raise_on(err: int, lib, what: str) -> None:
 
 
 def _launch(h, x, scale_e, scale_v):
+    """The two-stage kernel: the CUDA implementation of the
+    ``fused_dense_two_stage`` op (:mod:`.library`)."""
     global launches
     from hypergef_tpu_torch.ops import _build
 
@@ -289,10 +292,11 @@ def _launch_v2e(h, x):
 
 
 def _two_stage(h, x, scale_e, scale_v):
-    """The kernel on CUDA tensors, the plain version on CPU tensors."""
+    """The kernel on CUDA tensors (the ``fused_dense_two_stage`` op), the
+    plain version on CPU tensors."""
     if x.device.type == "cpu":
         return fused_dense_two_stage_plain(h, x, scale_e, scale_v)
-    return _launch(h, x, scale_e, scale_v)
+    return library.OPS["fused_dense_two_stage"](h, x, scale_e, scale_v)
 
 
 def _v2e(h, x):

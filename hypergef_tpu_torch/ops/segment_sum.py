@@ -46,6 +46,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from hypergef_tpu_torch.ops import library
+
 launches = 0
 record_launches = 0
 
@@ -119,6 +121,37 @@ class SegmentTable:
         return cls.from_long(long(indptr), None if gather is None else long(gather), num_inputs)
 
     @classmethod
+    def from_host(cls, indptr, gather, num_inputs: int, indptr_long: torch.Tensor,
+                  gather_long: torch.Tensor) -> "SegmentTable":
+        """A table over a host CSR (``indptr`` [S+1], ``gather`` [nnz],
+        NumPy) that the caller has already put on a device as the int64
+        ``indptr_long`` and ``gather_long`` (kept, not copied). The checks
+        and, on a CUDA device, the warp runs are computed from the host
+        arrays, so nothing is read back from the device (:meth:`from_long`
+        reads it once); the kernel's int32 copies are made from the host."""
+        ip = np.asarray(indptr, dtype=np.int64)
+        g = np.asarray(gather)
+        nnz = int(ip[-1]) if ip.size else 0
+        if ip.ndim != 1 or ip.size < 1 or ip[0] != 0 or (np.diff(ip) < 0).any():
+            raise ValueError("indptr must be a non-decreasing [S+1] row pointer from 0")
+        if max(nnz, ip.size, num_inputs) > _INT32_MAX:
+            raise ValueError(f"unsupported CSR: S={ip.size - 1}, nnz={nnz}, N={num_inputs}")
+        if g.shape != (nnz,):
+            raise ValueError(f"gather must be [{nnz}], got {g.shape}")
+        if nnz and (g.min() < 0 or g.max() >= num_inputs):
+            raise ValueError(f"gather indices must lie in [0, {num_inputs})")
+        if tuple(indptr_long.shape) != ip.shape or tuple(gather_long.shape) != g.shape:
+            raise ValueError("the device tensors must be the host CSR's shapes")
+        dev = indptr_long.device
+
+        def int32(a):
+            return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=dev)
+
+        runs = int32(warp_runs(ip)) if dev.type == "cuda" else None
+        return cls(indptr=int32(ip), indptr_long=indptr_long, gather=int32(g),
+                   gather_long=gather_long, num_inputs=int(num_inputs), nnz=nnz, runs=runs)
+
+    @classmethod
     def from_long(cls, indptr_long: torch.Tensor, gather_long: Optional[torch.Tensor],
                   num_inputs: int) -> "SegmentTable":
         """A table over int64 device tensors the caller already holds (they
@@ -162,11 +195,17 @@ class SegmentTable:
 def gather_segment_sum_plain(x, table: SegmentTable):
     """``index_select`` of the gathered rows, then the direct sorted
     segment sum (any device)."""
+    return segment_sum_plain(x, table.indptr_long, table.gather_long, table.nnz)
+
+
+def segment_sum_plain(x, indptr_long, gather_long, nnz: int):
+    """:func:`gather_segment_sum_plain` over the CSR's int64 tensors
+    (``gather_long`` None: the row is the entry itself, of ``nnz``)."""
     from hypergef_tpu_torch.ops.segments import gather_segment_sum_sorted, segment_sum_sorted
 
-    if table.gather_long is None:
-        return segment_sum_sorted(x[: table.nnz], table.indptr_long)
-    return gather_segment_sum_sorted(x, table.gather_long, table.indptr_long)
+    if gather_long is None:
+        return segment_sum_sorted(x[:nnz], indptr_long)
+    return gather_segment_sum_sorted(x, gather_long, indptr_long)
 
 
 def record_layout(h_indptr, h_indices):
@@ -292,14 +331,14 @@ def layout(f: int, tensors) -> tuple:
     return width, lanes
 
 
-def _check_rows(x, table: SegmentTable, name: str):
-    """The kernel's checks of a row operand over ``table``: its width F."""
+def _check_rows(x, table_device, n: int, name: str):
+    """The kernel's checks of a row operand of ``n`` rows over a table on
+    ``table_device``: its width F."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {dev}")
-    if table.device != dev:
-        raise ValueError(f"the table is on {table.device}, {name} on {dev}")
-    n = table.num_inputs
+    if table_device != dev:
+        raise ValueError(f"the table is on {table_device}, {name} on {dev}")
     if x.dtype != torch.float32 or x.dim() != 2 or x.shape[0] != n:
         raise TypeError(f"{name} must be f32 [{n}, F], got {x.dtype} {tuple(x.shape)}")
     if not x.is_contiguous():
@@ -319,12 +358,18 @@ def _raise_on(err, lib, name):
         raise RuntimeError(f"{name} launch failed: {lib.hg_error_string(err).decode()}")
 
 
-def _launch(x, table: SegmentTable):
+def _launch(x, indptr, gather, runs, num_inputs: int):
+    """The kernel over a :class:`SegmentTable`'s int32 ``indptr``,
+    ``gather`` (or None) and warp ``runs``: the CUDA implementation of the
+    ``gather_segment_sum`` op (:mod:`.library`)."""
     global launches
     from hypergef_tpu_torch.ops import _build
 
-    f = _check_rows(x, table, "x")
-    s = table.num_segments
+    f = _check_rows(x, indptr.device, num_inputs, "x")
+    if runs is None:
+        raise ValueError("the segment-sum kernel reads the table's warp runs: build the "
+                         "table on a CUDA device")
+    s = int(indptr.shape[0]) - 1
     out = torch.empty((s, f), dtype=torch.float32, device=x.device)
     if s == 0:
         return out
@@ -332,9 +377,9 @@ def _launch(x, table: SegmentTable):
     lib = _build.load_library()
     with torch.cuda.device(x.device):
         err = lib.hg_gather_segment_sum(
-            x.data_ptr(), 0 if table.gather is None else table.gather.data_ptr(),
-            table.indptr.data_ptr(), table.runs.data_ptr(), out.data_ptr(),
-            table.runs.shape[0] - 1, f, lanes, width,
+            x.data_ptr(), 0 if gather is None else gather.data_ptr(),
+            indptr.data_ptr(), runs.data_ptr(), out.data_ptr(),
+            runs.shape[0] - 1, f, lanes, width,
             torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, lib, "gather_segment_sum")
     launches += 1
@@ -346,7 +391,7 @@ def _launch_record(g, arg, record: RecordTable):
     from hypergef_tpu_torch.ops import _build
 
     table, lay = record.e2v, record.layout
-    f = _check_rows(g, table, "g")
+    f = _check_rows(g, table.device, table.num_inputs, "g")
     if arg.dtype not in (torch.int32, torch.int64) or arg.shape != g.shape:
         raise TypeError(f"arg must be int32 or int64 {tuple(g.shape)}, got {arg.dtype} "
                         f"{tuple(arg.shape)}")
@@ -378,7 +423,8 @@ def _launch_record(g, arg, record: RecordTable):
 def gather_segment_sum(x, table: SegmentTable):
     """``out[s] = Σ_{k ∈ seg s} x[gather[k]]``: x f32 [N, F] → f32 [S, F].
 
-    On CUDA tensors this launches the kernel; on CPU tensors it runs
+    On CUDA tensors this launches the kernel, through the
+    ``gather_segment_sum`` op (:mod:`.library`); on CPU tensors it runs
     :func:`gather_segment_sum_plain`. It carries no autograd rule of its
     own, so it refuses an ``x`` that requires grad: differentiate through
     :func:`hypergef_tpu_torch.ops.segments.incidence_gather_sum`, whose
@@ -392,7 +438,8 @@ def gather_segment_sum(x, table: SegmentTable):
         if table.device.type != "cpu":
             raise ValueError(f"x is on the CPU but the table is on {table.device}")
         return gather_segment_sum_plain(x, table)
-    return _launch(x, table)
+    return library.OPS["gather_segment_sum"](x, table.indptr, table.gather, table.runs,
+                                      table.num_inputs)
 
 
 def record_routed_dx(g, arg, record: RecordTable):

@@ -382,6 +382,15 @@ class _Probe:
             raise ValueError(f"indices must lie in [0, {n})")
         return self.t(a.astype(np.int32))
 
+    def moved(self, rows, f: int, *tables, out_rows: int = 0) -> Optional[int]:
+        """The bytes a case must move, where it is timed: the distinct x rows
+        that ``rows`` names, of ``f`` f32 features, each read once, its
+        ``tables`` read once and ``out_rows`` f32 rows written once."""
+        if not self.timed:
+            return None
+        named = int(np.unique(np.asarray(rows)).size) if rows is not None else 0
+        return (named + out_rows) * f * 4 + sum(int(np.asarray(t).nbytes) for t in tables)
+
     def case(self, case: str, kernel: str, run: Callable, want: np.ndarray, exact: bool,
              library: Optional[Callable] = None, **extra) -> Dict:
         count = _COUNTERS[kernel]
@@ -416,10 +425,11 @@ class _Probe:
         """Row-gather cases: ``direct`` and each ring depth."""
         idx = self.index(idx_np, x.shape[0])
         idx_long = idx.long()
+        moved = self.moved(idx_np, x.shape[1], idx.cpu(), out_rows=idx.shape[0])
         for nb in depths:
             label = "direct" if nb == 0 else f"ring n_buf={nb}"
             self.case(f"{name} {label}", "row_gather", lambda nb=nb: row_gather(x, idx, nb), want,
-                      True, lambda: x.index_select(0, idx_long))
+                      True, lambda: x.index_select(0, idx_long), moved_bytes=moved)
 
     def ell(self, name, x, gidx_np, mask_np, want):
         """An ELL level-0 stage with x resident: the gather kernel."""
@@ -428,8 +438,10 @@ class _Probe:
         table = GatherTable(gidx=gidx, gidx_long=gidx.long(), mask=self.t(mask_np, torch.float32),
                             num_inputs=n)
         csr = _chunk_csr(table.gidx_long, table.mask, n) if self.timed else None
+        moved = self.moved(gidx_np, x.shape[1], gidx.cpu(), np.asarray(mask_np, np.float32),
+                           out_rows=gidx.shape[0])
         self.case(name, "ell_gather_sum", lambda: ell_gather.ell_gather_sum(x, table), want,
-                  False, lambda: torch.sparse.mm(csr, x))
+                  False, lambda: torch.sparse.mm(csr, x), moved_bytes=moved)
 
     def ring_sums(self, name, x, gidx_np, mask_np, want, depths=RING_DEPTHS):
         """The chunk sum from x and a gather table through the ring."""
@@ -437,10 +449,11 @@ class _Probe:
         gidx = self.index(gidx_np, n)
         mask = self.t(mask_np, torch.float32)
         csr = _chunk_csr(gidx.long(), mask, n) if self.timed else None
+        moved = self.moved(gidx_np, x.shape[1], gidx.cpu(), mask.cpu(), out_rows=gidx.shape[0])
         for nb in depths:
             self.case(f"{name} n_buf={nb}", "chunk_masked_sum",
                       lambda nb=nb: chunk_masked_sum_ring(x, gidx, mask, nb), want, False,
-                      lambda: torch.sparse.mm(csr, x))
+                      lambda: torch.sparse.mm(csr, x), moved_bytes=moved)
 
     def chunk_sum(self, name, g_np, mask_np, want, **extra):
         g, mask = self.t(g_np, torch.float32), self.t(mask_np, torch.float32)
@@ -520,7 +533,7 @@ def probe_r2b_bisect(device, timed: bool = False) -> List[Dict]:
     mask = (rng.random((t, NGS)) > 0.1).astype(np.float32)
     x = p.t(xn)
     p.case("k0 x*2", "scaled_copy", lambda: scaled_copy(x, 2.0), xn * np.float32(2.0), True,
-           lambda: torch.mul(x, 2.0))
+           lambda: torch.mul(x, 2.0), moved_bytes=p.moved(None, f, xn, out_rows=n))
     bcast = [idx[0, 0]] * 8
     p.gathers("k1 one-row broadcast", x, bcast, xn[bcast], depths=(0,))
     p.gathers("k1b one-row broadcast", x, bcast, xn[bcast], depths=(0,))

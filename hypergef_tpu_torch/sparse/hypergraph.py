@@ -66,6 +66,38 @@ class HypergraphData:
     def record(self) -> RecordTable:
         return RecordTable.over(self.e2v)
 
+    @classmethod
+    def from_host(cls, ht_indptr, ht_indices, h_indptr, h_indices, degV, degE, num_nodes: int,
+                  num_edges: int, device) -> "HypergraphData":
+        """The device view of host CSRs (NumPy) with their segment tables
+        (:attr:`v2e`, :attr:`e2v`) built from the host arrays
+        (:meth:`SegmentTable.from_host`): nothing is read back from the
+        device, as a minibatch a step needs."""
+        ht_indptr, h_indptr = (np.asarray(a, dtype=np.int64) for a in (ht_indptr, h_indptr))
+
+        def idx(a):
+            return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+
+        data = cls(
+            ht_vertex=idx(ht_indices),
+            ht_segids=idx(np.repeat(np.arange(num_edges), np.diff(ht_indptr))),
+            ht_indptr=idx(ht_indptr),
+            h_edge=idx(h_indices),
+            h_segids=idx(np.repeat(np.arange(num_nodes), np.diff(h_indptr))),
+            h_indptr=idx(h_indptr),
+            degV=torch.as_tensor(np.asarray(degV, dtype=np.float32), device=device),
+            degE=torch.as_tensor(np.asarray(degE, dtype=np.float32), device=device),
+            num_nodes=num_nodes,
+            num_edges=num_edges,
+        )
+        # the cached properties' values, set where functools.cached_property
+        # keeps them (a frozen dataclass refuses attribute assignment)
+        data.__dict__["v2e"] = SegmentTable.from_host(ht_indptr, ht_indices, num_nodes,
+                                                      data.ht_indptr, data.ht_vertex)
+        data.__dict__["e2v"] = SegmentTable.from_host(h_indptr, h_indices, num_edges,
+                                                      data.h_indptr, data.h_edge)
+        return data
+
 
 @dataclasses.dataclass
 class Hypergraph:

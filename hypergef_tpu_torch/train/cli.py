@@ -15,9 +15,13 @@ its records under ``~/.cache/hypergef_tpu_torch/tune``), ``--plan-cache
 [DIR]`` keeps the plan on disk (:mod:`hypergef_tpu_torch.sparse.plancache`,
 by default under ``~/.cache/hypergef_tpu_torch/plans``), and
 ``--validate-parity`` checks a dataset (:mod:`hypergef_tpu_torch.data.parity`)
-and exits 1 on any FAIL. ``--shards``, ``--minibatch-edges`` and
-``--export`` raise ``NotImplementedError``: their modules are not ported
-yet (ROADMAP.md queue 1, items 8, 7 and 6).
+and exits 1 on any FAIL. ``--minibatch-edges B`` trains on hyperedge-sampled
+minibatches of B edges (:mod:`hypergef_tpu_torch.train.minibatch`,
+``epochs // 10`` epochs); ``--export PATH`` writes the trained full-batch
+forward as a serving artifact (:func:`hypergef_tpu_torch.serve.export_trainer`,
+for ``--export-platforms`` ``cuda,cpu``, by default the run's device).
+``--shards`` raises ``NotImplementedError``: distributed training is not
+ported yet (ROADMAP.md queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -65,9 +69,11 @@ def parse(argv=None):
     p.add_argument("--platform", type=str, default=None,
                    help="cpu runs on the CPU; anything else (the default) on the card")
     p.add_argument("--export", type=str, default=None, metavar="PATH",
-                   help="serving export: not ported yet (ROADMAP.md queue 1, item 6)")
+                   help="after training, write a serving artifact (the full-graph forward "
+                        "as torch.export programs) to PATH (serve.ServingModel.load)")
     p.add_argument("--export-platforms", type=str, default=None,
-                   help="with --export: not ported yet")
+                   help="comma-separated export platforms (cuda, cpu); default: the "
+                        "run's device")
     p.add_argument("--validate-parity", action="store_true",
                    help="load --dname from --data-path and check format, shape, the fused "
                         "op against its oracle and the accuracy band "
@@ -76,8 +82,8 @@ def parse(argv=None):
                    help="with --validate-parity: write the raw files' sha256 fingerprints "
                         "and the loaded stats to this JSON")
     p.add_argument("--minibatch-edges", type=int, default=0,
-                   help=">0: hyperedge-sampled minibatches: not ported yet (ROADMAP.md "
-                        "queue 1, item 7)")
+                   help=">0: train with hyperedge-sampled minibatches of this many edges "
+                        "(the cumsum route, epochs // 10 epochs)")
     p.add_argument("--shards", type=int, default=0,
                    help=">0: edge-partitioned distributed training: not ported yet "
                         "(ROADMAP.md queue 1, item 8)")
@@ -123,9 +129,7 @@ def _unported(args) -> None:
     """The paths whose modules are not ported raise; none falls through to
     full-batch training."""
     for flag, on, item, what in (
-            ("--shards", args.shards > 0, 8, "distributed training"),
-            ("--minibatch-edges", args.minibatch_edges > 0, 7, "minibatch training"),
-            ("--export", args.export is not None, 6, "serving export")):
+            ("--shards", args.shards > 0, 8, "distributed training"),):
         if on:
             raise NotImplementedError(
                 f"{flag}: {what} is not ported yet (ROADMAP.md queue 1, item {item})")
@@ -137,6 +141,7 @@ def main(argv=None):
 
     from hypergef_tpu_torch.ops import fused
     from hypergef_tpu_torch.train import TrainConfig, rand_train_test_idx
+    from hypergef_tpu_torch.train.minibatch import MinibatchTrainer
     from hypergef_tpu_torch.train.trainer import Trainer
 
     if args.validate_parity:
@@ -169,9 +174,14 @@ def main(argv=None):
 
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    tr = Trainer(cfg, hg, x, y, device=device)
+    if args.minibatch_edges > 0 and not args.profile:
+        tr = MinibatchTrainer(cfg, hg, x, y, split["train"], batch_edges=args.minibatch_edges,
+                              device=device)
+        route = "cumsum"
+    else:
+        tr = Trainer(cfg, hg, x, y, device=device)
+        route = fused.resolve_backend(cfg.backend, tr.plan, nnz=hg.nnz)
     setup_s = time.perf_counter() - t0
-    route = fused.resolve_backend(cfg.backend, tr.plan, nnz=hg.nnz)
     if args.profile:
         # the reference's --profile path (hgsys.py:146-159): the raw epoch
         # loop without the warm-up, then the device's memory
@@ -188,12 +198,30 @@ def main(argv=None):
             print(f"device memory: {res['device_memory_bytes'] / 2**20:.1f} MiB in use, "
                   f"{res['device_memory_peak_bytes'] / 2**20:.1f} MiB peak")
         return res
-    res = tr.fit(split["train"])
-    res["inference_time_s"] = tr.time_inference(iters=max(args.epochs // 2, 1))
-    res.update(tr.evaluate(split))
+    if isinstance(tr, MinibatchTrainer):
+        res = tr.fit(epochs=max(args.epochs // 10, 1))
+        res.update(tr.evaluate_full(split))
+        train_time = res["time_s"] / max(res["batches"], 1)
+        infer_time = float("nan")
+    else:
+        res = tr.fit(split["train"])
+        res["inference_time_s"] = tr.time_inference(iters=max(args.epochs // 2, 1))
+        res.update(tr.evaluate(split))
+        train_time = res["train_epoch_time_s"]
+        infer_time = res["inference_time_s"]
     res.update(route=route, setup_s=setup_s)
-    train_time = res["train_epoch_time_s"]
-    infer_time = res["inference_time_s"]
+    if args.export and isinstance(tr, Trainer):
+        from hypergef_tpu_torch import serve
+
+        plats = ([s.strip() for s in args.export_platforms.split(",") if s.strip()]
+                 if args.export_platforms else None)
+        meta = serve.export_trainer(tr, args.export, platforms=plats)
+        print(f"exported serving artifact: {args.export} "
+              f"({meta['payload_bytes']} bytes, platforms={meta['platforms']})")
+        res["export_path"] = args.export
+    elif args.export:
+        print("--export requires the full-batch trainer path "
+              "(exported programs are full-graph forwards); skipped", file=sys.stderr)
     backend = cfg.backend
     print(f"backend {backend} (route {route}): avg epoch time {train_time:.6f}")
     for k in ("train_acc", "valid_acc", "test_acc", "final_loss"):

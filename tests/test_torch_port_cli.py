@@ -10,8 +10,10 @@
   JAX's row for the same arguments.
 * ``--validate-parity`` gives JAX's statuses on all 13 fixtures and exits
   0; a load or oracle failure is a FAIL line and exits 1.
-* ``--shards``, ``--minibatch-edges`` and ``--export`` raise
-  ``NotImplementedError`` naming their ROADMAP item.
+* ``--shards`` raises ``NotImplementedError`` naming its ROADMAP item;
+  a ``--minibatch-edges`` run writes JAX's CSV row (its inference time
+  NaN), and an ``--export`` run writes an artifact that loads and answers
+  as the run's trainer does.
 * ``--tune``, ``--plan-cache`` and ``--profile`` run; a cached plan trains
   to the same losses, bitwise.
 * JAX's accuracy bands (``tests/test_e2e_datasets.py:64-79``) hold for the
@@ -156,12 +158,45 @@ def test_validate_real_shaped_data_checks_shape_and_accuracy(tmp_path, monkeypat
         "accuracy"].detail
 
 
-@pytest.mark.parametrize("flag, item", [
-    (["--shards", "2"], "item 8"), (["--minibatch-edges", "64"], "item 7"),
-    (["--export", "out.pt"], "item 6")])
+@pytest.mark.parametrize("flag, item", [(["--shards", "2"], "item 8")])
 def test_unported_flags_raise(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.main(["--synthetic", "random"] + SMALL + flag)
+
+
+def test_minibatch_edges_run(tmp_path):
+    """``--minibatch-edges``: ``epochs // 10`` epochs of sampled batches, the
+    row's train time a batch's and its inference time NaN, as JAX's
+    (``hypergef_tpu/train/cli.py:218-227``)."""
+    out = str(tmp_path / "mb.csv")
+    skipped = tmp_path / "skipped.hgefsrv"
+    argv = ["--synthetic", "homophilic", "--minibatch-edges", "32", "--output", out,
+            "--export", str(skipped)]
+    res = cli.main(argv + SMALL[:-4] + ["--epochs", "20", "--platform", "cpu"])
+    assert res["route"] == "cumsum" and res["batches"] == 2 * (120 // 32)
+    assert "export_path" not in res and not skipped.exists()
+    assert np.isfinite(res["final_loss"]) and "test_acc" in res
+    (row,) = open(out).read().splitlines()
+    fields = row.split(",")
+    assert fields[:3] == ["auto", "HGNN", "walmart-trips"] and len(fields) == 9
+    assert float(fields[7]) > 0 and fields[8] == "nan"
+
+
+def test_export_run_loads(tmp_path):
+    """``--export``: the full-batch run's artifact holds the run's graph and
+    loads and answers in a server of its own (the minibatch path skips it:
+    ``test_minibatch_edges_run``)."""
+    from hypergef_tpu_torch import serve
+
+    path = str(tmp_path / "m.hgefsrv")
+    res = cli.main(["--synthetic", "random"] + SMALL + ["--export", path])
+    assert res["export_path"] == path
+    meta, _ = serve.read_artifact(path)
+    assert meta["platforms"] == ["cpu"] and meta["input_shape"] == [200, 8]
+    hg, x, _ = cli.load_problem(cli.parse(["--synthetic", "random"] + SMALL))
+    assert (meta["num_nodes"], meta["nnz"], meta["nclass"]) == (hg.num_nodes, hg.nnz, 3)
+    got = serve.ServingModel.load(path, device="cpu").predict(x)
+    assert got.shape == (200, 3) and torch.isfinite(got).all()
 
 
 def test_tune_plan_cache_and_profile(tmp_path, monkeypatch, capsys):
