@@ -248,6 +248,24 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    dropout 0, three batches' losses on the card within rtol 1e-4 of the
    same batches on the CPU; for (a), a batch of every edge gives the
    full-graph forward's log-probs on its real rows within 1e-5·max|ref|.
+30. Distributed training (``hypergef_tpu_torch.parallel``), four ranks of
+   a gloo world sharing the card (their times are not a scaling figure):
+   (a) the CLI's ``--shards 4 --dist-backend gloo`` on coauthor_dblp's
+   dimensions for HGNN sum and max, UniGIN and UniGCNII, the losses within
+   1e-3 of a one-rank nccl world of the same ``DistTrainer``, whose
+   initial loss is within 1e-3 of a plain forward's, and the max run's
+   record-routed sum launched in every rank; (b) the halo world on SBM-60k
+   with the aligned interior (asserted taken): sum and max aggregations
+   and one HGNN step against the single-device aligned kernel route (JAX's
+   halo bars: 5e-3·max forward, 1e-2·max gradients, rtol 0.05 on the
+   weights' gradients), and in each rank the band (1e-5), argmax (bitwise)
+   and arg-sum (1e-6) kernels against their twins on its own stages; (c)
+   the dense shard on 20news against the ``dense`` route (1e-2·max); (d)
+   ``DPMinibatchTrainer`` on dblp_shaped, two steps against the unsharded
+   step on the same batches (1e-3). Each world prints its start-up and
+   end (``launch.last_world``), a rank's step time, peak MiB and launches,
+   and the bytes a halo layer sends; the ranks' launches join the kernels
+   line as ``dist_launches``. A failed rank fails the phase.
 
 Phases 1-25 drive the default step and request: on the card a CUDA-graph
 replay (``Trainer``'s and ``ServingModel``'s ``compiled=None``); the plain
@@ -1735,12 +1753,18 @@ def check_record(hgd, f: int, seed: int, device, dtype) -> dict:
     1e-6, atol 1e-6·max|plain| (the same f32 terms, zeros where an id
     differs, in another order), and bitwise against the sequential CSR-order
     sum; two runs bitwise equal; one launch a call (its two passes)."""
-    from hypergef_tpu_torch.ops import segment_sum
     from hypergef_tpu_torch.tools.segment_sum_ab import record_operands
 
     g, arg = record_operands(hgd, f, seed, device, dtype)
-    record = hgd.record
+    return {**check_record_sum(g, arg, hgd.record), "ids": str(dtype).split(".")[-1]}
+
+
+def check_record_sum(g, arg, record) -> dict:
+    """check_record's checks of ``record_routed_dx(g, arg, record)``."""
+    from hypergef_tpu_torch.ops import segment_sum
+
     table = record.e2v
+    f = g.shape[1]
     before = segment_sum.record_launches
     got = segment_sum.record_routed_dx(g, arg, record)
     again = segment_sum.record_routed_dx(g, arg, record)
@@ -1754,9 +1778,8 @@ def check_record(hgd, f: int, seed: int, device, dtype) -> dict:
     check(torch.equal(got.view(torch.int32), seq.view(torch.int32)),
           "the record sum is bitwise the sequential CSR-order sum")
     return {"s": table.num_segments, "n": table.num_inputs, "nnz": table.nnz, "f": f,
-            "ids": str(dtype).split(".")[-1], "max_abs_err": float((got - want).abs().max()),
-            "max_abs_plain": scale, "nonzero_share": float((want != 0).float().mean()),
-            "bitwise_sequential": True, "layout_bytes": record.layout.nbytes,
+            "max_abs_err": float((got - want).abs().max()), "max_abs_plain": scale,
+            "nonzero_share": float((want != 0).float().mean()), "bitwise_sequential": True, "layout_bytes": record.layout.nbytes,
             "layout_build_s": record.layout.build_s}
 
 
@@ -3061,6 +3084,525 @@ def profile_steps(device, steps: int = 10) -> None:
                             for e in top}), flush=True)
 
 
+
+# phase 30, distributed training: four ranks of a gloo world time-share the
+# card (the only way to run D > 1 on one card; their times are not a scaling
+# figure). (a) the CLI's --shards on coauthor_dblp's dimensions and AllSet's
+# widths (the CLI's --synthetic random, whose generator draws 6 members an
+# edge on average), (b) the halo exchange with the aligned interior on
+# SBM-60k, (c) the int8 dense shard on 20news, (d) data-parallel minibatch on
+# phase 29's dblp_shaped graph
+DIST_RANKS = 4
+DIST_CLI = ["--synthetic", "random", "--n", "41302", "--e", "22363", "--feat", "1425",
+            "--classes", "6", "--nhid", "32", "--epochs", "20"]
+DIST_CLI_RUNS = {"HGNN sum": ["--model", "HGNN"],
+                 "HGNN max": ["--model", "HGNN", "--first-aggr", "max"],
+                 "UniGIN": ["--model", "UniGIN"], "UniGCNII": ["--model", "UniGCNII"]}
+DIST_F = 32
+DIST_STEP_TIMES = 5
+# the bars of phase 30's comparisons, each about 10-60 times the largest gap
+# seen on an H100 (PERF.md §6): the relative loss gap (seen: 7.5e-6 after
+# (a)'s 20 epochs, 2.9e-6 in (b)); the largest gradient or weight difference
+# over the largest magnitude of the reference (seen: 1.6e-7 for (a)'s
+# initial and (d)'s gradients, 4.9e-7 for (d)'s weights, 1.0e-4 for the
+# halo step's gradients, whose bf16 bands sum other edge sets)
+DIST_LOSS_RTOL = 1e-4
+DIST_GRAD_REL = 1e-5
+DIST_HALO_GRAD_REL = 1e-3
+DIST_PARAM_REL = 1e-5
+
+
+def rel_to_max(got, want) -> float:
+    """max|got - want| / max|want|."""
+    got, want = np.asarray(got), np.asarray(want)
+    return float(np.abs(got - want).max() / max(float(np.abs(want).max()), 1e-30))
+
+
+def _rank_peak_mib(device) -> float:
+    return torch.cuda.max_memory_allocated(device) / 2**20
+
+
+def _step_ms(fn, device, n: int = DIST_STEP_TIMES) -> float:
+    """Median ms of ``fn`` between CUDA events (host time included), over
+    ``n`` calls: a rank's time while the other ranks share the card."""
+    out = []
+    for _ in range(n):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return float(np.median(out))
+
+
+def dist_reference_rank(argvs: dict) -> dict:
+    """Phase 30 (a)'s reference, a one-rank nccl world: the same DistTrainer
+    as each CLI run (the CLI's problem, seed and warm-up), its loss and
+    gradients at the initial weights and its fit's losses; then, in this
+    rank, the record-routed sum against its twin over every shard of the
+    CLI's 4-way plan."""
+    from hypergef_tpu_torch.parallel.partition import plan_sharded_aggregation
+    from hypergef_tpu_torch.parallel.trainer import DistTrainer
+    from hypergef_tpu_torch.train import cli
+
+    args = cli.parse(DIST_CLI)
+    hg, x, y = cli.load_problem(args)
+    split = cli._split(args, y)
+    epochs = args.epochs
+    plan = plan_sharded_aggregation(hg, 1)
+    out = {}
+    for name, (model, aggr) in argvs.items():
+        tr = DistTrainer(hg, x, y, nhid=32, model=model, first_aggr=aggr, plan=plan, seed=1)
+        mask = tr.train_mask(split["train"])
+        init = tr.loss(mask)
+        init.backward()
+        grads = {k: p.grad.cpu().numpy() for k, p in tr.params.items()}
+        out[name] = {"init_loss": float(init.detach()), "init_grads": grads,
+                     "losses": tr.fit(split["train"], epochs=epochs)["losses"]}
+    # the record-routed sum against its plain twin over each shard's local
+    # CSR of the CLI's plan, at the widths of the max runs' two layers
+    dev = tr.device
+    plan_d = plan_sharded_aggregation(hg, DIST_RANKS)
+    out["record_checks"] = []
+    for d in range(DIST_RANKS):
+        loc = plan_d.local(d, dev)
+        for f in (32, args.classes):
+            g, arg = stage_record_operands(loc.e_stage, f, 60 + d, dev)
+            out["record_checks"].append({"shard": d, **check_record_sum(g, arg, loc.record)})
+    return out
+
+
+def stage_record_operands(stage, f: int, seed: int, device):
+    """(g, arg) of a max stage's backward: arg the stage's own first winners
+    over a normal x, g normal."""
+    from hypergef_tpu_torch.ops.maxops import tree_max_with_arg
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((stage.num_inputs, f), generator=gen, device=device)
+    _, arg = tree_max_with_arg(x, stage)
+    return torch.randn(tuple(arg.shape), generator=gen, device=device), arg.contiguous()
+
+
+def dist_plain_init_loss(hg, x, y, split, model: str, aggr: str, device):
+    """The loss at the CLI's initial weights of a plain single-device
+    forward over the whole graph (the nnz oracles of ops/refops.py), and
+    the weights' gradients."""
+    from hypergef_tpu_torch.ops.refops import hgnn_aggregate_ref, unignn_aggregate_ref
+    from hypergef_tpu_torch.parallel.dist_model import (
+        init_dist_params, make_forward, masked_nll_terms)
+
+    hgd = hg.device_data(device)
+    nclass = int(np.asarray(y).max()) + 1
+    fwd = make_forward(model, lambda h, a, _dv: hgnn_aggregate_ref(hgd, h, None, a),
+                       lambda h, use_deg, _dv: unignn_aggregate_ref(hgd, h, use_deg), hgd.degV,
+                       aggr, nclass=nclass)
+    params = {k: v.to(device).requires_grad_(True) for k, v in init_dist_params(
+        model, 1, x.shape[1], 32, nclass).items()}
+    mask = torch.zeros(hg.num_nodes, device=device)
+    mask[torch.as_tensor(split["train"], device=device)] = 1.0
+    nll, cnt = masked_nll_terms(fwd(params, torch.as_tensor(x, device=device)),
+                                torch.as_tensor(np.asarray(y, np.int64), device=device), mask)
+    loss = nll / cnt.clamp_min(1.0)
+    loss.backward()
+    return float(loss.detach()), {k: p.grad.cpu().numpy() for k, p in params.items()}
+
+
+def dist_cli_cells(device, card: str) -> dict:
+    """Phase 30 (a): the CLI's --shards 4 --dist-backend gloo, each model."""
+    from hypergef_tpu_torch.parallel import launch
+    from hypergef_tpu_torch.parallel.launch import spawn
+    from hypergef_tpu_torch.train import cli
+
+    args = cli.parse(DIST_CLI)
+    hg, x, y = cli.load_problem(args)
+    split = cli._split(args, y)
+    runs = {name: (argv[argv.index("--model") + 1],
+                   argv[argv.index("--first-aggr") + 1] if "--first-aggr" in argv else "sum")
+            for name, argv in DIST_CLI_RUNS.items()}
+    out = {}
+    for name, argv in DIST_CLI_RUNS.items():
+        res = cli.main(DIST_CLI + argv + ["--shards", str(DIST_RANKS), "--dist-backend", "gloo"])
+        out[name] = {"world_s": res["world_s"], "setup_s": res["setup_s"],
+                     "timeline": launch.last_world,
+                     "losses": np.asarray(res["losses"]), "final_loss": res["final_loss"],
+                     "test_acc": res.get("test_acc"), "ranks": res["ranks"]}
+    t0 = time.perf_counter()
+    ref = spawn(dist_reference_rank, 1, backend="nccl", platform="cuda", args=(runs,),
+                timeout_s=600)[0]
+    ref_s = time.perf_counter() - t0
+    out["nccl1_timeline"] = launch.last_world
+    out["record_checks"] = ref["record_checks"]
+    for name, (model, aggr) in runs.items():
+        cell = out[name]
+        plain, plain_grads = dist_plain_init_loss(hg, x, y, split, model, aggr, device)
+        r = ref[name]
+        check(abs(r["init_loss"] - plain) <= DIST_LOSS_RTOL * abs(plain),
+              f"30a {name}: the one-rank world's initial loss {r['init_loss']} within "
+              f"{DIST_LOSS_RTOL} of the plain forward's {plain}")
+        grad_errs = {k: rel_to_max(r["init_grads"][k], want) for k, want in plain_grads.items()}
+        check(max(grad_errs.values()) <= DIST_GRAD_REL,
+              f"30a {name}: the one-rank world's initial gradients within {DIST_GRAD_REL}·max "
+              f"of the plain backward's ({grad_errs})")
+        cell["init_grad_rel_err"] = grad_errs
+        check(bool(np.allclose(cell["losses"], r["losses"], rtol=DIST_LOSS_RTOL, atol=0.0)),
+              f"30a {name}: the 4-rank losses {cell['losses'][-3:]} within {DIST_LOSS_RTOL} "
+              f"of the one-rank nccl world's {r['losses'][-3:]}")
+        if aggr == "max":
+            check(all(rk["launches"]["recsum"] > 0 for rk in cell["ranks"]),
+                  f"30a {name}: every rank launched the record-routed sum")
+        cell.update(plain_init_loss=plain, nccl1_init_loss=r["init_loss"],
+                    max_loss_diff_vs_nccl1=float(np.abs(cell["losses"] - r["losses"]).max()),
+                    losses=cell["losses"].tolist())
+    out["nccl1_world_s"] = ref_s
+    return out
+
+
+def dist_halo_rank(plan, x, cot, xf, y, mask, params, nclass: int) -> dict:
+    """Phase 30 (b), in each rank: the halo sum and max aggregations and one
+    HGNN step on the rank's owned block (the counted main path), then the
+    band, argmax and arg-sum kernels against their plain twins on the
+    rank's own interior stages, the segment-sum kernel on every inverse
+    table of its takes and stages, and the record-routed sum on its
+    boundary's local CSR."""
+    from hypergef_tpu_torch.ops import aligned_band, aligned_max
+    from hypergef_tpu_torch.parallel import comm
+    from hypergef_tpu_torch.parallel.comm import all_reduce_grads
+    from hypergef_tpu_torch.parallel.halo_aggr import (
+        HaloStep, gather_blocks, halo_hgnn_aggregate, own_block, shard_vertex_features)
+    from hypergef_tpu_torch.parallel.launch import kernel_launches, reset_kernel_launches
+    from hypergef_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh()
+    dev, rank = mesh.device, mesh.rank
+    t0 = time.perf_counter()
+    loc = plan.local(rank, dev)
+    torch.cuda.synchronize(dev)
+    out = {"local_build_s": time.perf_counter() - t0}
+
+    def blk(a, dtype=None):
+        t = torch.as_tensor(own_block(plan, shard_vertex_features(plan, a), rank), device=dev)
+        return t if dtype is None else t.to(dtype)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_kernel_launches()
+    comm.sent_bytes = 0
+    for aggr in ("sum", "max"):
+        xb = blk(x).requires_grad_(True)
+        o = halo_hgnn_aggregate(plan, xb, None, aggr)
+        if aggr == "sum":
+            out["sent_bytes_a_layer"] = comm.sent_bytes
+        (o * blk(cot)).sum().backward()
+        n = plan.num_nodes
+        out[aggr] = (gather_blocks(o.detach()).cpu().numpy()[:n],
+                     gather_blocks(xb.grad).cpu().numpy()[:n])
+    step = HaloStep("HGNN", plan, params, nclass=nclass)
+    xfb, yb, mb = blk(xf), blk(y[:, None])[:, 0].long(), blk(mask[:, None])[:, 0]
+    share, loss = step.loss_terms(xfb, yb, mb)
+    share.backward()
+    all_reduce_grads(step.params.values(), mesh.group)
+    out["step"] = {"loss": float(loss),
+                   "grads": {k: p.grad.cpu().numpy() for k, p in step.params.items()}}
+    step.optimizer.step()
+    torch.cuda.synchronize(dev)
+    out["launches"] = kernel_launches()
+    out["peak_mib"] = _rank_peak_mib(dev)
+    out["step_ms"] = _step_ms(lambda: step(xfb, yb, mb), dev)
+    # the kernels against their plain twins on this rank's stages (not counted)
+    g = torch.Generator(device=dev).manual_seed(50 + rank)
+    xs = torch.randn((plan.n_own, DIST_F), device=dev, generator=g)
+    gs = torch.randn((plan.e_int_pad, DIST_F), device=dev, generator=g)
+    errs = {}
+    for name, st, v in (("band fwd", loc.int_fwd, xs), ("band bwd", loc.int_bwd, gs)):
+        k, p = aligned_band.aligned_band(v, st), aligned_band.aligned_band_plain(v, st)
+        errs[name] = float((k - p).abs().max())
+        check(errs[name] <= 1e-5 * float(p.abs().max()) + 1e-5,
+              f"rank {rank}: {name} kernel within 1e-5 of its twin ({errs[name]})")
+    val, arg = aligned_max.aligned_masked_argmax(xs, loc.int_fwd)
+    pval, parg = aligned_max.aligned_max_plain(xs, loc.int_fwd)
+    check(torch.equal(val, pval) and torch.equal(arg, parg),
+          f"rank {rank}: the argmax kernel bitwise equal to its twin")
+    errs["argmax"] = float((val - pval).abs().max())
+    k = aligned_max.aligned_masked_argsum(gs, arg, loc.int_bwd)
+    p = aligned_max.aligned_argsum_plain(gs, arg, loc.int_bwd)
+    errs["argsum"] = float((k - p).abs().max())
+    check(errs["argsum"] <= 1e-6 * float(p.abs().max()) + 1e-6,
+          f"rank {rank}: the arg-sum kernel within 1e-6 of its twin ({errs['argsum']})")
+    # the segment-sum kernel over every inverse table of the rank's takes and
+    # tree stages (the halo's backward), and the record-routed sum over the
+    # boundary's local CSR (the max backward), at the path's width
+    tables = {name: getattr(loc, name).inverse
+              for name in ("halo_send", "halo_take", "asm", "send")}
+    for name in ("bnd", "v", "own"):
+        st = getattr(loc, name)
+        tables.update({f"{name} level {i}": t for i, t in enumerate(st.inverse_levels)})
+        tables[f"{name} final"] = st.inverse_final
+    seg = {name: check_segsum(t, DIST_F, 70 + i, dev)["max_abs_err"]
+           for i, (name, t) in enumerate(tables.items()) if t.nnz}
+    errs["segsum"] = max(seg.values())
+    out["segsum_tables"] = len(seg)
+    g, arg = stage_record_operands(loc.bnd.stage, DIST_F, 80 + rank, dev)
+    errs["recsum"] = check_record_sum(g, arg, loc.bnd_record)["max_abs_err"]
+    out["kernel_errs"] = errs
+    return out
+
+
+def dist_halo_cell(aligned: dict, device) -> dict:
+    """Phase 30 (b): the halo world on SBM-60k, aligned interior."""
+    from hypergef_tpu_torch.data.synthetic import random_features
+    from hypergef_tpu_torch.ops import fused
+    from hypergef_tpu_torch.parallel.dist_model import (
+        init_dist_params, make_forward, masked_nll_terms)
+    from hypergef_tpu_torch.parallel import launch
+    from hypergef_tpu_torch.parallel.halo import plan_halo
+    from hypergef_tpu_torch.parallel.launch import spawn
+    from hypergef_tpu_torch.sparse.planner import AggregationPlan
+
+    hg = aligned["sbm"]
+    t0 = time.perf_counter()
+    plan = plan_halo(hg, DIST_RANKS, local_form="aligned")
+    plan_s = time.perf_counter() - t0
+    check(plan.local_form == "aligned", "30b: the halo plan took the aligned interior")
+    rng = np.random.default_rng(30)
+    x = rng.normal(size=(hg.num_nodes, DIST_F)).astype(np.float32)
+    cot = rng.normal(size=(hg.num_nodes, DIST_F)).astype(np.float32)
+    xf, y = random_features(hg.num_nodes, NFEAT, NCLASS, seed=1)
+    mask = (np.arange(hg.num_nodes) % 2 == 0).astype(np.float32)
+    params = init_dist_params("HGNN", 3, NFEAT, 32, NCLASS)
+    t0 = time.perf_counter()
+    ranks = spawn(dist_halo_rank, DIST_RANKS, backend="gloo", platform="cuda",
+                  args=(plan, x, cot, xf, np.asarray(y, np.int64), mask, params, NCLASS),
+                  timeout_s=600)
+    world_s = time.perf_counter() - t0
+    timeline = launch.last_world
+    # the single-device aligned kernel route on the same inputs
+    kplan = AggregationPlan(aligned=dataclasses.replace(aligned["plan"], form="pallas_auto"))
+    hgd = hg.device_data(device)
+    out = {"plan_s": plan_s, "world_s": world_s, "timeline": timeline,
+           "interior_fraction": plan.interior_fraction(),
+           "comm_fraction": plan.comm_fraction(),
+           "halo_comm_fraction": plan.halo_comm_fraction(),
+           "exchange_bytes_a_layer_f32": plan.exchange_bytes(DIST_F),
+           "sent_bytes_a_layer": [r["sent_bytes_a_layer"] for r in ranks],
+           "ranks": [{k: r[k] for k in ("local_build_s", "peak_mib", "step_ms", "launches",
+                                        "kernel_errs", "segsum_tables")} for r in ranks]}
+    for aggr in ("sum", "max"):
+        xt = torch.tensor(x, device=device, requires_grad=True)
+        o = fused.hgnn_aggregate(hgd, xt, None, aggr, backend="aligned", plan=kplan)
+        (o * torch.as_tensor(cot, device=device)).sum().backward()
+        want, want_dx = o.detach().cpu().numpy(), xt.grad.cpu().numpy()
+        got, got_dx = ranks[0][aggr]
+        rel = float(np.abs(got - want).max() / np.abs(want).max())
+        rel_dx = float(np.abs(got_dx - want_dx).max() / np.abs(want_dx).max())
+        # the bf16 bar of JAX's own halo check (tests/test_halo.py:255)
+        check(rel <= 5e-3, f"30b {aggr}: halo output within 5e-3·max of the kernel route ({rel})")
+        check(rel_dx <= 1e-2, f"30b {aggr}: halo gradient within 1e-2·max ({rel_dx})")
+        out[aggr] = {"max_rel_err": rel, "grad_max_rel_err": rel_dx}
+    fwd = make_forward("HGNN", lambda h, a, _dv: fused.hgnn_aggregate(
+        hgd, h, None, a, backend="aligned", plan=kplan), None, None, "sum", nclass=NCLASS)
+    ps = {k: v.to(device).requires_grad_(True) for k, v in params.items()}
+    nll, cnt = masked_nll_terms(fwd(ps, torch.as_tensor(xf, device=device)),
+                                torch.as_tensor(np.asarray(y, np.int64), device=device),
+                                torch.as_tensor(mask, device=device))
+    loss = nll / cnt
+    loss.backward()
+    got = ranks[0]["step"]
+    loss = float(loss.detach())
+    check(abs(got["loss"] - loss) <= DIST_LOSS_RTOL * abs(loss),
+          f"30b step: halo loss {got['loss']} within {DIST_LOSS_RTOL} of the kernel route's "
+          f"{loss}")
+    grad_errs = {k: rel_to_max(got["grads"][k], p.grad.cpu().numpy()) for k, p in ps.items()}
+    check(max(grad_errs.values()) <= DIST_HALO_GRAD_REL,
+          f"30b step: the halo gradients within {DIST_HALO_GRAD_REL}·max of the kernel "
+          f"route's ({grad_errs})")
+    out["step"] = {"loss": got["loss"], "kernel_route_loss": loss, "grad_rel_err": grad_errs}
+    for r in ranks:
+        for kname in ("band", "argmax", "argsum", "segsum", "recsum"):
+            check(r["launches"][kname] > 0, f"30b: every rank launched {kname}")
+    return out
+
+
+def dist_dense_rank(plan, x, cot, degv) -> dict:
+    """Phase 30 (c), in each rank: the dense shard's aggregation and its
+    gradient, and the rank's time for one (forward and backward)."""
+    from hypergef_tpu_torch.parallel.dense_shard import sharded_dense_hgnn_aggregate
+    from hypergef_tpu_torch.parallel.launch import kernel_launches, reset_kernel_launches
+    from hypergef_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh()
+    dev = mesh.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_kernel_launches()
+    ct = torch.as_tensor(cot, device=dev)
+    dv = torch.as_tensor(degv, device=dev)
+
+    def once():
+        xt = torch.tensor(x, device=dev, requires_grad=True)
+        o = sharded_dense_hgnn_aggregate(plan, xt, None, "sum", degV=dv)
+        (o * ct).sum().backward()
+        return o, xt
+
+    o, xt = once()
+    torch.cuda.synchronize(dev)
+    return {"out": o.detach().cpu().numpy(), "dx": xt.grad.cpu().numpy(),
+            "launches": kernel_launches(), "peak_mib": _rank_peak_mib(dev),
+            "step_ms": _step_ms(once, dev)}
+
+
+def dist_dense_cell(device) -> dict:
+    """Phase 30 (c): the int8 dense shard on 20news, four ranks, against
+    the single-device dense route."""
+    from hypergef_tpu_torch.ops import fused
+    from hypergef_tpu_torch.parallel import launch
+    from hypergef_tpu_torch.parallel.dense_shard import plan_sharded_dense
+    from hypergef_tpu_torch.parallel.launch import spawn
+    from hypergef_tpu_torch.sparse.planner import AggregationPlan
+
+    hg = make_graph("20news")
+    t0 = time.perf_counter()
+    plan = plan_sharded_dense(hg, DIST_RANKS)
+    plan_s = time.perf_counter() - t0
+    rng = np.random.default_rng(31)
+    x = rng.normal(size=(hg.num_nodes, DIST_F)).astype(np.float32)
+    cot = rng.normal(size=(hg.num_nodes, DIST_F)).astype(np.float32)
+    t0 = time.perf_counter()
+    ranks = spawn(dist_dense_rank, DIST_RANKS, backend="gloo", platform="cuda",
+                  args=(plan, x, cot, hg.degV), timeout_s=600)
+    world_s = time.perf_counter() - t0
+    xt = torch.tensor(x, device=device, requires_grad=True)
+    o = fused.hgnn_aggregate(hg.device_data(device), xt, None, "sum", backend="dense",
+                             plan=AggregationPlan.dense_plan(hg, device))
+    (o * torch.as_tensor(cot, device=device)).sum().backward()
+    out = {"plan_s": plan_s, "world_s": world_s, "timeline": launch.last_world,
+           "table_bytes_per_rank": plan.table_bytes_per_device(),
+           "exchange_bytes_a_layer_f32": 2 * hg.num_nodes * DIST_F * 4,
+           "ranks": [{k: r[k] for k in ("peak_mib", "step_ms", "launches")} for r in ranks]}
+    for key, want in (("out", o.detach().cpu().numpy()), ("dx", xt.grad.cpu().numpy())):
+        got = ranks[0][key]
+        err = float(np.abs(got - want).max())
+        # the bar of phase 2's dense kernel (two bf16 roundings)
+        check(bool(np.allclose(got, want, rtol=1e-2, atol=1e-2 * np.abs(want).max())),
+              f"30c {key}: the dense shard within 1e-2 of the dense route ({err})")
+        out[f"{key}_max_abs_err"] = err
+    return out
+
+
+def dist_dp_rank(cfg, hg, x, y, train_idx, params, steps: int) -> dict:
+    """Phase 30 (d), in each rank: ``steps`` data-parallel steps (the
+    counted main path), then the rank's time for more."""
+    from hypergef_tpu_torch.parallel.launch import kernel_launches, reset_kernel_launches
+    from hypergef_tpu_torch.train.dp_minibatch import DPMinibatchTrainer
+
+    tr = DPMinibatchTrainer(cfg, hg, x, y, train_idx, batch_edges=MB_BATCH_EDGES["dblp_shaped"],
+                            params=params)
+    dev = tr.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_kernel_launches()
+    losses, grads = [], []
+    for _ in range(steps):
+        losses.append(float(tr.step_once()))
+        grads.append({k: p.grad.cpu().numpy() for k, p in tr.model.named_parameters()})
+    launches = kernel_launches()
+    params = {k: p.detach().cpu().numpy() for k, p in tr.model.named_parameters()}
+    return {"losses": losses, "grads": grads, "params": params, "launches": launches,
+            "peak_mib": _rank_peak_mib(dev), "step_ms": _step_ms(tr.step_once, dev)}
+
+
+def dist_dp_cell(device) -> dict:
+    """Phase 30 (d): DPMinibatchTrainer on dblp_shaped, 512 edges a batch,
+    four ranks, against the unsharded step on the same batches."""
+    from hypergef_tpu_torch.data.sampling import HyperedgeSampler
+    from hypergef_tpu_torch.models.zoo import build_model
+    from hypergef_tpu_torch.parallel import launch
+    from hypergef_tpu_torch.parallel.launch import spawn
+    from hypergef_tpu_torch.train.trainer import TrainConfig, init_adam_state, make_optimizer
+
+    hg, x, y, split = minibatch_problem("dblp_shaped", None)
+    cfg = TrainConfig(model="HGNN", nhid=32, seed=3, dropout=0.0, input_drop=0.0)
+    nclass = int(np.asarray(y).max()) + 1
+    model = build_model("HGNN", nfeat=x.shape[1], nhid=32, nclass=nclass,
+                        num_edges=hg.num_edges, dropout=0.0, input_drop=0.0, backend="cumsum",
+                        seed=cfg.seed, device=device)
+    params = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    steps = 2
+    t0 = time.perf_counter()
+    ranks = spawn(dist_dp_rank, DIST_RANKS, backend="gloo", platform="cuda",
+                  args=(cfg, hg, x, y, split["train"], params, steps), timeout_s=600)
+    world_s = time.perf_counter() - t0
+    timeline = launch.last_world
+    # the unsharded step: the same draws, every batch's NLL over the count of all
+    sampler = HyperedgeSampler(hg, MB_BATCH_EDGES["dblp_shaped"], seed=0, device=device)
+    pad = sampler.probe_pad_shapes()
+    sampler.sample_batch(pad_to=pad)
+    opt = make_optimizer(model.parameters(), cfg.lr, cfg.wd, capturable=True)
+    init_adam_state(opt)
+    xd = torch.as_tensor(x, device=device)
+    yd = torch.as_tensor(np.asarray(y, np.int64), device=device)
+    tm = torch.zeros(hg.num_nodes, device=device)
+    tm[torch.as_tensor(split["train"], device=device)] = 1.0
+    want, want_grads = [], []
+    model.train()
+    for _ in range(steps):
+        batches = [sampler.sample_batch(pad_to=pad) for _ in range(DIST_RANKS)]
+        opt.zero_grad(set_to_none=True)
+        nll, cnt = 0.0, 0.0
+        for b in batches:
+            z = model(xd.index_select(0, b.rows), b.data, None)
+            m = b.row_mask * tm.index_select(0, b.rows)
+            nll = nll - (z.gather(1, yd.index_select(0, b.rows)[:, None])[:, 0] * m).sum()
+            cnt = cnt + m.sum()
+        loss = nll / cnt.clamp_min(1.0)
+        loss.backward()
+        want_grads.append({k: p.grad.cpu().numpy() for k, p in model.named_parameters()})
+        opt.step()
+        want.append(float(loss))
+    got = ranks[0]["losses"]
+    check(bool(np.allclose(got, want, rtol=DIST_LOSS_RTOL, atol=0.0)),
+          f"30d: the data-parallel losses {got} within {DIST_LOSS_RTOL} of the unsharded "
+          f"step's {want}")
+    # every rank's summed gradients of every step, and its weights after the
+    # steps, against the unsharded step's
+    want_params = {k: p.detach().cpu().numpy() for k, p in model.named_parameters()}
+    grad_err = max(rel_to_max(r["grads"][i][k], w[k]) for r in ranks
+                   for i, w in enumerate(want_grads) for k in w)
+    param_err = max(rel_to_max(r["params"][k], w) for r in ranks for k, w in want_params.items())
+    check(grad_err <= DIST_GRAD_REL,
+          f"30d: every rank's gradients within {DIST_GRAD_REL}·max of the unsharded step's "
+          f"({grad_err})")
+    check(param_err <= DIST_PARAM_REL,
+          f"30d: every rank's weights after {steps} steps within {DIST_PARAM_REL}·max of the "
+          f"unsharded step's ({param_err})")
+    return {"world_s": world_s, "timeline": timeline, "losses": got, "unsharded_losses": want,
+            "grad_rel_err": grad_err, "param_rel_err": param_err,
+            "ranks": [{k: r[k] for k in ("peak_mib", "step_ms", "launches")} for r in ranks]}
+
+
+def dist_phase(device, card: str, aligned: dict) -> dict:
+    """Phase 30: the four distributed cells; every rank's launches summed."""
+    torch.cuda.empty_cache()
+    out = {}
+    for key, fn in (("a", lambda: dist_cli_cells(device, card)),
+                    ("b", lambda: dist_halo_cell(aligned, device)),
+                    ("c", lambda: dist_dense_cell(device)),
+                    ("d", lambda: dist_dp_cell(device))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        out[key]["phase_s"] = time.perf_counter() - t0
+        print(f"phase 30 {key} (card {card}; {DIST_RANKS} gloo ranks time-sharing one card: "
+              f"their times are not a scaling figure): {json.dumps(out[key])}", flush=True)
+    launches = {}
+    cells = [out["a"][k] for k in DIST_CLI_RUNS] + [out[k] for k in "bcd"]
+    for cell in cells:
+        for r in cell["ranks"]:
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    print(f"phase 30 launches, every rank of every world: {json.dumps(launches)}; gloo took "
+          f"CUDA tensors for all_reduce, all_to_all_single and all_gather (no host staging)",
+          flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3246,6 +3788,9 @@ def main() -> int:
     t0 = time.perf_counter()
     minibatched = minibatch_phase(device, card, streamed)
     print(f"phase 29: {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    distributed = dist_phase(device, card, aligned)
+    print(f"phase 30: {time.perf_counter() - t0:.2f} s", flush=True)
 
     fd_bwd_err = max(max(c["max_abs_err"].values()) for c in bwd)
     timed = {"fused_dense_two_stage": times["20news"], "ell_gather_sum": gather_times["edge F=32"],
@@ -3437,7 +3982,9 @@ def main() -> int:
             k["export_launches"] = sum(cell["launches"][c] for cell in exported.values()
                                        if "launches" in cell)
             k["minibatch_launches"] = sum(cell["launches"][c] for cell in minibatched.values())
-            k["launches"] += k["export_launches"] + k["minibatch_launches"]
+            k["dist_launches"] = distributed["launches"].get(c, 0)
+            k["launches"] += (k["export_launches"] + k["minibatch_launches"]
+                              + k["dist_launches"])
     for k in kernels:
         t = timed[k["name"]]
         sites = KERNEL_SITES.get(k["name"], [RECORD_SUM_SITE])

@@ -12,7 +12,9 @@ unless given ``device="cpu"``; hyperedge-sampled minibatches with
 export (``serve.export_trainer``, ``ServingModel.load``) of HGNN (sum,
 mean or max first aggregation), UniGIN and UniGCNII on the ``xla``,
 ``cumsum``, ``dense``, ``pallas``, ``tree``, ``pallas_sparse``, ``aligned``,
-``bitstream`` and ``precomp`` routes. By default (``backend="auto"``) the
+``bitstream`` and ``precomp`` routes, and distributed training over
+``torch.distributed`` (``parallel``: ``DistTrainer``, the halo exchange;
+``train.dp_minibatch``). By default (``backend="auto"``) the
 routing ladder ``sparse.planner.plan_aggregation`` picks the route, as the
 JAX package's does; ``backend=None`` takes ``cumsum``. ``aligned`` serves
 community-sorted graphs (``sparse.reorder.community_reorder``,

@@ -1,0 +1,116 @@
+"""The collectives of the distributed programs, as autograd Functions.
+
+JAX's ``shard_map`` bodies call ``jax.lax.psum`` and ``jax.lax.all_to_all``
+and differentiate through them; the port states each collective's
+transpose itself, for the way the programs use it:
+
+* :func:`sum_to_replicated`: ``all_reduce`` forward, identity backward. The
+  output side of an edge-partitioned aggregation (``dist_aggr.py:94``,
+  ``:133``; ``dense_shard.py:205``): each rank holds a partial, the sum is
+  replicated, and every rank computes the whole loss from it, so the
+  cotangent arriving at the sum is already the replicated one.
+* :func:`from_replicated`: identity forward, ``all_reduce`` backward. The
+  input side of the same aggregation: X is replicated, each rank's local
+  stages see all of it, and the true cotangent of X is the sum of the
+  ranks' partial cotangents. Together the two make one ``[N, F]``
+  reduction each way a layer, and never D times the gradient.
+* :func:`all_to_all`: ``[D, b, F]`` block i to rank i, its own transpose
+  (``halo_aggr.py:13-14``, ``:70``, ``:136``).
+
+:func:`all_reduce_` and :func:`all_reduce_grads` reduce tensors outside
+autograd (a loss sum, a mask count, replicated weights' gradients) in a
+fixed order. gloo takes CUDA tensors for these collectives (checked on the
+card by ``chip_smoke.py`` phase 30); the calls are the same for every
+backend.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable
+
+import torch
+import torch.distributed as dist
+
+# bytes moved by all_to_all calls since the last reset, this rank's send side
+# (the phase's exchange bytes a layer)
+sent_bytes = 0
+
+
+def all_reduce_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum ``t`` over the group in place (no autograd) and return it."""
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return t
+
+
+def all_reduce_grads(params: Iterable[torch.Tensor], group=None) -> None:
+    """Sum each parameter's gradient over the group, one call a parameter,
+    in the order given (the same on every rank). A parameter without a
+    gradient is skipped (Adam skips it too); every rank runs the same graph,
+    so every rank skips the same ones."""
+    for p in params:
+        if p.grad is not None:
+            dist.all_reduce(p.grad, op=dist.ReduceOp.SUM, group=group)
+
+
+class _SumToReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _FromReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
+def _a2a(x: torch.Tensor, group) -> torch.Tensor:
+    global sent_bytes
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    sent_bytes += x.numel() * x.element_size()
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _a2a(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _a2a(g, ctx.group), None
+
+
+def sum_to_replicated(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``psum`` of per-rank partials into a replicated value; identity
+    backward (the cotangent is replicated already)."""
+    return _SumToReplicated.apply(x, group)
+
+
+def from_replicated(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Mark a replicated input whose ranks each take a part of its use:
+    identity forward, ``all_reduce`` of the cotangent backward."""
+    return _FromReplicated.apply(x, group)
+
+
+def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` [D, b, ...]: block i goes to rank i, and block j of the result
+    came from rank j (``jax.lax.all_to_all(split_axis=0, concat_axis=0,
+    tiled=False)``); the backward is the same exchange of the cotangent."""
+    return _AllToAll.apply(x, group)

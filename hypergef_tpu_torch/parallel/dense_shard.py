@@ -1,0 +1,219 @@
+"""Edge-sharded int8 dense incidence: each rank holds a hyperedge-contiguous
+slice ``H_d = H[:, e_d:e_{d+1}]`` and computes both dense stages.
+
+Port of ``hypergef_tpu/parallel/dense_shard.py`` (``:1-269``):
+
+    out = Σ_d ( H_d · diag(degE_d·W_d) · H_dᵀ · X ) · diag(degV)
+
+The two stages are library products, as JAX computes them outside any
+Pallas kernel (``:159-182``): ``H_dᵀ · bf16(X)`` and ``H_d · bf16(xe)``
+with f32 results (``torch.mm(..., out_dtype=torch.float32)`` on bf16 on the
+card, an f32 product of the bf16-valued operands on the CPU, which has no
+such kernel). The backward is JAX's transpose of those dots: the f32
+cotangent times the table, rounded to bf16 after the product (the
+transpose of ``astype(bf16)``), for each stage. The partials combine
+through :func:`~.comm.sum_to_replicated`, X enters through
+:func:`~.comm.from_replicated` (:mod:`.dist_aggr`'s rule).
+
+Each product converts the table a block of rows at a time
+(``DENSE_BLOCK_BYTES`` of f32 rows at most), so a rank holds its int8
+slice, which ``DENSE_SHARD_MAX_BYTES`` bounds, and one converted block
+beside it; with one block the products are the whole-slice ones.
+
+``packed=True`` (JAX's int4 nibble carrier) raises: packed int4 is in
+ROADMAP.md's "Do not port" list. ``DENSE_SHARD_MAX_BYTES`` keeps its guard.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from hypergef_tpu_torch.parallel.comm import from_replicated, sum_to_replicated
+from hypergef_tpu_torch.parallel.mesh import Mesh, make_mesh
+from hypergef_tpu_torch.parallel.partition import _shard_edge_vector, edge_partition_bounds
+from hypergef_tpu_torch.sparse.hypergraph import Hypergraph
+
+# the int8 slice a rank may hold (``:48``)
+DENSE_SHARD_MAX_BYTES = 2 << 30
+# the table's rows converted at a time, counted as f32
+DENSE_BLOCK_BYTES = 256 << 20
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalDense:
+    """One rank's slice on its device: int8 H_d [N, e_pad], the degrees and
+    the member counts."""
+
+    h: torch.Tensor  # int8 [N, e_pad]
+    degE: torch.Tensor  # f32 [e_pad, 1]
+    counts: torch.Tensor  # f32 [e_pad, 1]
+
+
+@dataclasses.dataclass
+class ShardedDensePlan:
+    """Stacked int8 H slices (``:52-97``), one a shard."""
+
+    n_shards: int
+    num_nodes: int
+    num_edges: int
+    e_pad: int
+    edge_bounds: np.ndarray
+    h: np.ndarray  # [D, N, e_pad] int8 counts
+    degE: np.ndarray  # [D, e_pad, 1] f32
+    counts: np.ndarray  # [D, e_pad, 1] f32
+    packed: bool = False
+    _local: Dict[Tuple[int, torch.device], LocalDense] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state["_local"] = {}
+        return state
+
+    def local(self, rank: int, device) -> LocalDense:
+        device = torch.device(device)
+        key = (rank, device)
+        if key not in self._local:
+            self._local[key] = LocalDense(
+                h=torch.as_tensor(self.h[rank], device=device),
+                degE=torch.as_tensor(self.degE[rank], device=device),
+                counts=torch.as_tensor(self.counts[rank], device=device))
+        return self._local[key]
+
+    def shard_edge_vector(self, vec: np.ndarray) -> np.ndarray:
+        return _shard_edge_vector(vec, self.n_shards, self.e_pad, self.edge_bounds)
+
+    def table_bytes_per_device(self) -> int:
+        return self.num_nodes * self.e_pad
+
+
+def plan_sharded_dense(hg: Hypergraph, n_shards: int,
+                       max_bytes_per_device: int = DENSE_SHARD_MAX_BYTES,
+                       packed: bool = False) -> ShardedDensePlan:
+    """The stacked int8 slices of an ``n_shards``-way edge-contiguous
+    partition (``:100-156``). Raises ``MemoryError`` past the byte guard."""
+    if packed:
+        raise NotImplementedError(
+            "packed=True: the packed int4 incidence is not ported (ROADMAP.md, "
+            "\"Do not port\"); use packed=False")
+    bounds = edge_partition_bounds(hg, n_shards)
+    widths = np.diff(bounds)
+    e_pad = -(-int(max(widths.max(), 1)) // 2) * 2
+    table_bytes = hg.num_nodes * e_pad
+    if table_bytes > max_bytes_per_device:
+        raise MemoryError(
+            f"dense shard slice {hg.num_nodes} x {e_pad} ({table_bytes} bytes) exceeds "
+            f"{max_bytes_per_device} bytes/device — use the tree-based sharded plan or more "
+            "shards")
+    h = np.zeros((n_shards, hg.num_nodes, e_pad), np.int8)
+    degE = np.zeros((n_shards, e_pad, 1), np.float32)
+    counts = np.ones((n_shards, e_pad, 1), np.float32)
+    sizes_all = np.diff(hg.ht_indptr)
+    for d in range(n_shards):
+        e0, e1 = int(bounds[d]), int(bounds[d + 1])
+        lo, hi = int(hg.ht_indptr[e0]), int(hg.ht_indptr[e1])
+        local_e = np.repeat(np.arange(e1 - e0, dtype=np.int64), sizes_all[e0:e1])
+        np.add.at(h[d], (hg.ht_indices[lo:hi].astype(np.int64), local_e), 1)
+        degE[d, : e1 - e0] = hg.degE[e0:e1]
+        counts[d, : e1 - e0, 0] = np.maximum(sizes_all[e0:e1], 1)
+    return ShardedDensePlan(n_shards=n_shards, num_nodes=hg.num_nodes,
+                            num_edges=hg.num_edges, e_pad=e_pad, edge_bounds=bounds, h=h,
+                            degE=degE, counts=counts)
+
+
+def _mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a·b`` of two bf16 operands, f32 result (not rounded)."""
+    if a.device.type == "cuda":
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def _row_blocks(h: torch.Tensor):
+    """[a, b) row ranges of ``h`` of at most ``DENSE_BLOCK_BYTES`` as f32."""
+    n, e = h.shape
+    rows = max(1, DENSE_BLOCK_BYTES // max(4 * e, 1))
+    return [(a, min(a + rows, n)) for a in range(0, n, rows)]
+
+
+class _TwoStage(torch.autograd.Function):
+    """``H_d · bf16(scale · (H_dᵀ · bf16(x)))`` (``:159-182``), a block of
+    the table's rows at a time."""
+
+    @staticmethod
+    def forward(ctx, x, loc: LocalDense, scale):
+        ctx.loc, ctx.scale = loc, scale
+        h, xb = loc.h, x.to(torch.bfloat16)
+        blocks = _row_blocks(h)
+        xe = None
+        for a, b in blocks:
+            part = _mm_bf16(h[a:b].to(torch.bfloat16).t(), xb[a:b])
+            xe = part if xe is None else xe + part
+        xe = (xe * scale).to(torch.bfloat16)
+        out = x.new_empty((h.shape[0], x.shape[1]), dtype=torch.float32)
+        for a, b in blocks:
+            out[a:b] = _mm_bf16(h[a:b].to(torch.bfloat16), xe)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        loc, scale = ctx.loc, ctx.scale
+        h = loc.h
+        blocks = _row_blocks(h)
+        # JAX's transpose of each bf16 dot: the f32 cotangent times the
+        # table, then the cast's transpose rounds it to bf16
+        ge = None
+        for a, b in blocks:
+            part = h[a:b].float().t() @ g[a:b]
+            ge = part if ge is None else ge + part
+        ge = ge.to(torch.bfloat16).float() * scale
+        dx = torch.empty_like(g)
+        for a, b in blocks:
+            dx[a:b] = (h[a:b].float() @ ge).to(torch.bfloat16).float()
+        return dx, None, None
+
+
+def _scale(loc: LocalDense, first_aggr: str, wdiag_local) -> torch.Tensor:
+    scale = loc.degE
+    if first_aggr == "mean":
+        scale = scale / loc.counts
+    if wdiag_local is not None:
+        scale = scale * wdiag_local
+    return scale
+
+
+def _local(plan, mesh, x):
+    mesh = mesh or make_mesh()
+    if mesh.size != plan.n_shards:
+        raise ValueError(f"plan of {plan.n_shards} shards on a mesh of {mesh.size} ranks")
+    return mesh, plan.local(mesh.rank, x.device)
+
+
+def sharded_dense_hgnn_aggregate(plan: ShardedDensePlan, x: torch.Tensor, wdiag_local=None,
+                                 first_aggr: str = "sum", degV=None,
+                                 mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """HGNN aggregation on the int8 slices (``:185-230``): ``x`` [N, F] the
+    same on every rank, result [N, F] the same on every rank."""
+    if first_aggr not in ("sum", "mean"):
+        raise ValueError("dense shard path supports first_aggr in {sum, mean}")
+    mesh, loc = _local(plan, mesh, x)
+    x = from_replicated(x, mesh.group)
+    part = _TwoStage.apply(x, loc, _scale(loc, first_aggr, wdiag_local))
+    out = sum_to_replicated(part, mesh.group)
+    return out * degV if degV is not None else out
+
+
+def sharded_dense_unignn_aggregate(plan: ShardedDensePlan, x: torch.Tensor,
+                                   use_deg: bool = False, degV=None,
+                                   mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """UniGNN aggregation (``H Hᵀ x``, or degree-scaled) on the int8 slices
+    (``:233-269``)."""
+    mesh, loc = _local(plan, mesh, x)
+    x = from_replicated(x, mesh.group)
+    scale = loc.degE if use_deg else torch.ones_like(loc.degE)
+    part = _TwoStage.apply(x, loc, scale)
+    out = sum_to_replicated(part, mesh.group)
+    return out * degV if use_deg and degV is not None else out

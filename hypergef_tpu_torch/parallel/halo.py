@@ -1,0 +1,514 @@
+"""Boundary (halo) exchange planning for fully-sharded aggregation.
+
+Port of ``hypergef_tpu/parallel/halo.py`` (``:1-511``) as the same NumPy
+code over the port's planner, so every host array of a :class:`HaloPlan`
+(tree and aligned interior forms) is bit-equal to the JAX package's:
+
+* hyperedges are partitioned contiguously by nnz; vertices get owners,
+  contiguous blocks of ⌈N/D⌉;
+* shard d's local hyperedges split into **interior** edges (every member
+  owned by d: their V→E stage reads the owned block and needs no exchange)
+  and **boundary** edges, whose touched set drives the exchange;
+* ``S[d][d']`` sets drive both directions: owners send the X rows each
+  shard's boundary edges touch (halo), shards send partial rows back to
+  their owners (return). A layer's traffic is ∝ the cut, not |V|.
+
+``local_form="aligned"`` builds the interior V→E stage as uniform aligned
+stages (banded products; the band kernel on the card) with their exact
+transposes; ``"auto"`` reads the port's own autotune record
+(``sparse/autotune.py::load_cached``, ``graph_key``). Like JAX, a heavily
+spilling interior falls back to trees (``:361-365``); the plan records the
+form it took (``local_form``) beside the one asked for (``requested_form``),
+and a caller that needs the aligned interior checks it.
+
+Port-only: :meth:`HaloPlan.local` builds one rank's device tables from its
+slice (the takes' and stages' inverse tables of :mod:`.exact`, the aligned
+stages with the band kernel's tables, the max backward's record tables);
+``max_csr`` holds each shard's vertex-major interior and boundary CSRs for
+the tree-form max backward.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from hypergef_tpu_torch.ops.segment_sum import RecordTable, SegmentTable
+from hypergef_tpu_torch.parallel.exact import ExactStage, TakeTable
+from hypergef_tpu_torch.parallel.partition import edge_partition_bounds, shard_stage, unify_stages
+from hypergef_tpu_torch.sparse.planner import (
+    AlignedStage, aligned_spill_stats, build_aligned_stage, build_tree, choose_ngs,
+)
+
+
+def _round_up(x, m):
+    return -(-x // m) * m
+
+
+def _median_sort_interior(I, sizes, e_of, sel_i, loc, ne):
+    """Interior edge ids sorted by median owned-local member id
+    (``:51-76``): (I_sorted, ptr, idx)."""
+    if len(I) == 0:
+        return I, np.zeros(1, dtype=np.int64), np.zeros(0, dtype=np.int32)
+    e_ent = e_of[sel_i]
+    order0 = np.lexsort((loc, e_ent))
+    loc_s, e_s = loc[order0], e_ent[order0]
+    cnt = np.zeros(ne + 1, dtype=np.int64)
+    np.add.at(cnt, e_s + 1, 1)
+    start = np.cumsum(cnt)[:-1]
+    med = np.zeros(ne, dtype=np.int64)
+    nz = np.nonzero(cnt[1:])[0]
+    med[nz] = loc_s[start[nz] + (cnt[1:][nz] // 2)]
+    perm = np.argsort(med[I], kind="stable")
+    I_sorted = I[perm]
+    rank = np.full(ne, -1, dtype=np.int64)
+    rank[I_sorted] = np.arange(len(I))
+    ent_order = np.argsort(rank[e_ent], kind="stable")
+    idx = loc[ent_order].astype(np.int32)
+    ptr = np.zeros(len(I) + 1, dtype=np.int64)
+    np.cumsum(sizes[I_sorted], out=ptr[1:])
+    return I_sorted, ptr, idx
+
+
+def _transpose_csr(ptr, idx, num_segments_out):
+    """(edge → vertex) CSR → (vertex → edge-rank) CSR (``:79-89``)."""
+    S = len(ptr) - 1
+    seg = np.repeat(np.arange(S, dtype=np.int64), np.diff(ptr))
+    v = np.asarray(idx, dtype=np.int64)
+    order = np.lexsort((seg, v))
+    t_idx = seg[order].astype(np.int32)
+    t_ptr = np.zeros(num_segments_out + 1, dtype=np.int64)
+    np.add.at(t_ptr, v + 1, 1)
+    np.cumsum(t_ptr, out=t_ptr)
+    return t_ptr, t_idx
+
+
+def _choose_wb(csrs, num_inputs, max_spill=0.15, hard=0.25):
+    """Smallest common window width whose worst-shard spill is within
+    ``max_spill``; 8 if within ``hard``; None otherwise (``:92-105``)."""
+    worst = 0.0
+    for wb in (2, 4, 6, 8):
+        worst = max(
+            (aligned_spill_stats(p, i, num_inputs, 128, wb) if len(i) else 0.0)
+            for p, i in csrs
+        )
+        if worst <= max_spill:
+            return wb
+    return 8 if worst <= hard else None
+
+
+def _stack_aligned(stages, n_groups_c, num_inputs):
+    """Per-shard uniform aligned stages padded to common shapes and stacked
+    (``:108-133``)."""
+    sw_c = max(st.spill_src.shape[1] for st in stages)
+    bd, wbk, ss, bs = [], [], [], []
+    for st in stages:
+        ng, _, _ = st.b_dense.shape
+        sw = st.spill_src.shape[1]
+        bd.append(np.pad(st.b_dense, ((0, n_groups_c - ng), (0, 0), (0, 0))))
+        wbk.append(np.pad(st.win_block, ((0, n_groups_c - ng), (0, 0))))
+        ss.append(np.pad(st.spill_src, ((0, n_groups_c - ng), (0, sw_c - sw)),
+                         constant_values=num_inputs))
+        bs.append(np.pad(st.b_spill, ((0, n_groups_c - ng), (0, 0), (0, sw_c - sw))))
+    return {
+        "b_dense": np.stack(bd),
+        "win_block": np.stack(wbk),
+        "spill_src": np.stack(ss),
+        "b_spill": np.stack(bs),
+    }
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalHalo:
+    """One rank's halo tables on its device."""
+
+    halo_send: TakeTable  # owned rows → [D·b_cap_h] outgoing halo rows
+    halo_take: TakeTable  # received [D·b_cap_h] → boundary-touched rows [t_bnd_max]
+    int_tree: Optional[ExactStage]  # tree interior, [n_own] → [e_int_pad]
+    int_fwd: Optional[object]  # aligned interior (AlignedStageDev) and its transpose
+    int_bwd: Optional[object]
+    bnd: ExactStage  # [t_bnd_max] → [e_bnd_pad]
+    asm: TakeTable  # concat([xe_int, xe_bnd, 0]) → [e_pad]
+    v: ExactStage  # [e_pad] → [t_max] partials
+    send: TakeTable  # [t_max] → [D·b_cap] outgoing partial rows
+    send_mask: torch.Tensor  # f32 [D·b_cap, 1]
+    own: ExactStage  # received [D·b_cap] → [n_own]
+    e_counts: torch.Tensor  # f32 [e_pad]
+    degE: torch.Tensor  # f32 [e_pad, 1]
+    degV_own: torch.Tensor  # f32 [n_own, 1]
+    int_record: Optional[RecordTable]  # tree-form max backward, interior
+    bnd_record: Optional[RecordTable]  # tree-form max backward, boundary
+
+
+def _record(ptr, idx, num_inputs: int, device) -> RecordTable:
+    ptr = np.asarray(ptr, dtype=np.int64)
+    idx = np.asarray(idx, dtype=np.int64)
+    return RecordTable.over(SegmentTable.from_host(
+        ptr, idx, max(num_inputs, 1), torch.as_tensor(ptr, device=device),
+        torch.as_tensor(idx, device=device)))
+
+
+@dataclasses.dataclass
+class HaloPlan:
+    """Static SPMD plan for fully-sharded halo aggregation (``:136-258``)."""
+
+    n_shards: int
+    num_nodes: int
+    num_edges: int
+    n_own: int
+    t_max: int
+    t_bnd_max: int
+    b_cap: int
+    b_cap_h: int
+    e_pad: int
+    e_int_pad: int
+    e_bnd_pad: int
+    edge_bounds: np.ndarray
+    int_levels: list
+    int_final_idx: np.ndarray
+    int_final_mask: np.ndarray
+    bnd_levels: list
+    bnd_final_idx: np.ndarray
+    bnd_final_mask: np.ndarray
+    asm_idx: np.ndarray
+    e_counts: np.ndarray
+    v_levels: list
+    v_final_idx: np.ndarray
+    v_final_mask: np.ndarray
+    send_slot: np.ndarray
+    send_mask: np.ndarray
+    halo_send_slot: np.ndarray
+    halo_mask: np.ndarray
+    halo_idx: np.ndarray
+    own_levels: list
+    own_final_idx: np.ndarray
+    own_final_mask: np.ndarray
+    degE: np.ndarray
+    degV_own: np.ndarray
+    n_interior: np.ndarray
+    n_local_edges: np.ndarray
+    local_form: str = "tree"
+    int_aligned: Optional[dict] = None
+    requested_form: str = "tree"
+    max_csr: Optional[list] = None  # per shard: interior and boundary vertex-major CSRs
+    _local: Dict[Tuple[int, torch.device], LocalHalo] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state["_local"] = {}
+        return state
+
+    def comm_fraction(self) -> float:
+        """Return-direction traffic over full-replication traffic."""
+        return float(self.send_mask.sum()) / max(self.n_shards * self.num_nodes, 1)
+
+    def halo_comm_fraction(self) -> float:
+        """Halo-direction traffic over full-replication traffic."""
+        return float(self.halo_mask.sum()) / max(self.n_shards * self.num_nodes, 1)
+
+    def interior_fraction(self) -> float:
+        """Local hyperedges whose V→E needs no exchange."""
+        return float(self.n_interior.sum()) / max(float(self.n_local_edges.sum()), 1.0)
+
+    def exchange_bytes(self, f: int) -> Dict[str, int]:
+        """Bytes one rank sends in one aggregation at width ``f`` (f32): the
+        halo and the return ``all_to_all`` (padded slots included)."""
+        return {"halo": self.n_shards * self.b_cap_h * f * 4,
+                "return": self.n_shards * self.b_cap * f * 4}
+
+    def aligned_stages(self, rank: int) -> Tuple[AlignedStage, AlignedStage]:
+        """Shard ``rank``'s uniform aligned interior stages (forward, V→E
+        over the owned block; backward, its transpose), from the stacked
+        tables."""
+        al = self.int_aligned
+
+        def stage(leg, counts, num_inputs, num_segments, wb):
+            t = al[leg]
+            return AlignedStage(
+                b_dense=t["b_dense"][rank], win_block=t["win_block"][rank],
+                spill_src=t["spill_src"][rank], b_spill=t["b_spill"][rank], counts=counts,
+                num_inputs=num_inputs, num_segments=num_segments, group_rows=128,
+                window_blocks=wb)
+
+        # the sum and max products read no counts
+        return (stage("fwd", np.zeros(self.e_int_pad, np.float32), self.n_own, self.e_int_pad,
+                      al["wb_f"]),
+                stage("bwd", np.zeros(self.n_own, np.float32), self.e_int_pad, self.n_own,
+                      al["wb_b"]))
+
+    def local(self, rank: int, device) -> LocalHalo:
+        """Shard ``rank``'s tables on ``device``, built once from its slice.
+        On a card the aligned interior is put there in the band kernel's
+        form (``BandTable`` and ``LiveLayout``), on the CPU in the plain
+        form."""
+        from hypergef_tpu_torch.sparse.planner import _aligned_device
+
+        device = torch.device(device)
+        kernel = device.type == "cuda"
+        key = (rank, device)
+        if key in self._local:
+            return self._local[key]
+        D, d = self.n_shards, rank
+        int_tree = int_fwd = int_bwd = int_rec = bnd_rec = None
+        if self.local_form == "aligned":
+            fwd, bwd = self.aligned_stages(d)
+            int_fwd = _aligned_device(fwd, device, kernel)
+            int_bwd = _aligned_device(bwd, device, kernel)
+        else:
+            int_tree = ExactStage.build(shard_stage(
+                self.int_levels, self.int_final_idx, self.int_final_mask, None, d, self.n_own),
+                device)
+        if self.max_csr is not None:
+            m = self.max_csr[d]
+            if self.local_form != "aligned":
+                int_rec = _record(m["int_ptr"], m["int_idx"], self.e_int_pad, device)
+            bnd_rec = _record(m["bnd_ptr"], m["bnd_idx"], self.e_bnd_pad, device)
+
+        def put(a):
+            return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+        loc = LocalHalo(
+            halo_send=TakeTable.build(self.halo_send_slot[d].reshape(-1), self.n_own, device),
+            halo_take=TakeTable.build(self.halo_idx[d], D * self.b_cap_h, device),
+            int_tree=int_tree, int_fwd=int_fwd, int_bwd=int_bwd,
+            bnd=ExactStage.build(shard_stage(self.bnd_levels, self.bnd_final_idx,
+                                             self.bnd_final_mask, None, d, self.t_bnd_max),
+                                 device),
+            asm=TakeTable.build(self.asm_idx[d], self.e_int_pad + self.e_bnd_pad + 1, device),
+            v=ExactStage.build(shard_stage(self.v_levels, self.v_final_idx, self.v_final_mask,
+                                           None, d, self.e_pad), device),
+            send=TakeTable.build(self.send_slot[d].reshape(-1), self.t_max, device),
+            send_mask=put(self.send_mask[d].reshape(-1, 1)),
+            own=ExactStage.build(shard_stage(self.own_levels, self.own_final_idx,
+                                             self.own_final_mask, None, d, D * self.b_cap),
+                                 device),
+            e_counts=put(self.e_counts[d]), degE=put(self.degE[d]),
+            degV_own=put(self.degV_own[d]), int_record=int_rec, bnd_record=bnd_rec)
+        self._local[key] = loc
+        return loc
+
+
+def _auto_form(hg, first_aggr: str) -> str:
+    """``local_form="auto"`` (``:283-296``): aligned where the port's
+    autotune record for this graph picked the aligned route, trees
+    otherwise, and trees for max."""
+    if first_aggr == "max":
+        return "tree"
+    from hypergef_tpu_torch.sparse import autotune as _at
+
+    rec = _at.load_cached(_at.graph_key(hg, 32))
+    return "aligned" if rec is not None and rec.get("backend") == "aligned" else "tree"
+
+
+def plan_halo(hg, n_shards: int, fan: int = 8, local_form: str = "tree",
+              first_aggr: str = "sum", aligned_spill_limit: int = 1 << 28) -> HaloPlan:
+    """The halo plan (``:261-511``). ``local_form`` is ``"tree"``,
+    ``"aligned"`` (falls back to trees where a shard's interior spills too
+    much, as JAX does; ``plan.local_form`` says which was taken) or
+    ``"auto"``."""
+    requested = local_form
+    if local_form == "auto":
+        local_form = _auto_form(hg, first_aggr)
+    if local_form not in ("tree", "aligned"):
+        raise ValueError(f"local_form must be tree, aligned or auto, got {local_form!r}")
+    D = n_shards
+    bounds = edge_partition_bounds(hg, D)
+    n_own = _round_up(hg.num_nodes, D) // D
+    ngs = choose_ngs(hg.edge_sizes(), min_ngs=4, max_ngs=64, step=4)
+    ngs_v = choose_ngs(hg.vertex_degrees(), min_ngs=4, max_ngs=64, step=4)
+
+    touched, touched_bnd = [], []
+    int_stages, bnd_stages, v_stages = [], [], []
+    int_csrs, tree_int_csrs, bnd_csrs = [], [], []
+    n_interior = np.zeros(D, dtype=np.int64)
+    n_local = np.zeros(D, dtype=np.int64)
+    e_pad = int((bounds[1:] - bounds[:-1]).max())
+    int_counts, bnd_ids = [], []
+    for d in range(D):
+        e0, e1 = int(bounds[d]), int(bounds[d + 1])
+        ne = e1 - e0
+        lo, hi = int(hg.ht_indptr[e0]), int(hg.ht_indptr[e1])
+        members = hg.ht_indices[lo:hi].astype(np.int64)
+        sizes = np.diff(hg.ht_indptr[e0: e1 + 1]).astype(np.int64)
+        n_local[d] = ne
+        own_lo, own_hi = d * n_own, (d + 1) * n_own
+        e_of = np.repeat(np.arange(ne, dtype=np.int64), sizes)
+        is_owned = (members >= own_lo) & (members < own_hi)
+        owned_per_e = np.zeros(max(ne, 1), dtype=np.int64)
+        np.add.at(owned_per_e, e_of, is_owned.astype(np.int64))
+        interior = owned_per_e[:ne] == sizes
+        I = np.nonzero(interior)[0]
+        B = np.nonzero(~interior)[0]
+        n_interior[d] = len(I)
+        bnd_ids.append(B)
+        sel_i = interior[e_of] if ne else np.zeros(0, dtype=bool)
+        if local_form == "aligned":
+            loc_all = members[sel_i] - own_lo
+            I, ptr_i, idx_i = _median_sort_interior(I, sizes, e_of, sel_i, loc_all, ne)
+            int_csrs.append((ptr_i, idx_i))
+            int_stages.append(build_tree(np.zeros(1, np.int64), np.zeros(0, np.int32), n_own,
+                                         ngs, fan))
+        else:
+            ptr_i = np.zeros(max(len(I), 1) + 1, dtype=np.int64)
+            np.cumsum(sizes[I], out=ptr_i[1: len(I) + 1])
+            idx_i = (members[sel_i] - own_lo).astype(np.int32)
+            int_stages.append(build_tree(ptr_i, idx_i, n_own, ngs, fan))
+            tree_int_csrs.append((ptr_i, idx_i))
+        int_counts.append(I)
+        sel_b = ~sel_i
+        Tb = np.unique(members[sel_b])
+        touched_bnd.append(Tb)
+        ptr_b = np.zeros(max(len(B), 1) + 1, dtype=np.int64)
+        np.cumsum(sizes[B], out=ptr_b[1: len(B) + 1])
+        idx_b = np.searchsorted(Tb, members[sel_b]).astype(np.int32)
+        bnd_stages.append(build_tree(ptr_b, idx_b, max(len(Tb), 1), ngs, fan))
+        bnd_csrs.append((ptr_b, idx_b))
+        T = np.unique(members)
+        touched.append(T)
+        compact = np.searchsorted(T, members)
+        order = np.lexsort((e_of, compact))
+        h_indices = e_of[order].astype(np.int32)
+        h_indptr = np.zeros(max(len(T), 1) + 1, dtype=np.int64)
+        np.add.at(h_indptr, compact + 1, 1)
+        np.cumsum(h_indptr, out=h_indptr)
+        v_stages.append(build_tree(h_indptr, h_indices, max(ne, 1), ngs_v, fan))
+
+    e_int_pad = max(int(n_interior.max()), 1)
+    e_bnd_pad = max(int((n_local - n_interior).max()), 1)
+    t_max = max(max(len(T) for T in touched), 1)
+    t_bnd_max = max(max(len(T) for T in touched_bnd), 1)
+
+    int_aligned = None
+    if local_form == "aligned":
+        e_int_pad = _round_up(e_int_pad, 8)
+        wb_f = _choose_wb(int_csrs, n_own)
+        t_csrs = [_transpose_csr(p, i, n_own) for p, i in int_csrs]
+        wb_b = _choose_wb(t_csrs, e_int_pad)
+        if wb_f is None or wb_b is None:
+            # interior too spill-heavy for the banded form: trees, as JAX
+            plan = plan_halo(hg, n_shards, fan, local_form="tree", first_aggr=first_aggr)
+            plan.requested_form = requested
+            return plan
+        fwd_stages = [build_aligned_stage(p, i, n_own, 128, wb_f, spill_limit=aligned_spill_limit)
+                      for p, i in int_csrs]
+        bwd_stages = [build_aligned_stage(p, i, e_int_pad, 128, wb_b,
+                                          spill_limit=aligned_spill_limit)
+                      for p, i in t_csrs]
+        int_aligned = {
+            "fwd": _stack_aligned(fwd_stages, max(-(-e_int_pad // 128), 1), n_own),
+            "bwd": _stack_aligned(bwd_stages, max(-(-n_own // 128), 1), e_int_pad),
+            "wb_f": wb_f,
+            "wb_b": wb_b,
+        }
+
+    zero_row = e_int_pad + e_bnd_pad
+    asm_idx = np.full((D, e_pad), zero_row, dtype=np.int32)
+    e_counts = np.zeros((D, e_pad), dtype=np.float32)
+    for d in range(D):
+        e0, e1 = int(bounds[d]), int(bounds[d + 1])
+        ne = e1 - e0
+        I, B = int_counts[d], bnd_ids[d]
+        asm_idx[d, I] = np.arange(len(I), dtype=np.int32)
+        asm_idx[d, B] = e_int_pad + np.arange(len(B), dtype=np.int32)
+        e_counts[d, :ne] = np.diff(hg.ht_indptr[e0: e1 + 1])
+
+    S = [[None] * D for _ in range(D)]
+    b_cap = 1
+    for d in range(D):
+        owner_of = touched[d] // n_own
+        for dp in range(D):
+            S[d][dp] = touched[d][owner_of == dp]
+            b_cap = max(b_cap, len(S[d][dp]))
+    b_cap = _round_up(b_cap, 8)
+
+    Sh = [[None] * D for _ in range(D)]
+    b_cap_h = 1
+    for d in range(D):
+        owner_of = touched_bnd[d] // n_own
+        for dp in range(D):
+            Sh[d][dp] = touched_bnd[d][owner_of == dp]
+            b_cap_h = max(b_cap_h, len(Sh[d][dp]))
+    b_cap_h = _round_up(b_cap_h, 8)
+
+    send_slot = np.zeros((D, D, b_cap), dtype=np.int32)
+    send_mask = np.zeros((D, D, b_cap), dtype=np.float32)
+    halo_send_slot = np.zeros((D, D, b_cap_h), dtype=np.int32)
+    halo_mask = np.zeros((D, D, b_cap_h), dtype=np.float32)
+    halo_idx = np.zeros((D, t_bnd_max), dtype=np.int32)
+    own_stages = []
+    for d in range(D):
+        T = touched[d]
+        for dp in range(D):
+            s = S[d][dp]
+            k = len(s)
+            send_slot[d, dp, :k] = np.searchsorted(T, s)
+            send_mask[d, dp, :k] = 1.0
+            sh = Sh[d][dp]
+            kh = len(sh)
+            halo_send_slot[dp, d, :kh] = (sh - dp * n_own).astype(np.int32)
+            halo_mask[dp, d, :kh] = 1.0
+        owner_of = touched_bnd[d] // n_own
+        for dp in range(D):
+            sel = np.nonzero(owner_of == dp)[0]
+            halo_idx[d, sel] = (dp * b_cap_h + np.arange(len(sel))).astype(np.int32)
+    for dp in range(D):
+        rows = []
+        for d in range(D):
+            s = S[d][dp]
+            loc = s - dp * n_own
+            rows.append(np.stack([loc, d * b_cap + np.arange(len(s))], axis=1)
+                        if len(s) else np.zeros((0, 2), dtype=np.int64))
+        rows = np.concatenate(rows, axis=0) if rows else np.zeros((0, 2), np.int64)
+        order = np.argsort(rows[:, 0], kind="stable")
+        rows = rows[order]
+        indptr = np.zeros(n_own + 1, dtype=np.int64)
+        np.add.at(indptr, rows[:, 0] + 1, 1)
+        np.cumsum(indptr, out=indptr)
+        own_stages.append(build_tree(indptr, rows[:, 1].astype(np.int32), D * b_cap, 4, fan))
+
+    int_levels, int_fi, int_fm, _ = unify_stages(int_stages, e_int_pad, fan)
+    bnd_levels, bnd_fi, bnd_fm, _ = unify_stages(bnd_stages, e_bnd_pad, fan)
+    v_levels, v_fi, v_fm, _ = unify_stages(v_stages, t_max, fan)
+    own_levels, own_fi, own_fm, _ = unify_stages(own_stages, n_own, fan)
+
+    degE = np.zeros((D, e_pad, 1), dtype=np.float32)
+    for d in range(D):
+        e0, e1 = int(bounds[d]), int(bounds[d + 1])
+        degE[d, : e1 - e0] = hg.degE[e0:e1]
+    degV_own = np.ones((D, n_own, 1), dtype=np.float32)
+    degv = hg.degV
+    for d in range(D):
+        lo = d * n_own
+        hi = min((d + 1) * n_own, hg.num_nodes)
+        if hi > lo:
+            degV_own[d, : hi - lo] = degv[lo:hi]
+
+    # the max backward's vertex-major CSRs (port-only): interior rows are the
+    # owned block (tree form only; the aligned form routes through its
+    # transpose stage), boundary rows the compact touched set
+    max_csr = []
+    for d in range(D):
+        m = {}
+        if local_form == "tree":
+            m["int_ptr"], m["int_idx"] = _transpose_csr(*tree_int_csrs[d], n_own)
+        m["bnd_ptr"], m["bnd_idx"] = _transpose_csr(*bnd_csrs[d], t_bnd_max)
+        max_csr.append(m)
+
+    return HaloPlan(
+        n_shards=D, num_nodes=hg.num_nodes, num_edges=hg.num_edges, n_own=n_own,
+        t_max=t_max, t_bnd_max=t_bnd_max, b_cap=b_cap, b_cap_h=b_cap_h, e_pad=e_pad,
+        e_int_pad=e_int_pad, e_bnd_pad=e_bnd_pad, edge_bounds=bounds,
+        int_levels=int_levels, int_final_idx=int_fi, int_final_mask=int_fm,
+        bnd_levels=bnd_levels, bnd_final_idx=bnd_fi, bnd_final_mask=bnd_fm,
+        asm_idx=asm_idx, e_counts=e_counts,
+        v_levels=v_levels, v_final_idx=v_fi, v_final_mask=v_fm,
+        send_slot=send_slot, send_mask=send_mask,
+        halo_send_slot=halo_send_slot, halo_mask=halo_mask, halo_idx=halo_idx,
+        own_levels=own_levels, own_final_idx=own_fi, own_final_mask=own_fm,
+        degE=degE, degV_own=degV_own, n_interior=n_interior, n_local_edges=n_local,
+        local_form=local_form, int_aligned=int_aligned, requested_form=requested,
+        max_csr=max_csr)

@@ -1,0 +1,177 @@
+"""Distributed trainer: edge-partitioned full-batch training, one rank a
+shard.
+
+Port of ``hypergef_tpu/parallel/trainer.py`` (``:1-191``). Every rank of the
+world builds a :class:`DistTrainer` over the same graph and features; each
+takes its shard of the plan (:class:`~.partition.ShardedAggPlan`, built by
+the caller once and handed to every rank, or here) and runs the same eager
+steps. The losses and the weights are the same on every rank.
+
+:meth:`DistTrainer.fit` runs ``warmup`` untimed epochs, then ``epochs``
+timed ones between a barrier and CUDA events on the card (the host clock on
+the CPU); it returns JAX's keys (``train_epoch_time_s``, ``final_loss``,
+``n_shards``) with ``losses`` and ``timer``. Steps run eagerly: gloo cannot
+be recorded into a CUDA graph (recording an nccl world's step is later
+work, ROADMAP.md). ``save``/``restore`` go over
+:mod:`~hypergef_tpu_torch.train.checkpoint`: rank 0 writes, every rank reads,
+a barrier between. UniGIN and UniGCNII take ``first_aggr="sum"`` only
+(``:67-97``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from hypergef_tpu_torch.parallel.dist_aggr import sharded_hgnn_aggregate, sharded_unignn_aggregate
+from hypergef_tpu_torch.parallel.dist_model import (
+    MODELS, init_dist_params, make_forward, masked_nll_terms,
+)
+from hypergef_tpu_torch.parallel.mesh import Mesh, feature_axis_unported, make_mesh
+from hypergef_tpu_torch.parallel.partition import plan_sharded_aggregation
+from hypergef_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+from hypergef_tpu_torch.train.splits import accuracy
+from hypergef_tpu_torch.train.trainer import _copy_into, init_adam_state, make_optimizer
+from hypergef_tpu_torch.utils.timing import Window
+
+
+class DistTrainer:
+    """The model, its optimizer and this rank's shard of the plan."""
+
+    def __init__(
+        self,
+        hg,
+        x,
+        y,
+        nhid: int = 32,
+        nclass: Optional[int] = None,
+        n_shards: Optional[int] = None,
+        n_feature: int = 1,
+        lr: float = 0.01,
+        wd: float = 5e-4,
+        seed: int = 1,
+        mesh: Optional[Mesh] = None,
+        model: str = "HGNN",
+        first_aggr: str = "sum",
+        *,
+        plan=None,
+        params: Optional[Mapping] = None,
+    ):
+        feature_axis_unported(n_feature)
+        if model not in MODELS:
+            raise ValueError(f"unknown distributed model {model!r}")
+        if model == "UniGIN" and first_aggr != "sum":
+            raise ValueError(
+                "DistTrainer(model='UniGIN') supports first_aggr='sum' only (got "
+                f"{first_aggr!r}); the UniGNN family is a plain H·Hᵀ sum aggregation")
+        if model == "UniGCNII" and first_aggr != "sum":
+            raise ValueError(
+                "DistTrainer(model='UniGCNII') supports first_aggr='sum' only (got "
+                f"{first_aggr!r}); UniGCNII's V→E stage is a degE-scaled sum")
+        self.mesh = mesh or make_mesh(n_shards)
+        self.device = self.mesh.device
+        self.n_shards = self.mesh.size
+        self.plan = plan if plan is not None else plan_sharded_aggregation(hg, self.n_shards)
+        if self.plan.n_shards != self.n_shards:
+            raise ValueError(f"plan of {self.plan.n_shards} shards on {self.n_shards} ranks")
+        dev = self.device
+        self.x = torch.as_tensor(np.asarray(x, dtype=np.float32), device=dev)
+        y = np.asarray(y)
+        self.y = torch.as_tensor(y.astype(np.int64), device=dev)
+        self.nclass = int(nclass if nclass is not None else int(y.max()) + 1)
+        self.degV = torch.as_tensor(hg.degV, device=dev)
+        self.model = model
+        self.first_aggr = first_aggr
+        plan_, mesh_ = self.plan, self.mesh
+
+        def aggregate(h, aggr, degv):
+            return sharded_hgnn_aggregate(plan_, h, None, aggr, degV=degv, mesh=mesh_)
+
+        def unignn(h, use_deg, degv):
+            return sharded_unignn_aggregate(plan_, h, use_deg=use_deg, degV=degv, mesh=mesh_)
+
+        self.forward = make_forward(model, aggregate, unignn, self.degV, first_aggr,
+                                    nclass=self.nclass)
+        init = params if params is not None else init_dist_params(
+            model, seed, self.x.shape[1], nhid, self.nclass)
+        self.params = {k: torch.as_tensor(v, dtype=torch.float32).to(dev).clone()
+                       .requires_grad_(True) for k, v in init.items()}
+        self.optimizer = make_optimizer(list(self.params.values()), lr, wd,
+                                        capturable=dev.type == "cuda")
+        init_adam_state(self.optimizer)
+
+    @property
+    def opt_state(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """Adam's state by parameter name (optax's ``count``, ``mu``, ``nu``)."""
+        return {k: self.optimizer.state[p] for k, p in self.params.items()}
+
+    def train_mask(self, train_idx) -> torch.Tensor:
+        mask = np.zeros(self.x.shape[0], dtype=np.float32)
+        mask[np.asarray(train_idx)] = 1.0
+        return torch.as_tensor(mask, device=self.device)
+
+    def loss(self, mask: torch.Tensor) -> torch.Tensor:
+        """The masked mean NLL of the current weights (``:69-74``)."""
+        nll, cnt = masked_nll_terms(self.forward(self.params, self.x), self.y, mask)
+        return nll / cnt.clamp_min(1.0)
+
+    def step(self, mask: torch.Tensor) -> torch.Tensor:
+        """One step: forward, loss, backward, Adam; the loss before the
+        update, on the device."""
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = self.loss(mask)
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach()
+
+    def fit(self, train_idx, epochs: int = 100, warmup: int = 10) -> Dict[str, object]:
+        """``warmup`` untimed steps, then ``epochs`` timed ones
+        (``:99-156``); the losses are read back once, at the end."""
+        mask = self.train_mask(train_idx)
+        for _ in range(warmup):
+            self.step(mask)
+        self.mesh.barrier()
+        losses = []
+        with Window(self.device) as window:
+            for _ in range(epochs):
+                losses.append(self.step(mask))
+        self.mesh.barrier()
+        host = torch.stack(losses).cpu().numpy() if losses else np.zeros(0, np.float32)
+        return {
+            "train_epoch_time_s": window.seconds / max(epochs, 1),
+            "final_loss": float(host[-1]) if host.size else float("nan"),
+            "n_shards": self.n_shards,
+            "losses": host,
+            "timer": window.timer,
+        }
+
+    def predict(self) -> torch.Tensor:
+        with torch.no_grad():
+            return self.forward(self.params, self.x)
+
+    def evaluate(self, split_idx) -> Dict[str, float]:
+        z = self.predict().cpu().numpy()
+        y = self.y.cpu().numpy()
+        return {f"{name}_acc": accuracy(z[np.asarray(idx)], y[np.asarray(idx)])
+                for name, idx in split_idx.items() if np.asarray(idx).size}
+
+    def save(self, directory: str, step: int = 0) -> None:
+        """Checkpoint the weights and Adam's state: rank 0 writes (and waits
+        for the write), then a barrier (``:158-166``)."""
+        if self.mesh.rank == 0:
+            save_checkpoint(directory, step, {k: p.detach() for k, p in self.params.items()},
+                            self.opt_state, wait=True)
+        self.mesh.barrier()
+
+    def restore(self, directory: str, step: Optional[int] = None) -> int:
+        """Every rank reads the latest (or the given) step into its tensors,
+        in place (``:168-191``)."""
+        self.mesh.barrier()
+        step, params, opt_state = restore_checkpoint(
+            directory, {k: p.detach() for k, p in self.params.items()}, self.opt_state,
+            step=step)
+        _copy_into({k: p.detach() for k, p in self.params.items()}, params, "params")
+        _copy_into(self.opt_state, opt_state, "opt_state")
+        return step

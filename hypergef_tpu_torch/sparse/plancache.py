@@ -24,8 +24,9 @@ keyed by a hash of the graph's content:
   the kernel form, so no file of one package or device type is ever served
   to another.
 
-The JAX package's ``cached_plan_halo`` waits for the distributed slice
-(ROADMAP.md queue 1, item 8).
+:func:`cached_plan_halo` keeps the distributed halo plan
+(:func:`hypergef_tpu_torch.parallel.halo.plan_halo`) the same way
+(``:217-236``).
 """
 
 from __future__ import annotations
@@ -214,3 +215,24 @@ def cached_plan_aggregation(hg, cache_dir: Optional[str] = None, device="cuda", 
 
     return cached_plan(hg, lambda: planner.plan_aggregation(hg, device, **kwargs),
                        cache_dir=cache_dir, device=device, **kwargs)
+
+
+def cached_plan_halo(hg, n_shards: int, cache_dir: Optional[str] = None, device="cuda",
+                     **kwargs):
+    """:func:`~hypergef_tpu_torch.parallel.halo.plan_halo` behind the cache
+    (``:217-236``), keyed by the shard count, ``device``'s type (the device
+    the ranks will run on; the plan itself is host arrays) and the keyword
+    arguments. Build it once in the parent of a world and hand it to the
+    ranks, or let each rank load the file."""
+    from hypergef_tpu_torch.parallel.halo import plan_halo
+
+    d = cache_dir or default_cache_dir()
+    path = os.path.join(d, f"halo_{plan_key(hg, device, n_shards=n_shards, **kwargs)}.npz")
+    if os.path.exists(path):
+        try:
+            return load_plan(path, device)
+        except _UNREADABLE:
+            pass  # stale format or a broken file: rebuild below
+    plan = plan_halo(hg, n_shards, **kwargs)
+    save_plan(plan, path)
+    return plan

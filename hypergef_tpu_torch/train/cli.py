@@ -20,8 +20,16 @@ minibatches of B edges (:mod:`hypergef_tpu_torch.train.minibatch`,
 ``epochs // 10`` epochs); ``--export PATH`` writes the trained full-batch
 forward as a serving artifact (:func:`hypergef_tpu_torch.serve.export_trainer`,
 for ``--export-platforms`` ``cuda,cpu``, by default the run's device).
-``--shards`` raises ``NotImplementedError``: distributed training is not
-ported yet (ROADMAP.md queue 1, item 8).
+``--shards N`` trains edge-partitioned over N ranks
+(:class:`hypergef_tpu_torch.parallel.trainer.DistTrainer`) and prints JAX's
+lines: under torchrun (``RANK`` in the environment) this process is one
+rank; otherwise the CLI spawns N ranks on this host
+(:mod:`hypergef_tpu_torch.parallel.launch`) with ``--dist-backend``
+(``nccl``, one card a rank, the default; ``gloo`` lets ranks share a card,
+and runs CPU ranks with ``--platform cpu``). The parent loads the data,
+builds the plan and the kernels once and hands them to the ranks.
+``--feature-shards > 1`` raises ``NotImplementedError``: the feature mesh
+axis is not ported yet (ROADMAP.md queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -85,10 +93,12 @@ def parse(argv=None):
                    help=">0: train with hyperedge-sampled minibatches of this many edges "
                         "(the cumsum route, epochs // 10 epochs)")
     p.add_argument("--shards", type=int, default=0,
-                   help=">0: edge-partitioned distributed training: not ported yet "
-                        "(ROADMAP.md queue 1, item 8)")
+                   help=">0: edge-partitioned distributed training over this many ranks")
     p.add_argument("--feature-shards", type=int, default=1,
-                   help="with --shards: the feature mesh axis size")
+                   help="with --shards: the feature mesh axis size (only 1 is ported)")
+    p.add_argument("--dist-backend", type=str, default="nccl", choices=["nccl", "gloo"],
+                   help="with --shards: nccl (one card a rank) or gloo (ranks share the "
+                        "cards; CPU ranks with --platform cpu)")
     p.add_argument("--synthetic", type=str, default=None,
                    choices=[None, "random", "powerlaw", "homophilic"],
                    help="use a synthetic graph instead of --dname")
@@ -128,11 +138,84 @@ def load_problem(args):
 def _unported(args) -> None:
     """The paths whose modules are not ported raise; none falls through to
     full-batch training."""
-    for flag, on, item, what in (
-            ("--shards", args.shards > 0, 8, "distributed training"),):
-        if on:
-            raise NotImplementedError(
-                f"{flag}: {what} is not ported yet (ROADMAP.md queue 1, item {item})")
+    if args.feature_shards > 1:
+        raise NotImplementedError(
+            "--feature-shards: the feature mesh axis is not ported yet (ROADMAP.md queue 1, "
+            "item 8: the feature mesh axis)")
+
+
+def _split(args, y):
+    """The run's split (``:133-136``)."""
+    from hypergef_tpu_torch.train.splits import rand_train_test_idx
+
+    np.random.seed(args.seed)
+    return rand_train_test_idx(y, train_prop=args.train_prop, valid_prop=args.valid_prop,
+                               seed=args.seed)
+
+
+def _dist_rank(args, plan, problem=None) -> dict:
+    """One rank of ``--shards``: the DistTrainer's fit and evaluation, with
+    this rank's kernel launches and, on a card, its peak MiB. A spawned
+    rank loads the problem itself (the features of a large graph are not
+    copied through the spawn)."""
+    import torch
+
+    from hypergef_tpu_torch.parallel.launch import kernel_launches, reset_kernel_launches
+    from hypergef_tpu_torch.parallel.trainer import DistTrainer
+
+    if problem is None:
+        hg, x, y = load_problem(args)
+        problem = (hg, x, y, _split(args, y))
+    hg, x, y, split = problem
+    reset_kernel_launches()
+    tr = DistTrainer(hg, x, y, nhid=args.nhid, n_shards=args.shards,
+                     n_feature=args.feature_shards, lr=args.lr, wd=args.wd, seed=args.seed,
+                     model=args.model, first_aggr=args.first_aggr, plan=plan)
+    res = tr.fit(split["train"], epochs=args.epochs)
+    res.update(tr.evaluate(split))
+    res["launches"] = kernel_launches()
+    if tr.device.type == "cuda":
+        res["peak_mib"] = torch.cuda.max_memory_allocated(tr.device) / 2**20
+    return res
+
+
+def run_distributed(args, hg, x, y, split) -> dict:
+    """``--shards``: rank 0's result, with ``ranks`` (each rank's epoch
+    time, kernel launches and, on a card, peak MiB), ``setup_s`` (the
+    parent's plan and build seconds) and ``world_s`` (the world's wall
+    seconds, from spawn to join)."""
+    from hypergef_tpu_torch.parallel import launch
+    from hypergef_tpu_torch.parallel.mesh import init_distributed
+    from hypergef_tpu_torch.parallel.partition import plan_sharded_aggregation
+
+    platform = "cpu" if args.platform == "cpu" else "cuda"
+    t0 = time.perf_counter()
+    plan = plan_sharded_aggregation(hg, args.shards)
+    if init_distributed(args.dist_backend, platform) is not None:
+        # under torchrun: this process is one rank
+        res = _dist_rank(args, plan, (hg, x, y, split))
+        res["ranks"] = [_rank_summary(res)]
+        res["setup_s"] = time.perf_counter() - t0
+        return res
+    if platform == "cuda":
+        # the kernels and the host library once, before the ranks start
+        from hypergef_tpu_torch.ops import _build
+        from hypergef_tpu_torch.sparse import native
+
+        _build.build()
+        native.build()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results = launch.spawn(_dist_rank, args.shards, backend=args.dist_backend,
+                           platform=platform, args=(args, plan))
+    res = dict(results[0])
+    res.update(ranks=[_rank_summary(r) for r in results], setup_s=setup_s,
+               world_s=time.perf_counter() - t0)
+    return res
+
+
+def _rank_summary(res: dict) -> dict:
+    return {k: res[k] for k in ("train_epoch_time_s", "launches", "peak_mib") if k in res}
 
 
 def main(argv=None):
@@ -140,7 +223,7 @@ def main(argv=None):
     device = "cpu" if args.platform == "cpu" else "cuda"
 
     from hypergef_tpu_torch.ops import fused
-    from hypergef_tpu_torch.train import TrainConfig, rand_train_test_idx
+    from hypergef_tpu_torch.train import TrainConfig
     from hypergef_tpu_torch.train.minibatch import MinibatchTrainer
     from hypergef_tpu_torch.train.trainer import Trainer
 
@@ -160,15 +243,21 @@ def main(argv=None):
     _unported(args)
     hg, x, y = load_problem(args)
     print(hg)
-    np.random.seed(args.seed)
-    split = rand_train_test_idx(y, train_prop=args.train_prop, valid_prop=args.valid_prop,
-                                seed=args.seed)
+    split = _split(args, y)
     cfg = TrainConfig(
         model=args.model, nhid=args.nhid, nlayer=args.nlayer, nhead=args.nhead,
         first_aggr=args.first_aggr, dropout=args.dropout, input_drop=args.input_drop,
         activation=args.activation, lr=args.lr, wd=args.wd, epochs=args.epochs,
         seed=args.seed, backend=args.backend, tune=args.tune, plan_cache=args.plan_cache,
     )
+    if args.shards > 0:
+        res = run_distributed(args, hg, x, y, split)
+        print(f"distributed ({res['n_shards']} shards): "
+              f"avg epoch time {res['train_epoch_time_s']:.6f}")
+        for k in ("train_acc", "valid_acc", "test_acc", "final_loss"):
+            if k in res:
+                print(f"{k}: {res[k]:.4f}")
+        return res
     if args.profile and device == "cuda":
         import torch
 

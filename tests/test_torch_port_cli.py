@@ -10,8 +10,9 @@
   JAX's row for the same arguments.
 * ``--validate-parity`` gives JAX's statuses on all 13 fixtures and exits
   0; a load or oracle failure is a FAIL line and exits 1.
-* ``--shards`` raises ``NotImplementedError`` naming its ROADMAP item;
-  a ``--minibatch-edges`` run writes JAX's CSV row (its inference time
+* ``--shards 2 --dist-backend gloo`` trains over two CPU ranks and prints
+  JAX's distributed lines; ``--feature-shards 2`` raises
+  ``NotImplementedError`` naming its ROADMAP item; a ``--minibatch-edges`` run writes JAX's CSV row (its inference time
   NaN), and an ``--export`` run writes an artifact that loads and answers
   as the run's trainer does.
 * ``--tune``, ``--plan-cache`` and ``--profile`` run; a cached plan trains
@@ -64,11 +65,20 @@ def fixture_root(tmp_path_factory):
     return _copy(tmp_path_factory.mktemp("data"), EXISTING_DATASETS)
 
 
+def _jax_flags(ns):
+    """The parsed flags without the port's own ``--dist-backend`` (the
+    distributed ranks' backend, which JAX's single controller has no use
+    for), whose default is nccl."""
+    flags = vars(ns)
+    assert flags.pop("dist_backend") == "nccl"
+    return flags
+
+
 def test_parse_defaults_equal_jax():
-    assert vars(cli.parse([])) == vars(jcli.parse([]))
+    assert _jax_flags(cli.parse([])) == vars(jcli.parse([]))
     argv = ["--dname", "cora", "--plan-cache", "--tune", "--first-aggr", "max", "--n", "7",
             "--synthetic", "powerlaw", "--feature_noise", "0.5", "--platform", "cpu"]
-    assert vars(cli.parse(argv)) == vars(jcli.parse(argv))
+    assert _jax_flags(cli.parse(argv)) == vars(jcli.parse(argv))
 
 
 @pytest.mark.parametrize("argv", [
@@ -158,10 +168,24 @@ def test_validate_real_shaped_data_checks_shape_and_accuracy(tmp_path, monkeypat
         "accuracy"].detail
 
 
-@pytest.mark.parametrize("flag, item", [(["--shards", "2"], "item 8")])
+@pytest.mark.parametrize("flag, item", [(["--shards", "2", "--feature-shards", "2"], "item 8")])
 def test_unported_flags_raise(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.main(["--synthetic", "random"] + SMALL + flag)
+
+
+def test_shards_run(capsys):
+    """``--shards 2 --dist-backend gloo --platform cpu``: two CPU ranks train
+    the DistTrainer and the CLI prints JAX's lines
+    (``hypergef_tpu/train/cli.py:202-217``); both ranks take the same steps."""
+    res = cli.main(["--synthetic", "random", "--shards", "2", "--dist-backend", "gloo"]
+                   + SMALL)
+    out = capsys.readouterr().out.splitlines()
+    assert any(line.startswith("distributed (2 shards): avg epoch time ") for line in out)
+    for k in ("train_acc", "valid_acc", "test_acc", "final_loss"):
+        assert any(line.startswith(f"{k}: ") for line in out), k
+    assert res["n_shards"] == 2 and len(res["losses"]) == 4 and np.isfinite(res["final_loss"])
+    assert len(res["ranks"]) == 2 and res["timer"] == "host_clock"
 
 
 def test_minibatch_edges_run(tmp_path):

@@ -1726,3 +1726,38 @@ def test_cli_platform_on_the_card(cuda, tmp_path, capsys):
     res = cli.main(small + ["--profile", "1"])
     assert 0 < res["device_memory_bytes"] <= res["device_memory_peak_bytes"]
     assert "MiB peak" in capsys.readouterr().out
+
+
+def test_halo_aligned_world_matches_kernel_route(cuda):
+    """A 2-rank gloo world sharing the card: the halo aggregation with the
+    aligned interior (band kernel forward and backward in each rank) equals
+    the single-device aligned kernel route on the same graph, at the bf16
+    bar of JAX's own check (``tests/test_halo.py:255``: max |Δ| within
+    5e-3 of max |ref|; the gradient within 1e-2)."""
+    import sys
+
+    from hypergef_tpu_torch.parallel.halo import plan_halo
+    from hypergef_tpu_torch.parallel.launch import spawn
+
+    sys.path.insert(0, str(REPO / "tests"))
+    import torch_dist_ranks
+
+    hg, _ = community_reorder(community_hypergraph(4000, 2000, 20, 8, 0.02, 0))
+    plan = plan_halo(hg, 2, local_form="aligned")
+    assert plan.local_form == "aligned"
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(hg.num_nodes, 32)).astype(np.float32)
+    cot = rng.normal(size=(hg.num_nodes, 32)).astype(np.float32)
+    (got, got_dx), _ = [r["halo"] for r in spawn(
+        torch_dist_ranks.run, 2, backend="gloo", platform="cuda",
+        args=([("halo", "halo", dict(plan=plan, x=x, cot=cot, form="aligned"))],),
+        timeout_s=300)]
+    ref_plan = planner.AggregationPlan(
+        aligned=dataclasses.replace(planner.plan_aligned(hg), form="pallas_auto"))
+    xt = torch.tensor(x, device=cuda, requires_grad=True)
+    out = fused.hgnn_aggregate(hg.device_data(cuda), xt, None, "sum", backend="aligned",
+                               plan=ref_plan)
+    (out * torch.as_tensor(cot, device=cuda)).sum().backward()
+    want, want_dx = out.detach().cpu().numpy(), xt.grad.cpu().numpy()
+    assert np.abs(got - want).max() <= 5e-3 * np.abs(want).max()
+    assert np.abs(got_dx - want_dx).max() <= 1e-2 * np.abs(want_dx).max()

@@ -1,0 +1,152 @@
+"""Rank-side cases of the distributed parity tests.
+
+The test files start a world of gloo CPU ranks once
+(``hypergef_tpu_torch.parallel.launch.spawn``) and run :func:`run` in each
+rank over a list of cases; the results come back to the test process, which
+holds them against the JAX package's programs. This module imports torch
+and the port only, so no rank loads JAX.
+"""
+
+import numpy as np
+import torch
+
+from hypergef_tpu_torch.parallel import comm, dense_shard, dist_aggr
+from hypergef_tpu_torch.parallel.halo_aggr import (
+    HaloStep, gather_blocks, halo_hgnn_aggregate, own_block, shard_vertex_features,
+)
+from hypergef_tpu_torch.parallel.mesh import make_mesh
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def agg(mesh, plan, x, cot, aggr="sum", wdiag=None, unignn=None, dense=False, degV=None):
+    """A replicated-X aggregation's output and d<out, cot>/dx."""
+    xt = torch.tensor(x, requires_grad=True)
+    dv = None if degV is None else torch.as_tensor(degV)
+    if dense:
+        if unignn is None:
+            w = None if wdiag is None else torch.as_tensor(
+                plan.shard_edge_vector(wdiag)[mesh.rank])
+            out = dense_shard.sharded_dense_hgnn_aggregate(plan, xt, w, aggr, degV=dv)
+        else:
+            out = dense_shard.sharded_dense_unignn_aggregate(plan, xt, use_deg=unignn, degV=dv)
+    elif unignn is None:
+        w = None if wdiag is None else torch.as_tensor(plan.shard_edge_vector(wdiag)[mesh.rank])
+        out = dist_aggr.sharded_hgnn_aggregate(plan, xt, w, aggr, degV=dv)
+    else:
+        out = dist_aggr.sharded_unignn_aggregate(plan, xt, use_deg=unignn, degV=dv)
+    (out * torch.as_tensor(cot)).sum().backward()
+    return _np(out), _np(xt.grad)
+
+
+def halo(mesh, plan, x, cot, aggr="sum", wdiag=None, use_deg=True, form=None):
+    """The halo aggregation's output and gradient, gathered to [N, F]."""
+    if form is not None:
+        assert plan.local_form == form, (plan.local_form, form)
+    dev = mesh.device
+    xb = torch.tensor(own_block(plan, shard_vertex_features(plan, x), mesh.rank), device=dev,
+                      requires_grad=True)
+    cb = torch.as_tensor(own_block(plan, shard_vertex_features(plan, cot), mesh.rank),
+                         device=dev)
+    w = None
+    if wdiag is not None:
+        w = torch.zeros((plan.e_pad, 1), device=dev)
+        e0, e1 = int(plan.edge_bounds[mesh.rank]), int(plan.edge_bounds[mesh.rank + 1])
+        w[: e1 - e0] = torch.as_tensor(wdiag[e0:e1])
+    out = halo_hgnn_aggregate(plan, xb, w, aggr, use_deg=use_deg)
+    (out * cb).sum().backward()
+    n = plan.num_nodes
+    return _np(gather_blocks(out.detach()))[:n], _np(gather_blocks(xb.grad))[:n]
+
+
+def trainer(mesh, hg, x, y, train_idx, model, first_aggr, params, steps, plan, nhid):
+    """Losses of ``steps`` DistTrainer steps from the given weights."""
+    from hypergef_tpu_torch.parallel.trainer import DistTrainer
+
+    tr = DistTrainer(hg, x, y, nhid=nhid, model=model, first_aggr=first_aggr, plan=plan,
+                     params=params)
+    mask = tr.train_mask(train_idx)
+    return np.array([float(tr.step(mask)) for _ in range(steps)])
+
+
+def halo_step(mesh, plan, model, params, x, y, mask, nclass, steps, first_aggr="sum"):
+    """Losses of ``steps`` fully-sharded steps (x, y, mask in the [N] layout)."""
+    step = HaloStep(model, plan, params, first_aggr=first_aggr, nclass=nclass)
+    xb = torch.as_tensor(own_block(plan, shard_vertex_features(plan, x), mesh.rank))
+    yo = np.zeros(plan.n_shards * plan.n_own, np.int64)
+    yo[: len(y)] = y
+    mo = np.zeros(plan.n_shards * plan.n_own, np.float32)
+    mo[: len(mask)] = mask
+    yb = torch.as_tensor(own_block(plan, yo, mesh.rank))
+    mb = torch.as_tensor(own_block(plan, mo, mesh.rank))
+    return np.array([float(step(xb, yb, mb)) for _ in range(steps)])
+
+
+def dp(mesh, cfg, hg, x, y, train_idx, batch_edges, sampler_seed, params, steps):
+    """Losses of ``steps`` data-parallel minibatch steps."""
+    from hypergef_tpu_torch.train.dp_minibatch import DPMinibatchTrainer
+
+    tr = DPMinibatchTrainer(cfg, hg, x, y, train_idx, batch_edges=batch_edges,
+                            sampler_seed=sampler_seed, params=params)
+    return np.array([float(tr.step_once()) for _ in range(steps)])
+
+
+def collectives(mesh, f):
+    """Each collective Function on this rank's seeded inputs: outputs and
+    the gradients of <out, cot>."""
+    rng = np.random.default_rng(100 + mesh.rank)
+    x = rng.normal(size=(mesh.size, 3, f)).astype(np.float32)
+    cot = rng.normal(size=(mesh.size, 3, f)).astype(np.float32)
+    out = {}
+    for name, fn in (("sum_to_replicated", comm.sum_to_replicated),
+                     ("from_replicated", comm.from_replicated),
+                     ("all_to_all", comm.all_to_all)):
+        xt = torch.tensor(x, requires_grad=True)
+        y = fn(xt, mesh.group)
+        (y * torch.as_tensor(cot)).sum().backward()
+        out[name] = (_np(y), _np(xt.grad))
+    return out
+
+
+def checkpoint(mesh, hg, x, y, train_idx, directory, nhid):
+    """DistTrainer.save then restore: the next loss after a restore equals
+    the next loss after the save."""
+    from hypergef_tpu_torch.parallel.trainer import DistTrainer
+
+    tr = DistTrainer(hg, x, y, nhid=nhid, seed=3)
+    mask = tr.train_mask(train_idx)
+    tr.step(mask)
+    tr.save(directory, step=1)
+    after_save = float(tr.step(mask))
+    tr.step(mask)
+    step = tr.restore(directory)
+    return step, after_save, float(tr.step(mask))
+
+
+def meshes(mesh):
+    """The (d, e) grid of a 4-rank world as 2 x 2: each axis's rank sums."""
+    import torch.distributed as dist
+
+    from hypergef_tpu_torch.parallel.mesh import local_shard_info, make_hybrid_mesh
+
+    hm = make_hybrid_mesh(n_edge=2, n_data=2)
+    out = {}
+    for axis, m in (("e", hm.edge), ("d", hm.data)):
+        t = torch.tensor([float(dist.get_rank())])
+        dist.all_reduce(t, group=m.group)
+        out[axis] = (m.rank, m.size, float(t[0]), local_shard_info(hm, axis)["local_slots"])
+    return out
+
+
+KINDS = {"agg": agg, "halo": halo, "trainer": trainer, "halo_step": halo_step, "dp": dp,
+         "collectives": collectives, "checkpoint": checkpoint,
+         "meshes": meshes}
+
+
+def run(cases):
+    """Every case in order: {name: result}."""
+    torch.use_deterministic_algorithms(True)
+    mesh = make_mesh()
+    return {name: KINDS[kind](mesh, **kw) for name, kind, kw in cases}
