@@ -266,6 +266,30 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    end (``launch.last_world``), a rank's step time, peak MiB and launches,
    and the bytes a halo layer sends; the ranks' launches join the kernels
    line as ``dist_launches``. A failed rank fails the phase.
+31. The serialized halo pair and the feature mesh axis: (a) phase 30
+   (b)'s plan and x run one shard at a time on the card
+   (``serialized_halo_forward``), sum and max, bitwise equal to that
+   world's outputs (else within 1e-6·max, the gap and the differing owner
+   blocks printed); (b) ``serialized_halo_train_step`` on SBM-60k's tree
+   and aligned plans against the plain step over ``ops/refops.py`` on the
+   same weights, two runs bitwise equal, and three AdamW epochs against
+   the same epochs unsharded (the ``SERIAL_*`` bars); (c)
+   ``community_hypergraph`` at 10M incidences (its graph and plan built
+   first, with nothing beside them), D = 8, aligned: a forward and a step,
+   each shard's host build, staging and device times, the exchange bytes,
+   the card's peak (forward and step) below ``serial_halo.peak_bound`` and
+   below all shards' tables together, and both against the plain forward
+   and step. In (a), (b) and (c), after the counted runs, each shard's
+   kernels against their twins on its tables as a turn holds them, at the
+   widths 32 and 8 of the step's two layers (``check_turn_kernels``): the
+   band kernel over the V→E and E→V tables (1e-5), the argmax (bitwise)
+   and the segment sum on every inverse table of the turn; (d) a 2 x 2 ``(e, f)`` grid of
+   four gloo ranks: the CLI's ``--shards 2 --feature-shards 2`` (HGNN sum
+   and max) against phase 30 (a)'s one-rank nccl world, and the
+   feature-sharded dense shard on 20news against the ``dense`` route, with
+   the record-routed sum against its twin in every rank at the column
+   widths 16 and 3. Its launches join the kernels line as
+   ``serial_launches``; the run's seconds are printed before that line.
 
 Phases 1-25 drive the default step and request: on the card a CUDA-graph
 replay (``Trainer``'s and ``ServingModel``'s ``compiled=None``); the plain
@@ -1701,14 +1725,16 @@ def segment_operands(table, f: int, seed: int, device):
                            .astype(np.float32), device=device)
 
 
-def check_segsum(table, f: int, seed: int, device) -> dict:
+def check_segsum(table, f: int, seed: int, device, x=None) -> dict:
     """The segment-sum kernel against its plain version: rtol 1e-6, atol
     1e-6·max|plain| (the same f32 terms, summed by the kernel in CSR order
     and by segment_reduce in its own); two runs bitwise equal; one launch a
-    call."""
+    call. ``x`` (the operand rows, [num_inputs, f]) is drawn from ``seed``
+    when None."""
     from hypergef_tpu_torch.ops import segment_sum
 
-    x = segment_operands(table, f, seed, device)
+    if x is None:
+        x = segment_operands(table, f, seed, device)
     before = segment_sum.launches
     got = segment_sum.gather_segment_sum(x, table)
     again = segment_sum.gather_segment_sum(x, table)
@@ -3253,7 +3279,7 @@ def dist_cli_cells(device, card: str) -> dict:
                   f"30a {name}: every rank launched the record-routed sum")
         cell.update(plain_init_loss=plain, nccl1_init_loss=r["init_loss"],
                     max_loss_diff_vs_nccl1=float(np.abs(cell["losses"] - r["losses"]).max()),
-                    losses=cell["losses"].tolist())
+                    losses=cell["losses"].tolist(), nccl1_losses=np.asarray(r["losses"]).tolist())
     out["nccl1_world_s"] = ref_s
     return out
 
@@ -3419,6 +3445,9 @@ def dist_halo_cell(aligned: dict, device) -> dict:
     for r in ranks:
         for kname in ("band", "argmax", "argsum", "segsum", "recsum"):
             check(r["launches"][kname] > 0, f"30b: every rank launched {kname}")
+    # phase 31 (a) runs this world's plan and x serialized on one device
+    aligned["halo_world"] = {"plan": plan, "x": x,
+                             "outputs": {aggr: ranks[0][aggr][0] for aggr in ("sum", "max")}}
     return out
 
 
@@ -3603,6 +3632,487 @@ def dist_phase(device, card: str, aligned: dict) -> dict:
     return out
 
 
+# phase 31, the serialized halo pair and the feature mesh axis. (a) phase
+# 30 (b)'s SBM-60k plan and x run serialized on the card, one shard at a
+# time, against that world's outputs; (b) the serialized two-layer HGNN step
+# (F = 32, nhid 32) on SBM-60k's tree and aligned plans against the plain
+# step, and three AdamW epochs; (c) a graph a tenth the size of
+# experiments/scale_serialized.py's (community_hypergraph, 10M incidences,
+# D = 8) forward and step, with the card's peak memory; (d) a 2 x 2 (e, f)
+# grid of gloo ranks: the CLI's --shards 2 --feature-shards 2 on phase 30
+# (a)'s problem, and the feature-sharded dense shard on 20news
+SERIAL_D = 4
+SERIAL_F = 32
+SERIAL_CPAD = max(NCLASS, 8)  # the second layer's width, JAX's padded classes
+SERIAL_EPOCHS = 3
+SERIAL_SCALE = dict(n_nodes=2_000_000, n_edges=1_000_000, n_comm=4000, avg=10.0, noise=0.01,
+                    seed=0)
+SERIAL_SCALE_D = 8
+SERIAL_PLAN_LIMIT_S = 120.0
+FEATURE_GRID = (2, 2)
+# the bars of phase 31's comparisons with the plain unsharded f32 step, each
+# 10-20 times the largest gap seen on an H100 (PERF.md §6): the relative
+# loss gap (seen 6.8e-6); the largest gradient difference over the largest
+# magnitude of the reference with tree interiors (seen 5.6e-7) and with the
+# aligned interior, whose band kernel rounds its operands to bf16 (seen
+# 1.9e-3 at SBM-60k, 2.2e-4 at 10M incidences), and the weights after three
+# AdamW epochs on the aligned plan (seen 2.0e-3)
+SERIAL_LOSS_RTOL = 1e-4
+SERIAL_GRAD_REL = 1e-5
+SERIAL_BF16_GRAD_REL = 2e-2
+SERIAL_BF16_PARAM_REL = 2e-2
+
+
+def serial_init(f: int, nhid: int, nclass: int, seed: int) -> dict:
+    """serialized_halo_train_epochs' initial weights (JAX's draw)."""
+    rng = np.random.default_rng(seed)
+    return {"w1": (rng.normal(size=(f, nhid)) / np.sqrt(f)).astype(np.float32),
+            "w2": (rng.normal(size=(nhid, max(nclass, 8))) / np.sqrt(nhid)).astype(np.float32)}
+
+
+def serial_plain_loss(hgd, params, x, y, mask):
+    """The unsharded two-layer HGNN over the nnz oracles of ops/refops.py:
+    its masked NLL over every column (the serialized step's loss)."""
+    from hypergef_tpu_torch.ops.refops import hgnn_aggregate_ref
+
+    h = torch.relu(hgnn_aggregate_ref(hgd, x @ params["w1"]))
+    z = hgnn_aggregate_ref(hgd, h @ params["w2"])
+    picked = torch.log_softmax(z, dim=-1).gather(1, y[:, None])[:, 0]
+    return -(picked * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def serial_plain_step(hg, params, x, y, mask, device):
+    """The plain step's loss and weight gradients, on the card."""
+    hgd = hg.device_data(device)
+    ps = {k: torch.as_tensor(v, device=device).requires_grad_(True) for k, v in params.items()}
+    loss = serial_plain_loss(hgd, ps, torch.as_tensor(x, device=device),
+                             torch.as_tensor(np.asarray(y, np.int64), device=device),
+                             torch.as_tensor(mask, device=device))
+    loss.backward()
+    return float(loss.detach()), {k: p.grad.cpu().numpy() for k, p in ps.items()}
+
+
+def check_turn_kernels(tables, widths, seed: int, device) -> dict:
+    """Every kernel of a serialized run's shard turns against its plain
+    twin, on each shard's tables as a turn holds them (put on the card from
+    pinned host memory), at each width of the path: the band kernel over
+    the aligned interior's V→E and E→V tables, the masked argmax over the
+    V→E table, and the segment-sum kernel over every inverse table of the
+    turn's takes and tree stages (a step's backward). Operands are drawn on
+    the card. Not counted: called outside the window the launches are read
+    in. Returns each kernel's largest error and the tables checked."""
+    from hypergef_tpu_torch.ops import aligned_band, aligned_max
+
+    plan = tables.plan
+    aligned = plan.local_form == "aligned"
+    errs = {"band": [], "argmax": [], "segsum": []} if aligned else {"segsum": []}
+    n_seg = 0
+    for d in range(plan.n_shards):
+        loc = tables.local(d)
+        inv = [getattr(loc, n).inverse for n in ("halo_send", "halo_take", "asm", "send")]
+        for n in ("bnd", "v", "own") + (() if aligned else ("int_tree",)):
+            st = getattr(loc, n)
+            inv += list(st.inverse_levels) + [st.inverse_final]
+        inv = [t for t in inv if t.nnz]
+        for f in widths:
+            g = torch.Generator(device=device).manual_seed(seed + 100 * d + f)
+            if aligned:
+                xs = torch.randn((plan.n_own, f), device=device, generator=g)
+                gs = torch.randn((plan.e_int_pad, f), device=device, generator=g)
+                for name, st, v in (("fwd", loc.int_fwd, xs), ("bwd", loc.int_bwd, gs)):
+                    k, p = aligned_band.aligned_band(v, st), aligned_band.aligned_band_plain(v, st)
+                    err = float((k - p).abs().max())
+                    check(err <= 1e-5 * float(p.abs().max()) + 1e-5,
+                          f"shard {d}: the band kernel ({name}, F = {f}) within 1e-5 of its "
+                          f"twin ({err})")
+                    errs["band"].append(err)
+                val, arg = aligned_max.aligned_masked_argmax(xs, loc.int_fwd)
+                pval, parg = aligned_max.aligned_max_plain(xs, loc.int_fwd)
+                check(torch.equal(val, pval) and torch.equal(arg, parg),
+                      f"shard {d}: the argmax kernel (F = {f}) bitwise equal to its twin")
+                errs["argmax"].append(float((val - pval).abs().max()))
+            rows = torch.randn((max(t.num_inputs for t in inv), f), device=device, generator=g)
+            for t in inv:
+                errs["segsum"].append(check_segsum(t, f, 0, device,
+                                                   x=rows[:t.num_inputs])["max_abs_err"])
+            n_seg += len(inv)
+        del loc
+    return {**{k: max(v) for k, v in errs.items()}, "segsum_tables": n_seg,
+            "widths": list(widths)}
+
+
+def serial_forward_cell(device, world: dict) -> dict:
+    """Phase 31 (a): phase 30 (b)'s plan and x serialized, sum and max,
+    against the world's outputs; each shard's kernels against their twins
+    at the path's shapes after the tables' round trip (not counted)."""
+    from hypergef_tpu_torch.parallel.launch import kernel_launches, reset_kernel_launches
+    from hypergef_tpu_torch.parallel.serial_halo import ShardTables, serialized_halo_forward
+
+    plan, x = world["plan"], world["x"]
+    check(plan.local_form == "aligned" and plan.n_shards == SERIAL_D,
+          "31a: phase 30 (b)'s plan, D = 4, aligned interior")
+    t0 = time.perf_counter()
+    tables = ShardTables(plan, device)
+    out = {"tables_s": time.perf_counter() - t0, "tables_build_s": tables.build_s,
+           "table_bytes": tables.nbytes, "combine_table_bytes": tables.combine_nbytes}
+    torch.cuda.synchronize()
+    reset_kernel_launches()
+    for aggr in ("sum", "max"):
+        stats = {}
+        got = serialized_halo_forward(plan, x, aggr, device=device, tables=tables, stats=stats)
+        want = world["outputs"][aggr]
+        same = bool(np.array_equal(got, want))
+        gap = float(np.abs(got - want).max())
+        cell = {"bitwise_equal_world": same, "max_abs_diff": gap, "stats": stats}
+        if not same:
+            # the owner blocks whose rows differ, each the combine of one shard
+            rows = np.nonzero(np.abs(got - want).max(axis=1))[0]
+            cell["differing_owners"] = sorted({int(r) // plan.n_own for r in rows})
+            print(f"31a {aggr}: serialized output differs from the world's by {gap} in owner "
+                  f"blocks {cell['differing_owners']} (the ops of those owners' combines and "
+                  f"of the shards whose partials they sum)", flush=True)
+        check(same or gap <= 1e-6 * float(np.abs(want).max()),
+              f"31a {aggr}: the serialized output equals the world's ({gap})")
+        out[aggr] = cell
+    torch.cuda.synchronize()
+    out["launches"] = kernel_launches()
+    check(out["launches"]["band"] > 0 and out["launches"]["argmax"] > 0,
+          "31a: the serialized forward launched the band and argmax kernels")
+    # the layers of a step run at nhid and at the padded classes
+    out["kernel_errs"] = check_turn_kernels(tables, (SERIAL_F, SERIAL_CPAD), 40, device)
+    return out
+
+
+def serial_train_cell(device, hg, aligned_plan) -> dict:
+    """Phase 31 (b): the serialized step on SBM-60k's tree and aligned
+    plans against the plain step on the same weights; two runs bitwise
+    equal; the segment-sum kernel against its twin on every inverse table
+    of every shard's turn (not counted); three AdamW epochs against the
+    same epochs unsharded."""
+    from hypergef_tpu_torch.parallel.halo import plan_halo
+    from hypergef_tpu_torch.parallel.launch import kernel_launches, reset_kernel_launches
+    from hypergef_tpu_torch.parallel.serial_halo import ShardTables
+    from hypergef_tpu_torch.parallel.serial_halo_train import (
+        serialized_halo_train_epochs, serialized_halo_train_step)
+
+    rng = np.random.default_rng(32)
+    x = rng.normal(size=(hg.num_nodes, SERIAL_F)).astype(np.float32)
+    y = rng.integers(0, NCLASS, size=hg.num_nodes)
+    mask = (np.arange(hg.num_nodes) % 2 == 0).astype(np.float32)
+    params = serial_init(SERIAL_F, 32, NCLASS, seed=4)
+    want_loss, want = serial_plain_step(hg, params, x, y, mask, device)
+    t0 = time.perf_counter()
+    plans = {"tree": plan_halo(hg, SERIAL_D, local_form="tree"), "aligned": aligned_plan}
+    out = {"tree_plan_s": time.perf_counter() - t0, "plain_loss": want_loss}
+    launches = {}
+    for form, plan in plans.items():
+        check(plan.local_form == form, f"31b: the {form} plan took its interior")
+        tables = ShardTables(plan, device)
+        torch.cuda.synchronize()
+        reset_kernel_launches()
+        t0 = time.perf_counter()
+        loss, grads = serialized_halo_train_step(plan, params, x, y, mask, device=device,
+                                                 tables=tables)
+        step_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launched = kernel_launches()
+        for k, v in launched.items():
+            launches[k] = launches.get(k, 0) + v
+        again = serialized_halo_train_step(plan, params, x, y, mask, device=device,
+                                           tables=tables)
+        check(again[0] == loss and all(np.array_equal(again[1][k], grads[k]) for k in grads),
+              f"31b {form}: two runs of the step give bitwise equal gradients")
+        loss_gap = abs(loss - want_loss) / abs(want_loss)
+        grad_errs = {k: rel_to_max(grads[k], want[k]) for k in want}
+        check(loss_gap <= SERIAL_LOSS_RTOL,
+              f"31b {form}: loss {loss} within {SERIAL_LOSS_RTOL} of the plain step's {want_loss}")
+        bar = SERIAL_GRAD_REL if form == "tree" else SERIAL_BF16_GRAD_REL
+        check(max(grad_errs.values()) <= bar,
+              f"31b {form}: gradients within {bar}·max of the plain step's ({grad_errs})")
+        kerr = check_turn_kernels(tables, (SERIAL_F, SERIAL_CPAD), 90, device)
+        out[form] = {"loss": loss, "loss_rel_gap": loss_gap, "grad_rel_err": grad_errs,
+                     "step_s": step_s, "launches": launched, "kernel_errs": kerr,
+                     "tables_build_s": tables.build_s, "table_bytes": tables.nbytes}
+        check(launched["segsum"] > 0, f"31b {form}: the step launched the segment sum")
+    check(launches["band"] > 0, "31b: the aligned step launched the band kernel")
+    out["launches"] = launches
+    # three epochs of AdamW, serialized (aligned plan) against unsharded
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    got, losses = serialized_halo_train_epochs(aligned_plan, x, y, mask, 32, NCLASS,
+                                               epochs=SERIAL_EPOCHS, seed=5, device=device)
+    epochs_s = time.perf_counter() - t0
+    for k, v in kernel_launches().items():
+        launches[k] += v
+    hgd = hg.device_data(device)
+    ps = {k: torch.as_tensor(v, device=device).requires_grad_(True)
+          for k, v in serial_init(SERIAL_F, 32, NCLASS, seed=5).items()}
+    opt = torch.optim.AdamW(list(ps.values()), lr=0.01, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=5e-4)
+    xd, yd, md = (torch.as_tensor(x, device=device),
+                  torch.as_tensor(np.asarray(y, np.int64), device=device),
+                  torch.as_tensor(mask, device=device))
+    want_losses = []
+    for _ in range(SERIAL_EPOCHS):
+        opt.zero_grad(set_to_none=True)
+        loss = serial_plain_loss(hgd, ps, xd, yd, md)
+        loss.backward()
+        opt.step()
+        want_losses.append(float(loss.detach()))
+    check(bool(np.allclose(losses, want_losses, rtol=SERIAL_LOSS_RTOL, atol=0.0)),
+          f"31b epochs: losses {losses} within {SERIAL_LOSS_RTOL} of unsharded {want_losses}")
+    param_err = {k: rel_to_max(got[k], p.detach().cpu().numpy()) for k, p in ps.items()}
+    check(max(param_err.values()) <= SERIAL_BF16_PARAM_REL,
+          f"31b epochs: weights within {SERIAL_BF16_PARAM_REL}·max of unsharded ({param_err})")
+    out["epochs"] = {"losses": losses, "unsharded_losses": want_losses,
+                     "param_rel_err": param_err, "wall_s": epochs_s}
+    return out
+
+
+def _peak_delta(fn, device):
+    """fn()'s result and the card's peak bytes above what was allocated
+    before it."""
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    res = fn()
+    torch.cuda.synchronize(device)
+    return res, torch.cuda.max_memory_allocated(device) - base
+
+
+def serial_scale_problem():
+    """Phase 31 (c)'s host work, NumPy only: the graph, its edges sorted by
+    median member (as experiments/scale_serialized.py), and the D = 8 halo
+    plan with the aligned interior; halved while the plan takes longer
+    than SERIAL_PLAN_LIMIT_S. Nothing else runs beside it, so no phase's
+    times share the host with it."""
+    from hypergef_tpu_torch.data.synthetic import community_hypergraph
+    from hypergef_tpu_torch.parallel.halo import plan_halo
+    from hypergef_tpu_torch.sparse.reorder import apply_vertex_order
+
+    cfg = dict(SERIAL_SCALE)
+    while True:
+        t0 = time.perf_counter()
+        hg = community_hypergraph(**cfg)
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        # edges sorted by median member, as experiments/scale_serialized.py
+        hg, _ = apply_vertex_order(hg, np.arange(hg.num_nodes), sort_edges=True)
+        order_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plan = plan_halo(hg, SERIAL_SCALE_D, local_form="aligned")
+        plan_s = time.perf_counter() - t0
+        if plan_s <= SERIAL_PLAN_LIMIT_S:
+            break
+        print(f"31c: the plan of {cfg} took {plan_s} s (> {SERIAL_PLAN_LIMIT_S}): halving",
+              flush=True)
+        cfg = {**cfg, "n_nodes": cfg["n_nodes"] // 2, "n_edges": cfg["n_edges"] // 2,
+               "n_comm": cfg["n_comm"] // 2}
+    return hg, plan, {"graph": {**cfg, "nnz": hg.nnz}, "gen_s": gen_s, "order_s": order_s,
+                      "plan_s": plan_s}
+
+
+def serial_scale_cell(device, problem) -> dict:
+    """Phase 31 (c): community_hypergraph at 10M incidences, D = 8, aligned
+    interior (``problem``: serial_scale_problem's result): one forward and
+    one step, each shard's host build, staging and device time, the
+    exchange bytes, the card's peak against the bound and against all
+    shards' tables together; the forward and the step against the plain
+    unsharded forward and step on the card."""
+    from hypergef_tpu_torch.ops.refops import hgnn_aggregate_ref
+    from hypergef_tpu_torch.parallel.launch import kernel_launches, reset_kernel_launches
+    from hypergef_tpu_torch.parallel.serial_halo import (
+        ShardTables, peak_bound, serialized_halo_forward)
+    from hypergef_tpu_torch.parallel.serial_halo_train import serialized_halo_train_step
+
+    hg, plan, info = problem
+    check(plan.local_form == "aligned", "31c: the plan took the aligned interior")
+    out = {**info, "interior_fraction": plan.interior_fraction(),
+           "exchange_bytes_a_layer_padded": plan.exchange_bytes(SERIAL_F)}
+    t0 = time.perf_counter()
+    tables = ShardTables(plan, device)
+    out.update(tables_s=time.perf_counter() - t0, tables_build_s=tables.build_s,
+               table_bytes=tables.nbytes, max_table_bytes=max(tables.nbytes),
+               sum_table_bytes=sum(tables.nbytes))
+    rng = np.random.default_rng(33)
+    x = rng.normal(size=(hg.num_nodes, SERIAL_F)).astype(np.float32)
+    reset_kernel_launches()
+    stats = {}
+    t0 = time.perf_counter()
+    got, peak = _peak_delta(lambda: serialized_halo_forward(
+        plan, x, device=device, tables=tables, stats=stats), device)
+    fwd_s = time.perf_counter() - t0
+    bound = peak_bound(tables, SERIAL_F)
+    out["forward"] = {"wall_s": fwd_s, "stats": stats, "peak_bytes": peak, "bound_bytes": bound}
+    check(got.shape == (hg.num_nodes, SERIAL_F) and bool(np.isfinite(got).all()),
+          "31c: the forward is finite, [N, F]")
+    check(peak <= bound, f"31c: forward peak {peak} B within the bound {bound} B")
+    check(peak < sum(tables.nbytes),
+          f"31c: forward peak {peak} B below all shards' tables {sum(tables.nbytes)} B")
+    # the step: JAX's padded classes, half the rows in the mask
+    y = rng.integers(0, NCLASS, size=hg.num_nodes)
+    mask = (rng.random(hg.num_nodes) < 0.5).astype(np.float32)
+    params = serial_init(SERIAL_F, 32, NCLASS, seed=6)
+    tstats = {}
+    t0 = time.perf_counter()
+    (loss, grads), tpeak = _peak_delta(lambda: serialized_halo_train_step(
+        plan, params, x, y, mask, stats=tstats, device=device, tables=tables), device)
+    step_s = time.perf_counter() - t0
+    out["step"] = {"wall_s": step_s, "loss": loss, "peak_bytes": tpeak, "bound_bytes": bound,
+                   "layer_turn_s": tstats["per_shard_wall_s"],
+                   "layer_turn_device_ms": tstats["per_shard_device_ms"]}
+    torch.cuda.synchronize()
+    out["launches"] = kernel_launches()
+    check(tpeak <= bound, f"31c: step peak {tpeak} B within the bound {bound} B")
+    check(tpeak < sum(tables.nbytes),
+          f"31c: step peak {tpeak} B below all shards' tables {sum(tables.nbytes)} B")
+    # each shard's kernels against their twins on its tables (not counted)
+    t0 = time.perf_counter()
+    out["kernel_errs"] = check_turn_kernels(tables, (SERIAL_F, SERIAL_CPAD), 60, device)
+    out["kernel_checks_s"] = time.perf_counter() - t0
+    del tables
+    # the unsharded forward and step on the card, after the measured runs
+    hgd = hg.device_data(device)
+    with torch.no_grad():
+        want = hgnn_aggregate_ref(hgd, torch.as_tensor(x, device=device)).cpu().numpy()
+    out["forward"]["rel_err_vs_plain"] = rel_to_max(got, want)
+    # the bf16 bar of JAX's own halo check (tests/test_halo.py:255)
+    check(out["forward"]["rel_err_vs_plain"] <= 5e-3,
+          f"31c: the forward within 5e-3·max of the plain one ({out['forward']['rel_err_vs_plain']})")
+    del hgd
+    want_loss, want_grads = serial_plain_step(hg, params, x, y, mask, device)
+    out["step"].update(plain_loss=want_loss, loss_rel_gap=abs(loss - want_loss) / abs(want_loss),
+                       grad_rel_err={k: rel_to_max(grads[k], want_grads[k]) for k in grads})
+    check(out["step"]["loss_rel_gap"] <= SERIAL_LOSS_RTOL,
+          f"31c: the step's loss within {SERIAL_LOSS_RTOL} of the plain step's")
+    check(max(out["step"]["grad_rel_err"].values()) <= SERIAL_BF16_GRAD_REL,
+          f"31c: the step's gradients within {SERIAL_BF16_GRAD_REL}·max of the plain step's "
+          f"({out['step']['grad_rel_err']})")
+    return out
+
+
+def feature_rank(dense_plan, x, cot, degv, agg_plan, widths) -> dict:
+    """Phase 31 (d), in each rank of the 2 x 2 grid: the feature-sharded
+    dense shard's aggregation and gradient (the counted main path), then the
+    record-routed sum against its twin on this rank's shard of the CLI's
+    plan at the column widths of the feature-sharded max layers."""
+    from hypergef_tpu_torch.parallel.dense_shard import sharded_dense_hgnn_aggregate
+    from hypergef_tpu_torch.parallel.launch import kernel_launches, reset_kernel_launches
+    from hypergef_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(*FEATURE_GRID)
+    dev = mesh.device
+    reset_kernel_launches()
+    xt = torch.tensor(x, device=dev, requires_grad=True)
+    o = sharded_dense_hgnn_aggregate(dense_plan, xt, None, "sum",
+                                     degV=torch.as_tensor(degv, device=dev), mesh=mesh,
+                                     feature_sharded=True)
+    (o * torch.as_tensor(cot, device=dev)).sum().backward()
+    torch.cuda.synchronize(dev)
+    out = {"out": o.detach().cpu().numpy(), "dx": xt.grad.cpu().numpy(),
+           "launches": kernel_launches(), "coords": (mesh.rank, mesh.feature.rank)}
+    loc = agg_plan.local(mesh.rank, dev)
+    out["record_checks"] = []
+    for f in widths:
+        g, arg = stage_record_operands(loc.e_stage, f, 70 + 10 * mesh.rank + mesh.feature.rank,
+                                       dev)
+        out["record_checks"].append(check_record_sum(g, arg, loc.record))
+    return out
+
+
+def feature_cells(device, cli_cells: dict) -> dict:
+    """Phase 31 (d): the CLI's --shards 2 --feature-shards 2 (HGNN sum and
+    max) against phase 30 (a)'s one-rank nccl world; the feature-sharded
+    dense shard on 20news against the dense route; the record sum in every
+    rank at the column widths 16 and 3."""
+    from hypergef_tpu_torch.ops import fused
+    from hypergef_tpu_torch.parallel import launch
+    from hypergef_tpu_torch.parallel.dense_shard import plan_sharded_dense
+    from hypergef_tpu_torch.parallel.partition import plan_sharded_aggregation
+    from hypergef_tpu_torch.sparse.planner import AggregationPlan
+    from hypergef_tpu_torch.train import cli
+
+    e, f = FEATURE_GRID
+    out = {}
+    for name in ("HGNN sum", "HGNN max"):
+        res = cli.main(DIST_CLI + DIST_CLI_RUNS[name] + [
+            "--shards", str(e), "--feature-shards", str(f), "--dist-backend", "gloo"])
+        losses, ref = np.asarray(res["losses"]), np.asarray(cli_cells[name]["nccl1_losses"])
+        check(bool(np.allclose(losses, ref, rtol=DIST_LOSS_RTOL, atol=0.0)),
+              f"31d {name}: the 2 x 2 grid's losses {losses[-3:]} within {DIST_LOSS_RTOL} of "
+              f"the one-rank nccl world's {ref[-3:]}")
+        check(len(res["ranks"]) == e * f, f"31d {name}: {e * f} ranks ran")
+        if name.endswith("max"):
+            check(all(r["launches"]["recsum"] > 0 for r in res["ranks"]),
+                  f"31d {name}: every rank launched the record-routed sum")
+        out[name] = {"world_s": res["world_s"], "setup_s": res["setup_s"],
+                     "timeline": launch.last_world, "final_loss": res["final_loss"],
+                     "max_loss_rel_diff_vs_nccl1": float(np.abs(losses - ref).max() /
+                                                         np.abs(ref).max()),
+                     "ranks": res["ranks"]}
+    args = cli.parse(DIST_CLI)
+    hg_cli, _, _ = cli.load_problem(args)
+    agg_plan = plan_sharded_aggregation(hg_cli, e)
+    hg = make_graph("20news")
+    plan = plan_sharded_dense(hg, e)
+    rng = np.random.default_rng(34)
+    x = rng.normal(size=(hg.num_nodes, DIST_F)).astype(np.float32)
+    cot = rng.normal(size=(hg.num_nodes, DIST_F)).astype(np.float32)
+    t0 = time.perf_counter()
+    ranks = launch.spawn(feature_rank, e * f, backend="gloo", platform="cuda",
+                         args=(plan, x, cot, hg.degV, agg_plan,
+                               (32 // f, args.classes // f)), timeout_s=600)
+    world_s = time.perf_counter() - t0
+    xt = torch.tensor(x, device=device, requires_grad=True)
+    o = fused.hgnn_aggregate(hg.device_data(device), xt, None, "sum", backend="dense",
+                             plan=AggregationPlan.dense_plan(hg, device))
+    (o * torch.as_tensor(cot, device=device)).sum().backward()
+    cell = {"world_s": world_s, "timeline": launch.last_world,
+            "coords": [r["coords"] for r in ranks],
+            "ranks": [{"launches": r["launches"]} for r in ranks],
+            "record_checks": [c for r in ranks for c in r["record_checks"]]}
+    for key, want in (("out", o.detach().cpu().numpy()), ("dx", xt.grad.cpu().numpy())):
+        got = ranks[0][key]
+        cell[f"{key}_bitwise_dense_route"] = bool(np.array_equal(got, want))
+        cell[f"{key}_max_abs_err"] = float(np.abs(got - want).max())
+        # phase 30 (c)'s bar (two bf16 roundings)
+        check(bool(np.allclose(got, want, rtol=1e-2, atol=1e-2 * np.abs(want).max())),
+              f"31d dense {key}: the feature-sharded dense shard within 1e-2 of the dense "
+              f"route ({cell[f'{key}_max_abs_err']})")
+        for r in ranks[1:]:
+            check(bool(np.array_equal(r[key], got)), f"31d dense {key}: every rank alike")
+    out["dense"] = cell
+    return out
+
+
+def serial_phase(device, card: str, aligned: dict, cli_cells: dict) -> dict:
+    """Phase 31: (a)-(d); every launch of the path summed. (c) builds its
+    graph and plan on the host first (serial_scale_problem), alone."""
+    torch.cuda.empty_cache()
+    out = {}
+    for key, fn in (("a", lambda: serial_forward_cell(device, aligned["halo_world"])),
+                    ("b", lambda: serial_train_cell(device, aligned["sbm"],
+                                                    aligned["halo_world"]["plan"])),
+                    ("c", lambda: serial_scale_cell(device, serial_scale_problem())),
+                    ("d", lambda: feature_cells(device, cli_cells))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        out[key]["phase_s"] = time.perf_counter() - t0
+        print(f"phase 31 {key} (card {card}): {json.dumps(out[key])}", flush=True)
+    launches = {}
+    for part in (out["a"]["launches"], out["b"]["launches"], out["c"]["launches"]):
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+    for cell in (out["d"]["HGNN sum"], out["d"]["HGNN max"], out["d"]["dense"]):
+        for r in cell["ranks"]:
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    print(f"phase 31 launches: {json.dumps(launches)}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3618,6 +4128,7 @@ def main() -> int:
     from hypergef_tpu_torch.ops import _build
     from hypergef_tpu_torch.utils import graphs as cuda_graphs
 
+    run_t0 = time.perf_counter()
     device = torch.device("cuda", 0)
     card = card_line()
     # phases 1-25 write each recorded graph out, to read its kernel nodes
@@ -3791,6 +4302,9 @@ def main() -> int:
     t0 = time.perf_counter()
     distributed = dist_phase(device, card, aligned)
     print(f"phase 30: {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    serial = serial_phase(device, card, aligned, distributed["a"])
+    print(f"phase 31: {time.perf_counter() - t0:.2f} s", flush=True)
 
     fd_bwd_err = max(max(c["max_abs_err"].values()) for c in bwd)
     timed = {"fused_dense_two_stage": times["20news"], "ell_gather_sum": gather_times["edge F=32"],
@@ -3983,8 +4497,9 @@ def main() -> int:
                                        if "launches" in cell)
             k["minibatch_launches"] = sum(cell["launches"][c] for cell in minibatched.values())
             k["dist_launches"] = distributed["launches"].get(c, 0)
+            k["serial_launches"] = serial["launches"].get(c, 0)
             k["launches"] += (k["export_launches"] + k["minibatch_launches"]
-                              + k["dist_launches"])
+                              + k["dist_launches"] + k["serial_launches"])
     for k in kernels:
         t = timed[k["name"]]
         sites = KERNEL_SITES.get(k["name"], [RECORD_SUM_SITE])
@@ -3992,6 +4507,7 @@ def main() -> int:
                   "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": t["bound_ms"],
                   "bound_by": t["bound_by"], "library_ms": t.get("library")})
         check(k["launches"] > 0, f"{k['name']} was launched on its path")
+    print(f"chip_smoke: {time.perf_counter() - run_t0:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

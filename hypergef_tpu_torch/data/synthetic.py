@@ -101,23 +101,26 @@ def community_hypergraph(n_nodes, n_edges, n_comm, avg, noise, seed):
     anywhere."""
     rng = np.random.default_rng(seed)
     comm_of = np.sort(rng.integers(0, n_comm, size=n_nodes))  # contiguous
-    starts = np.searchsorted(comm_of, np.arange(n_comm))
-    ends = np.searchsorted(comm_of, np.arange(n_comm), side="right")
-    vs, es = [], []
+    starts = np.searchsorted(comm_of, np.arange(n_comm)).tolist()
+    ends = np.searchsorted(comm_of, np.arange(n_comm), side="right").tolist()
+    # JAX's draws in JAX's order; a draw of no values takes nothing from the
+    # stream, and from_coo drops an edge's repeated members as np.unique did
+    integers, poisson, random = rng.integers, rng.poisson, rng.random
+    vs, sizes = [], np.empty(n_edges, dtype=np.int64)
     for e in range(n_edges):
-        c = rng.integers(0, n_comm)
+        c = integers(0, n_comm)
         lo, hi = starts[c], ends[c]
         if hi - lo < 2:
             lo, hi = 0, n_nodes
-        k = max(int(rng.poisson(avg)), 2)
-        members = rng.integers(lo, hi, size=k)
-        flip = rng.random(k) < noise
-        members[flip] = rng.integers(0, n_nodes, size=int(flip.sum()))
-        members = np.unique(members)
+        k = max(int(poisson(avg)), 2)
+        members = integers(lo, hi, size=k)
+        flip = random(k) < noise
+        if flip.any():
+            members[flip] = integers(0, n_nodes, size=int(flip.sum()))
         vs.append(members)
-        es.append(np.full(len(members), e, dtype=np.int64))
+        sizes[e] = k
     return Hypergraph.from_coo(
-        np.concatenate(vs), np.concatenate(es),
+        np.concatenate(vs), np.repeat(np.arange(n_edges, dtype=np.int64), sizes),
         num_nodes=n_nodes, num_edges=n_edges, name=f"sbm{n_comm}",
     )
 

@@ -11,11 +11,14 @@
   ``--shards``);
 * :mod:`.halo` and :mod:`.halo_aggr`: the fully-sharded halo exchange, with
   the aligned interior on the band and max kernels;
+* :mod:`.serial_halo` and :mod:`.serial_halo_train`: the halo plan's shards
+  run one at a time on one device, the exchanges staged through the host
+  (a forward, and the two-layer HGNN's training step and epochs);
 * :mod:`.exact`: takes and tree stages with fixed-order backwards.
 
-The serialized single-device emulations (``serial_halo``,
-``serial_halo_train``) and the feature mesh axis are not ported yet
-(ROADMAP.md queue 1, item 8): they raise ``NotImplementedError``.
+Every aggregation of :mod:`.dist_aggr` and :mod:`.dense_shard` takes
+``feature_sharded=True`` on an ``(e, f)`` grid (``make_mesh(n_edge,
+n_feature)``), and ``DistTrainer(n_feature=...)`` trains on one.
 """
 
 from hypergef_tpu_torch.parallel.dense_shard import (
@@ -34,18 +37,11 @@ from hypergef_tpu_torch.parallel.mesh import (
 from hypergef_tpu_torch.parallel.partition import (
     ShardedAggPlan, edge_partition_bounds, plan_sharded_aggregation,
 )
+from hypergef_tpu_torch.parallel.serial_halo import ShardTables, serialized_halo_forward
+from hypergef_tpu_torch.parallel.serial_halo_train import (
+    serialized_halo_train_epochs, serialized_halo_train_step,
+)
 from hypergef_tpu_torch.parallel.trainer import DistTrainer
-
-
-def _serial_unported(*_, **__):
-    raise NotImplementedError(
-        "the serialized single-device halo emulation (serial_halo, serial_halo_train) is not "
-        "ported yet (ROADMAP.md queue 1, item 8: the serialized halo pair)")
-
-
-# the names of serial_halo.py:184 and serial_halo_train.py:195, :300
-serialized_halo_forward = serialized_halo_train_step = serialized_halo_train_epochs = (
-    _serial_unported)
 
 __all__ = [
     "HaloPlan", "plan_halo", "halo_hgnn_aggregate", "halo_unignn_aggregate",
@@ -54,4 +50,6 @@ __all__ = [
     "sharded_hgnn_aggregate", "sharded_unignn_aggregate", "ShardedDensePlan",
     "plan_sharded_dense", "sharded_dense_hgnn_aggregate", "sharded_dense_unignn_aggregate",
     "make_mesh", "init_distributed", "make_hybrid_mesh", "local_shard_info",
+    "ShardTables", "serialized_halo_forward", "serialized_halo_train_step",
+    "serialized_halo_train_epochs",
 ]

@@ -16,6 +16,16 @@ transpose itself, for the way the programs use it:
   reduction each way a layer, and never D times the gradient.
 * :func:`all_to_all`: ``[D, b, F]`` block i to rank i, its own transpose
   (``halo_aggr.py:13-14``, ``:70``, ``:136``).
+* :func:`slice_columns` and :func:`gather_columns`: the feature axis, where
+  JAX's ``shard_map`` takes ``P(None, "f")`` (``dist_aggr.py:71-72``,
+  ``dense_shard.py:216``): a replicated ``[N, F]`` in, this rank's ``F /
+  n_f`` columns out, and back. The pair is conjugate: every rank of the
+  grid computes the same loss from the same replicated weights, so the
+  gradient of the gathered columns is this rank's columns of the
+  replicated cotangent (never summed over the group, which would give
+  ``n_f`` times it), and the gradient of a slice is gathered over the
+  group (otherwise each rank's weight gradient would hold only its own
+  columns).
 
 :func:`all_reduce_` and :func:`all_reduce_grads` reduce tensors outside
 autograd (a loss sum, a mask count, replicated weights' gradients) in a
@@ -95,6 +105,58 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _a2a(g, ctx.group), None
+
+
+def _columns(x: torch.Tensor, group) -> slice:
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    if x.dim() != 2 or x.shape[1] % n:
+        raise ValueError(f"the feature axis of {n} ranks splits the columns of a 2-D tensor "
+                         f"evenly; got {tuple(x.shape)}")
+    w = x.shape[1] // n
+    return slice(r * w, (r + 1) * w)
+
+
+def _all_gather_columns(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=1)
+
+
+class _SliceColumns(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x[:, _columns(x, group)].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather_columns(g, ctx.group), None
+
+
+class _GatherColumns(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_gather_columns(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[:, _columns(g, ctx.group)].contiguous(), None
+
+
+def slice_columns(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's block of the columns of a replicated ``x`` [N, F] (rank
+    r of the group takes ``[r·F/n, (r+1)·F/n)``); the backward gathers the
+    cotangent's column blocks over the group."""
+    return _SliceColumns.apply(x, group)
+
+
+def gather_columns(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's column block ``x`` [N, F/n], concatenated in rank order
+    into the replicated [N, F]; the backward takes this rank's block of the
+    (replicated) cotangent."""
+    return _GatherColumns.apply(x, group)
 
 
 def sum_to_replicated(x: torch.Tensor, group=None) -> torch.Tensor:

@@ -20,6 +20,9 @@ Each product converts the table a block of rows at a time
 slice, which ``DENSE_SHARD_MAX_BYTES`` bounds, and one converted block
 beside it; with one block the products are the whole-slice ones.
 
+``feature_sharded=True`` slices the columns around the products as
+:mod:`.dist_aggr` does (``:185-269``); the row blocks are unchanged.
+
 ``packed=True`` (JAX's int4 nibble carrier) raises: packed int4 is in
 ROADMAP.md's "Do not port" list. ``DENSE_SHARD_MAX_BYTES`` keeps its guard.
 """
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from hypergef_tpu_torch.parallel.comm import from_replicated, sum_to_replicated
+from hypergef_tpu_torch.parallel.dist_aggr import columns_in, columns_out
 from hypergef_tpu_torch.parallel.mesh import Mesh, make_mesh
 from hypergef_tpu_torch.parallel.partition import _shard_edge_vector, edge_partition_bounds
 from hypergef_tpu_torch.sparse.hypergraph import Hypergraph
@@ -194,26 +198,29 @@ def _local(plan, mesh, x):
 
 def sharded_dense_hgnn_aggregate(plan: ShardedDensePlan, x: torch.Tensor, wdiag_local=None,
                                  first_aggr: str = "sum", degV=None,
-                                 mesh: Optional[Mesh] = None) -> torch.Tensor:
+                                 mesh: Optional[Mesh] = None,
+                                 feature_sharded: bool = False) -> torch.Tensor:
     """HGNN aggregation on the int8 slices (``:185-230``): ``x`` [N, F] the
     same on every rank, result [N, F] the same on every rank."""
     if first_aggr not in ("sum", "mean"):
         raise ValueError("dense shard path supports first_aggr in {sum, mean}")
     mesh, loc = _local(plan, mesh, x)
-    x = from_replicated(x, mesh.group)
+    x = from_replicated(columns_in(x, mesh, feature_sharded), mesh.group)
     part = _TwoStage.apply(x, loc, _scale(loc, first_aggr, wdiag_local))
     out = sum_to_replicated(part, mesh.group)
-    return out * degV if degV is not None else out
+    return columns_out(out * degV if degV is not None else out, mesh, feature_sharded)
 
 
 def sharded_dense_unignn_aggregate(plan: ShardedDensePlan, x: torch.Tensor,
                                    use_deg: bool = False, degV=None,
-                                   mesh: Optional[Mesh] = None) -> torch.Tensor:
+                                   mesh: Optional[Mesh] = None,
+                                   feature_sharded: bool = False) -> torch.Tensor:
     """UniGNN aggregation (``H Hᵀ x``, or degree-scaled) on the int8 slices
     (``:233-269``)."""
     mesh, loc = _local(plan, mesh, x)
-    x = from_replicated(x, mesh.group)
+    x = from_replicated(columns_in(x, mesh, feature_sharded), mesh.group)
     scale = loc.degE if use_deg else torch.ones_like(loc.degE)
     part = _TwoStage.apply(x, loc, scale)
     out = sum_to_replicated(part, mesh.group)
-    return out * degV if use_deg and degV is not None else out
+    return columns_out(out * degV if use_deg and degV is not None else out, mesh,
+                       feature_sharded)

@@ -23,7 +23,9 @@ and a caller that needs the aligned interior checks it.
 
 Port-only: :meth:`HaloPlan.local` builds one rank's device tables from its
 slice (the takes' and stages' inverse tables of :mod:`.exact`, the aligned
-stages with the band kernel's tables, the max backward's record tables);
+stages with the band kernel's tables, the max backward's record tables),
+kept on the plan, or with ``cache=False`` for one use, as the serialized
+path takes them;
 ``max_csr`` holds each shard's vertex-major interior and boundary CSRs for
 the tree-form max backward.
 """
@@ -143,6 +145,15 @@ class LocalHalo:
     bnd_record: Optional[RecordTable]  # tree-form max backward, boundary
 
 
+@dataclasses.dataclass(frozen=True)
+class LocalCombine:
+    """The owner-combine subset of a shard's tables (``serial_halo.py:66-76``):
+    all that step 4 reads."""
+
+    own: ExactStage
+    degV_own: torch.Tensor
+
+
 def _record(ptr, idx, num_inputs: int, device) -> RecordTable:
     ptr = np.asarray(ptr, dtype=np.int64)
     idx = np.asarray(idx, dtype=np.int64)
@@ -240,17 +251,19 @@ class HaloPlan:
                 stage("bwd", np.zeros(self.n_own, np.float32), self.e_int_pad, self.n_own,
                       al["wb_b"]))
 
-    def local(self, rank: int, device) -> LocalHalo:
-        """Shard ``rank``'s tables on ``device``, built once from its slice.
-        On a card the aligned interior is put there in the band kernel's
-        form (``BandTable`` and ``LiveLayout``), on the CPU in the plain
-        form."""
+    def local(self, rank: int, device, cache: bool = True) -> LocalHalo:
+        """Shard ``rank``'s tables on ``device``, built from its slice; kept
+        on the plan (built once) unless ``cache`` is False, which neither
+        reads nor fills the plan's cache: the serialized path builds each
+        shard's tables for its turn and drops them after it. On a card the
+        aligned interior is put there in the band kernel's form
+        (``BandTable`` and ``LiveLayout``), on the CPU in the plain form."""
         from hypergef_tpu_torch.sparse.planner import _aligned_device
 
         device = torch.device(device)
         kernel = device.type == "cuda"
         key = (rank, device)
-        if key in self._local:
+        if cache and key in self._local:
             return self._local[key]
         D, d = self.n_shards, rank
         int_tree = int_fwd = int_bwd = int_rec = bnd_rec = None
@@ -288,7 +301,8 @@ class HaloPlan:
                                  device),
             e_counts=put(self.e_counts[d]), degE=put(self.degE[d]),
             degV_own=put(self.degV_own[d]), int_record=int_rec, bnd_record=bnd_rec)
-        self._local[key] = loc
+        if cache:
+            self._local[key] = loc
         return loc
 
 

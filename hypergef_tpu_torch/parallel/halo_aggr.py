@@ -11,6 +11,11 @@ JAX's ``shard_map`` body on its owned block ``x_blk`` [n_own, F]:
     3. return:   partial rows go back to their owners (one ``all_to_all``)
     4. combine:  the owner's tree sums the incoming partials → ⊙ degV
 
+Steps 2 and 4 are functions of their own (:func:`shard_compute`,
+:func:`owner_combine`), which the serialized single-device form
+(:mod:`.serial_halo`) calls with a host permutation in place of each
+``all_to_all``.
+
 The interior runs as a tree, or as the aligned form (``local_form=
 "aligned"``): ``ops.tree.tree_matvec`` over the rank's uniform aligned
 stages for sum (the band kernel on the card, forward and backward) and
@@ -48,24 +53,13 @@ from hypergef_tpu_torch.parallel.mesh import Mesh, make_mesh
 from hypergef_tpu_torch.train.trainer import init_adam_state, make_optimizer
 
 
-def halo_hgnn_aggregate(plan, x_blk: torch.Tensor, wdiag_local: Optional[torch.Tensor] = None,
-                        first_aggr: str = "sum", use_deg: bool = True,
-                        mesh: Optional[Mesh] = None) -> torch.Tensor:
-    """This rank's owned block ``x_blk`` [n_own, F] in, its block of the
-    aggregated output out (``:36-160``)."""
-    if first_aggr not in ("sum", "mean", "max"):
-        raise ValueError("halo path supports first_aggr in {sum, mean, max}")
-    mesh = mesh or make_mesh()
-    if mesh.size != plan.n_shards:
-        raise ValueError(f"plan of {plan.n_shards} shards on a mesh of {mesh.size} ranks")
-    if x_blk.shape[0] != plan.n_own:
-        raise ValueError(f"x_blk must be this rank's [{plan.n_own}, F] block, got "
-                         f"{tuple(x_blk.shape)}")
-    loc = plan.local(mesh.rank, x_blk.device)
+def shard_compute(plan, loc, x_blk: torch.Tensor, halo_in: torch.Tensor,
+                  first_aggr: str = "sum", use_deg: bool = True,
+                  wdiag_local: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Step 2, one shard's work between the two exchanges: its owned block
+    ``x_blk`` [n_own, F] and the received halo rows ``halo_in`` [D,
+    b_cap_h, F] in, its partial rows for each owner out, [D, b_cap, F]."""
     d_, f = plan.n_shards, x_blk.shape[1]
-    # 1. halo: the rows each shard's boundary edges touch, to that shard
-    halo_out = take(x_blk, loc.halo_send).reshape(d_, plan.b_cap_h, f)
-    halo_in = all_to_all(halo_out, mesh.group)
     # 2a. interior V→E on the owned block
     if plan.local_form == "aligned":
         if first_aggr == "max":
@@ -82,7 +76,7 @@ def halo_hgnn_aggregate(plan, x_blk: torch.Tensor, wdiag_local: Optional[torch.T
         xe_bnd = v2e_max_tree(x_t, loc.bnd.stage, loc.bnd_record)
     else:
         xe_bnd = apply_stage(x_t, loc.bnd)
-    # 2c. per-local-edge rows
+    # 2c. per-local-edge rows, scaled, then E→V over the touched rows
     xe_cat = torch.cat([xe_int, xe_bnd, xe_int.new_zeros((1, f))], dim=0)
     xe = take(xe_cat, loc.asm)
     if first_aggr == "mean":
@@ -92,12 +86,37 @@ def halo_hgnn_aggregate(plan, x_blk: torch.Tensor, wdiag_local: Optional[torch.T
     if wdiag_local is not None:
         xe = xe * wdiag_local
     part = apply_stage(xe, loc.v)
-    # 3. partials back to their owners
-    ret_out = (take(part, loc.send) * loc.send_mask).reshape(d_, plan.b_cap, f)
-    ret_in = all_to_all(ret_out, mesh.group)
-    # 4. the owner's combine
-    out = apply_stage(ret_in.reshape(d_ * plan.b_cap, f), loc.own)
-    return out * loc.degV_own if use_deg else out
+    return (take(part, loc.send) * loc.send_mask).reshape(d_, plan.b_cap, f)
+
+
+def owner_combine(plan, comb, ret_in: torch.Tensor, use_deg: bool = True) -> torch.Tensor:
+    """Step 4: the owner's tree over the partial rows it received, [D,
+    b_cap, F] → [n_own, F], ⊙ degV. ``comb`` is the shard's
+    :class:`~.halo.LocalCombine` (or its :class:`~.halo.LocalHalo`)."""
+    out = apply_stage(ret_in.reshape(plan.n_shards * plan.b_cap, ret_in.shape[-1]), comb.own)
+    return out * comb.degV_own if use_deg else out
+
+
+def halo_hgnn_aggregate(plan, x_blk: torch.Tensor, wdiag_local: Optional[torch.Tensor] = None,
+                        first_aggr: str = "sum", use_deg: bool = True,
+                        mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """This rank's owned block ``x_blk`` [n_own, F] in, its block of the
+    aggregated output out (``:36-160``): the owned rows each shard's
+    boundary edges touch, ``all_to_all``, :func:`shard_compute`,
+    ``all_to_all``, :func:`owner_combine`."""
+    if first_aggr not in ("sum", "mean", "max"):
+        raise ValueError("halo path supports first_aggr in {sum, mean, max}")
+    mesh = mesh or make_mesh()
+    if mesh.size != plan.n_shards:
+        raise ValueError(f"plan of {plan.n_shards} shards on a mesh of {mesh.size} ranks")
+    if x_blk.shape[0] != plan.n_own:
+        raise ValueError(f"x_blk must be this rank's [{plan.n_own}, F] block, got "
+                         f"{tuple(x_blk.shape)}")
+    loc = plan.local(mesh.rank, x_blk.device)
+    halo_out = take(x_blk, loc.halo_send).reshape(plan.n_shards, plan.b_cap_h, x_blk.shape[1])
+    halo_in = all_to_all(halo_out, mesh.group)
+    ret_out = shard_compute(plan, loc, x_blk, halo_in, first_aggr, use_deg, wdiag_local)
+    return owner_combine(plan, loc, all_to_all(ret_out, mesh.group), use_deg)
 
 
 def halo_unignn_aggregate(plan, x_blk: torch.Tensor, use_deg: bool = False,

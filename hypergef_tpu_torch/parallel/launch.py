@@ -11,6 +11,12 @@ worlds here:
   concurrent test workers never meet, with a timeout on every collective;
 * the function is a picklable module-level callable; it runs after
   :func:`~.mesh.init_distributed`, so ``mesh.make_mesh()`` gives its view;
+* the function and its arguments are pickled once, to a file each rank
+  reads when it starts: a spawned child unpickles what its parent hands it
+  through a pipe while it imports the modules that names (torch among
+  them), and the parent blocks on that pipe, so a plan handed that way
+  starts the ranks one after another (on an H100 host four ranks took
+  33-37 s to join, against 9-12 s with no plan);
 * each rank writes its result (pickled) or its traceback to a file, and the
   parent joins the world with a deadline: a rank that fails or outlives it
   ends the world (the others are terminated) with an error naming each
@@ -48,8 +54,8 @@ class RankError(RuntimeError):
     """A rank of a spawned world failed, or the world outlived its deadline."""
 
 
-def _rank_main(fn, rank: int, world: int, backend: str, platform: str, store: str,
-               out_dir: str, timeout_s: float, threads: int, args) -> None:
+def _rank_main(call: str, rank: int, world: int, backend: str, platform: str, store: str,
+               out_dir: str, timeout_s: float, threads: int) -> None:
     import torch
     import torch.distributed as dist
 
@@ -59,6 +65,8 @@ def _rank_main(fn, rank: int, world: int, backend: str, platform: str, store: st
     for var in ("GLOO_SOCKET_IFNAME", "NCCL_SOCKET_IFNAME"):
         os.environ.setdefault(var, "lo")
     try:
+        with open(call, "rb") as fh:
+            fn, args = pickle.load(fh)
         init_distributed(backend, platform, init_method=f"file://{store}", world_size=world,
                          rank=rank, local_rank=rank, local_world=world, timeout_s=timeout_s)
         joined = time.time()
@@ -93,9 +101,12 @@ def spawn(fn: Callable[..., Any], world: int, backend: str = "gloo", platform: s
     root = tempfile.mkdtemp(prefix="hypergef_world_")
     t0 = time.time()
     ctx = mp.get_context("spawn")
+    call = os.path.join(root, "call.pkl")
+    with open(call, "wb") as fh:
+        pickle.dump((fn, tuple(args)), fh)
     procs = [ctx.Process(target=_rank_main, daemon=False,
-                         args=(fn, r, world, backend, platform, os.path.join(root, "store"),
-                               root, timeout_s, threads, tuple(args)))
+                         args=(call, r, world, backend, platform, os.path.join(root, "store"),
+                               root, timeout_s, threads))
              for r in range(world)]
     try:
         for p in procs:

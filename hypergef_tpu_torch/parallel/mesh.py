@@ -1,5 +1,5 @@
-"""Process groups for the distributed programs: the edge axis, torchrun's
-environment, and the (data, edge) grid.
+"""Process groups for the distributed programs: the (edge, feature) grid,
+torchrun's environment, and the (data, edge, feature) grid.
 
 Port of ``hypergef_tpu/parallel/mesh.py`` (``:1-37``) and
 ``hypergef_tpu/parallel/multihost.py`` (``:1-138``). JAX runs one controller
@@ -15,9 +15,14 @@ The backend is an argument and never changes on its own:
 * ``gloo``: CPU ranks (the tests), or CUDA ranks that share the cards
   (``cuda:LOCAL_RANK % device_count``), several ranks to one H100.
 
-A CUDA rank without a card raises. The feature axis (``n_feature > 1``)
-raises ``NotImplementedError`` (ROADMAP.md queue 1, item 8's feature mesh
-axis).
+A CUDA rank without a card raises.
+
+The grids lay the ranks out as JAX lays its devices,
+``devices.reshape(n_edge, n_feature)`` (``mesh.py:35``) and
+``reshape(n_data, n_edge, n_feature)`` (``multihost.py:116``): world rank
+``r`` of an ``(e, f)`` grid sits at ``(r // n_feature, r % n_feature)``. A
+rank's feature group (the ranks that hold the other column slices of the
+same edge shard) is contiguous in rank order.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
-from typing import List, Optional
+from typing import Optional
 
 import torch
 import torch.distributed as dist
@@ -36,14 +41,6 @@ DATA_AXIS = "d"  # the gradient-reduction axis of the hybrid grid
 
 BACKENDS = ("gloo", "nccl")
 DEFAULT_TIMEOUT_S = 600.0
-
-
-def feature_axis_unported(n_feature: int) -> None:
-    """The feature mesh axis is not ported yet; raise naming its item."""
-    if n_feature != 1:
-        raise NotImplementedError(
-            f"n_feature={n_feature}: the feature mesh axis (tensor-parallel projections) is "
-            "not ported yet (ROADMAP.md queue 1, item 8: the feature mesh axis)")
 
 
 def rank_device(backend: str, platform: str, local_rank: int, local_world: int) -> torch.device:
@@ -73,7 +70,8 @@ def rank_device(backend: str, platform: str, local_rank: int, local_world: int) 
 class Mesh:
     """A rank's view of one mesh axis: the process group over it (None is
     the world), this rank's index and the axis size, its device, the
-    backend."""
+    backend. An edge axis of a grid with ``n_feature > 1`` carries the
+    rank's ``feature`` axis (None: a feature axis of size 1)."""
 
     group: Optional[dist.ProcessGroup]
     rank: int
@@ -81,12 +79,22 @@ class Mesh:
     device: torch.device
     backend: str
     axis: str = EDGE_AXIS
+    feature: Optional["Mesh"] = None
 
     def barrier(self) -> None:
+        """A barrier over the axis; over the whole grid when the axis
+        carries a feature axis (the edge group's, then the feature group's)."""
         if self.device.type == "cuda" and self.backend == "nccl":
             dist.barrier(group=self.group, device_ids=[self.device.index])
         else:
             dist.barrier(group=self.group)
+        if self.feature is not None:
+            self.feature.barrier()
+
+    @property
+    def lead(self) -> bool:
+        """Whether this rank is the grid's first (rank 0 of every axis)."""
+        return self.rank == 0 and (self.feature is None or self.feature.rank == 0)
 
 
 def _world_device() -> torch.device:
@@ -100,18 +108,62 @@ def _world_device() -> torch.device:
 _state: dict = {}
 
 
+def _check_feature(n_feature: int) -> None:
+    if n_feature < 1:
+        raise ValueError(f"n_feature must be at least 1, got {n_feature}")
+
+
 def make_mesh(n_edge: Optional[int] = None, n_feature: int = 1, group=None) -> Mesh:
-    """The edge axis over the world's process group (``mesh.py:24-37``):
-    ``n_edge`` must be the world's size (or None)."""
-    feature_axis_unported(n_feature)
+    """The (e, f) grid over the world (``mesh.py:24-37``), as this rank's
+    edge axis. With ``n_feature`` 1 the edge axis is the world's process
+    group (or ``group``); otherwise ``n_edge · n_feature`` must be the
+    world's size, and every rank builds every edge and feature group, in
+    the same order, as ``torch.distributed.new_group`` requires."""
+    _check_feature(n_feature)
     if not dist.is_initialized():
         raise RuntimeError("torch.distributed is not initialized: start the ranks with "
                            "parallel.launch.spawn, or under torchrun with init_distributed()")
     size = dist.get_world_size(group)
-    if n_edge is not None and n_edge != size:
+    if n_edge is None:
+        n_edge = size // n_feature
+    if n_edge * n_feature != size:
         raise ValueError(f"mesh {n_edge}x{n_feature} does not cover {size} ranks")
-    return Mesh(group=group, rank=dist.get_rank(group), size=size, device=_world_device(),
-                backend=dist.get_backend(group))
+    device, backend = _world_device(), dist.get_backend(group)
+    if n_feature == 1:
+        return Mesh(group=group, rank=dist.get_rank(group), size=size, device=device,
+                    backend=backend)
+    if group is not None:
+        raise ValueError("a feature axis is laid over the world, not a sub-group")
+    return _grid(1, n_edge, n_feature, device, backend, with_data=False)[1]
+
+
+def _grid(n_data: int, n_edge: int, n_feature: int, device, backend: str,
+          with_data: bool = True):
+    """This rank's (data, edge) axes of the world laid out as
+    ``reshape(n_data, n_edge, n_feature)``; the edge axis carries the
+    feature axis when ``n_feature > 1``, and the data axis is None without
+    ``with_data``. Groups are built edge, then feature, then data, each in
+    grid order."""
+    rank = dist.get_rank()
+    ef = n_edge * n_feature
+
+    def at(d, e, f):
+        return d * ef + e * n_feature + f
+
+    d, e, f = rank // ef, (rank // n_feature) % n_edge, rank % n_feature
+    edge_groups = {(i, k): dist.new_group([at(i, j, k) for j in range(n_edge)])
+                   for i in range(n_data) for k in range(n_feature)}
+    feature = None
+    if n_feature > 1:
+        feature_groups = {(i, j): dist.new_group([at(i, j, k) for k in range(n_feature)])
+                          for i in range(n_data) for j in range(n_edge)}
+        feature = Mesh(feature_groups[d, e], f, n_feature, device, backend, FEATURE_AXIS)
+    data = None
+    if with_data:
+        data_groups = {(j, k): dist.new_group([at(i, j, k) for i in range(n_data)])
+                       for j in range(n_edge) for k in range(n_feature)}
+        data = Mesh(data_groups[e, f], d, n_data, device, backend, DATA_AXIS)
+    return data, Mesh(edge_groups[d, f], e, n_edge, device, backend, EDGE_AXIS, feature)
 
 
 def init_distributed(
@@ -156,9 +208,11 @@ def init_distributed(
 
 @dataclasses.dataclass(frozen=True)
 class HybridMesh:
-    """A rank's (d, e) coordinates: ``data`` is its row of the data axis
-    (the gradient reduction), ``edge`` its row of the edge axis. World rank
-    ``r`` sits at ``(r // n_edge, r % n_edge)``: a rank's edge group is
+    """A rank's (d, e, f) coordinates: ``data`` is its row of the data axis
+    (the gradient reduction), ``edge`` its row of the edge axis, whose
+    ``feature`` is its feature axis (None when ``n_feature`` is 1). World
+    rank ``r`` sits at ``(r // (n_edge·n_feature), (r // n_feature) %
+    n_edge, r % n_feature)``: a rank's edge and feature groups are
     contiguous in rank order (one host's ranks, the fast links), its data
     group strides across hosts, as JAX lays the ``d`` axis across processes
     (``multihost.py:79-118``)."""
@@ -167,44 +221,46 @@ class HybridMesh:
     edge: Mesh
     n_data: int
     n_edge: int
+    n_feature: int = 1
+
+    @property
+    def feature(self) -> Optional[Mesh]:
+        return self.edge.feature
 
 
 def make_hybrid_mesh(n_edge: Optional[int] = None, n_feature: int = 1,
                      n_data: Optional[int] = None) -> HybridMesh:
-    """The (d, e) grid over the world (``multihost.py:79-118``). Defaults:
-    ``n_data`` 1, ``n_edge`` the rest. Every rank builds every group, in
-    the same order, as ``torch.distributed.new_group`` requires."""
-    feature_axis_unported(n_feature)
+    """The (d, e, f) grid over the world (``multihost.py:79-118``).
+    Defaults: ``n_data`` 1, ``n_edge`` the rest. Every rank builds every
+    group, in the same order, as ``torch.distributed.new_group``
+    requires: d·f edge groups, d·e feature groups (when ``n_feature > 1``)
+    and e·f data groups."""
+    _check_feature(n_feature)
     world = dist.get_world_size()
     n_data = 1 if n_data is None else n_data
     if n_edge is None:
-        n_edge = world // n_data
-    if n_data * n_edge != world:
+        n_edge = world // (n_data * n_feature)
+    if n_data * n_edge * n_feature != world:
         raise ValueError(f"mesh {n_data}x{n_edge}x{n_feature} does not cover {world} ranks")
-    rank = dist.get_rank()
-    backend = dist.get_backend()
-    device = _world_device()
-    edge_groups: List = [dist.new_group(list(range(d * n_edge, (d + 1) * n_edge)))
-                         for d in range(n_data)]
-    data_groups: List = [dist.new_group(list(range(e, world, n_edge))) for e in range(n_edge)]
-    d, e = divmod(rank, n_edge)
-    return HybridMesh(
-        data=Mesh(data_groups[e], d, n_data, device, backend, DATA_AXIS),
-        edge=Mesh(edge_groups[d], e, n_edge, device, backend, EDGE_AXIS),
-        n_data=n_data, n_edge=n_edge)
+    device, backend = _world_device(), dist.get_backend()
+    data, edge = _grid(n_data, n_edge, n_feature, device, backend)
+    return HybridMesh(data=data, edge=edge, n_data=n_data, n_edge=n_edge,
+                      n_feature=n_feature)
 
 
 def local_shard_info(mesh, axis: str = EDGE_AXIS) -> dict:
     """Which slots along ``axis`` this process holds
-    (``multihost.py:121-138``): one, its own, as a rank is one shard."""
-    m = mesh
-    if isinstance(mesh, HybridMesh):
-        m = mesh.edge if axis == EDGE_AXIS else mesh.data if axis == DATA_AXIS else None
-        if m is None:
-            feature_axis_unported(2)
+    (``multihost.py:121-138``): one, its own, as a rank is one shard; a
+    feature axis of size 1 has the one slot 0."""
+    if axis not in (EDGE_AXIS, FEATURE_AXIS, DATA_AXIS):
+        raise ValueError(f"unknown mesh axis {axis!r}")
+    edge = mesh.edge if isinstance(mesh, HybridMesh) else mesh
+    m = {EDGE_AXIS: edge, FEATURE_AXIS: edge.feature,
+         DATA_AXIS: mesh.data if isinstance(mesh, HybridMesh) else None}[axis]
+    size, slot = (1, 0) if m is None else (m.size, m.rank)
     return {
-        "axis_size": m.size,
-        "local_slots": [m.rank],
+        "axis_size": size,
+        "local_slots": [slot],
         "process_index": dist.get_rank(),
         "process_count": dist.get_world_size(),
     }

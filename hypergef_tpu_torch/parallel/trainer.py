@@ -16,6 +16,12 @@ work, ROADMAP.md). ``save``/``restore`` go over
 :mod:`~hypergef_tpu_torch.train.checkpoint`: rank 0 writes, every rank reads,
 a barrier between. UniGIN and UniGCNII take ``first_aggr="sum"`` only
 (``:67-97``).
+
+``n_feature > 1`` lays the world out as an ``(n_shards, n_feature)`` grid
+(:func:`~.mesh.make_mesh`): the world has ``n_shards · n_feature`` ranks,
+each aggregation is feature-sharded (``feature_sharded=True``) and the
+classifier is padded to a multiple of ``n_feature`` columns, masked out of
+the softmax (``:53-97``), as JAX's.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ from hypergef_tpu_torch.parallel.dist_aggr import sharded_hgnn_aggregate, sharde
 from hypergef_tpu_torch.parallel.dist_model import (
     MODELS, init_dist_params, make_forward, masked_nll_terms,
 )
-from hypergef_tpu_torch.parallel.mesh import Mesh, feature_axis_unported, make_mesh
+from hypergef_tpu_torch.parallel.mesh import Mesh, make_mesh
 from hypergef_tpu_torch.parallel.partition import plan_sharded_aggregation
 from hypergef_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from hypergef_tpu_torch.train.splits import accuracy
@@ -59,7 +65,9 @@ class DistTrainer:
         plan=None,
         params: Optional[Mapping] = None,
     ):
-        feature_axis_unported(n_feature)
+        n_f = n_feature if mesh is None or mesh.feature is None else mesh.feature.size
+        if nhid % n_f != 0:
+            raise ValueError(f"nhid={nhid} must be divisible by the feature-mesh axis ({n_f})")
         if model not in MODELS:
             raise ValueError(f"unknown distributed model {model!r}")
         if model == "UniGIN" and first_aggr != "sum":
@@ -70,7 +78,7 @@ class DistTrainer:
             raise ValueError(
                 "DistTrainer(model='UniGCNII') supports first_aggr='sum' only (got "
                 f"{first_aggr!r}); UniGCNII's V→E stage is a degE-scaled sum")
-        self.mesh = mesh or make_mesh(n_shards)
+        self.mesh = mesh or make_mesh(n_shards, n_feature)
         self.device = self.mesh.device
         self.n_shards = self.mesh.size
         self.plan = plan if plan is not None else plan_sharded_aggregation(hg, self.n_shards)
@@ -84,18 +92,20 @@ class DistTrainer:
         self.degV = torch.as_tensor(hg.degV, device=dev)
         self.model = model
         self.first_aggr = first_aggr
-        plan_, mesh_ = self.plan, self.mesh
+        plan_, mesh_, fs = self.plan, self.mesh, n_f > 1
 
         def aggregate(h, aggr, degv):
-            return sharded_hgnn_aggregate(plan_, h, None, aggr, degV=degv, mesh=mesh_)
+            return sharded_hgnn_aggregate(plan_, h, None, aggr, degV=degv, mesh=mesh_,
+                                          feature_sharded=fs)
 
         def unignn(h, use_deg, degv):
-            return sharded_unignn_aggregate(plan_, h, use_deg=use_deg, degV=degv, mesh=mesh_)
+            return sharded_unignn_aggregate(plan_, h, use_deg=use_deg, degV=degv, mesh=mesh_,
+                                            feature_sharded=fs)
 
         self.forward = make_forward(model, aggregate, unignn, self.degV, first_aggr,
                                     nclass=self.nclass)
         init = params if params is not None else init_dist_params(
-            model, seed, self.x.shape[1], nhid, self.nclass)
+            model, seed, self.x.shape[1], nhid, self.nclass, class_pad=n_f)
         self.params = {k: torch.as_tensor(v, dtype=torch.float32).to(dev).clone()
                        .requires_grad_(True) for k, v in init.items()}
         self.optimizer = make_optimizer(list(self.params.values()), lr, wd,
@@ -158,9 +168,9 @@ class DistTrainer:
                 for name, idx in split_idx.items() if np.asarray(idx).size}
 
     def save(self, directory: str, step: int = 0) -> None:
-        """Checkpoint the weights and Adam's state: rank 0 writes (and waits
-        for the write), then a barrier (``:158-166``)."""
-        if self.mesh.rank == 0:
+        """Checkpoint the weights and Adam's state: the grid's first rank
+        writes (and waits for the write), then a barrier (``:158-166``)."""
+        if self.mesh.lead:
             save_checkpoint(directory, step, {k: p.detach() for k, p in self.params.items()},
                             self.opt_state, wait=True)
         self.mesh.barrier()

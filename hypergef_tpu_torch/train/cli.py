@@ -28,8 +28,9 @@ rank; otherwise the CLI spawns N ranks on this host
 (``nccl``, one card a rank, the default; ``gloo`` lets ranks share a card,
 and runs CPU ranks with ``--platform cpu``). The parent loads the data,
 builds the plan and the kernels once and hands them to the ranks.
-``--feature-shards > 1`` raises ``NotImplementedError``: the feature mesh
-axis is not ported yet (ROADMAP.md queue 1, item 8).
+``--feature-shards F`` adds the feature mesh axis: the world is
+``--shards · F`` ranks in an ``(e, f)`` grid, each aggregation
+feature-sharded (``DistTrainer(n_feature=F)``).
 """
 
 from __future__ import annotations
@@ -95,7 +96,8 @@ def parse(argv=None):
     p.add_argument("--shards", type=int, default=0,
                    help=">0: edge-partitioned distributed training over this many ranks")
     p.add_argument("--feature-shards", type=int, default=1,
-                   help="with --shards: the feature mesh axis size (only 1 is ported)")
+                   help="with --shards: the feature (tensor-parallel) mesh axis size; the "
+                        "world is --shards x --feature-shards ranks")
     p.add_argument("--dist-backend", type=str, default="nccl", choices=["nccl", "gloo"],
                    help="with --shards: nccl (one card a rank) or gloo (ranks share the "
                         "cards; CPU ranks with --platform cpu)")
@@ -135,15 +137,6 @@ def load_problem(args):
     return hg, ds.features, ds.labels
 
 
-def _unported(args) -> None:
-    """The paths whose modules are not ported raise; none falls through to
-    full-batch training."""
-    if args.feature_shards > 1:
-        raise NotImplementedError(
-            "--feature-shards: the feature mesh axis is not ported yet (ROADMAP.md queue 1, "
-            "item 8: the feature mesh axis)")
-
-
 def _split(args, y):
     """The run's split (``:133-136``)."""
     from hypergef_tpu_torch.train.splits import rand_train_test_idx
@@ -180,7 +173,8 @@ def _dist_rank(args, plan, problem=None) -> dict:
 
 
 def run_distributed(args, hg, x, y, split) -> dict:
-    """``--shards``: rank 0's result, with ``ranks`` (each rank's epoch
+    """``--shards`` (times ``--feature-shards`` ranks): rank 0's result,
+    with ``ranks`` (each rank's epoch
     time, kernel launches and, on a card, peak MiB), ``setup_s`` (the
     parent's plan and build seconds) and ``world_s`` (the world's wall
     seconds, from spawn to join)."""
@@ -206,8 +200,8 @@ def run_distributed(args, hg, x, y, split) -> dict:
         native.build()
     setup_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    results = launch.spawn(_dist_rank, args.shards, backend=args.dist_backend,
-                           platform=platform, args=(args, plan))
+    results = launch.spawn(_dist_rank, args.shards * args.feature_shards,
+                           backend=args.dist_backend, platform=platform, args=(args, plan))
     res = dict(results[0])
     res.update(ranks=[_rank_summary(r) for r in results], setup_s=setup_s,
                world_s=time.perf_counter() - t0)
@@ -240,7 +234,6 @@ def main(argv=None):
               f"({sum(r.status == 'PASS' for r in results)} pass, {len(failed)} fail, "
               f"{sum(r.status == 'SKIP' for r in results)} skip)")
         sys.exit(1 if failed else 0)
-    _unported(args)
     hg, x, y = load_problem(args)
     print(hg)
     split = _split(args, y)

@@ -11,8 +11,8 @@
 * ``--validate-parity`` gives JAX's statuses on all 13 fixtures and exits
   0; a load or oracle failure is a FAIL line and exits 1.
 * ``--shards 2 --dist-backend gloo`` trains over two CPU ranks and prints
-  JAX's distributed lines; ``--feature-shards 2`` raises
-  ``NotImplementedError`` naming its ROADMAP item; a ``--minibatch-edges`` run writes JAX's CSV row (its inference time
+  JAX's distributed lines, and so does ``--feature-shards 2`` over a
+  2 x 2 grid of four; a ``--minibatch-edges`` run writes JAX's CSV row (its inference time
   NaN), and an ``--export`` run writes an artifact that loads and answers
   as the run's trainer does.
 * ``--tune``, ``--plan-cache`` and ``--profile`` run; a cached plan trains
@@ -168,12 +168,6 @@ def test_validate_real_shaped_data_checks_shape_and_accuracy(tmp_path, monkeypat
         "accuracy"].detail
 
 
-@pytest.mark.parametrize("flag, item", [(["--shards", "2", "--feature-shards", "2"], "item 8")])
-def test_unported_flags_raise(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(["--synthetic", "random"] + SMALL + flag)
-
-
 def test_shards_run(capsys):
     """``--shards 2 --dist-backend gloo --platform cpu``: two CPU ranks train
     the DistTrainer and the CLI prints JAX's lines
@@ -186,6 +180,20 @@ def test_shards_run(capsys):
         assert any(line.startswith(f"{k}: ") for line in out), k
     assert res["n_shards"] == 2 and len(res["losses"]) == 4 and np.isfinite(res["final_loss"])
     assert len(res["ranks"]) == 2 and res["timer"] == "host_clock"
+
+
+def test_feature_shards_run(capsys):
+    """``--shards 2 --feature-shards 2``: a 2 x 2 grid of four CPU ranks
+    trains the feature-sharded DistTrainer and prints JAX's lines; every
+    rank ran its steps."""
+    res = cli.main(["--synthetic", "random", "--shards", "2", "--feature-shards", "2",
+                    "--dist-backend", "gloo"] + SMALL)
+    out = capsys.readouterr().out.splitlines()
+    assert any(line.startswith("distributed (2 shards): avg epoch time ") for line in out)
+    for k in ("train_acc", "valid_acc", "test_acc", "final_loss"):
+        assert any(line.startswith(f"{k}: ") for line in out), k
+    assert res["n_shards"] == 2 and len(res["losses"]) == 4 and np.isfinite(res["final_loss"])
+    assert len(res["ranks"]) == 4
 
 
 def test_minibatch_edges_run(tmp_path):

@@ -1761,3 +1761,89 @@ def test_halo_aligned_world_matches_kernel_route(cuda):
     want, want_dx = out.detach().cpu().numpy(), xt.grad.cpu().numpy()
     assert np.abs(got - want).max() <= 5e-3 * np.abs(want).max()
     assert np.abs(got_dx - want_dx).max() <= 1e-2 * np.abs(want_dx).max()
+
+
+def _serial_plan(n_nodes: int, n_edges: int, comm: int, d: int):
+    from hypergef_tpu_torch.parallel.halo import plan_halo
+
+    hg = community_hypergraph(n_nodes, n_edges, comm, 8.0, 0.01, 3)
+    hg, _ = apply_vertex_order(hg, np.arange(hg.num_nodes), sort_edges=True)
+    plan = plan_halo(hg, d, local_form="aligned")
+    assert plan.local_form == "aligned"
+    return hg, plan
+
+
+def test_uncached_shard_build_leaves_the_plan_empty(cuda):
+    """``local(..., cache=False)`` and ``ShardTables`` keep nothing on the
+    plan; the tables wait in pinned host memory and come back to the card
+    one storage a copy, views still views, the kernel tables whole."""
+    from hypergef_tpu_torch.parallel.serial_halo import ShardTables, table_bytes
+
+    _, plan = _serial_plan(4000, 2000, 20, 2)
+    loc = plan.local(0, cuda, cache=False)
+    assert plan._local == {} and loc.int_fwd.band is not None
+    tables = ShardTables(plan, cuda)
+    assert plan._local == {}
+    host = tables.host[0]
+    assert host.int_fwd.band.band.device.type == "cpu" and host.int_fwd.band.band.is_pinned()
+    on_card = tables.local(0)
+    assert on_card.int_fwd.band.band.device == torch.device(cuda.type, 0)
+    assert (on_card.int_fwd.b_dense.untyped_storage().data_ptr()
+            == on_card.int_fwd.band.band.untyped_storage().data_ptr())
+    assert table_bytes(on_card) == tables.nbytes[0] == table_bytes(loc)
+    x = torch.randn(plan.n_own, 32, device=cuda)
+    assert torch.equal(aligned_band.aligned_band(x, on_card.int_fwd),
+                       aligned_band.aligned_band(x, loc.int_fwd))
+
+
+def _peak_above_base(fn):
+    """fn()'s result and the card's peak bytes above what was allocated
+    before it."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, torch.cuda.max_memory_allocated() - base
+
+
+def test_serialized_forward_peak_memory(cuda):
+    """A serialized forward holds one shard's tables and one turn's buffers
+    at a time: its peak on the card stays under ``peak_bound``, and it
+    equals the forward of the same plan on the CPU within the band
+    kernel's 1e-5."""
+    from hypergef_tpu_torch.parallel.serial_halo import (
+        ShardTables, peak_bound, serialized_halo_forward)
+
+    hg, plan = _serial_plan(20000, 10000, 80, 4)
+    tables = ShardTables(plan, cuda)
+    x = np.random.default_rng(1).normal(size=(hg.num_nodes, 32)).astype(np.float32)
+    got, peak = _peak_above_base(
+        lambda: serialized_halo_forward(plan, x, device=cuda, tables=tables))
+    assert peak <= peak_bound(tables, 32)
+    want = serialized_halo_forward(plan, x, device="cpu")
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    assert plan._local == {}
+
+
+def test_serialized_step_peak_memory(cuda):
+    """A serialized training step keeps no shard's tables or residuals past
+    its turn: its peak on the card stays under the forward's bound at its
+    widest layer."""
+    from hypergef_tpu_torch.parallel.serial_halo import ShardTables, peak_bound
+    from hypergef_tpu_torch.parallel.serial_halo_train import serialized_halo_train_step
+
+    hg, plan = _serial_plan(20000, 10000, 80, 4)
+    tables = ShardTables(plan, cuda)
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(hg.num_nodes, 16)).astype(np.float32)
+    y = rng.integers(0, 4, size=hg.num_nodes)
+    mask = (rng.random(hg.num_nodes) < 0.5).astype(np.float32)
+    params = {"w1": (rng.normal(size=(16, 32)) / 4.0).astype(np.float32),
+              "w2": (rng.normal(size=(32, 8)) / np.sqrt(32)).astype(np.float32)}
+    (loss, grads), peak = _peak_above_base(lambda: serialized_halo_train_step(
+        plan, params, x, y, mask, device=cuda, tables=tables))
+    assert peak <= peak_bound(tables, 32)
+    assert np.isfinite(loss) and all(np.isfinite(g).all() for g in grads.values())
+    assert plan._local == {}

@@ -11,8 +11,8 @@ the JAX package's, NumPy only (no program is compiled or run):
 * ``cached_plan_halo`` loads a plan equal to the one it built;
 * the dense shard's products a block of rows at a time equal the
   whole-slice ones;
-* the refusals: ``packed=True``, ``n_feature > 1``, nccl without a card a
-  rank, CUDA ranks without a card, the serialized halo pair.
+* the refusals: ``packed=True``, nccl without a card a rank, CUDA ranks
+  without a card.
 """
 
 import dataclasses
@@ -28,7 +28,6 @@ from hypergef_tpu.parallel import dense_shard as jdense
 from hypergef_tpu.parallel import halo as jhalo
 from hypergef_tpu.parallel import partition as jpart
 
-from hypergef_tpu_torch import parallel
 from hypergef_tpu_torch.parallel import dense_shard, halo, mesh, partition
 from hypergef_tpu_torch.sparse import plancache
 from hypergef_tpu_torch.sparse.hypergraph import Hypergraph
@@ -182,13 +181,6 @@ def test_dense_row_blocks_match_one_block(small_hg, monkeypatch):
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * float(want.abs().max()))
 
 
-def test_feature_axis_raises():
-    with pytest.raises(NotImplementedError, match="item 8: the feature mesh axis"):
-        mesh.make_mesh(2, n_feature=2)
-    with pytest.raises(NotImplementedError, match="feature mesh axis"):
-        mesh.make_hybrid_mesh(2, n_feature=2)
-
-
 def test_nccl_without_enough_cards_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         mesh.rank_device("nccl", "cuda", 0, 2)
@@ -199,13 +191,6 @@ def test_nccl_without_enough_cards_raises(monkeypatch):
     assert mesh.rank_device("gloo", "cuda", 3, 4) == torch.device("cuda", 0)
     with pytest.raises(ValueError, match="gloo"):
         mesh.rank_device("nccl", "cpu", 0, 2)
-
-
-def test_serialized_halo_raises():
-    for fn in (parallel.serialized_halo_forward, parallel.serialized_halo_train_step,
-               parallel.serialized_halo_train_epochs):
-        with pytest.raises(NotImplementedError, match="serialized halo pair"):
-            fn()
 
 
 def test_init_distributed_single_process(monkeypatch):

@@ -21,30 +21,40 @@ def _np(t):
     return t.detach().cpu().numpy()
 
 
-def agg(mesh, plan, x, cot, aggr="sum", wdiag=None, unignn=None, dense=False, degV=None):
-    """A replicated-X aggregation's output and d<out, cot>/dx."""
+def agg(mesh, plan, x, cot, aggr="sum", wdiag=None, unignn=None, dense=False, degV=None,
+        grid=None):
+    """A replicated-X aggregation's output and d<out, cot>/dx; on the
+    ``grid`` (n_edge, n_feature) feature-sharded."""
+    kw = {}
+    if grid is not None:
+        mesh = make_mesh(*grid)
+        kw = dict(mesh=mesh, feature_sharded=True)
     xt = torch.tensor(x, requires_grad=True)
     dv = None if degV is None else torch.as_tensor(degV)
     if dense:
         if unignn is None:
             w = None if wdiag is None else torch.as_tensor(
                 plan.shard_edge_vector(wdiag)[mesh.rank])
-            out = dense_shard.sharded_dense_hgnn_aggregate(plan, xt, w, aggr, degV=dv)
+            out = dense_shard.sharded_dense_hgnn_aggregate(plan, xt, w, aggr, degV=dv, **kw)
         else:
-            out = dense_shard.sharded_dense_unignn_aggregate(plan, xt, use_deg=unignn, degV=dv)
+            out = dense_shard.sharded_dense_unignn_aggregate(plan, xt, use_deg=unignn, degV=dv,
+                                                             **kw)
     elif unignn is None:
         w = None if wdiag is None else torch.as_tensor(plan.shard_edge_vector(wdiag)[mesh.rank])
-        out = dist_aggr.sharded_hgnn_aggregate(plan, xt, w, aggr, degV=dv)
+        out = dist_aggr.sharded_hgnn_aggregate(plan, xt, w, aggr, degV=dv, **kw)
     else:
-        out = dist_aggr.sharded_unignn_aggregate(plan, xt, use_deg=unignn, degV=dv)
+        out = dist_aggr.sharded_unignn_aggregate(plan, xt, use_deg=unignn, degV=dv, **kw)
     (out * torch.as_tensor(cot)).sum().backward()
     return _np(out), _np(xt.grad)
 
 
-def halo(mesh, plan, x, cot, aggr="sum", wdiag=None, use_deg=True, form=None):
-    """The halo aggregation's output and gradient, gathered to [N, F]."""
+def halo(mesh, plan, x, cot, aggr="sum", wdiag=None, use_deg=True, form=None, grid=None):
+    """The halo aggregation's output and gradient, gathered to [N, F]; on
+    the ``grid`` (n_edge, n_feature), over its edge groups."""
     if form is not None:
         assert plan.local_form == form, (plan.local_form, form)
+    if grid is not None:
+        mesh = make_mesh(*grid)
     dev = mesh.device
     xb = torch.tensor(own_block(plan, shard_vertex_features(plan, x), mesh.rank), device=dev,
                       requires_grad=True)
@@ -55,18 +65,20 @@ def halo(mesh, plan, x, cot, aggr="sum", wdiag=None, use_deg=True, form=None):
         w = torch.zeros((plan.e_pad, 1), device=dev)
         e0, e1 = int(plan.edge_bounds[mesh.rank]), int(plan.edge_bounds[mesh.rank + 1])
         w[: e1 - e0] = torch.as_tensor(wdiag[e0:e1])
-    out = halo_hgnn_aggregate(plan, xb, w, aggr, use_deg=use_deg)
+    out = halo_hgnn_aggregate(plan, xb, w, aggr, use_deg=use_deg, mesh=mesh)
     (out * cb).sum().backward()
     n = plan.num_nodes
-    return _np(gather_blocks(out.detach()))[:n], _np(gather_blocks(xb.grad))[:n]
+    return (_np(gather_blocks(out.detach(), mesh))[:n],
+            _np(gather_blocks(xb.grad, mesh))[:n])
 
 
-def trainer(mesh, hg, x, y, train_idx, model, first_aggr, params, steps, plan, nhid):
+def trainer(mesh, hg, x, y, train_idx, model, first_aggr, params, steps, plan, nhid,
+            n_feature=1):
     """Losses of ``steps`` DistTrainer steps from the given weights."""
     from hypergef_tpu_torch.parallel.trainer import DistTrainer
 
     tr = DistTrainer(hg, x, y, nhid=nhid, model=model, first_aggr=first_aggr, plan=plan,
-                     params=params)
+                     params=params, n_shards=plan.n_shards, n_feature=n_feature)
     mask = tr.train_mask(train_idx)
     return np.array([float(tr.step(mask)) for _ in range(steps)])
 
@@ -110,6 +122,47 @@ def collectives(mesh, f):
     return out
 
 
+def feature_collectives(mesh, grid, f):
+    """slice_columns and gather_columns over the grid's feature group on
+    this rank's seeded inputs (seeded by world rank): outputs and the
+    gradients of <out, cot>."""
+    import torch.distributed as dist
+
+    fg = make_mesh(*grid).feature
+    rng = np.random.default_rng(200 + dist.get_rank())
+    out = {}
+    for name, fn, width in (("slice_columns", comm.slice_columns, f * fg.size),
+                            ("gather_columns", comm.gather_columns, f)):
+        x = rng.normal(size=(3, width)).astype(np.float32)
+        cot = rng.normal(size=(3, f * fg.size if name == "gather_columns" else f)).astype(
+            np.float32)
+        xt = torch.tensor(x, requires_grad=True)
+        y = fn(xt, fg.group)
+        (y * torch.as_tensor(cot)).sum().backward()
+        out[name] = (_np(y), _np(xt.grad))
+    return out
+
+
+def grids(mesh):
+    """The (e, f) grid 2 x 2 and the (d, e, f) grid 2 x 1 x 2 of a 4-rank
+    world: each axis's (rank, size, sum of its ranks' world ranks, local
+    slots)."""
+    import torch.distributed as dist
+
+    from hypergef_tpu_torch.parallel.mesh import local_shard_info, make_hybrid_mesh
+
+    def axis(m, info_mesh, name):
+        t = torch.tensor([float(dist.get_rank())])
+        dist.all_reduce(t, group=m.group)
+        return (m.rank, m.size, float(t[0]), local_shard_info(info_mesh, name)["local_slots"])
+
+    g = make_mesh(2, 2)
+    hm = make_hybrid_mesh(n_edge=1, n_feature=2, n_data=2)
+    return {"ef": {"e": axis(g, g, "e"), "f": axis(g.feature, g, "f")},
+            "def": {"d": axis(hm.data, hm, "d"), "e": axis(hm.edge, hm, "e"),
+                    "f": axis(hm.feature, hm, "f")}}
+
+
 def checkpoint(mesh, hg, x, y, train_idx, directory, nhid):
     """DistTrainer.save then restore: the next loss after a restore equals
     the next loss after the save."""
@@ -142,7 +195,7 @@ def meshes(mesh):
 
 KINDS = {"agg": agg, "halo": halo, "trainer": trainer, "halo_step": halo_step, "dp": dp,
          "collectives": collectives, "checkpoint": checkpoint,
-         "meshes": meshes}
+         "meshes": meshes, "feature_collectives": feature_collectives, "grids": grids}
 
 
 def run(cases):
