@@ -239,30 +239,43 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    of its card program.
 29. Minibatch training (``MinibatchTrainer``, the ``cumsum`` route), one
    epoch each of (a) ``experiments/minibatch_bench.py``'s ``dblp_shaped``
-   workload at 512 edges a batch and (b) stream100k at 2048: pad shapes,
-   ``compile_count``, batches/s, sampler seconds a batch, each batch's
-   ghost-segment length beside its step's device ms, 8 segment-sum launches
-   a step, the mean loss of the last batches below that of the first, a
-   step's peak device memory above what the process held (and, for (a),
-   a full-batch ``cumsum`` step's), ``evaluate_full``'s accuracies; with
-   dropout 0, three batches' losses on the card within rtol 1e-4 of the
-   same batches on the CPU; for (a), a batch of every edge gives the
-   full-graph forward's log-probs on its real rows within 1e-5·max|ref|.
+   workload at 512 edges a batch and (b) stream100k at 2048, recorded (a
+   CUDA graph a pad shape, the counted main path) and eager from the same
+   weights and seeds: losses bitwise equal, ``compile_count`` equal to the
+   recordings and replays to the batches, 8 segment-sum launches a warm-up
+   step and a recording (8 a step eager); pad shapes, each form's
+   batches/s, sampler seconds a batch, a step's device and wall ms and its
+   peak device memory above what the process held, the recordings' pool
+   (and, for (a), a full-batch ``cumsum`` step's peak); each batch's
+   ghost-segment length beside its recorded step's device ms; the mean
+   loss of the last batches below that of the first; on the last batch,
+   the segment sum over the pad shape's runs (padded to ``max_warp_runs``)
+   bitwise equal to the launch over the batch's exact runs and to the
+   plain version, both CSRs, F = 32 and the classes, each timed;
+   ``evaluate_full``'s accuracies; with dropout 0, three batches' losses on
+   the card within rtol 1e-4 of the same batches on the CPU; for (a), a
+   batch of every edge gives the full-graph forward's log-probs on its
+   real rows within 1e-5·max|ref|.
 30. Distributed training (``hypergef_tpu_torch.parallel``), four ranks of
    a gloo world sharing the card (their times are not a scaling figure):
    (a) the CLI's ``--shards 4 --dist-backend gloo`` on coauthor_dblp's
-   dimensions for HGNN sum and max, UniGIN and UniGCNII, the losses within
-   1e-3 of a one-rank nccl world of the same ``DistTrainer``, whose
-   initial loss is within 1e-3 of a plain forward's, and the max run's
-   record-routed sum launched in every rank; (b) the halo world on SBM-60k
+   dimensions for HGNN sum and max, UniGIN and UniGCNII (eager steps: each
+   gloo rank says so), the losses within 1e-3 of a one-rank nccl world of
+   the same ``DistTrainer``, whose recorded fit (10 + 20 epochs: the
+   collectives, tree stages, fixed-order sums, the record-routed sum for
+   max and Adam in one CUDA graph) is bitwise equal to its eager fit and
+   whose initial loss is within 1e-3 of a plain forward's, and the max
+   run's record-routed sum launched in every rank; (b) the halo world on SBM-60k
    with the aligned interior (asserted taken): sum and max aggregations
    and one HGNN step against the single-device aligned kernel route (JAX's
    halo bars: 5e-3·max forward, 1e-2·max gradients, rtol 0.05 on the
    weights' gradients), and in each rank the band (1e-5), argmax (bitwise)
    and arg-sum (1e-6) kernels against their twins on its own stages; (c)
    the dense shard on 20news against the ``dense`` route (1e-2·max); (d)
-   ``DPMinibatchTrainer`` on dblp_shaped, two steps against the unsharded
-   step on the same batches (1e-3). Each world prints its start-up and
+   ``DPMinibatchTrainer`` on dblp_shaped, two eager steps of four gloo
+   ranks against the unsharded step on the same batches (1e-3), and two
+   recorded steps of one nccl rank (in (a)'s world) bitwise equal to its
+   eager ones. Each world prints its start-up and
    end (``launch.last_world``), a rank's step time, peak MiB and launches,
    and the bytes a halo layer sends; the ranks' launches join the kernels
    line as ``dist_launches``. A failed rank fails the phase.
@@ -2858,25 +2871,13 @@ def step_peak_mib(step, device) -> float:
     return (torch.cuda.max_memory_allocated(device) - base) / 2**20
 
 
-def minibatch_cell(name: str, problem, device) -> dict:
-    """One epoch of minibatch training and phase 29's checks."""
-    from hypergef_tpu_torch.train.minibatch import MinibatchTrainer
-    from hypergef_tpu_torch.train.trainer import TrainConfig, Trainer
-    from hypergef_tpu_torch.utils.timing import cuda_time_ms
-
-    hg, x, y, split = problem
-    cfg = TrainConfig(model="HGNN", nhid=32, seed=3)
-    counters = kernel_counters()
-    t0 = time.perf_counter()
-    tr = MinibatchTrainer(cfg, hg, x, y, split["train"], batch_edges=MB_BATCH_EDGES[name],
-                          device=device)
-    out = {"setup_s": time.perf_counter() - t0, "nnz": int(hg.nnz)}
-    torch.cuda.synchronize()
-    for module, attr in counters.values():
-        setattr(module, attr, 0)
-    tr.generator.manual_seed(cfg.seed + 1)
+def minibatch_epoch(tr, device):
+    """One epoch of ``tr``'s steps, sampling timed apart: (batches, losses
+    on the host, wall seconds, sampler seconds a batch)."""
+    tr.generator.manual_seed(tr.cfg.seed + 1)
     batches, losses, sampler_s = [], [], []
     it = tr.epoch_batches()
+    torch.cuda.synchronize(device)
     t0 = time.perf_counter()
     while True:
         ts = time.perf_counter()
@@ -2887,26 +2888,117 @@ def minibatch_cell(name: str, problem, device) -> dict:
         batches.append(batch)
         losses.append(tr.step(batch))
     losses = torch.stack(losses).cpu().numpy()
-    wall = time.perf_counter() - t0
+    return batches, losses, time.perf_counter() - t0, float(np.mean(sampler_s))
+
+
+def padded_runs_check(tr, batch, widths, device) -> dict:
+    """The segment-sum kernel over the pad shape's tables (runs padded to
+    ``max_warp_runs``) against the kernel over ``batch``'s exact runs and
+    the plain version, both CSRs: bitwise equal; the two launches' device
+    ms, the plain's, and the bound of the exact work (not counted on the
+    path)."""
+    from hypergef_tpu_torch.ops import segment_sum
+    from hypergef_tpu_torch.utils.timing import cuda_time_ms
+
+    tables = tr.tables[batch.pad_shape]
+    batch.write(tables)
+    out = {}
+    for side in ("v2e", "e2v"):
+        padded, exact = getattr(tables.data, side), getattr(batch.data, side)
+        for f in widths:
+            x = segment_operands(exact, f, 70 + f, device)
+            got = segment_sum.gather_segment_sum(x, padded)
+            want = segment_sum.gather_segment_sum(x, exact)
+            plain = segment_sum.gather_segment_sum_plain(x, exact)
+            check(torch.equal(got, want) and torch.equal(got, plain),
+                  f"the padded-run segment sum ({side}, F={f}) bitwise equal to the exact "
+                  f"runs' and the plain version's")
+            key = f"{side} F={f}"
+            out[key] = {
+                "runs_padded": int(padded.runs.shape[0]) - 1,
+                "runs_exact": int(exact.runs.shape[0]) - 1, "bitwise": True,
+                "padded_ms": cuda_time_ms(functools.partial(segment_sum.gather_segment_sum,
+                                                            x, padded)),
+                "exact_ms": cuda_time_ms(functools.partial(segment_sum.gather_segment_sum,
+                                                           x, exact)),
+                "plain_ms": cuda_time_ms(functools.partial(segment_sum.gather_segment_sum_plain,
+                                                           x, exact)),
+                # the rows the gather names, the int32 tables and the output
+                # once, an add a feature an entry (as time_segsum's)
+                **bound(rows_read_bytes(x, exact.gather) + nbytes(exact.gather, exact.indptr)
+                        + exact.num_segments * f * 4, exact.nnz * f)}
+    return out
+
+
+def minibatch_cell(name: str, problem, device) -> dict:
+    """One recorded epoch (the main path, counted) and one eager epoch
+    from the same weights and seeds, and phase 29's checks."""
+    from hypergef_tpu_torch.train.minibatch import MinibatchTrainer
+    from hypergef_tpu_torch.train.trainer import CAPTURE_WARMUP, TrainConfig, Trainer
+    from hypergef_tpu_torch.utils.timing import cuda_time_ms
+
+    hg, x, y, split = problem
+    cfg = TrainConfig(model="HGNN", nhid=32, seed=3)
+    counters = kernel_counters()
+    t0 = time.perf_counter()
+    tr = MinibatchTrainer(cfg, hg, x, y, split["train"], batch_edges=MB_BATCH_EDGES[name],
+                          device=device)
+    out = {"setup_s": time.perf_counter() - t0, "nnz": int(hg.nnz)}
+    eager = MinibatchTrainer(cfg, hg, x, y, split["train"], batch_edges=MB_BATCH_EDGES[name],
+                             device=device, compiled=False)
+    eager.model.load_state_dict(tr.model.state_dict())
+    check(tr.compiled and not eager.compiled, f"{name}: recorded by default on the card")
+    # the main path: the recorded epoch, counts set to 0 just before
+    torch.cuda.synchronize()
+    for module, attr in counters.values():
+        setattr(module, attr, 0)
+    batches, losses, wall, sampler_s = minibatch_epoch(tr, device)
     launched = {k: getattr(module, attr) for k, (module, attr) in counters.items()}
     n = len(batches)
-    check(launched == {k: 8 * n if k == "segsum" else 0 for k in counters},
-          f"{name}: {n} steps launched {launched}, want 8 segment sums a step")
+    recordings = len(tr._steps)
+    replays = sum(g.replays for g in tr._steps.values())
+    check(tr.compile_count == recordings >= 1 and replays == n,
+          f"{name}: compile_count {tr.compile_count}, {recordings} recordings, {replays} "
+          f"replays for {n} batches")
+    per_recording = 8 * (CAPTURE_WARMUP + 1)
+    check(launched == {k: per_recording * recordings if k == "segsum" else 0
+                       for k in counters},
+          f"{name}: {recordings} recordings launched {launched}, want 8 segment sums a "
+          f"warm-up step and 8 a recording")
+    out["launches"] = launched
+    for module, attr in counters.values():
+        setattr(module, attr, 0)
+    e_batches, e_losses, e_wall, e_sampler_s = minibatch_epoch(eager, device)
+    e_launched = {k: getattr(module, attr) for k, (module, attr) in counters.items()}
+    check(e_launched == {k: 8 * n if k == "segsum" else 0 for k in counters},
+          f"{name}: {n} eager steps launched {e_launched}, want 8 segment sums a step")
+    check(len(e_batches) == n and bool(np.array_equal(losses, e_losses)),
+          f"{name}: the recorded epoch's losses bitwise equal to the eager epoch's")
     check(bool(np.isfinite(losses).all()), f"{name}: finite losses")
     k = min(10, n // 2)
     first, last = float(losses[:k].mean()), float(losses[-k:].mean())
     check(last < first, f"{name}: the last {k} batches' mean loss {last} below the first's {first}")
-    out.update(pad_shapes=list(tr.pad_shapes), compile_count=tr.compile_count, batches=n,
-               batches_per_s=n / wall, sampler_s_a_batch=float(np.mean(sampler_s)),
-               first_mean_loss=first, last_mean_loss=last, batches_compared=k,
-               segsum_a_step=launched["segsum"] / n)
-    # each batch's ghost segment beside its step's device time (behind a queued sleep)
+    capture_s = sum(g.build_s for g in tr._steps.values())
+    out.update(pad_shapes=list(tr.pad_shapes), compile_count=tr.compile_count,
+               recordings=recordings, replays=replays, batches=n, losses_bitwise=True,
+               capture_s=capture_s, first_mean_loss=first, last_mean_loss=last,
+               batches_compared=k, eager_launches=e_launched,
+               max_warp_runs={str(list(shape)): t.runs for shape, t in tr.tables.items()},
+               recorded={"batches_per_s": n / wall,
+                         "batches_per_s_past_recording": n / (wall - capture_s),
+                         "sampler_s_a_batch": sampler_s},
+               eager={"batches_per_s": n / e_wall, "sampler_s_a_batch": e_sampler_s})
+    # each batch's ghost segment beside its recorded step's device time
+    # (behind a queued sleep); then each form's device ms, wall ms and peak
     out["ghost_and_device_ms"] = [
         [b.ghost_entries, cuda_time_ms(functools.partial(tr.step, b), repeats=3)]
         for b in batches]
-    out["step_wall_ms"] = cuda_time_ms(functools.partial(tr.step, batches[-1]), repeats=5,
-                                       queue_ahead=False)
-    out["step_peak_mib"] = step_peak_mib(functools.partial(tr.step, batches[-1]), device)
+    for form, t in (("recorded", tr), ("eager", eager)):
+        step = functools.partial(t.step, batches[-1])
+        out[form].update(step_device_ms=cuda_time_ms(step, repeats=5),
+                         step_wall_ms=cuda_time_ms(step, repeats=5, queue_ahead=False),
+                         step_peak_mib=step_peak_mib(step, device))
+    out["padded_runs"] = padded_runs_check(tr, batches[-1], (32, tr.nclass), device)
     out["accuracy"] = tr.evaluate_full(split)
     # check 2: dropout 0, the same three batches on the card and on the CPU
     cfg0 = dataclasses.replace(cfg, dropout=0.0, input_drop=0.0)
@@ -2925,7 +3017,7 @@ def minibatch_cell(name: str, problem, device) -> dict:
         rows = torch.as_tensor(b.vertex_ids[: b.num_real_vertices].astype(np.int64), device=device)
         card.model.eval()
         with torch.no_grad():
-            zb = card.model(card.batch_inputs(b)[0], b.data, None)[: b.num_real_vertices]
+            zb = card.model(card.x.index_select(0, b.rows), b.data, None)[: b.num_real_vertices]
             zf = card.model(card.x, hg.device_data(device), None).index_select(0, rows)
         err, ref = float((zb - zf).abs().max()), float(zf.abs().max())
         check(err <= 1e-5 * ref, f"{name}: the whole-graph batch within 1e-5·max|ref| ({err})")
@@ -2936,7 +3028,10 @@ def minibatch_cell(name: str, problem, device) -> dict:
         idx = torch.as_tensor(split["train"], device=device)
         out["full_batch_step_peak_mib"] = step_peak_mib(functools.partial(full.step, idx),
                                                         device)
-    out["launches"] = {k: getattr(module, attr) for k, (module, attr) in counters.items()}
+    # the recordings' shared pool (the gradients live in it), returned when
+    # they are dropped
+    out["recorded"]["pool_mib"] = graph_mb(
+        device, lambda: (tr._steps.clear(), tr.optimizer.zero_grad(set_to_none=True)))
     return out
 
 
@@ -3126,6 +3221,7 @@ DIST_CLI_RUNS = {"HGNN sum": ["--model", "HGNN"],
                  "UniGIN": ["--model", "UniGIN"], "UniGCNII": ["--model", "UniGCNII"]}
 DIST_F = 32
 DIST_STEP_TIMES = 5
+DIST_DP_STEPS = 2
 # the bars of phase 30's comparisons, each about 10-60 times the largest gap
 # seen on an H100 (PERF.md §6): the relative loss gap (seen: 7.5e-6 after
 # (a)'s 20 epochs, 2.9e-6 in (b)); the largest gradient or weight difference
@@ -3162,15 +3258,19 @@ def _step_ms(fn, device, n: int = DIST_STEP_TIMES) -> float:
     return float(np.median(out))
 
 
-def dist_reference_rank(argvs: dict) -> dict:
+def dist_reference_rank(argvs: dict, dp: tuple) -> dict:
     """Phase 30 (a)'s reference, a one-rank nccl world: the same DistTrainer
     as each CLI run (the CLI's problem, seed and warm-up), its loss and
-    gradients at the initial weights and its fit's losses; then, in this
-    rank, the record-routed sum against its twin over every shard of the
-    CLI's 4-way plan."""
+    gradients at the initial weights and its fit's losses, recorded (the
+    default on an nccl rank), beside an eager fit from the same seed; then,
+    in this rank, the record-routed sum against its twin over every shard
+    of the CLI's 4-way plan; and (d)'s data-parallel steps of one nccl
+    rank, recorded and eager (``dp``: cfg, graph, x, y, train_idx, params,
+    steps)."""
     from hypergef_tpu_torch.parallel.partition import plan_sharded_aggregation
     from hypergef_tpu_torch.parallel.trainer import DistTrainer
     from hypergef_tpu_torch.train import cli
+    from hypergef_tpu_torch.train.dp_minibatch import DPMinibatchTrainer
 
     args = cli.parse(DIST_CLI)
     hg, x, y = cli.load_problem(args)
@@ -3184,8 +3284,19 @@ def dist_reference_rank(argvs: dict) -> dict:
         init = tr.loss(mask)
         init.backward()
         grads = {k: p.grad.cpu().numpy() for k, p in tr.params.items()}
-        out[name] = {"init_loss": float(init.detach()), "init_grads": grads,
-                     "losses": tr.fit(split["train"], epochs=epochs)["losses"]}
+        init_loss = float(init.detach())
+        # the recording must not meet this backward's graph: kept alive, its
+        # gradient accumulators stay on the default stream, which a capture
+        # on its side stream cannot wait for
+        del init
+        fit = tr.fit(split["train"], epochs=epochs)
+        eager = DistTrainer(hg, x, y, nhid=32, model=model, first_aggr=aggr, plan=plan, seed=1,
+                            compiled=False).fit(split["train"], epochs=epochs)
+        out[name] = {"init_loss": init_loss, "init_grads": grads,
+                     "losses": fit["losses"], "step": fit["step"],
+                     "capture_s": fit["capture_s"], "epoch_ms": fit["train_epoch_time_s"] * 1e3,
+                     "eager_losses": eager["losses"], "eager_step": eager["step"],
+                     "eager_epoch_ms": eager["train_epoch_time_s"] * 1e3}
     # the record-routed sum against its plain twin over each shard's local
     # CSR of the CLI's plan, at the widths of the max runs' two layers
     dev = tr.device
@@ -3196,6 +3307,18 @@ def dist_reference_rank(argvs: dict) -> dict:
         for f in (32, args.classes):
             g, arg = stage_record_operands(loc.e_stage, f, 60 + d, dev)
             out["record_checks"].append({"shard": d, **check_record_sum(g, arg, loc.record)})
+    # (d) on one nccl rank: recorded data-parallel steps against eager ones
+    cfg, dhg, dx, dy, train_idx, params, steps = dp
+    dps = [DPMinibatchTrainer(cfg, dhg, dx, dy, train_idx,
+                              batch_edges=MB_BATCH_EDGES["dblp_shaped"], params=params,
+                              compiled=c) for c in (None, False)]
+    out["dp"] = {}
+    for form, t in zip(("recorded", "eager"), dps):
+        losses = [float(t.step_once()) for _ in range(steps)]
+        out["dp"][form] = {"compiled": t.compiled, "losses": losses,
+                           "params": {k: p.detach().cpu().numpy()
+                                      for k, p in t.model.named_parameters()},
+                           "step_ms": _step_ms(t.step_once, dev)}
     return out
 
 
@@ -3234,8 +3357,11 @@ def dist_plain_init_loss(hg, x, y, split, model: str, aggr: str, device):
     return float(loss.detach()), {k: p.grad.cpu().numpy() for k, p in params.items()}
 
 
-def dist_cli_cells(device, card: str) -> dict:
-    """Phase 30 (a): the CLI's --shards 4 --dist-backend gloo, each model."""
+def dist_cli_cells(device, card: str, dp: tuple) -> dict:
+    """Phase 30 (a): the CLI's --shards 4 --dist-backend gloo, each model
+    (eager steps: gloo cannot be recorded), against the one-rank nccl
+    world's recorded fit, itself bitwise equal to its eager fit; the nccl
+    world also runs (d)'s recorded and eager data-parallel steps (``dp``)."""
     from hypergef_tpu_torch.parallel import launch
     from hypergef_tpu_torch.parallel.launch import spawn
     from hypergef_tpu_torch.train import cli
@@ -3249,13 +3375,16 @@ def dist_cli_cells(device, card: str) -> dict:
     out = {}
     for name, argv in DIST_CLI_RUNS.items():
         res = cli.main(DIST_CLI + argv + ["--shards", str(DIST_RANKS), "--dist-backend", "gloo"])
+        check(res["step"] == "eager" and all(r["step"] == "eager" for r in res["ranks"]),
+              f"30a {name}: every gloo rank says its steps ran eagerly")
         out[name] = {"world_s": res["world_s"], "setup_s": res["setup_s"],
-                     "timeline": launch.last_world,
+                     "timeline": launch.last_world, "step": res["step"],
                      "losses": np.asarray(res["losses"]), "final_loss": res["final_loss"],
                      "test_acc": res.get("test_acc"), "ranks": res["ranks"]}
     t0 = time.perf_counter()
-    ref = spawn(dist_reference_rank, 1, backend="nccl", platform="cuda", args=(runs,),
+    ref = spawn(dist_reference_rank, 1, backend="nccl", platform="cuda", args=(runs, dp),
                 timeout_s=600)[0]
+    out["dp_nccl"] = ref["dp"]
     ref_s = time.perf_counter() - t0
     out["nccl1_timeline"] = launch.last_world
     out["record_checks"] = ref["record_checks"]
@@ -3277,6 +3406,13 @@ def dist_cli_cells(device, card: str) -> dict:
         if aggr == "max":
             check(all(rk["launches"]["recsum"] > 0 for rk in cell["ranks"]),
                   f"30a {name}: every rank launched the record-routed sum")
+        check((r["step"], r["eager_step"]) == ("captured", "eager")
+              and bool(np.array_equal(r["losses"], r["eager_losses"])),
+              f"30a {name}: the one-rank nccl world's recorded fit ({r['step']}) bitwise "
+              f"equal to its eager fit")
+        cell.update(nccl1_step=r["step"], nccl1_capture_s=r["capture_s"],
+                    nccl1_epoch_ms=r["epoch_ms"], nccl1_eager_epoch_ms=r["eager_epoch_ms"],
+                    nccl1_recorded_bitwise_eager=True)
         cell.update(plain_init_loss=plain, nccl1_init_loss=r["init_loss"],
                     max_loss_diff_vs_nccl1=float(np.abs(cell["losses"] - r["losses"]).max()),
                     losses=cell["losses"].tolist(), nccl1_losses=np.asarray(r["losses"]).tolist())
@@ -3534,17 +3670,15 @@ def dist_dp_rank(cfg, hg, x, y, train_idx, params, steps: int) -> dict:
     launches = kernel_launches()
     params = {k: p.detach().cpu().numpy() for k, p in tr.model.named_parameters()}
     return {"losses": losses, "grads": grads, "params": params, "launches": launches,
-            "peak_mib": _rank_peak_mib(dev), "step_ms": _step_ms(tr.step_once, dev)}
+            "peak_mib": _rank_peak_mib(dev), "step_ms": _step_ms(tr.step_once, dev),
+            "step": "captured" if tr.compiled else "eager"}
 
 
-def dist_dp_cell(device) -> dict:
-    """Phase 30 (d): DPMinibatchTrainer on dblp_shaped, 512 edges a batch,
-    four ranks, against the unsharded step on the same batches."""
-    from hypergef_tpu_torch.data.sampling import HyperedgeSampler
+def dist_dp_problem(device):
+    """Phase 30 (d)'s problem: dblp_shaped, dropout 0, and the seeded
+    weights (cfg, graph, x, y, split, params)."""
     from hypergef_tpu_torch.models.zoo import build_model
-    from hypergef_tpu_torch.parallel import launch
-    from hypergef_tpu_torch.parallel.launch import spawn
-    from hypergef_tpu_torch.train.trainer import TrainConfig, init_adam_state, make_optimizer
+    from hypergef_tpu_torch.train.trainer import TrainConfig
 
     hg, x, y, split = minibatch_problem("dblp_shaped", None)
     cfg = TrainConfig(model="HGNN", nhid=32, seed=3, dropout=0.0, input_drop=0.0)
@@ -3553,7 +3687,32 @@ def dist_dp_cell(device) -> dict:
                         num_edges=hg.num_edges, dropout=0.0, input_drop=0.0, backend="cumsum",
                         seed=cfg.seed, device=device)
     params = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-    steps = 2
+    return cfg, hg, x, y, split, params
+
+
+def dist_dp_cell(device, problem, nccl: dict) -> dict:
+    """Phase 30 (d): DPMinibatchTrainer on dblp_shaped, 512 edges a batch,
+    four gloo ranks (eager), against the unsharded step on the same
+    batches; and (``nccl``, from (a)'s one-rank nccl world) recorded
+    steps bitwise equal to eager ones."""
+    from hypergef_tpu_torch.data.sampling import HyperedgeSampler
+    from hypergef_tpu_torch.models.zoo import build_model
+    from hypergef_tpu_torch.parallel import launch
+    from hypergef_tpu_torch.parallel.launch import spawn
+    from hypergef_tpu_torch.train.trainer import init_adam_state, make_optimizer
+
+    rec, eag = nccl["recorded"], nccl["eager"]
+    check(rec["compiled"] and not eag["compiled"] and rec["losses"] == eag["losses"]
+          and all(np.array_equal(rec["params"][k], v) for k, v in eag["params"].items()),
+          f"30d: one nccl rank's recorded steps bitwise equal to its eager ones "
+          f"({rec['losses']} against {eag['losses']})")
+    cfg, hg, x, y, split, params = problem
+    nclass = int(np.asarray(y).max()) + 1
+    model = build_model("HGNN", nfeat=x.shape[1], nhid=32, nclass=nclass,
+                        num_edges=hg.num_edges, dropout=0.0, input_drop=0.0, backend="cumsum",
+                        seed=cfg.seed, device=device)
+    model.load_state_dict({k: v.to(device) for k, v in params.items()})
+    steps = DIST_DP_STEPS
     t0 = time.perf_counter()
     ranks = spawn(dist_dp_rank, DIST_RANKS, backend="gloo", platform="cuda",
                   args=(cfg, hg, x, y, split["train"], params, steps), timeout_s=600)
@@ -3601,19 +3760,33 @@ def dist_dp_cell(device) -> dict:
     check(param_err <= DIST_PARAM_REL,
           f"30d: every rank's weights after {steps} steps within {DIST_PARAM_REL}·max of the "
           f"unsharded step's ({param_err})")
+    check(all(r["step"] == "eager" for r in ranks), "30d: the gloo ranks step eagerly")
     return {"world_s": world_s, "timeline": timeline, "losses": got, "unsharded_losses": want,
             "grad_rel_err": grad_err, "param_rel_err": param_err,
-            "ranks": [{k: r[k] for k in ("peak_mib", "step_ms", "launches")} for r in ranks]}
+            "nccl_recorded_bitwise_eager": True, "nccl_losses": rec["losses"],
+            "nccl_step_ms": {"recorded": rec["step_ms"], "eager": eag["step_ms"]},
+            "ranks": [{k: r[k] for k in ("peak_mib", "step_ms", "launches", "step")}
+                      for r in ranks]}
 
 
 def dist_phase(device, card: str, aligned: dict) -> dict:
     """Phase 30: the four distributed cells; every rank's launches summed."""
     torch.cuda.empty_cache()
     out = {}
-    for key, fn in (("a", lambda: dist_cli_cells(device, card)),
+    dp = dist_dp_problem(device)
+    cfg, hg, x, y, split, params = dp
+    nccl_dp = {}  # (d)'s nccl steps, run in (a)'s one-rank nccl world
+
+    def cli_cells():
+        res = dist_cli_cells(device, card, (cfg, hg, x, y, split["train"], params,
+                                            DIST_DP_STEPS))
+        nccl_dp.update(res.pop("dp_nccl"))
+        return res
+
+    for key, fn in (("a", cli_cells),
                     ("b", lambda: dist_halo_cell(aligned, device)),
                     ("c", lambda: dist_dense_cell(device)),
-                    ("d", lambda: dist_dp_cell(device))):
+                    ("d", lambda: dist_dp_cell(device, dp, nccl_dp))):
         t0 = time.perf_counter()
         out[key] = fn()
         out[key]["phase_s"] = time.perf_counter() - t0
@@ -4500,6 +4673,14 @@ def main() -> int:
             k["serial_launches"] = serial["launches"].get(c, 0)
             k["launches"] += (k["export_launches"] + k["minibatch_launches"]
                               + k["dist_launches"] + k["serial_launches"])
+    # the segment sum over each minibatch cell's padded runs (the recorded
+    # steps' tables) against the batch's exact runs, F = 32 (phase 29)
+    (segsum_line,) = [k for k in kernels if k["name"] == "gather_segment_sum"]
+    for cell, res in minibatched.items():
+        for side in ("v2e", "e2v"):
+            t = res["padded_runs"][f"{side} F=32"]
+            segsum_line.update({f"minibatch_{cell}_{side}_{key}": t[key] for key in (
+                "padded_ms", "exact_ms", "plain_ms", "bound_ms", "runs_padded", "runs_exact")})
     for k in kernels:
         t = timed[k["name"]]
         sites = KERNEL_SITES.get(k["name"], [RECORD_SUM_SITE])

@@ -28,7 +28,13 @@
 //     table holds each run's first segment and first entry, so the run's
 //     row pointer and its indices come in two coalesced loads issued
 //     together, one chain of dependent loads a run (runs, then tables,
-//     then rows), staged in shared memory for the warp's lane groups.
+//     then rows), staged in shared memory for the warp's lane groups. A
+//     minibatch's tables change every batch while a recorded step's grid
+//     stays fixed, so their runs are padded to the most any CSR of the pad
+//     shape can need (ops/segment_sum.py::max_warp_runs) with empty runs
+//     (S, nnz)..(S, nnz), whose warps leave before any load but the runs'.
+//     (The several-segment branch would read indptr[S] and store nothing
+//     for one; the early exit makes that explicit.)
 //   - Lane groups. A group of G lanes sums one segment at a time, the
 //     run's segments dealt to the groups in turn; each lane issues up to
 //     kRows row loads before it adds any of them.
@@ -171,6 +177,10 @@ segment_sum_kernel(const float* __restrict__ x, const int32_t* __restrict__ gath
   const long long s0 = first.x;
   const int nseg = next.x - first.x;
   const int k0 = first.y, nk = next.y - first.y;
+  // a pad run (a terminal row (S, nnz) after the real ones, warp_runs'
+  // pad_to): no segment, no entry, nothing to store. A real run has a
+  // segment at least (an empty segment's run stores its zeros below).
+  if (nseg == 0) return;
 
   if (nseg == 1 && nk > kRows) {
     // one segment: the warp sums it a column a lane, in windows of 32

@@ -16,11 +16,14 @@ builds the same padded batches and pad shapes as the JAX package:
 * degrees come from the full graph, with the Horvitz-Thompson factor E/b
   on degV where a batch holds b of the E hyperedges (``:190-195``).
 
-A batch's ``data`` is the port's
+A batch is host arrays. Its ``data`` is the port's
 :class:`~hypergef_tpu_torch.sparse.hypergraph.HypergraphData` on the
-sampler's device (the card unless the caller asks for the CPU), its
-segment tables built from the host arrays (``HypergraphData.from_host``),
-so building a batch reads nothing back from the card.
+sampler's device (the card unless the caller asks for the CPU), built on
+first use, its segment tables from the host arrays
+(``HypergraphData.from_host``), so nothing is read back from the card. The
+trainers instead copy each batch into the tensors of its pad shape (a
+:class:`~hypergef_tpu_torch.sparse.hypergraph.StaticTables`), which a
+recorded step reads at every replay.
 
 Known fault of the reference, kept (ROADMAP.md queue 3): ``weighted=True``
 draws edges with probability proportional to their size but still applies
@@ -31,12 +34,13 @@ the uniform E/b factor, which is biased for a non-uniform draw
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Iterator, Optional
 
 import numpy as np
 import torch
 
-from hypergef_tpu_torch.sparse.hypergraph import Hypergraph, HypergraphData
+from hypergef_tpu_torch.sparse.hypergraph import Hypergraph, HypergraphData, StaticTables
 
 
 def _bucket(n: int, minimum: int = 16) -> int:
@@ -49,37 +53,64 @@ def _bucket(n: int, minimum: int = 16) -> int:
 
 @dataclasses.dataclass
 class HyperedgeBatch:
-    """A padded minibatch at bucketed shapes (``:43-57``).
+    """A padded minibatch at bucketed shapes (``:43-57``), held as host
+    arrays.
 
-    ``data`` is a :class:`HypergraphData` over the *local* (relabelled)
-    subgraph with one ghost vertex row and one ghost hyperedge row;
+    The padded CSRs of the *local* (relabelled) subgraph, with one ghost
+    vertex row and one ghost hyperedge row, and its degrees are NumPy;
     ``vertex_ids`` maps local rows to global vertex ids (ghost → 0); masks
     select real rows. ``nnz`` counts the real incidences: the ghost row of
-    each CSR holds the other ``ghost_entries`` entries. ``rows`` and
-    ``row_mask`` are ``vertex_ids`` (int64) and ``vertex_mask`` on the
-    batch's device, copied with the batch, so a step copies nothing to it.
+    each CSR holds the other ``ghost_entries`` entries. ``data`` (JAX's
+    ``HypergraphData``, here the port's on ``device``), ``rows`` and
+    ``row_mask`` (``vertex_ids`` as int64 and ``vertex_mask`` on ``device``)
+    are built on first use; a trainer copies the batch into the tensors of
+    its pad shape instead (:meth:`write`), and builds none of them.
     """
 
-    data: HypergraphData
+    ht_indptr: np.ndarray  # [E_pad+1] int64, Hᵀ CSR (edge-major)
+    ht_indices: np.ndarray  # [nnz_pad] int32 member vertices
+    h_indptr: np.ndarray  # [N_pad+1] int64, H CSR (vertex-major)
+    h_indices: np.ndarray  # [nnz_pad] int32 incident edges
+    degV: np.ndarray  # [N_pad, 1] f32
+    degE: np.ndarray  # [E_pad, 1] f32
     vertex_ids: np.ndarray  # [N_pad] int32 global ids
     vertex_mask: np.ndarray  # [N_pad] f32 (0 for padding/ghost)
     edge_ids: np.ndarray  # [E_pad] int32 global ids
     num_real_vertices: int
     num_real_edges: int
     nnz: int
-    rows: torch.Tensor  # [N_pad] int64, vertex_ids on the device
-    row_mask: torch.Tensor  # [N_pad] f32, vertex_mask on the device
+    device: torch.device
 
     @property
     def pad_shape(self) -> tuple:
         """(N_pad, E_pad, nnz_pad)."""
-        d = self.data
-        return d.num_nodes, d.num_edges, int(d.ht_vertex.shape[0])
+        return len(self.h_indptr) - 1, len(self.ht_indptr) - 1, len(self.ht_indices)
 
     @property
     def ghost_entries(self) -> int:
         """The pad entries, all in the ghost segment of each CSR."""
         return self.pad_shape[2] - self.nnz
+
+    @functools.cached_property
+    def data(self) -> HypergraphData:
+        n, e, _ = self.pad_shape
+        return HypergraphData.from_host(self.ht_indptr, self.ht_indices, self.h_indptr,
+                                        self.h_indices, self.degV, self.degE, num_nodes=n,
+                                        num_edges=e, device=self.device)
+
+    @functools.cached_property
+    def rows(self) -> torch.Tensor:
+        return torch.as_tensor(self.vertex_ids.astype(np.int64), device=self.device)
+
+    @functools.cached_property
+    def row_mask(self) -> torch.Tensor:
+        return torch.as_tensor(self.vertex_mask, device=self.device)
+
+    def write(self, tables: StaticTables) -> None:
+        """Copy the batch into ``tables`` (``StaticTables(*pad_shape,
+        device)``) in place: its CSRs, degrees, rows and row mask."""
+        tables.write(self.ht_indptr, self.ht_indices, self.h_indptr, self.h_indices,
+                     self.degV, self.degE, rows=self.vertex_ids, row_mask=self.vertex_mask)
 
 
 def _padded_csr(indptr, indices, rows_pad, nnz_pad, pad_index):
@@ -202,8 +233,6 @@ class HyperedgeSampler:
         degE = np.ones((e_pad, 1), dtype=np.float32)
         degE[: len(edges)] = hg.degE[edges]
 
-        data = HypergraphData.from_host(ht_ptr_p, ht_idx_p, h_ptr_p, h_idx_p, degV, degE,
-                                        num_nodes=n_pad, num_edges=e_pad, device=self.device)
         vertex_ids = np.zeros(n_pad, dtype=np.int32)
         vertex_ids[: len(verts)] = verts
         vertex_mask = np.zeros(n_pad, dtype=np.float32)
@@ -211,15 +240,19 @@ class HyperedgeSampler:
         edge_ids = np.zeros(e_pad, dtype=np.int32)
         edge_ids[: len(edges)] = edges
         return HyperedgeBatch(
-            data=data,
+            ht_indptr=ht_ptr_p,
+            ht_indices=ht_idx_p,
+            h_indptr=h_ptr_p,
+            h_indices=h_idx_p,
+            degV=degV,
+            degE=degE,
             vertex_ids=vertex_ids,
             vertex_mask=vertex_mask,
             edge_ids=edge_ids,
             num_real_vertices=len(verts),
             num_real_edges=len(edges),
             nnz=nnz,
-            rows=torch.as_tensor(vertex_ids.astype(np.int64), device=self.device),
-            row_mask=torch.as_tensor(vertex_mask, device=self.device),
+            device=self.device,
         )
 
     def epoch(self, shuffle: bool = True,
@@ -245,6 +278,6 @@ class HyperedgeSampler:
             b = self.sample_batch()
             n = max(n, b.num_real_vertices + 1)
             e = max(e, b.num_real_edges + 1)
-            z = max(z, int(b.data.ht_vertex.shape[0]))
+            z = max(z, b.pad_shape[2])
         return (_bucket(int(n * margin)), _bucket(int(e * margin)),
                 _bucket(int(z * margin), minimum=64))

@@ -33,7 +33,11 @@ shapes, device, every index against N), so a call checks only ``x``. It
 refers to int64 tensors the caller may already hold (the incidence CSRs of
 :class:`~hypergef_tpu_torch.sparse.hypergraph.HypergraphData`) and adds only
 the kernel's int32 copies and, on a CUDA device, its warp runs
-(:func:`warp_runs`). ``launches`` counts the sum's launches,
+(:func:`warp_runs`). A fixed graph's table keeps its exact runs; a
+minibatch's tables, rewritten in place each batch under a recorded step
+(:class:`~hypergef_tpu_torch.sparse.hypergraph.StaticTables`), pad theirs
+with empty runs to :func:`max_warp_runs` of the pad shape, the count the
+recorded launch is frozen at. ``launches`` counts the sum's launches,
 ``record_launches`` the record-routed sum's (one a call: its two passes).
 """
 
@@ -73,7 +77,8 @@ def record_run_share(cost: int, sms: int) -> int:
                  if cost // s >= RECORD_FILL * sms), RECORD_RUN_SHARES[0])
 
 
-def warp_runs(indptr, share: int = RUN_SHARE, alone: Optional[int] = None) -> np.ndarray:
+def warp_runs(indptr, share: int = RUN_SHARE, alone: Optional[int] = None,
+              pad_to: Optional[int] = None) -> np.ndarray:
     """The kernel's warp runs over a row pointer ``indptr`` [S+1]: int32
     [W+1, 2], each run's first segment and first entry, the last row
     (S, nnz).
@@ -83,7 +88,13 @@ def warp_runs(indptr, share: int = RUN_SHARE, alone: Optional[int] = None) -> np
     costs its length plus one); a segment that costs more than ``alone``
     (by default ``share``) gets a run of its own. So every run holds whole
     consecutive segments, the runs cover [0, S) in order, and a run of
-    several segments costs less than ``share`` plus ``alone``."""
+    several segments costs less than ``share`` plus ``alone``.
+
+    ``pad_to=P`` appends terminal rows (S, nnz) up to P + 1 rows: P runs,
+    those past the W real ones empty, which the kernel leaves at once. A
+    table that needs more than P runs raises ``ValueError``; it is never
+    cut short. :func:`max_warp_runs` is the P that no CSR of a shape can
+    pass."""
     indptr = np.asarray(indptr, dtype=np.int64)
     s = indptr.size - 1
     cost = np.diff(indptr) + 1
@@ -96,7 +107,49 @@ def warp_runs(indptr, share: int = RUN_SHARE, alone: Optional[int] = None) -> np
     cut[:s] |= long
     cut[1:] |= long
     first = np.flatnonzero(cut)
+    if pad_to is not None:
+        if first.size - 1 > pad_to:
+            raise ValueError(f"the table needs {first.size - 1} warp runs, more than the "
+                             f"{pad_to} it is padded to")
+        first = np.concatenate([first, np.full(pad_to + 1 - first.size, s, dtype=first.dtype)])
     return np.ascontiguousarray(np.stack([first, indptr[first]], axis=1), dtype=np.int32)
+
+
+def max_warp_runs(num_segments: int, nnz: int, share: int = RUN_SHARE) -> int:
+    """The most runs :func:`warp_runs` (default ``alone``) makes of any CSR
+    of ``num_segments`` segments and ``nnz`` entries: the run count a pad
+    shape's launch is frozen at.
+
+    A run starts at each cut i < S, and i is cut where i = 0, where its
+    start's ``share``-bucket differs from segment i-1's, where segment i is
+    long, or where segment i-1 is. A long segment costs more than
+    ``share``, so the start after it lies in another bucket: its second cut
+    is a bucket cut already. The starts lie in [0, nnz + S), so the cut at 0
+    and the bucket cuts number at most ceil((nnz + S) / share); a long
+    segment holds at least ``share`` entries, so there are at most
+    nnz // share of them. Hence W ≤ min(S, ceil((nnz + S) / share) +
+    nnz // share)."""
+    s, z = int(num_segments), int(nnz)
+    if s <= 0:
+        return 0
+    return min(s, -(-(z + s) // share) + z // share)
+
+
+def check_host_csr(indptr, gather, num_inputs: int):
+    """The checks of a host CSR that a table is built over: (indptr int64
+    [S+1], gather [nnz]) as arrays, or ``ValueError``."""
+    ip = np.asarray(indptr, dtype=np.int64)
+    g = np.asarray(gather)
+    if ip.ndim != 1 or ip.size < 1 or ip[0] != 0 or (np.diff(ip) < 0).any():
+        raise ValueError("indptr must be a non-decreasing [S+1] row pointer from 0")
+    nnz = int(ip[-1])
+    if max(nnz, ip.size, num_inputs) > _INT32_MAX:
+        raise ValueError(f"unsupported CSR: S={ip.size - 1}, nnz={nnz}, N={num_inputs}")
+    if g.shape != (nnz,):
+        raise ValueError(f"gather must be [{nnz}], got {g.shape}")
+    if nnz and (g.min() < 0 or g.max() >= num_inputs):
+        raise ValueError(f"gather indices must lie in [0, {num_inputs})")
+    return ip, g
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,17 +182,8 @@ class SegmentTable:
         and, on a CUDA device, the warp runs are computed from the host
         arrays, so nothing is read back from the device (:meth:`from_long`
         reads it once); the kernel's int32 copies are made from the host."""
-        ip = np.asarray(indptr, dtype=np.int64)
-        g = np.asarray(gather)
-        nnz = int(ip[-1]) if ip.size else 0
-        if ip.ndim != 1 or ip.size < 1 or ip[0] != 0 or (np.diff(ip) < 0).any():
-            raise ValueError("indptr must be a non-decreasing [S+1] row pointer from 0")
-        if max(nnz, ip.size, num_inputs) > _INT32_MAX:
-            raise ValueError(f"unsupported CSR: S={ip.size - 1}, nnz={nnz}, N={num_inputs}")
-        if g.shape != (nnz,):
-            raise ValueError(f"gather must be [{nnz}], got {g.shape}")
-        if nnz and (g.min() < 0 or g.max() >= num_inputs):
-            raise ValueError(f"gather indices must lie in [0, {num_inputs})")
+        ip, g = check_host_csr(indptr, gather, num_inputs)
+        nnz = int(ip[-1])
         if tuple(indptr_long.shape) != ip.shape or tuple(gather_long.shape) != g.shape:
             raise ValueError("the device tensors must be the host CSR's shapes")
         dev = indptr_long.device

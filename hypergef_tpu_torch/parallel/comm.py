@@ -32,6 +32,15 @@ autograd (a loss sum, a mask count, replicated weights' gradients) in a
 fixed order. gloo takes CUDA tensors for these collectives (checked on the
 card by ``chip_smoke.py`` phase 30); the calls are the same for every
 backend.
+
+Under a CUDA-graph recording (a recorded ``DistTrainer`` or
+``DPMinibatchTrainer`` step) an nccl collective is recorded as the card's
+work and replayed with the step; no collective here reads the device from
+the host. A gloo collective on a CUDA tensor copies it through the host,
+which a graph cannot hold: it raises
+:class:`~hypergef_tpu_torch.utils.graphs.CaptureError` instead.
+:data:`sent_bytes` counts where :func:`all_to_all` is called: each eager
+call and each recording, not a replay (as the kernels' launch counters).
 """
 
 from __future__ import annotations
@@ -41,13 +50,24 @@ from typing import Iterable
 import torch
 import torch.distributed as dist
 
+from hypergef_tpu_torch.utils.graphs import refuse_capture
+
 # bytes moved by all_to_all calls since the last reset, this rank's send side
-# (the phase's exchange bytes a layer)
+# (the phase's exchange bytes a layer); a replay of a recorded step counts
+# nothing
 sent_bytes = 0
+
+
+def _recordable(group) -> None:
+    """Raise ``CaptureError`` for a gloo collective under a recording."""
+    if dist.get_backend(group) == "gloo":
+        refuse_capture("a gloo collective (it copies CUDA tensors through the host)",
+                       "record the step on an nccl rank, or run it eagerly")
 
 
 def all_reduce_(t: torch.Tensor, group=None) -> torch.Tensor:
     """Sum ``t`` over the group in place (no autograd) and return it."""
+    _recordable(group)
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
 
@@ -57,6 +77,7 @@ def all_reduce_grads(params: Iterable[torch.Tensor], group=None) -> None:
     in the order given (the same on every rank). A parameter without a
     gradient is skipped (Adam skips it too); every rank runs the same graph,
     so every rank skips the same ones."""
+    _recordable(group)
     for p in params:
         if p.grad is not None:
             dist.all_reduce(p.grad, op=dist.ReduceOp.SUM, group=group)
@@ -66,8 +87,7 @@ class _SumToReplicated(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         out = x.contiguous().clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-        return out
+        return all_reduce_(out, group)
 
     @staticmethod
     def backward(ctx, g):
@@ -82,13 +102,12 @@ class _FromReplicated(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
-        return g, None
+        return all_reduce_(g.contiguous().clone(), ctx.group), None
 
 
 def _a2a(x: torch.Tensor, group) -> torch.Tensor:
     global sent_bytes
+    _recordable(group)
     x = x.contiguous()
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=group)
@@ -117,6 +136,7 @@ def _columns(x: torch.Tensor, group) -> slice:
 
 
 def _all_gather_columns(x: torch.Tensor, group) -> torch.Tensor:
+    _recordable(group)
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x, group=group)

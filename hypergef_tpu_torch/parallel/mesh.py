@@ -35,6 +35,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from hypergef_tpu_torch.utils.graphs import refuse_capture
+
 EDGE_AXIS = "e"
 FEATURE_AXIS = "f"
 DATA_AXIS = "d"  # the gradient-reduction axis of the hybrid grid
@@ -83,7 +85,9 @@ class Mesh:
 
     def barrier(self) -> None:
         """A barrier over the axis; over the whole grid when the axis
-        carries a feature axis (the edge group's, then the feature group's)."""
+        carries a feature axis (the edge group's, then the feature group's).
+        It waits on the host, so it never runs inside a recorded step."""
+        refuse_capture("a barrier", "call it between the replays of a recorded step")
         if self.device.type == "cuda" and self.backend == "nccl":
             dist.barrier(group=self.group, device_ids=[self.device.index])
         else:
@@ -95,6 +99,21 @@ class Mesh:
     def lead(self) -> bool:
         """Whether this rank is the grid's first (rank 0 of every axis)."""
         return self.rank == 0 and (self.feature is None or self.feature.rank == 0)
+
+
+def compiled_for(mesh: Mesh, compiled: Optional[bool], what: str) -> bool:
+    """Whether a trainer of ``mesh``'s rank records its step into a CUDA
+    graph: an nccl rank on a card can (its collectives are the card's own
+    work); a gloo rank cannot (gloo copies through the host), nor a CPU
+    rank. ``compiled`` None takes what the rank can; True where it cannot
+    raises, naming nccl; False runs eagerly."""
+    can = mesh.backend == "nccl" and mesh.device.type == "cuda"
+    if compiled and not can:
+        raise ValueError(
+            f"{what}(compiled=True) records its step with its collectives into a CUDA "
+            f"graph, which needs an nccl rank on a card; this rank runs {mesh.backend} on "
+            f"{mesh.device}: use the nccl backend, or compiled=None/False to run eagerly")
+    return can if compiled is None else bool(compiled)
 
 
 def _world_device() -> torch.device:

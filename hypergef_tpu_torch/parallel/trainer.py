@@ -10,9 +10,14 @@ steps. The losses and the weights are the same on every rank.
 :meth:`DistTrainer.fit` runs ``warmup`` untimed epochs, then ``epochs``
 timed ones between a barrier and CUDA events on the card (the host clock on
 the CPU); it returns JAX's keys (``train_epoch_time_s``, ``final_loss``,
-``n_shards``) with ``losses`` and ``timer``. Steps run eagerly: gloo cannot
-be recorded into a CUDA graph (recording an nccl world's step is later
-work, ROADMAP.md). ``save``/``restore`` go over
+``n_shards``) with ``losses``, ``timer`` and ``step``. JAX runs the epochs
+as one chained ``lax.scan`` program (``:102-130``); on an nccl rank the
+port records one step into a CUDA graph (``compiled``: the forward with its
+collectives, the tree stages and the fixed-order segment sums, the
+record-routed sum for max, the backward and Adam) and replays it every
+epoch, each loss copied into a device buffer read once at the end. A gloo
+world (and so the feature axis on one card) runs eager steps, and says
+so. ``save``/``restore`` go over
 :mod:`~hypergef_tpu_torch.train.checkpoint`: rank 0 writes, every rank reads,
 a barrier between. UniGIN and UniGCNII take ``first_aggr="sum"`` only
 (``:67-97``).
@@ -35,16 +40,26 @@ from hypergef_tpu_torch.parallel.dist_aggr import sharded_hgnn_aggregate, sharde
 from hypergef_tpu_torch.parallel.dist_model import (
     MODELS, init_dist_params, make_forward, masked_nll_terms,
 )
-from hypergef_tpu_torch.parallel.mesh import Mesh, make_mesh
+from hypergef_tpu_torch.parallel.mesh import Mesh, compiled_for, make_mesh
 from hypergef_tpu_torch.parallel.partition import plan_sharded_aggregation
 from hypergef_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from hypergef_tpu_torch.train.splits import accuracy
-from hypergef_tpu_torch.train.trainer import _copy_into, init_adam_state, make_optimizer
+from hypergef_tpu_torch.train.trainer import (
+    _copy_into, init_adam_state, make_optimizer, record_step, training_state,
+)
+from hypergef_tpu_torch.utils.graphs import Captured
 from hypergef_tpu_torch.utils.timing import Window
 
 
 class DistTrainer:
-    """The model, its optimizer and this rank's shard of the plan."""
+    """The model, its optimizer and this rank's shard of the plan.
+
+    ``compiled``: None records the step on an nccl rank (once a
+    ``train_idx`` length, as JAX compiles once a shape: a warm-up on a
+    snapshot that is put back, whose collectives also set up the
+    communicator) and runs it eagerly on a gloo or CPU rank; False runs it
+    eagerly; True on gloo or the CPU raises, naming nccl. A recording that
+    fails raises ``CaptureError``; the step never falls back to eager."""
 
     def __init__(
         self,
@@ -64,6 +79,7 @@ class DistTrainer:
         *,
         plan=None,
         params: Optional[Mapping] = None,
+        compiled: Optional[bool] = None,
     ):
         n_f = n_feature if mesh is None or mesh.feature is None else mesh.feature.size
         if nhid % n_f != 0:
@@ -81,6 +97,7 @@ class DistTrainer:
         self.mesh = mesh or make_mesh(n_shards, n_feature)
         self.device = self.mesh.device
         self.n_shards = self.mesh.size
+        self.compiled = compiled_for(self.mesh, compiled, "DistTrainer")
         self.plan = plan if plan is not None else plan_sharded_aggregation(hg, self.n_shards)
         if self.plan.n_shards != self.n_shards:
             raise ValueError(f"plan of {self.plan.n_shards} shards on {self.n_shards} ranks")
@@ -111,6 +128,7 @@ class DistTrainer:
         self.optimizer = make_optimizer(list(self.params.values()), lr, wd,
                                         capturable=dev.type == "cuda")
         init_adam_state(self.optimizer)
+        self._steps: Dict[int, Captured] = {}  # recorded steps by train_idx length
 
     @property
     def opt_state(self) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -128,33 +146,66 @@ class DistTrainer:
         return nll / cnt.clamp_min(1.0)
 
     def step(self, mask: torch.Tensor) -> torch.Tensor:
-        """One step: forward, loss, backward, Adam; the loss before the
-        update, on the device."""
+        """One eager step: forward, loss, backward, Adam; the loss before
+        the update, on the device."""
         self.optimizer.zero_grad(set_to_none=True)
         loss = self.loss(mask)
         loss.backward()
         self.optimizer.step()
         return loss.detach()
 
+    def _state(self):
+        return training_state(self.params.values(), self.optimizer)
+
+    def _captured_step(self, train_idx) -> Captured:
+        """The step recorded for ``train_idx``'s length; ``out`` is its
+        static (mask, loss)."""
+        g = self._steps.get(len(train_idx))
+        if g is None:
+            mask = self.train_mask(train_idx)
+            g = record_step(lambda: (mask, self.step(mask)), self._state, self.optimizer,
+                            self.device)
+            self._steps[len(train_idx)] = g
+        return g
+
     def fit(self, train_idx, epochs: int = 100, warmup: int = 10) -> Dict[str, object]:
         """``warmup`` untimed steps, then ``epochs`` timed ones
-        (``:99-156``); the losses are read back once, at the end."""
+        (``:99-156``), replays of the recorded step or eager steps; each
+        loss is copied into a device buffer, read back once, at the end.
+        ``capture_s`` is the host time this call spent recording (0 where
+        the step was recorded before)."""
         mask = self.train_mask(train_idx)
+        capture_s = 0.0
+        if self.compiled:
+            recorded = len(train_idx) in self._steps
+            g = self._captured_step(train_idx)
+            if not recorded:
+                capture_s = g.build_s
+            g.out[0].copy_(mask)
+
+            def one():
+                return g.replay()[1]
+        else:
+            def one():
+                return self.step(mask)
+
         for _ in range(warmup):
-            self.step(mask)
+            one()
         self.mesh.barrier()
-        losses = []
+        losses = torch.empty(epochs, dtype=torch.float32, device=self.device)
         with Window(self.device) as window:
-            for _ in range(epochs):
-                losses.append(self.step(mask))
+            for i in range(epochs):
+                losses[i].copy_(one())
         self.mesh.barrier()
-        host = torch.stack(losses).cpu().numpy() if losses else np.zeros(0, np.float32)
+        host = losses.cpu().numpy()
         return {
             "train_epoch_time_s": window.seconds / max(epochs, 1),
             "final_loss": float(host[-1]) if host.size else float("nan"),
             "n_shards": self.n_shards,
             "losses": host,
             "timer": window.timer,
+            "step": "captured" if self.compiled else "eager",
+            "capture_s": capture_s,
         }
 
     def predict(self) -> torch.Tensor:

@@ -24,7 +24,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from hypergef_tpu_torch.ops.segment_sum import RecordTable, SegmentTable
+from hypergef_tpu_torch.ops.segment_sum import (
+    RecordTable, SegmentTable, check_host_csr, max_warp_runs, warp_runs,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,6 +99,118 @@ class HypergraphData:
         data.__dict__["e2v"] = SegmentTable.from_host(h_indptr, h_indices, num_edges,
                                                       data.h_indptr, data.h_edge)
         return data
+
+
+class StaticTables:
+    """One minibatch pad shape's :class:`HypergraphData` (``num_nodes`` N,
+    ``num_edges`` E, ``nnz`` entries each way) and the batch's ``rows``
+    (int64 [N], the global id of each local row) and ``row_mask`` (f32 [N],
+    1 on its real rows), whose tensors are written in place by
+    :meth:`write` from each batch's host arrays.
+
+    A recorded step reads the same addresses at every replay, so every
+    tensor a batch changes lives here: both CSRs' int64 row pointers,
+    indices and segment ids, their int32 copies, ``degV`` and ``degE``,
+    each segment table's warp runs padded to :func:`max_warp_runs` of the
+    shape (the kernel's launch is frozen at that count), the rows and the
+    row mask. All of them are views (:attr:`tensors`) of one device
+    buffer, filled by one copy a batch from one of two host staging
+    buffers (page-locked on a card), so the host fills the next batch's
+    while the last one's copy and step run; a staging buffer is refilled
+    only after its last copy has ended. ``data.v2e``/``e2v`` are the
+    segment tables over these views, with their runs on every device (the
+    CPU's plain form ignores them). ``data.record`` is not built here: the
+    minibatch routes sum."""
+
+    def __init__(self, num_nodes: int, num_edges: int, nnz: int, device):
+        self.device = torch.device(device)
+        n, e, z = int(num_nodes), int(num_edges), int(nnz)
+        self.shape = (n, e, z)
+        self.runs = {"v2e": max_warp_runs(e, z), "e2v": max_warp_runs(n, z)}
+        i64, i32, f32 = torch.int64, torch.int32, torch.float32
+        spec = {
+            "ht_vertex": (i64, (z,)), "ht_segids": (i64, (z,)), "ht_indptr": (i64, (e + 1,)),
+            "h_edge": (i64, (z,)), "h_segids": (i64, (z,)), "h_indptr": (i64, (n + 1,)),
+            "degV": (f32, (n, 1)), "degE": (f32, (e, 1)),
+            "v2e_indptr": (i32, (e + 1,)), "v2e_gather": (i32, (z,)),
+            "v2e_runs": (i32, (self.runs["v2e"] + 1, 2)),
+            "e2v_indptr": (i32, (n + 1,)), "e2v_gather": (i32, (z,)),
+            "e2v_runs": (i32, (self.runs["e2v"] + 1, 2)),
+            "rows": (i64, (n,)), "row_mask": (f32, (n,)),
+        }
+        spans, size = {}, 0  # name -> (first byte, bytes), each view 16-byte aligned
+        for name, (dtype, shape) in spec.items():
+            nbytes = int(np.prod(shape)) * dtype.itemsize
+            spans[name] = (size, nbytes)
+            size += -(-nbytes // 16) * 16
+        self.nbytes = size
+        self._flat = torch.empty(size, dtype=torch.uint8, device=self.device)
+        pin = self.device.type == "cuda"
+        self._stage = [torch.empty(size, dtype=torch.uint8, pin_memory=pin) for _ in range(2)]
+        self._copied = [None, None]  # the event after each staging buffer's last copy
+        self._turn = 0
+
+        def part(flat, name):
+            first, nbytes = spans[name]
+            return flat[first: first + nbytes]
+
+        self.tensors = {name: part(self._flat, name).view(dtype).view(shape)
+                        for name, (dtype, shape) in spec.items()}
+        self._host = [{name: part(s, name).view(dtype).view(shape).numpy()
+                       for name, (dtype, shape) in spec.items()} for s in self._stage]
+        t = self.tensors
+        data = HypergraphData(
+            ht_vertex=t["ht_vertex"], ht_segids=t["ht_segids"], ht_indptr=t["ht_indptr"],
+            h_edge=t["h_edge"], h_segids=t["h_segids"], h_indptr=t["h_indptr"],
+            degV=t["degV"], degE=t["degE"], num_nodes=n, num_edges=e)
+        data.__dict__["v2e"] = SegmentTable(
+            indptr=t["v2e_indptr"], indptr_long=t["ht_indptr"], gather=t["v2e_gather"],
+            gather_long=t["ht_vertex"], num_inputs=n, nnz=z, runs=t["v2e_runs"])
+        data.__dict__["e2v"] = SegmentTable(
+            indptr=t["e2v_indptr"], indptr_long=t["h_indptr"], gather=t["e2v_gather"],
+            gather_long=t["h_edge"], num_inputs=e, nnz=z, runs=t["e2v_runs"])
+        self.data = data
+
+    def write(self, ht_indptr, ht_indices, h_indptr, h_indices, degV, degE, rows,
+              row_mask) -> None:
+        """Copy one batch's host CSRs (padded to this shape), degrees, rows
+        and row mask into the tensors, in place. The checks of
+        :meth:`SegmentTable.from_host` hold; a CSR whose warp runs would
+        pass the padded count raises ``ValueError``, before anything is
+        copied."""
+        n, e, z = self.shape
+        ht_ip, ht_g = check_host_csr(ht_indptr, ht_indices, n)
+        h_ip, h_g = check_host_csr(h_indptr, h_indices, e)
+        if ht_ip.shape != (e + 1,) or h_ip.shape != (n + 1,) or ht_ip[-1] != z or h_ip[-1] != z:
+            raise ValueError(f"the batch's CSRs are not of the pad shape {self.shape}")
+        v2e_runs = warp_runs(ht_ip, pad_to=self.runs["v2e"])
+        e2v_runs = warp_runs(h_ip, pad_to=self.runs["e2v"])
+        k = self._turn
+        self._turn ^= 1
+        if self._copied[k] is not None:
+            self._copied[k].synchronize()  # that copy has read the buffer
+        h = self._host[k]
+        h["ht_indptr"][...] = ht_ip
+        h["v2e_indptr"][...] = ht_ip
+        h["ht_vertex"][...] = ht_g
+        h["v2e_gather"][...] = ht_g
+        h["ht_segids"][...] = np.repeat(np.arange(e), np.diff(ht_ip))
+        h["h_indptr"][...] = h_ip
+        h["e2v_indptr"][...] = h_ip
+        h["h_edge"][...] = h_g
+        h["e2v_gather"][...] = h_g
+        h["h_segids"][...] = np.repeat(np.arange(n), np.diff(h_ip))
+        h["degV"][...] = degV
+        h["degE"][...] = degE
+        h["v2e_runs"][...] = v2e_runs
+        h["e2v_runs"][...] = e2v_runs
+        h["rows"][...] = rows
+        h["row_mask"][...] = row_mask
+        self._flat.copy_(self._stage[k], non_blocking=True)
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+            self._copied[k] = ev
 
 
 @dataclasses.dataclass

@@ -31,6 +31,11 @@ builds the plan and the kernels once and hands them to the ranks.
 ``--feature-shards F`` adds the feature mesh axis: the world is
 ``--shards · F`` ranks in an ``(e, f)`` grid, each aggregation
 feature-sharded (``DistTrainer(n_feature=F)``).
+
+The minibatch and nccl ``--shards`` runs record their step into a CUDA
+graph on the card, as the full-batch run does (the trainers' ``compiled``
+default: once a pad shape, once a world's step); gloo and CPU runs step
+eagerly. Each run prints which step ran (``step: captured | eager``).
 """
 
 from __future__ import annotations
@@ -209,7 +214,8 @@ def run_distributed(args, hg, x, y, split) -> dict:
 
 
 def _rank_summary(res: dict) -> dict:
-    return {k: res[k] for k in ("train_epoch_time_s", "launches", "peak_mib") if k in res}
+    return {k: res[k] for k in ("train_epoch_time_s", "launches", "peak_mib", "step")
+            if k in res}
 
 
 def main(argv=None):
@@ -247,6 +253,7 @@ def main(argv=None):
         res = run_distributed(args, hg, x, y, split)
         print(f"distributed ({res['n_shards']} shards): "
               f"avg epoch time {res['train_epoch_time_s']:.6f}")
+        print(f"step: {res['step']}")
         for k in ("train_acc", "valid_acc", "test_acc", "final_loss"):
             if k in res:
                 print(f"{k}: {res[k]:.4f}")
@@ -306,6 +313,7 @@ def main(argv=None):
               "(exported programs are full-graph forwards); skipped", file=sys.stderr)
     backend = cfg.backend
     print(f"backend {backend} (route {route}): avg epoch time {train_time:.6f}")
+    print(f"step: {res['step']}")
     for k in ("train_acc", "valid_acc", "test_acc", "final_loss"):
         if k in res:
             print(f"{k}: {res[k]:.4f}" if isinstance(res[k], float) else f"{k}: {res[k]}")

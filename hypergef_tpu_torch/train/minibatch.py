@@ -6,14 +6,20 @@ on the ``cumsum`` route, which needs no plan: the batch's own segment tables
 (built on the host with the batch) drive the segment-sum kernel forward and
 backward (the adjoint is the same kernel over the transposed CSR). Every
 batch of a run pads to one probed shape, doubled where a batch overflows
-it (``:105-130``); :attr:`MinibatchTrainer.compile_count` counts the
-shapes the steps ran at, the counterpart of JAX's jit cache size.
+it (``:105-130``).
 
-Steps run eagerly: a batch's warp runs (``SegmentTable.runs``) differ
-from batch to batch, and a CUDA graph would freeze the launch's run count
-(ROADMAP.md: capturing one graph a pad shape is later work). Max first
-aggregation has no plan-free route in the port (JAX falls back to its nnz
-oracle there), so ``first_aggr="max"`` raises ``ValueError``.
+JAX jits the step once a pad shape (``:93``); on the card the port records
+it into a CUDA graph once a pad shape (``compiled=None``,
+:mod:`hypergef_tpu_torch.utils.graphs`) and replays it for every batch of
+that shape. Each batch is copied into its shape's tensors
+(:class:`~hypergef_tpu_torch.sparse.hypergraph.StaticTables`: the CSRs, their
+int32 copies, degrees, rows and row mask, and warp runs padded to the
+most the shape can need, :func:`~hypergef_tpu_torch.ops.segment_sum.max_warp_runs`),
+and the step reads only those, eager or recorded.
+:attr:`MinibatchTrainer.compile_count` is JAX's jit cache size: the
+recordings, or the distinct shapes of an eager run. Max first aggregation
+has no plan-free route in the port (JAX falls back to its nnz oracle
+there), so ``first_aggr="max"`` raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -26,8 +32,12 @@ import torch
 
 from hypergef_tpu_torch.data.sampling import HyperedgeBatch, HyperedgeSampler
 from hypergef_tpu_torch.models.zoo import build_model
+from hypergef_tpu_torch.sparse.hypergraph import StaticTables
 from hypergef_tpu_torch.train.splits import accuracy
-from hypergef_tpu_torch.train.trainer import TrainConfig, init_adam_state, make_optimizer
+from hypergef_tpu_torch.train.trainer import (
+    TrainConfig, init_adam_state, make_optimizer, record_step, training_state,
+)
+from hypergef_tpu_torch.utils.graphs import Captured
 
 
 class MinibatchTrainer:
@@ -37,7 +47,13 @@ class MinibatchTrainer:
     ``params_from_flax``); without it the weights are drawn from
     ``cfg.seed``. The sampler draws JAX's batches for ``sampler_seed``: the
     probe of the pad shapes and the one batch JAX draws to initialise its
-    parameters are drawn here too."""
+    parameters are drawn here too.
+
+    ``compiled`` as the full-batch ``Trainer``'s: None records the step on
+    a CUDA device, once a pad shape at its first batch (a warm-up on a
+    snapshot that is put back, the dropout generator registered), and runs
+    it eagerly on the CPU; False runs it eagerly; True on the CPU raises.
+    The recordings share one memory pool: one replays at a time."""
 
     def __init__(
         self,
@@ -53,15 +69,21 @@ class MinibatchTrainer:
         *,
         device="cuda",
         params: Optional[Mapping[str, Any]] = None,
+        compiled: Optional[bool] = None,
     ):
         if cfg.first_aggr == "max":
             raise ValueError(
                 "first_aggr='max' has no plan-free route in this package (the minibatch "
                 "steps run cumsum, which sums): train max full-batch with a plan")
+        if compiled and torch.device(device).type != "cuda":
+            raise ValueError(
+                f"compiled=True needs a CUDA device (a CUDA graph records the card's "
+                f"kernels); on {device} the minibatch steps run eagerly")
         self.cfg = cfg
         self.hg = hg
         self.sampler = HyperedgeSampler(hg, batch_edges, seed=sampler_seed, device=device)
         self.device = self.sampler.device
+        self.compiled = self.device.type == "cuda" if compiled is None else bool(compiled)
         x = np.asarray(x, dtype=np.float32)
         self.y = np.asarray(y, dtype=np.int32)
         self.nclass = int(nclass if nclass is not None else self.y.max() + 1)
@@ -88,35 +110,68 @@ class MinibatchTrainer:
                                         capturable=self.device.type == "cuda")
         init_adam_state(self.optimizer)
         self.generator = torch.Generator(device=self.device)
-        self._shapes = set()
+        self.tables: Dict[tuple, StaticTables] = {}  # each pad shape's batch tensors
+        self._steps: Dict[tuple, Captured] = {}  # each pad shape's recording
+        self._pool = None  # the recordings' shared memory pool
 
     @property
     def compile_count(self) -> int:
-        """The distinct pad shapes the steps ran at."""
-        return len(self._shapes)
+        """JAX's jit cache size: the recordings on the card, the distinct
+        pad shapes the steps ran at when eager."""
+        return len(self._steps) if self.compiled else len(self.tables)
 
-    def batch_inputs(self, batch: HyperedgeBatch):
-        """(xb, yb, mask) of a batch on the device: its rows' features and
-        labels, and the train mask of its real rows; gathered on the device
-        from the batch's ``rows``, so nothing is copied from the host."""
-        ids = batch.rows
+    def _state(self):
+        return training_state(self.model.state_dict().values(), self.optimizer)
+
+    def batch_inputs(self, tables: StaticTables):
+        """(xb, yb, mask) of the batch in ``tables``, on the device: its
+        rows' features and labels, and the train mask of its real rows,
+        gathered on the device from the batch's ``rows``."""
+        ids = tables.tensors["rows"]
         return (self.x.index_select(0, ids), self._y.index_select(0, ids),
-                batch.row_mask * self._train_mask.index_select(0, ids))
+                tables.tensors["row_mask"] * self._train_mask.index_select(0, ids))
 
-    def step(self, batch: HyperedgeBatch) -> torch.Tensor:
+    def _train_step(self, tables: StaticTables) -> torch.Tensor:
         """Forward, masked nll (``-Σ(picked·mask) / max(Σmask, 1)``,
-        ``:86-91``), backward, Adam on one batch; the loss before the update,
-        on the device."""
+        ``:86-91``), backward, Adam over the batch in ``tables``: what an
+        eager step runs and a graph records. The loss before the update."""
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        xb, yb, mask = self.batch_inputs(batch)
-        z = self.model(xb, batch.data, None, generator=self.generator)
+        xb, yb, mask = self.batch_inputs(tables)
+        z = self.model(xb, tables.data, None, generator=self.generator)
         picked = z.gather(1, yb[:, None])[:, 0]
         loss = -(picked * mask).sum() / mask.sum().clamp_min(1.0)
         loss.backward()
         self.optimizer.step()
-        self._shapes.add(batch.pad_shape)
         return loss.detach()
+
+    def _captured_step(self, shape: tuple) -> Captured:
+        """The step recorded over ``shape``'s tables, which hold the batch
+        it is first called for (its warm-up's batch)."""
+        g = self._steps.get(shape)
+        if g is None:
+            tables = self.tables[shape]
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            g = record_step(lambda: self._train_step(tables), self._state, self.optimizer,
+                            self.device, self.generator, pool=self._pool)
+            self._steps[shape] = g
+        return g
+
+    def step(self, batch: HyperedgeBatch) -> torch.Tensor:
+        """One step on ``batch``: copied into its pad shape's tables, then
+        the eager step or a replay of the shape's recording (made at the
+        shape's first batch). The loss before the update, on the device; a
+        replay's is a copy the next step leaves alone."""
+        shape = batch.pad_shape
+        tables = self.tables.get(shape)
+        if tables is None:
+            tables = self.tables[shape] = StaticTables(*shape, self.device)
+        batch.write(tables)
+        if not self.compiled:
+            return self._train_step(tables)
+        g = self._captured_step(shape)
+        return g.replay().clone()
 
     def epoch_batches(self):
         """One epoch of batches at the fixed pad shapes; a batch overflowing
@@ -143,8 +198,11 @@ class MinibatchTrainer:
     def fit(self, epochs: int = 1) -> Dict[str, Any]:
         """``epochs`` passes over the hyperedges, a step a batch; the losses
         are read back once, at the end (JAX's keys; ``losses`` holds them
-        all)."""
+        all). ``step`` says whether the steps ran ``"captured"`` or
+        ``"eager"``; ``capture_s`` is the host time this call spent
+        recording (warm-ups included), ``recorded`` the recordings it made."""
         self.generator.manual_seed(self.cfg.seed + 1)
+        recorded = set(self._steps)
         losses = []
         t0 = time.perf_counter()
         for _ in range(epochs):
@@ -152,12 +210,16 @@ class MinibatchTrainer:
                 losses.append(self.step(batch))
         host = torch.stack(losses).cpu().numpy() if losses else np.zeros(0, np.float32)
         dt = time.perf_counter() - t0
+        new = [g for shape, g in self._steps.items() if shape not in recorded]
         return {
             "final_loss": float(host[-1]) if host.size else float("nan"),
             "mean_loss": float(np.mean(host[-10:])) if host.size else float("nan"),
             "batches": len(losses),
             "time_s": dt,
             "losses": host,
+            "step": "captured" if self.compiled else "eager",
+            "capture_s": sum(g.build_s for g in new),
+            "recorded": len(new),
         }
 
     def evaluate_full(self, split_idx, plan=None) -> Dict[str, float]:

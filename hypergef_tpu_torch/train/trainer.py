@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Mapping, Optional
+from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -115,6 +115,63 @@ def _copy_into(dst: Mapping, src: Mapping, what: str) -> None:
                 _copy_into(t, src[k], f"{what}[{k!r}]")
             else:
                 t.copy_(torch.as_tensor(src[k]))
+
+
+def training_state(tensors: Iterable[torch.Tensor],
+                   optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:
+    """The training state's tensors: ``tensors`` (a model's ``state_dict``
+    values, or its parameters), then Adam's state of each parameter in
+    the optimizer's order."""
+    out = list(tensors)
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            st = optimizer.state[p]
+            out += [st["step"], st["exp_avg"], st["exp_avg_sq"]]
+    return out
+
+
+def snapshot_state(tensors: List[torch.Tensor], generator: Optional[torch.Generator] = None):
+    """Copies of the training state's ``tensors`` and ``generator``'s state
+    (None without one), for :func:`put_back_state`."""
+    return ([t.detach().clone() for t in tensors],
+            None if generator is None else generator.get_state())
+
+
+def put_back_state(tensors: List[torch.Tensor], snapshot,
+                   generator: Optional[torch.Generator] = None) -> None:
+    """Copy a :func:`snapshot_state` back into the same tensors, in place
+    (a recorded step keeps reading them), and the generator's state."""
+    saved, gen = snapshot
+    with torch.no_grad():
+        for t, v in zip(tensors, saved):
+            t.copy_(v)
+    if generator is not None:
+        generator.set_state(gen)
+
+
+def record_step(body: Callable[[], Any], state: Callable[[], List[torch.Tensor]],
+                optimizer: torch.optim.Optimizer, device,
+                generator: Optional[torch.Generator] = None, pool=None) -> Captured:
+    """``body`` (a training step: zero the gradients, forward, backward,
+    the optimizer's step) recorded into a CUDA graph, its ``out`` what
+    ``body`` returns. Its warm-up runs ``CAPTURE_WARMUP`` eager steps on a
+    snapshot of ``state()`` (the training state's tensors) and
+    ``generator``, puts them back and drops the gradients, so the
+    recording allocates them in its own pool (``pool``: shared with other
+    recordings, :class:`~hypergef_tpu_torch.utils.graphs.Captured`).
+    ``build_s`` is the host seconds it took, warm-up included."""
+    t0 = time.perf_counter()
+
+    def warmup():
+        snapshot = snapshot_state(state(), generator)
+        for _ in range(CAPTURE_WARMUP):
+            body()
+        put_back_state(state(), snapshot, generator)
+        optimizer.zero_grad(set_to_none=True)
+
+    g = Captured(body, device, generator, warmup, pool=pool)
+    g.build_s = time.perf_counter() - t0
+    return g
 
 
 def default_plan(backend: Optional[str], hg, device, first_aggr: str = "sum"):
@@ -270,20 +327,13 @@ class Trainer:
 
     def _state(self) -> List[torch.Tensor]:
         """The training state's tensors: parameters, then Adam's state."""
-        out = list(self.model.state_dict().values())
-        for st in self.opt_state.values():
-            out += [st["step"], st["exp_avg"], st["exp_avg_sq"]]
-        return out
+        return training_state(self.model.state_dict().values(), self.optimizer)
 
     def _snapshot(self):
-        return [t.detach().clone() for t in self._state()], self.generator.get_state()
+        return snapshot_state(self._state(), self.generator)
 
     def _put_back(self, snapshot) -> None:
-        tensors, gen = snapshot
-        with torch.no_grad():
-            for t, saved in zip(self._state(), tensors):
-                t.copy_(saved)
-        self.generator.set_state(gen)
+        put_back_state(self._state(), snapshot, self.generator)
 
     def _index(self, idx) -> torch.Tensor:
         return torch.as_tensor(np.asarray(idx), dtype=torch.int64, device=self.device)
@@ -305,21 +355,11 @@ class Trainer:
         snapshot of the parameters, Adam's state and the generator, which
         is put back before the graph is recorded."""
         g = self._steps.get(len(train_idx))
-        if g is not None:
-            return g
-        t0 = time.perf_counter()
-        idx = train_idx.clone()
-
-        def warmup():
-            snapshot = self._snapshot()
-            for _ in range(CAPTURE_WARMUP):
-                self._train_step(idx)
-            self._put_back(snapshot)
-            self.optimizer.zero_grad(set_to_none=True)
-
-        g = Captured(lambda: (idx, self._train_step(idx)), self.device, self.generator, warmup)
-        g.build_s = time.perf_counter() - t0
-        self._steps[len(train_idx)] = g
+        if g is None:
+            idx = train_idx.clone()
+            g = record_step(lambda: (idx, self._train_step(idx)), self._state, self.optimizer,
+                            self.device, self.generator)
+            self._steps[len(train_idx)] = g
         return g
 
     def step(self, train_idx: torch.Tensor) -> torch.Tensor:

@@ -57,12 +57,19 @@ class Captured:
     ``fn`` needs set up (a first call's lazy tables, cuBLAS's handle) must
     exist before it is recorded: ``warmup`` runs first, eagerly, on the same
     side stream. ``dot`` is the recording's DOT file where :data:`DUMP_DIR`
-    is set, else None.
+    is set, else None. ``replays`` counts the calls of :meth:`replay`.
+
+    ``pool`` (``torch.cuda.graph_pool_handle()``) lets several recordings
+    share one memory pool, as the recordings of one trainer's pad shapes
+    do: only one of them replays at a time, and what each returns is read
+    before another replays. A recording that fails raises
+    :class:`CaptureError` (a collective that reads the device from the
+    host, say); nothing runs eagerly in its place.
     """
 
     def __init__(self, fn: Callable[[], object], device,
                  generator: Optional[torch.Generator] = None,
-                 warmup: Optional[Callable[[], object]] = None):
+                 warmup: Optional[Callable[[], object]] = None, pool=None):
         device = torch.device(device)
         main = torch.cuda.current_stream(device)
         stream = torch.cuda.Stream(device)
@@ -79,9 +86,19 @@ class Captured:
             self.graph.enable_debug_mode()
         if generator is not None:
             self.graph.register_generator_state(generator)
-        with torch.cuda.graph(self.graph, stream=stream):
-            self.out = fn()
+        try:
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+                self.out = fn()
+        except CaptureError:
+            raise
+        except RuntimeError as err:
+            raise CaptureError(
+                f"recording failed: {err}. (A tensor that keeps an earlier backward's "
+                f"graph alive, such as a loss, keeps its gradient accumulators on the stream "
+                f"of that backward, which the recording's stream cannot wait on: let it go "
+                f"before the first recorded step.)") from err
         self.dot = None
+        self.replays = 0
         if dump is not None:
             self.graph.instantiate()
             self.dot = os.path.join(dump, f"graph-{os.getpid()}-{next(_dumps)}.dot")
@@ -91,4 +108,5 @@ class Captured:
 
     def replay(self):
         self.graph.replay()
+        self.replays += 1
         return self.out

@@ -35,7 +35,12 @@ Tolerances:
   +0.0), and within the segment sum's 1e-6 of its plain twin.
 * the compiled step and request (``utils/graphs.py``): a CUDA-graph replay
   bitwise equal to the eager step or request under the same seed, dropout
-  on: the graph launches the same kernels on the same inputs.
+  on: the graph launches the same kernels on the same inputs. So are the
+  recorded minibatch steps (a graph a pad shape), a one-rank nccl world's
+  recorded ``DistTrainer`` fit and ``DPMinibatchTrainer`` steps.
+* segment sum over a pad shape's runs (padded to ``max_warp_runs`` with
+  empty runs): bitwise equal to the launch over the batch's exact runs
+  and to the plain version.
 """
 
 import dataclasses
@@ -1847,3 +1852,95 @@ def test_serialized_step_peak_memory(cuda):
     assert peak <= peak_bound(tables, 32)
     assert np.isfinite(loss) and all(np.isfinite(g).all() for g in grads.values())
     assert plan._local == {}
+
+
+def _minibatch_problem(n: int = 3000, e: int = 1600):
+    from hypergef_tpu_torch.data.synthetic import homophilic_hypergraph, random_features
+    from hypergef_tpu_torch.train.splits import rand_train_test_idx
+
+    hg, y = homophilic_hypergraph(n, e, 4, avg_edge_size=5.0, seed=11)
+    x, _ = random_features(hg.num_nodes, 16, 4, seed=12)
+    return hg, x, y, rand_train_test_idx(y, seed=13)["train"]
+
+
+@pytest.mark.parametrize("f", [1, 3, 6, 32, 64])
+def test_padded_runs_segment_sum_is_bitwise_exact(cuda, f):
+    """Each batch of an epoch, both CSRs: the segment-sum kernel over the
+    pad shape's tables (runs padded to ``max_warp_runs``) is bitwise equal
+    to the kernel over the batch's exact runs and to the plain version (the
+    same f32 adds in CSR order from 0)."""
+    from hypergef_tpu_torch.data.sampling import HyperedgeSampler
+    from hypergef_tpu_torch.sparse.hypergraph import StaticTables
+    from hypergef_tpu_torch.ops import segment_sum
+
+    hg, _, _, _ = _minibatch_problem()
+    sampler = HyperedgeSampler(hg, 128, seed=1, device=cuda)
+    pad = sampler.probe_pad_shapes()
+    tables = StaticTables(*pad, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(f)
+    for b in sampler.epoch(pad_to=pad):
+        b.write(tables)
+        for side in ("v2e", "e2v"):
+            padded, exact = getattr(tables.data, side), getattr(b.data, side)
+            assert padded.runs.shape[0] - 1 == tables.runs[side] >= exact.runs.shape[0] - 1
+            x = torch.randn((exact.num_inputs, f), generator=gen, device=cuda)
+            got = segment_sum.gather_segment_sum(x, padded)
+            want = segment_sum.gather_segment_sum(x, exact)
+            assert torch.equal(got, want)
+            assert torch.equal(got, segment_sum.gather_segment_sum_plain(x, exact))
+
+
+@pytest.mark.parametrize("size,batch_edges,fixed_shapes",
+                         [((3000, 1600), 128, True), ((300, 160), 16, False)],
+                         ids=["probed", "bucket_a_batch"])
+def test_recorded_minibatch_epoch_equals_eager(cuda, size, batch_edges, fixed_shapes):
+    """Two epochs with dropout: the recorded steps' losses bitwise equal the
+    eager steps', every pad shape recorded once (a probed shape that holds
+    every batch; a bucket shape a batch, three recordings in one shared
+    pool), the weights bitwise equal after."""
+    from hypergef_tpu_torch.train.minibatch import MinibatchTrainer
+    from hypergef_tpu_torch.train.trainer import TrainConfig
+
+    hg, x, y, idx = _minibatch_problem(*size)
+    cfg = TrainConfig(nhid=16, seed=3)
+    eager, rec = (MinibatchTrainer(cfg, hg, x, y, idx, batch_edges=batch_edges,
+                                   fixed_shapes=fixed_shapes, device=cuda, compiled=c)
+                  for c in (False, None))
+    assert (eager.compiled, rec.compiled) == (False, True)
+    rec.model.load_state_dict(eager.model.state_dict())
+    for _ in range(2):
+        want, got = (t.fit(epochs=1) for t in (eager, rec))
+        assert (want["step"], got["step"]) == ("eager", "captured")
+        np.testing.assert_array_equal(got["losses"], want["losses"])
+    assert rec.compile_count == eager.compile_count == len(rec._steps) == len(rec.tables)
+    assert rec.compile_count == (1 if fixed_shapes else 3)
+    assert sum(g.replays for g in rec._steps.values()) == 2 * got["batches"]
+    for a, b in zip(rec._state(), eager._state()):
+        assert torch.equal(a, b)
+
+
+def test_recorded_dist_and_dp_steps_equal_eager_in_an_nccl_world(cuda):
+    """A one-rank nccl world: a recorded DistTrainer fit (HGNN sum and max,
+    UniGIN, UniGCNII; collectives, tree stages, record-routed sum and Adam
+    in one graph) bitwise equal to an eager fit, and recorded
+    DPMinibatchTrainer steps bitwise equal to eager ones."""
+    import sys
+
+    from hypergef_tpu_torch.parallel.launch import spawn
+    from hypergef_tpu_torch.train.trainer import TrainConfig
+
+    sys.path.insert(0, str(REPO / "tests"))
+    import torch_dist_ranks
+
+    hg, x, y, idx = _minibatch_problem()
+    runs = [("HGNN", "sum"), ("HGNN", "max"), ("UniGIN", "sum"), ("UniGCNII", "sum")]
+    cfg = TrainConfig(nhid=16, seed=3)
+    (out,) = spawn(torch_dist_ranks.recorded_fits, 1, backend="nccl", platform="cuda",
+                   args=(hg, x, y, idx, runs, (cfg, 128, None)), timeout_s=300)
+    for run in runs:
+        (s0, eager), (s1, rec) = out[run]
+        assert (s0, s1) == ("eager", "captured"), run
+        np.testing.assert_array_equal(rec, eager)
+    (c0, eager), (c1, rec) = out["dp"]
+    assert (c0, c1) == (False, True)
+    np.testing.assert_array_equal(rec, eager)

@@ -193,6 +193,32 @@ def meshes(mesh):
     return out
 
 
+def recorded_fits(hg, x, y, train_idx, runs, dp_args, epochs=(2, 5)):
+    """In a one-rank nccl world on the card (called by ``spawn`` directly,
+    not through :func:`run`): for each (model, first_aggr) of ``runs`` the
+    losses of an eager and of a recorded ``DistTrainer`` fit from the same
+    seed, and of three eager and three recorded ``DPMinibatchTrainer``
+    steps (``dp_args``: cfg, batch_edges and params) with the same seeds."""
+    from hypergef_tpu_torch.parallel.partition import plan_sharded_aggregation
+    from hypergef_tpu_torch.parallel.trainer import DistTrainer
+    from hypergef_tpu_torch.train.dp_minibatch import DPMinibatchTrainer
+
+    plan = plan_sharded_aggregation(hg, 1)
+    warmup, n = epochs
+    out = {}
+    for model, aggr in runs:
+        fits = [DistTrainer(hg, x, y, nhid=16, model=model, first_aggr=aggr, plan=plan,
+                            compiled=c).fit(train_idx, epochs=n, warmup=warmup)
+                for c in (False, None)]
+        out[model, aggr] = [(f["step"], f["losses"]) for f in fits]
+    cfg, batch_edges, params = dp_args
+    dps = [DPMinibatchTrainer(cfg, hg, x, y, train_idx, batch_edges=batch_edges,
+                              params=params, compiled=c) for c in (False, None)]
+    out["dp"] = [(t.compiled, np.array([float(t.step_once()) for _ in range(3)]))
+                 for t in dps]
+    return out
+
+
 KINDS = {"agg": agg, "halo": halo, "trainer": trainer, "halo_step": halo_step, "dp": dp,
          "collectives": collectives, "checkpoint": checkpoint,
          "meshes": meshes, "feature_collectives": feature_collectives, "grids": grids}
