@@ -251,7 +251,8 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    loss of the last batches below that of the first; on the last batch,
    the segment sum over the pad shape's runs (padded to ``max_warp_runs``)
    bitwise equal to the launch over the batch's exact runs and to the
-   plain version, both CSRs, F = 32 and the classes, each timed;
+   plain version, both CSRs, F = 32 and the classes, each timed beside
+   one ``torch.sparse.mm`` of the batch's CSR (the library yardstick);
    ``evaluate_full``'s accuracies; with dropout 0, three batches' losses on
    the card within rtol 1e-4 of the same batches on the CPU; for (a), a
    batch of every edge gives the full-graph forward's log-probs on its
@@ -302,7 +303,27 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    feature-sharded dense shard on 20news against the ``dense`` route, with
    the record-routed sum against its twin in every rank at the column
    widths 16 and 3. Its launches join the kernels line as
-   ``serial_launches``; the run's seconds are printed before that line.
+   ``serial_launches``.
+32. The experiment drivers on the card (``hypergef_tpu_torch/experiments``),
+   each ``main`` in process at the drivers' widths and a reduced depth
+   (``DRIVER_*``), its CSV opening with the card's row: (a)
+   fig7_9_realistic on cora, pubmed, coauthor_dblp, ModelNet40,
+   20newsW100 and Mushroom, each timed route held against the ``xla``
+   route's output on the same x before its timing (1e-3·max|xla| for the
+   f32 routes, 3e-2 for the routes that round to bf16), the auto column
+   equal to JAX's pick after the same pipeline (``REALISTIC_PICKS``), and
+   each FLOOR (the floor model at the card's rates) printed beside the
+   band kernel's bound of the same stage (``band_bound``, PERF.md §6 row
+   4); (b) auto_matrix on its five workloads, every applicable fixed route
+   timed and held against ``xla`` at the same bars, the ladder's picks of
+   the graphs of phase 21 equal to ``LADDER_PICKS``; (c) fig10 on 20news
+   at ngs 4-128, the ``tree`` route held against ``xla`` at each ngs;
+   (d) fig6 ``--quick`` on cora, coauthor_dblp and 20newsW100, HGNN nhid
+   32: every row finite and captured, no ``FAILED``; (e) serve_bench on
+   cora_shaped, parity under 1e-4; (f) minibatch_bench on dblp_shaped,
+   ``--epochs 30``, at most 3 recordings. Its launches join the kernels
+   line as ``driver_launches``; the run's seconds are printed before that
+   line.
 
 Phases 1-25 drive the default step and request: on the card a CUDA-graph
 replay (``Trainer``'s and ``ServingModel``'s ``compiled=None``); the plain
@@ -351,6 +372,8 @@ import time
 
 import numpy as np
 import torch
+
+from hypergef_tpu_torch.sparse.planner import H100_BF16_TC_OPS_PER_S, H100_STREAM_BPS
 
 # graphs of bench.py: the e2e graph and the pubmed_real kernel box
 GRAPHS = {
@@ -451,10 +474,12 @@ def check(cond: bool, what: str) -> None:
 # memory rate and its operations over the rate of the unit that does them:
 # the f32 rate outside the tensor cores, where every port kernel but the
 # band kernel does its arithmetic, or the dense bf16 tensor-core rate, where
-# the band kernel does its tile products (NVIDIA's data sheet, 700 W)
-HBM_BYTES_PER_S = 3.35e12
+# the band kernel does its tile products (NVIDIA's data sheet, 700 W; the
+# memory and tensor-core rates are the planner's, which its floor model
+# at card_floor_rates shares)
+HBM_BYTES_PER_S = H100_STREAM_BPS
 F32_OPS_PER_S = 67e12
-BF16_TC_OPS_PER_S = 989e12
+BF16_TC_OPS_PER_S = H100_BF16_TC_OPS_PER_S
 
 
 def bound(nbytes: int, ops: int, ops_per_s: float = F32_OPS_PER_S) -> dict:
@@ -1099,13 +1124,19 @@ def time_band(stage, f: int, device, csr) -> dict:
            "plain": lambda: aligned_band.aligned_band_plain(x, stage),
            "library": lambda: torch.sparse.mm(csr, xb)}
     out = time_turns(fns, ("plain", "kernel", "library", "library", "kernel", "plain"))
-    # the kernel multiplies whole tiles on the tensor cores; beside it, the
-    # time of the same function's operations on the f32 pipes, a multiply-add
-    # a feature for each non-zero count only
-    out.update(bound(stage_table_bytes(stage) + nbytes(x) + stage.num_segments * f * 4,
-                     2 * stage_dense(stage) * f, BF16_TC_OPS_PER_S))
+    out.update(band_bound(stage, f))
+    # beside it, the time of the same function's operations on the f32
+    # pipes, a multiply-add a feature for each non-zero count only
     out["live_f32_ops_ms"] = 2 * stage_live(stage) * f / F32_OPS_PER_S * 1e3
     return out
+
+
+def band_bound(stage, f: int) -> dict:
+    """The band kernel's bound on a stage at width ``f`` (PERF.md §6 row
+    4): its tables, x and the output once; the kernel multiplies whole
+    tiles on the tensor cores."""
+    return bound(stage_table_bytes(stage) + stage.num_inputs * f * 4
+                 + stage.num_segments * f * 4, 2 * stage_dense(stage) * f, BF16_TC_OPS_PER_S)
 
 
 def sbm_problem(hg, plan):
@@ -2891,12 +2922,24 @@ def minibatch_epoch(tr, device):
     return batches, losses, time.perf_counter() - t0, float(np.mean(sampler_s))
 
 
+def batch_csr(table):
+    """A batch's exact segment table as a CSR count matrix [S, N] (for the
+    library yardstick ``torch.sparse.mm``; the port never calls it)."""
+    s = int(table.indptr_long.shape[0]) - 1
+    cols = (table.gather_long if table.gather_long is not None
+            else torch.arange(table.nnz, device=table.indptr_long.device))
+    return torch.sparse_csr_tensor(table.indptr_long, cols,
+                                   torch.ones(table.nnz, device=cols.device),
+                                   (s, table.num_inputs))
+
+
 def padded_runs_check(tr, batch, widths, device) -> dict:
     """The segment-sum kernel over the pad shape's tables (runs padded to
     ``max_warp_runs``) against the kernel over ``batch``'s exact runs and
     the plain version, both CSRs: bitwise equal; the two launches' device
-    ms, the plain's, and the bound of the exact work (not counted on the
-    path)."""
+    ms, the plain's, one ``torch.sparse.mm`` of the batch's CSR (the
+    library yardstick), and the bound of the exact work (not counted on
+    the path)."""
     from hypergef_tpu_torch.ops import segment_sum
     from hypergef_tpu_torch.utils.timing import cuda_time_ms
 
@@ -2923,6 +2966,8 @@ def padded_runs_check(tr, batch, widths, device) -> dict:
                                                            x, exact)),
                 "plain_ms": cuda_time_ms(functools.partial(segment_sum.gather_segment_sum_plain,
                                                            x, exact)),
+                "library_ms": cuda_time_ms(functools.partial(torch.sparse.mm, batch_csr(exact),
+                                                             x)),
                 # the rows the gather names, the int32 tables and the output
                 # once, an add a feature an entry (as time_segsum's)
                 **bound(rows_read_bytes(x, exact.gather) + nbytes(exact.gather, exact.indptr)
@@ -4286,6 +4331,194 @@ def serial_phase(device, card: str, aligned: dict, cli_cells: dict) -> dict:
     return out
 
 
+# phase 32, the experiment drivers on the card at their own widths (F = 32,
+# nhid 32, the datasets' feature widths) and a reduced depth
+DRIVER_REALISTIC = ("cora", "pubmed", "coauthor_dblp", "ModelNet40", "20newsW100", "Mushroom")
+DRIVER_ITERS = 10  # calls a timed window (the drivers' default 30)
+DRIVER_FIG10 = ("20news", "4,8,16,32,64,128")
+DRIVER_FIG6 = ("cora", "coauthor_dblp", "20newsW100")
+DRIVER_SERVE = "cora_shaped"
+DRIVER_MINIBATCH = ("dblp_shaped", 30)  # workload, --epochs (the driver's default 150)
+DRIVER_MAX_COMPILES = 3
+# JAX's plan_aggregation pick on each DRIVER_REALISTIC graph, and on zoo
+# (tests/test_torch_port_cuda.py's), after the driver's pipeline
+# (clustered_at_dims, the raw-order shuffle, the coarsen reorder); held
+# against JAX on the CPU by tests/test_torch_port_experiments.py
+REALISTIC_PICKS = {"cora": "precomp", "pubmed": "aligned", "coauthor_dblp": "aligned",
+                   "ModelNet40": "aligned", "20newsW100": "dense", "Mushroom": "dense",
+                   "zoo": "dense"}
+
+
+def csv_lines(path) -> list:
+    with open(path) as f:
+        lines = f.read().splitlines()
+    check(lines[0].startswith("# card: "), f"{path} opens with the card's row: {lines[0]!r}")
+    return lines
+
+
+def check_route_errors(where: str, errors: dict) -> None:
+    """Each timed route's output against the ``xla`` route's on the same x,
+    within its bar (``common.route_tolerance``) of max|xla|."""
+    from hypergef_tpu_torch.experiments import common
+
+    for b, e in errors.items():
+        check(e["rel_tol"] == common.route_tolerance(b)
+              and e["max_abs_err"] <= e["rel_tol"] * e["max_abs_xla"],
+              f"{where}/{b}: {e['max_abs_err']} against {e['rel_tol']}·{e['max_abs_xla']}")
+
+
+def realistic_cell(path) -> dict:
+    """Phase 32 (a): fig7_9_realistic on DRIVER_REALISTIC. The driver holds
+    each route against xla before timing it (and ends SystemExit off its
+    bar); here each dataset's errors, its auto column against JAX's pick
+    on the same pipeline (REALISTIC_PICKS), and each FLOOR beside row 4's
+    bound of the same stage."""
+    from hypergef_tpu_torch.experiments import fig7_9_realistic
+
+    res = fig7_9_realistic.main(["--configs", ",".join(DRIVER_REALISTIC),
+                                 "--iters", str(DRIVER_ITERS), "--out", path])
+    lines = csv_lines(path)
+    check([r["dataset"] for r in res] == list(DRIVER_REALISTIC), "a result a dataset")
+    out = {}
+    for r in res:
+        name, auto = r["dataset"], r["auto"]
+        want_pick = REALISTIC_PICKS[name]
+        (summary,) = [ln for ln in lines if ln.startswith(f"SUMMARY,{name},")]
+        check(auto == want_pick and f",auto={want_pick}," in summary,
+              f"{name}: auto column {auto} against JAX's pick {want_pick}")
+        want = {"xla", auto} | ({"aligned"} if r["plan"].aligned is not None else set())
+        check(set(r["times_us"]) == want == set(r["errors"]),
+              f"{name}: timed {sorted(r['times_us'])}, held {sorted(r['errors'])}")
+        check_route_errors(name, r["errors"])
+        cell = {"nnz": r["nnz"], "auto": auto, "times_us": r["times_us"],
+                "errors": r["errors"], "host_bound": r["host_bound"],
+                "generate_s": r["generate_s"], "reorder_s": r["reorder_s"], "plan_s": r["plan_s"]}
+        if "floor" in r:
+            stages = r["plan"].aligned.device(torch.device("cuda", 0))
+            cell["floor_vs_row4"] = {}
+            for side, stage in zip(("edge", "vertex"), stages):
+                fl, row4 = r["floor"][f"{side}_stage"], band_bound(stage, 32)
+                cell["floor_vs_row4"][side] = {
+                    "floor_ms": fl["floor_s"] * 1e3, "t_elems_ms": fl["t_mxu_elems_s"] * 1e3,
+                    "t_bytes_ms": fl["t_hbm_bytes_s"] * 1e3, "row4_bound_ms": row4["bound_ms"],
+                    "row4_bound_by": row4["bound_by"]}
+        out[name] = cell
+    return out
+
+
+def auto_matrix_cell(path) -> dict:
+    """Phase 32 (b): auto_matrix on its five workloads: every applicable
+    fixed route timed and held against xla; the ladder's picks of the
+    graphs earlier phases plan are LADDER_PICKS."""
+    from hypergef_tpu_torch.experiments import auto_matrix
+
+    res = auto_matrix.main(["--out", path])
+    lines = csv_lines(path)
+    check(lines[1] == auto_matrix.HEADER and len(lines) == 2 + len(auto_matrix.WORKLOADS),
+          "auto_matrix: its header and a row a workload")
+    out = {}
+    for r in res:
+        name = r["workload"]
+        want = LADDER_PICKS.get(name)
+        check(want is None or r["auto_pick"] == want,
+              f"{name}: ladder pick {r['auto_pick']}, want {want}")
+        routes = set(auto_matrix.applicable_backends(r["plan"]))
+        check(set(r["times_us"]) == routes == set(r["errors"]) and r["auto_pick"] in routes,
+              f"{name}: timed {sorted(r['times_us'])}, applicable {sorted(routes)}")
+        check(all(np.isfinite(v) and v > 0 for v in r["times_us"].values()),
+              f"{name}: times {r['times_us']}")
+        check_route_errors(name, r["errors"])
+        out[name] = {k: r[k] for k in ("nnz", "auto_pick", "best_fixed", "times_us", "errors",
+                                       "tuned_pick", "tuned_params", "near_best",
+                                       "host_bound")}
+    return out
+
+
+def driver_phase(device, card: str) -> dict:
+    """Phase 32: the experiment drivers' ``main`` in process, each writing
+    its CSV into a temporary directory, with the kernels' counts set to 0
+    just before and read just after."""
+    import os
+    import tempfile
+
+    from hypergef_tpu_torch.experiments import fig6, fig10, minibatch_bench, serve_bench
+
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    for module, attr in counters.values():
+        setattr(module, attr, 0)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_drivers_") as tmp:
+        def path(name):
+            return os.path.join(tmp, f"{name}.csv")
+
+        t0 = time.perf_counter()
+        out["a fig7_9_realistic"] = realistic_cell(path("fig7_9_realistic"))
+        out["a_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["b auto_matrix"] = auto_matrix_cell(path("auto_matrix"))
+        out["b_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        config, ngs = DRIVER_FIG10
+        rows = fig10.main(["--config", config, "--ngs", ngs, "--iters", str(DRIVER_ITERS),
+                           "--out", path("fig10")])
+        check(len(csv_lines(path("fig10"))) == 1 + len(rows)
+              and [r["ngs"] for r in rows] == [int(g) for g in ngs.split(",")]
+              and all(np.isfinite(r["us"]) and r["us"] > 0 for r in rows),
+              f"fig10: a finite row an ngs: {rows}")
+        for r in rows:
+            check_route_errors(f"fig10 ngs={r['ngs']}", {"tree": r["error"]})
+        out["c fig10"] = rows
+        out["c_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        rows = fig6.main(["--datasets", ",".join(DRIVER_FIG6), "--models", "HGNN",
+                          "--hids", "32", "--quick", "--out", path("fig6")])
+        lines = csv_lines(path("fig6"))
+        check(len(rows) == len(DRIVER_FIG6) and len(lines) == 1 + len(rows)
+              and not any("failed" in r for r in rows), f"fig6: no FAILED row: {rows}")
+        for r in rows:
+            check(r["step"] == "captured" and all(np.isfinite(r[k]) for k in (
+                "train_epoch_time_s", "inference_time_s", "test_acc", "final_loss")),
+                f"fig6 {r['dataset']}: a captured step, finite columns: {r}")
+        out["d fig6"] = rows
+        out["d_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        (row,) = serve_bench.main(["--workloads", DRIVER_SERVE, "--out", path("serve_bench"),
+                                   "--artifact-dir", os.path.join(tmp, "artifacts")])
+        csv_lines(path("serve_bench"))
+        check(row["parity_max_abs"] < serve_bench.PARITY_MAX,
+              f"serve_bench: parity {row['parity_max_abs']}")
+        out["e serve_bench"] = row
+        out["e_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        workload, epochs = DRIVER_MINIBATCH
+        rows = minibatch_bench.main(["--workloads", workload, "--epochs", str(epochs),
+                                     "--out", path("minibatch_bench")])
+        csv_lines(path("minibatch_bench"))
+        full, mb = rows
+        check(mb["step"] == "captured" and 1 <= mb["compile_count"] <= DRIVER_MAX_COMPILES,
+              f"minibatch_bench: {mb['compile_count']} recordings ({mb['step']})")
+        check(all(np.isfinite(r["reached_acc"]) for r in rows), f"minibatch_bench: {rows}")
+        out["f minibatch_bench"] = rows
+        out["f_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    out["launches"] = {k: getattr(module, attr) for k, (module, attr) in counters.items()}
+    for key in ("a fig7_9_realistic", "b auto_matrix", "c fig10", "d fig6", "e serve_bench",
+                "f minibatch_bench"):
+        print(f"phase 32 {key} (card {card}): {json.dumps(out[key])}", flush=True)
+    for name, cell in out["a fig7_9_realistic"].items():
+        for side, fl in cell.get("floor_vs_row4", {}).items():
+            print(f"phase 32 FLOOR {name} {side} stage at F=32 (card rates; row 4's bound of "
+                  f"the same stage): floor {fl['floor_ms']} ms, row 4 {fl['row4_bound_ms']} ms "
+                  f"({fl['row4_bound_by']})", flush=True)
+    print(f"phase 32 launches: {json.dumps(out['launches'])}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4478,6 +4711,9 @@ def main() -> int:
     t0 = time.perf_counter()
     serial = serial_phase(device, card, aligned, distributed["a"])
     print(f"phase 31: {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    drivers = driver_phase(device, card)
+    print(f"phase 32: {time.perf_counter() - t0:.2f} s", flush=True)
 
     fd_bwd_err = max(max(c["max_abs_err"].values()) for c in bwd)
     timed = {"fused_dense_two_stage": times["20news"], "ell_gather_sum": gather_times["edge F=32"],
@@ -4671,8 +4907,10 @@ def main() -> int:
             k["minibatch_launches"] = sum(cell["launches"][c] for cell in minibatched.values())
             k["dist_launches"] = distributed["launches"].get(c, 0)
             k["serial_launches"] = serial["launches"].get(c, 0)
+            k["driver_launches"] = drivers["launches"].get(c, 0)
             k["launches"] += (k["export_launches"] + k["minibatch_launches"]
-                              + k["dist_launches"] + k["serial_launches"])
+                              + k["dist_launches"] + k["serial_launches"]
+                              + k["driver_launches"])
     # the segment sum over each minibatch cell's padded runs (the recorded
     # steps' tables) against the batch's exact runs, F = 32 (phase 29)
     (segsum_line,) = [k for k in kernels if k["name"] == "gather_segment_sum"]
@@ -4680,7 +4918,8 @@ def main() -> int:
         for side in ("v2e", "e2v"):
             t = res["padded_runs"][f"{side} F=32"]
             segsum_line.update({f"minibatch_{cell}_{side}_{key}": t[key] for key in (
-                "padded_ms", "exact_ms", "plain_ms", "bound_ms", "runs_padded", "runs_exact")})
+                "padded_ms", "exact_ms", "plain_ms", "library_ms", "bound_ms", "runs_padded",
+                "runs_exact")})
     for k in kernels:
         t = timed[k["name"]]
         sites = KERNEL_SITES.get(k["name"], [RECORD_SUM_SITE])

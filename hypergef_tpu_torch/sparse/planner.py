@@ -19,11 +19,14 @@ code, so every host table is bit-identical to the JAX package's:
   bit packs live beside their kernel, in
   :mod:`hypergef_tpu_torch.ops.bitstream`) and ``preferred_backend``;
 * the routing ladder :func:`plan_aggregation` (``:638-782``) with its
-  constants (``:560-606``).
+  constants (``:560-606``);
+* the aligned floor model (``:1330-1402``): :func:`aligned_stage_floor`
+  and :func:`aligned_plan_floor`, with the rates an argument: JAX's v5e
+  rates (:data:`V5E_FLOOR_RATES`, the default) or the card's
+  (:func:`card_floor_rates`).
 
 The tiled, BSR and multihot plan forms are left out (ROADMAP.md, "Do not
-port"); the v5e floor model ``aligned_stage_floor``/``aligned_plan_floor``
-is not ported yet (ROADMAP.md queue 1).
+port").
 """
 
 from __future__ import annotations
@@ -814,6 +817,98 @@ ALIGNED_GATHER_S_PER_ROW = 8e-9
 ALIGNED_KERNEL_FIXED_S = 4.4e-6
 ALIGNED_KERNELS_PER_BUCKET = 2
 ALIGNED_SPILL_PAD_GATHER_S = 4e-9
+
+
+class FloorRates(NamedTuple):
+    """The machine rates of the aligned floor model (``:1330-1343``): the
+    table elements a second through the unit that multiplies them, the
+    bytes a second from memory, and the seconds a unique spilled row's
+    gather adds."""
+
+    a_elem_rate: float
+    stream_bps: float
+    gather_s_per_row: float
+
+
+# The JAX planner's rates, measured on a TPU v5e: at these the floor is the
+# JAX package's, bit for bit. They are not the card's (card_floor_rates).
+V5E_FLOOR_RATES = FloorRates(ALIGNED_A_ELEM_RATE, ALIGNED_STREAM_BPS, ALIGNED_GATHER_S_PER_ROW)
+
+# the NVIDIA H100 SXM's data sheet (700 W): HBM3 rate and dense bf16
+# tensor-core rate, the convention of PERF.md §6's bounds
+H100_STREAM_BPS = 3.35e12
+H100_BF16_TC_OPS_PER_S = 989e12
+
+
+def card_floor_rates(feat: int) -> FloorRates:
+    """The floor model's rates for the NVIDIA H100 SXM (80 GB HBM3, 700 W).
+
+    A model from the data sheet, not a measurement: memory at 3.35 TB/s,
+    and each band or spill table element multiplied against ``feat``
+    features (2·feat operations) at the dense bf16 tensor-core rate, 989
+    TFLOP/s, where the band kernel (``csrc/aligned_band.cu``) does its tile
+    products. A spilled row's gather adds nothing: its bytes are already in
+    the byte term, and the card hides its latency behind other warps."""
+    return FloorRates(H100_BF16_TC_OPS_PER_S / (2 * feat), H100_STREAM_BPS, 0.0)
+
+
+def aligned_stage_floor(stage, feat: int, feat_bytes: int = 4,
+                        rates: FloorRates = V5E_FLOOR_RATES) -> dict:
+    """Hardware-floor model for one aligned stage (``:1346-1390``).
+
+    The band and spill tables must stream through the multiplying unit
+    (element bound) and memory (byte bound): the larger of the two, plus
+    each unique spilled source row's gather (additive). Returns the
+    components' seconds and the total ``floor_s``, with JAX's keys (the
+    element term keeps its name ``t_mxu_elems_s``). At
+    :data:`V5E_FLOOR_RATES` it equals the JAX package's bit for bit."""
+    if isinstance(stage, AlignedStageB):
+        band_elems = sum(int(b.b_dense.size) for b in stage.buckets)
+        spill_tab_elems = sum(int(s.b_spill.size) for s in stage.spills)
+        win_rows = sum(
+            int(b.win_block.shape[0] * b.win_block.shape[1]) for b in stage.buckets
+        ) * int(stage.block_rows)
+        spill_rows = sum(
+            int((s.spill_src != stage.num_inputs).sum()) for s in stage.spills
+        )
+    elif isinstance(stage, AlignedStage):
+        band_elems = int(stage.b_dense.size)
+        spill_tab_elems = int(stage.b_spill.size)
+        win_rows = int(stage.win_block.size) * ALIGNED_BLOCK
+        spill_rows = int((stage.spill_src != stage.num_inputs).sum())
+    else:
+        raise TypeError(f"not an aligned stage: {type(stage).__name__}")
+    feat_b = feat * feat_bytes
+    tab_elems = band_elems + spill_tab_elems
+    # bytes: int8 tables + window source rows + spilled rows + output
+    hbm_bytes = tab_elems + (win_rows + spill_rows) * feat_b \
+        + stage.num_segments * feat_b
+    t_elems = tab_elems / rates.a_elem_rate
+    t_bytes = hbm_bytes / rates.stream_bps
+    t_gather = spill_rows * rates.gather_s_per_row
+    return {
+        "band_elems": band_elems,
+        "spill_tab_elems": spill_tab_elems,
+        "window_rows": win_rows,
+        "unique_spill_rows": spill_rows,
+        "t_mxu_elems_s": t_elems,
+        "t_hbm_bytes_s": t_bytes,
+        "t_spill_gather_s": t_gather,
+        "floor_s": max(t_elems, t_bytes) + t_gather,
+    }
+
+
+def aligned_plan_floor(plan, feat: int, feat_bytes: int = 4,
+                       rates: FloorRates = V5E_FLOOR_RATES) -> dict:
+    """Whole-layer floor (``:1393-1402``): both aligned stages (V→E + E→V)
+    summed, with each stage's components attached."""
+    e = aligned_stage_floor(plan.edge_stage, feat, feat_bytes, rates)
+    v = aligned_stage_floor(plan.vertex_stage, feat, feat_bytes, rates)
+    return {
+        "floor_s": e["floor_s"] + v["floor_s"],
+        "edge_stage": e,
+        "vertex_stage": v,
+    }
 
 
 def _group_windows_opt(grp, blk, cnt_per_group, nb, max_width, G,

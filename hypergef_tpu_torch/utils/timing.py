@@ -20,6 +20,9 @@ import torch
 # host has enqueued the whole window before the card reaches it (about 10 ms
 # at the H100's clock). Without it, a short kernel's window times the host.
 _QUEUE_AHEAD_CYCLES = 20_000_000
+# what that sleep lasts on the card, ms: a window whose calls take the host
+# longer than this to issue holds host time
+QUEUE_AHEAD_MS = 10.0
 
 
 def cuda_time_ms(
@@ -27,14 +30,17 @@ def cuda_time_ms(
     repeats: int = 20,
     iters: int = 1,
     queue_ahead: bool = True,
+    issue_ms: Optional[List[float]] = None,
 ) -> float:
     """Median over ``repeats`` of the card's time per call of ``fn``, in ms.
 
     Each repeat times ``iters`` back-to-back calls between two events,
     after three warm-up calls. With ``queue_ahead`` the window starts
-    behind a sleep kernel, so it holds device time only (a kernel's time);
-    without it the window also holds any wait for the host between calls
-    (a request's latency).
+    behind a sleep kernel, so it holds device time only (a kernel's time)
+    unless the host takes longer than :data:`QUEUE_AHEAD_MS` to issue the
+    window's calls; without it the window also holds any wait for the host
+    between calls (a request's latency). ``issue_ms``, if given, gets each
+    window's host time to issue its calls, ms (the host clock).
     """
     if not torch.cuda.is_available():
         raise RuntimeError("cuda_time_ms needs a CUDA device")
@@ -48,8 +54,11 @@ def cuda_time_ms(
         if queue_ahead:
             torch.cuda._sleep(_QUEUE_AHEAD_CYCLES)
         start.record()
+        t0 = time.perf_counter()
         for _ in range(iters):
             fn()
+        if issue_ms is not None:
+            issue_ms.append((time.perf_counter() - t0) * 1e3)
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)

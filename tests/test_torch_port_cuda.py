@@ -1944,3 +1944,26 @@ def test_recorded_dist_and_dp_steps_equal_eager_in_an_nccl_world(cuda):
     (c0, eager), (c1, rec) = out["dp"]
     assert (c0, c1) == (False, True)
     np.testing.assert_array_equal(rec, eager)
+
+
+def test_fig7_9_realistic_zoo_on_the_card(cuda, tmp_path):
+    """The fig7/9 driver on the card at zoo's dims: the card's comment row,
+    each timed route within its bar of the xla route's output (the driver
+    ends SystemExit otherwise), and the auto column JAX's pick on the same
+    pipeline (chip_smoke.py's REALISTIC_PICKS, held against JAX on the
+    CPU)."""
+    from hypergef_tpu_torch.experiments import fig7_9_realistic
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    out = tmp_path / "f.csv"
+    (res,) = fig7_9_realistic.main(["--configs", "zoo", "--iters", "3", "--out", str(out)])
+    lines = out.read_text().splitlines()
+    assert lines[0].startswith("# card: ") and "W" in lines[0]
+    assert res["auto"] == smoke.REALISTIC_PICKS["zoo"]
+    assert set(res["times_us"]) == set(res["errors"]) == {"xla", res["auto"]} | (
+        {"aligned"} if res["plan"].aligned is not None else set())
+    for backend, e in res["errors"].items():
+        assert e["max_abs_err"] <= e["rel_tol"] * e["max_abs_xla"], backend
+    assert any(line.startswith("SUMMARY,zoo,") for line in lines)
