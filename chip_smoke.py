@@ -288,7 +288,7 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    and aligned plans against the plain step over ``ops/refops.py`` on the
    same weights, two runs bitwise equal, and three AdamW epochs against
    the same epochs unsharded (the ``SERIAL_*`` bars); (c)
-   ``community_hypergraph`` at 10M incidences (its graph and plan built
+   ``community_hypergraph`` at 5M incidences (its graph and plan built
    first, with nothing beside them), D = 8, aligned: a forward and a step,
    each shard's host build, staging and device times, the exchange bytes,
    the card's peak (forward and step) below ``serial_halo.peak_bound`` and
@@ -324,6 +324,22 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    ``--epochs 30``, at most 3 recordings. Its launches join the kernels
    line as ``driver_launches``; the run's seconds are printed before that
    line.
+33. The scale drivers on the card, each ``main`` in process at a reduced
+   depth (``SCALE_*``), its CSV opening with the card's row: (a)
+   clustered_e2e on SBM-60k, ``aligned`` in the kernel form (the band
+   kernel), ``tree`` and ``cumsum``, each route's test accuracy above
+   chance; (b) scale_aligned on pubmed_clustered, the kernel form and the
+   tree; (c) dense_shard_scale at its own size, the D = 2 and 8 slices'
+   partials summed against ``xla``; (d) scale_projection on one shard of 1M
+   incidences; (e) scale_serialized at 2M incidences, D = 4, with
+   ``--epoch``: its output finite, its initial loss within
+   ``SCALE_LOSS_SPREAD`` of ln(8); (f) minibatch_scale at about 1.5M
+   incidences: its full-batch row, recorded steps, at most 3 recordings;
+   (g) weak_scaling at D = 1, 2, 4 and (h) halo_overlap at D = 2, 4, 20,000
+   incidences a shard, the taint walk's ``chain_ok`` on every row. Every
+   route a driver times is held against the ``xla`` route's output within
+   its bar; every link term is a model (MODELED in its row). Its launches
+   join the kernels line as ``scale_launches``.
 
 Phases 1-25 drive the default step and request: on the card a CUDA-graph
 replay (``Trainer``'s and ``ServingModel``'s ``compiled=None``); the plain
@@ -3854,16 +3870,17 @@ def dist_phase(device, card: str, aligned: dict) -> dict:
 # 30 (b)'s SBM-60k plan and x run serialized on the card, one shard at a
 # time, against that world's outputs; (b) the serialized two-layer HGNN step
 # (F = 32, nhid 32) on SBM-60k's tree and aligned plans against the plain
-# step, and three AdamW epochs; (c) a graph a tenth the size of
-# experiments/scale_serialized.py's (community_hypergraph, 10M incidences,
-# D = 8) forward and step, with the card's peak memory; (d) a 2 x 2 (e, f)
+# step, and three AdamW epochs; (c) a graph a twentieth the size of
+# experiments/scale_serialized.py's (community_hypergraph, 5M incidences,
+# D = 8; 10M until phase 33 needed its time) forward and step, with the
+# card's peak memory; (d) a 2 x 2 (e, f)
 # grid of gloo ranks: the CLI's --shards 2 --feature-shards 2 on phase 30
 # (a)'s problem, and the feature-sharded dense shard on 20news
 SERIAL_D = 4
 SERIAL_F = 32
 SERIAL_CPAD = max(NCLASS, 8)  # the second layer's width, JAX's padded classes
 SERIAL_EPOCHS = 3
-SERIAL_SCALE = dict(n_nodes=2_000_000, n_edges=1_000_000, n_comm=4000, avg=10.0, noise=0.01,
+SERIAL_SCALE = dict(n_nodes=1_000_000, n_edges=500_000, n_comm=2000, avg=10.0, noise=0.01,
                     seed=0)
 SERIAL_SCALE_D = 8
 SERIAL_PLAN_LIMIT_S = 120.0
@@ -4132,7 +4149,7 @@ def serial_scale_problem():
 
 
 def serial_scale_cell(device, problem) -> dict:
-    """Phase 31 (c): community_hypergraph at 10M incidences, D = 8, aligned
+    """Phase 31 (c): community_hypergraph at 5M incidences, D = 8, aligned
     interior (``problem``: serial_scale_problem's result): one forward and
     one step, each shard's host build, staging and device time, the
     exchange bytes, the card's peak against the bound and against all
@@ -4519,6 +4536,119 @@ def driver_phase(device, card: str) -> dict:
     return out
 
 
+# phase 33, the scale drivers at a reduced depth (each driver's own widths):
+# argv tails of each driver's main, and the bars of its checks
+SCALE_E2E = ["--iters", "5"]  # clustered_e2e: SBM-60k, 30 epochs (its default: 30 iters)
+SCALE_ALIGNED = ["--configs", "pubmed_clustered", "--iters", "10"]
+SCALE_PROJECTION = ["--sizes", "200000:100000:400"]  # one shard of 1M incidences
+SCALE_SERIAL = ["--nodes", "400000", "--edges", "200000", "--comm", "800", "--shards", "4",
+                "--epoch"]
+SCALE_MINIBATCH = ["--nodes", "300000", "--edges", "214000", "--epochs", "1",
+                   "--eval-nodes", "20000"]  # about 1.5M incidences
+SCALE_WEAK = ["--shards", "1,2,4", "--nnz-per-shard", "20000", "--iters", "10"]
+SCALE_OVERLAP = ["--shards", "2,4", "--nnz-per-shard", "20000", "--iters", "10"]
+# the serialized step's initial loss against ln(8) (random labels, JAX's
+# initial weights: 2.16 on the CPU at the smoke size)
+SCALE_LOSS_SPREAD = 0.5
+
+
+def scale_phase(device, card: str) -> dict:
+    """Phase 33: the eight scale drivers' ``main`` in process at a reduced
+    depth, each writing its CSV into a temporary directory, the kernels'
+    counts set to 0 just before and read just after. Each route a driver
+    times is held against ``xla`` (or, for the dense shard, the D partials'
+    sum) within its bar; clustered_e2e's test accuracy above chance;
+    scale_serialized's output finite and its initial loss near ln(8);
+    minibatch_scale's recordings and its full-batch row; halo_overlap's
+    chain."""
+    import math
+    import os
+    import tempfile
+
+    from hypergef_tpu_torch.experiments import (
+        clustered_e2e, dense_shard_scale, halo_overlap, minibatch_scale, scale_aligned,
+        scale_projection, scale_serialized, weak_scaling,
+    )
+
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    for module, attr in counters.values():
+        setattr(module, attr, 0)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scale_") as tmp:
+        def run(key, module, argv):
+            path = os.path.join(tmp, f"{key}.csv")
+            t0 = time.perf_counter()
+            res = module.main(argv + ["--out", path])
+            out[f"{key}_s"] = time.perf_counter() - t0
+            return res, csv_lines(path)
+
+        rows, lines = run("a", clustered_e2e, SCALE_E2E)
+        check([r["backend"] for r in rows] == list(clustered_e2e.BACKENDS)
+              and rows[0]["form"] == "pallas_auto"
+              and all(r["test_acc"] > 100.0 / clustered_e2e.NCLASS and r["epoch_us"] > 0
+                      for r in rows), f"clustered_e2e: accuracy above chance, kernel form: {rows}")
+        out["a clustered_e2e"] = rows
+
+        rows, lines = run("b", scale_aligned, SCALE_ALIGNED)
+        check([r["backend"] for r in rows] == ["aligned", "tree"]
+              and rows[0]["form"] == "pallas_auto", f"scale_aligned: {rows}")
+        for r in rows:
+            check_route_errors(f"scale_aligned {r['config']}", {r["backend"]: r["error"]})
+        out["b scale_aligned"] = rows
+
+        rows, lines = run("c", dense_shard_scale, [])
+        check([r["devices"] for r in rows] == [1, *dense_shard_scale.SHARDS]
+              and any("MODELED nvlink4" in ln for ln in lines), f"dense_shard_scale: {rows}")
+        for r in rows:
+            check_route_errors(f"dense_shard_scale D={r['devices']}",
+                               {r["backend"] if r["devices"] == 1 else "dense": r["error"]})
+        out["c dense_shard_scale"] = rows
+
+        res, lines = run("d", scale_projection, SCALE_PROJECTION)
+        check(len(res["points"]) == 1 and res["points"][0]["form"] == "pallas_auto"
+              and any(ln.startswith("shard_compute_nnz") and card in ln for ln in lines),
+              f"scale_projection: {res}")
+        check_route_errors("scale_projection", {"aligned": res["points"][0]["error"]})
+        out["d scale_projection"] = res
+
+        res, lines = run("e", scale_serialized, SCALE_SERIAL)
+        check(res["finite"] and res["local_form"] == "aligned"
+              and abs(res["train_epoch_loss"] - math.log(8)) < SCALE_LOSS_SPREAD
+              and any(ln.startswith("ici_transfer") and "MODELED" in ln for ln in lines),
+              f"scale_serialized: finite, aligned, loss near ln(8): {res}")
+        check_route_errors("scale_serialized", {"aligned": res["error"]})
+        out["e scale_serialized"] = res
+
+        res, lines = run("f", minibatch_scale, SCALE_MINIBATCH)
+        check("full_batch" in res and any(ln.startswith("full_batch_step,") for ln in lines)
+              and res["step"] == "captured" and 1 <= res["compile_count"] <= DRIVER_MAX_COMPILES
+              and res["valid_acc"] > 1.0 / 8, f"minibatch_scale: {res}")
+        out["f minibatch_scale"] = res
+
+        rows, lines = run("g", weak_scaling, SCALE_WEAK)
+        check(len(rows) == 2 * 3, f"weak_scaling: a row a graph and shard count: {rows}")
+        for r in rows:
+            check_route_errors(f"weak_scaling {r['graph']} D={r['shards']}", r["errors"])
+        out["g weak_scaling"] = rows
+
+        rows, lines = run("h", halo_overlap, SCALE_OVERLAP)
+        check(len(rows) == 2 * 2 and all(r["chain_ok"] for r in rows),
+              f"halo_overlap: chain_ok on every row: {rows}")
+        for r in rows:
+            check_route_errors(f"halo_overlap {r['graph']} D={r['shards']}", r["errors"])
+        out["h halo_overlap"] = rows
+    torch.cuda.synchronize()
+    out["launches"] = {k: getattr(module, attr) for k, (module, attr) in counters.items()}
+    for key in ("a clustered_e2e", "b scale_aligned", "c dense_shard_scale",
+                "d scale_projection", "e scale_serialized", "f minibatch_scale",
+                "g weak_scaling", "h halo_overlap"):
+        print(f"phase 33 {key} (card {card}; {out[key[0] + '_s']:.2f} s): "
+              f"{json.dumps(out[key], default=str)}", flush=True)
+    print(f"phase 33 launches: {json.dumps(out['launches'])}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4714,6 +4844,9 @@ def main() -> int:
     t0 = time.perf_counter()
     drivers = driver_phase(device, card)
     print(f"phase 32: {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    scaled = scale_phase(device, card)
+    print(f"phase 33: {time.perf_counter() - t0:.2f} s", flush=True)
 
     fd_bwd_err = max(max(c["max_abs_err"].values()) for c in bwd)
     timed = {"fused_dense_two_stage": times["20news"], "ell_gather_sum": gather_times["edge F=32"],
@@ -4908,9 +5041,10 @@ def main() -> int:
             k["dist_launches"] = distributed["launches"].get(c, 0)
             k["serial_launches"] = serial["launches"].get(c, 0)
             k["driver_launches"] = drivers["launches"].get(c, 0)
+            k["scale_launches"] = scaled["launches"].get(c, 0)
             k["launches"] += (k["export_launches"] + k["minibatch_launches"]
                               + k["dist_launches"] + k["serial_launches"]
-                              + k["driver_launches"])
+                              + k["driver_launches"] + k["scale_launches"])
     # the segment sum over each minibatch cell's padded runs (the recorded
     # steps' tables) against the batch's exact runs, F = 32 (phase 29)
     (segsum_line,) = [k for k in kernels if k["name"] == "gather_segment_sum"]

@@ -49,16 +49,23 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def card_row(device: torch.device) -> str:
-    """The CSV's first row: the card's name and power limit, or the CPU's
-    host clock."""
+def card_label(device: torch.device) -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them, or
+    ``host clock, cpu``: what a measured number stands beside."""
     if device.type != "cuda":
-        return "# host clock, cpu"
+        return "host clock, cpu"
     out = subprocess.run(
         ["nvidia-smi", "-i", str(device.index or 0), "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
-    return f"# card: {out.stdout.strip().splitlines()[0]}"
+    return out.stdout.strip().splitlines()[0]
+
+
+def card_row(device: torch.device) -> str:
+    """The CSV's first row: the card's name and power limit, or the CPU's
+    host clock."""
+    label = card_label(device)
+    return f"# card: {label}" if device.type == "cuda" else f"# {label}"
 
 
 @contextlib.contextmanager
@@ -118,22 +125,19 @@ class Timed(NamedTuple):
 def time_call(fn: Callable[[], object], device: torch.device, iters: int = 1) -> Timed:
     """``fn``'s time a call: on the card ``cuda_time_ms`` (``iters`` calls a
     window behind its queued sleep, median of :data:`REPEATS` windows), with
-    each window's host issue time; on the CPU the host clock, median of as
-    many windows."""
+    each window's host issue time. On the CPU a single short window: one
+    call after one warm-up call, on the host clock. A CPU run checks a
+    driver's path and outputs; its times are never device times, so they
+    get no median (``iters`` is the card's window)."""
     iters = max(int(iters), 1)
     if device.type == "cuda":
         issue: List[float] = []
         ms = cuda_time_ms(fn, repeats=REPEATS, iters=iters, issue_ms=issue)
         return Timed(ms, statistics.median(issue))
-    for _ in range(3):
-        fn()
-    samples = []
-    for _ in range(REPEATS):
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        samples.append((time.perf_counter() - t0) * 1e3 / iters)
-    return Timed(statistics.median(samples), float("nan"))
+    fn()
+    t0 = time.perf_counter()
+    fn()
+    return Timed((time.perf_counter() - t0) * 1e3, float("nan"))
 
 
 def sync(device: torch.device) -> None:

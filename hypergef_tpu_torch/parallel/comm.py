@@ -56,6 +56,10 @@ from hypergef_tpu_torch.utils.graphs import refuse_capture
 # (the phase's exchange bytes a layer); a replay of a recorded step counts
 # nothing
 sent_bytes = 0
+# called as ``a2a_observer(x, out)`` after each all_to_all while a caller
+# watches the exchanges (``utils/introspect.py``'s taint walk marks ``out``
+# as the collective's); None otherwise
+a2a_observer = None
 
 
 def _recordable(group) -> None:
@@ -112,6 +116,8 @@ def _a2a(x: torch.Tensor, group) -> torch.Tensor:
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=group)
     sent_bytes += x.numel() * x.element_size()
+    if a2a_observer is not None:
+        a2a_observer(x, out)
     return out
 
 

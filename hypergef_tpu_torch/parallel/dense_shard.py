@@ -189,6 +189,13 @@ def _scale(loc: LocalDense, first_aggr: str, wdiag_local) -> torch.Tensor:
     return scale
 
 
+def local_two_stage(loc: LocalDense, x: torch.Tensor, first_aggr: str = "sum") -> torch.Tensor:
+    """One rank's partial ``H_d · diag(scale) · H_dᵀ · x`` over its own slice,
+    the two library products and no exchange (``_two_stage_local``,
+    ``:159-182``): the compute that runs D-way parallel."""
+    return _TwoStage.apply(x, loc, _scale(loc, first_aggr, None))
+
+
 def _local(plan, mesh, x):
     mesh = mesh or make_mesh()
     if mesh.size != plan.n_shards:

@@ -1967,3 +1967,24 @@ def test_fig7_9_realistic_zoo_on_the_card(cuda, tmp_path):
     for backend, e in res["errors"].items():
         assert e["max_abs_err"] <= e["rel_tol"] * e["max_abs_xla"], backend
     assert any(line.startswith("SUMMARY,zoo,") for line in lines)
+
+
+def test_clustered_e2e_small_on_the_card(cuda, tmp_path):
+    """The clustered e2e driver on the card at a small SBM: the card's
+    comment row, the aligned row in the kernel form (the band kernel
+    launched), each route's test accuracy above chance, and the recorded
+    steps."""
+    from hypergef_tpu_torch.experiments import clustered_e2e
+
+    out = tmp_path / "e2e.csv"
+    before = aligned_band.launches
+    rows = clustered_e2e.main(["--nodes", "6000", "--edges", "3000", "--comm", "24",
+                               "--iters", "3", "--epochs", "20", "--out", str(out)])
+    lines = out.read_text().splitlines()
+    assert lines[0].startswith("# card: ") and "W" in lines[0]
+    assert "aligned form=pallas_auto" in lines[2]
+    assert [r["backend"] for r in rows] == list(clustered_e2e.BACKENDS)
+    assert rows[0]["form"] == "pallas_auto" and aligned_band.launches > before
+    for r in rows:
+        assert r["step"] == "captured" and r["epoch_us"] > 0, r
+        assert r["test_acc"] > 100.0 / clustered_e2e.NCLASS, r

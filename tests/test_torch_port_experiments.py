@@ -57,6 +57,18 @@ CPU_RUNS = {
 TINY = (600, 300, 3, 5.0, 8)  # tests/test_experiments.py's tiny workload
 
 
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The port's CPU work on one thread: the suite runs six workers on
+    the host's cores, and the drivers' many small ops stall on
+    oversubscribed intra-op threads (this file took minutes there, seconds
+    alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 def _port_hg(jhg):
     return Hypergraph(num_nodes=jhg.num_nodes, num_edges=jhg.num_edges,
                       h_indptr=np.asarray(jhg.h_indptr), h_indices=np.asarray(jhg.h_indices),
@@ -255,9 +267,25 @@ def test_fig7_9_graphs_are_the_twins():
 # ------------------------------------------------------------ runs on the CPU
 
 
+def shallow_tuner(monkeypatch):
+    """The measured tuner at a depth of 1 (one-call windows, one repeat):
+    its CPU times are not what a test checks, only that it picks a route."""
+    import functools
+
+    from hypergef_tpu_torch.sparse import autotune
+    from hypergef_tpu_torch.utils import timing
+
+    monkeypatch.setattr(autotune, "autotune", functools.partial(autotune.autotune, iters=1))
+    monkeypatch.setattr(timing, "per_iter_time",
+                        functools.partial(timing.per_iter_time, repeats=1))
+
+
 def _run(name, tmp_path, monkeypatch, extra=()):
-    """``main`` of a driver at its CPU run, writing into ``tmp_path``."""
+    """``main`` of a driver at its CPU run, writing into ``tmp_path``
+    (``common.time_call`` takes one short window on the CPU; the tuner
+    runs at a depth of 1)."""
     monkeypatch.chdir(tmp_path)
+    shallow_tuner(monkeypatch)
     out = tmp_path / f"{name}.csv"
     argv = [*CPU_RUNS[name], "--device", "cpu", "--out", str(out), *extra]
     if name in ("serve_bench", "minibatch_bench"):
