@@ -288,7 +288,7 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    and aligned plans against the plain step over ``ops/refops.py`` on the
    same weights, two runs bitwise equal, and three AdamW epochs against
    the same epochs unsharded (the ``SERIAL_*`` bars); (c)
-   ``community_hypergraph`` at 5M incidences (its graph and plan built
+   ``community_hypergraph`` at 2.5M incidences (its graph and plan built
    first, with nothing beside them), D = 8, aligned: a forward and a step,
    each shard's host build, staging and device times, the exchange bytes,
    the card's peak (forward and step) below ``serial_halo.peak_bound`` and
@@ -331,7 +331,7 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    chance; (b) scale_aligned on pubmed_clustered, the kernel form and the
    tree; (c) dense_shard_scale at its own size, the D = 2 and 8 slices'
    partials summed against ``xla``; (d) scale_projection on one shard of 1M
-   incidences; (e) scale_serialized at 2M incidences, D = 4, with
+   incidences; (e) scale_serialized at 1M incidences, D = 4, with
    ``--epoch``: its output finite, its initial loss within
    ``SCALE_LOSS_SPREAD`` of ln(8); (f) minibatch_scale at about 1.5M
    incidences: its full-batch row, recorded steps, at most 3 recordings;
@@ -340,6 +340,27 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    route a driver times is held against the ``xla`` route's output within
    its bar; every link term is a model (MODELED in its row). Its launches
    join the kernels line as ``scale_launches``.
+34. The ``ell``, ``bsr`` and ``multihot`` routes (``routes_phase``): (a)
+   clustered_bench at its defaults (SBM-60k with sorted hyperedges and the
+   random graph of its size, F = 32), ``ROUTES_ITERS`` calls a timed
+   window: every route held against ``xla``
+   (1e-3·max|xla| for the f32 routes, 3e-2 for the bf16 ones), the six
+   multihot forms on each graph, the card's fastest route printed beside
+   the ladder's pick; (b) HGNN on phase 9's SBM-60k at bench.py's
+   clustered shape (100 features, 4 classes, nhid 32, 2 layers, sum) on
+   ``bsr``, ``multihot``, ``multihot_precomp`` and ``ell``
+   (``ROUTE_CELLS``): 20 captured steps counted (8 gathers and 8 segment
+   sums a step on ``ell``, no kernel on the block and tile products),
+   captured losses bitwise equal to eager with a step of each timed,
+   no-dropout losses against ``xla`` (``ROUTE_LOSS_RTOL``), one request
+   counted and held against the plain version on CPU tensors within 1e-2
+   (``route_reference_plan``; ``ell`` also within 1e-3 of ``xla``), each
+   plan's host seconds and device MiB; (c) HGNN max on ``multihot``: its output
+   bitwise equal to the argmax tree's V→E followed by the multihot plan's
+   own E→V stages, within 3e-2·max|xla|, 20 steps (2 record sums a step)
+   and its losses against ``xla``; (d) the ELL gather and segment-sum
+   launches of the ``ell`` route's paths. Its launches join the kernels
+   line as ``routes_launches``.
 
 Phases 1-25 drive the default step and request: on the card a CUDA-graph
 replay (``Trainer``'s and ``ServingModel``'s ``compiled=None``); the plain
@@ -683,8 +704,8 @@ def time_kernel(hg, f: int, device) -> dict:
 
 def serve(device, hg, backend, counters, plan=None, plain_plan=None, plain_device="cpu",
           first_aggr="sum", model="HGNN", ref_backend=None, ref_atol=1e-2, nfeat=NFEAT,
-          nclass=NCLASS, xla_atol=None) -> dict:
-    """Five requests through ``backend`` (None: ``TrainConfig``'s default,
+          nclass=NCLASS, xla_atol=None, requests=REQUESTS) -> dict:
+    """``requests`` requests through ``backend`` (None: ``TrainConfig``'s default,
     no ``backend=``). ``counters`` maps a kernel's name to (module, counter
     attribute, launches a request); every count is set to 0 just before the
     server is built (a captured server records its forward there) and read
@@ -704,7 +725,7 @@ def serve(device, hg, backend, counters, plan=None, plain_plan=None, plain_devic
     if backend is not None:
         cfg = dataclasses.replace(cfg, backend=backend)
     feats = [random_features(hg.num_nodes, nfeat, nclass, seed=100 + i)[0]
-             for i in range(REQUESTS)]
+             for i in range(requests)]
     xs = [torch.as_tensor(a, device=device) for a in feats]
     torch.cuda.synchronize()
 
@@ -717,7 +738,7 @@ def serve(device, hg, backend, counters, plan=None, plain_plan=None, plain_devic
     # the wrappers ran for each eager request, or for the captured server's
     # warm-up forward and its recording, whose every replay launches the
     # recording's kernel nodes again
-    calls = 2 if server.compiled else REQUESTS
+    calls = 2 if server.compiled else requests
     for name, (_, _, per_request) in counters.items():
         check(launches[name] == calls * per_request,
               f"{calls} forwards launched {name} {calls * per_request} times, "
@@ -726,7 +747,7 @@ def serve(device, hg, backend, counters, plan=None, plain_plan=None, plain_devic
     if server.compiled:
         replayed = check_replays(
             "the request graph", graph_kernels(server._graph), counters,
-            {name: per for name, (_, _, per) in counters.items()}, REQUESTS)
+            {name: per for name, (_, _, per) in counters.items()}, requests)
 
     params = {k: v.detach().cpu() for k, v in server.model.state_dict().items()}
     ref_cfg = dataclasses.replace(cfg, backend=ref_backend or cfg.backend)
@@ -886,7 +907,12 @@ def train(problems, device) -> dict:
                 ("HGNN", "cumsum", "sum"): {"segsum": 8},
                 ("HGNN", "cumsum", "max"): {"segsum": 4, "recsum": 2},
                 ("UniGCNII", "cumsum", "sum"): {"segsum": 8},
-                ("HGNN", "precomp", "sum"): {}, ("HGNN", "dense", "sum"): {}}
+                ("HGNN", "precomp", "sum"): {}, ("HGNN", "dense", "sum"): {},
+                # phase 34: the block and tile products are library calls;
+                # the ell route's stages are a gather and a segment sum each
+                ("HGNN", "bsr", "sum"): {}, ("HGNN", "multihot", "sum"): {},
+                ("HGNN", "multihot", "max"): {"recsum": 2},
+                ("HGNN", "ell", "sum"): {"gather": 8, "segsum": 8}}
     counters = kernel_counters()
     for name, (cfg, hg, x, y, split, plan) in problems.items():
         tr = Trainer(cfg, hg, x, y, plan=plan, device=device)
@@ -1775,7 +1801,7 @@ def ladder_phase(device, graphs) -> dict:
         if plan.aligned is not None:
             check(plan.aligned.form == "pallas_auto", f"{name}: aligned kernel form on the card")
         out[name] = {"n": hg.num_nodes, "e": hg.num_edges, "nnz": hg.nnz, "pick": pick,
-                     "built": [f for f in ("dense", "precomp", "aligned", "bitstream")
+                     "built": [f for f in ("dense", "precomp", "aligned", "bitstream", "multihot")
                                if getattr(plan, f) is not None], "plan_s": secs}
     return out
 
@@ -2327,8 +2353,9 @@ def compiled_train_cell(problem, device, capturable: bool = True) -> dict:
     for name, tr in (("eager", eager), ("captured", captured)):
         turns[name]["enqueue_ms"] = host_enqueue_ms(functools.partial(tr.step, idx))
     out.update(turns)
+    # one repeat of the differenced windows (3 until phase 34 needed the time)
     out["stats"] = captured.epoch_device_time_stats(split["train"], iters=20, windows=5,
-                                                    repeats=3)
+                                                    repeats=1)
     out["capture_mb"] = graph_mb(device, captured._steps.clear)
     return out
 
@@ -3870,9 +3897,10 @@ def dist_phase(device, card: str, aligned: dict) -> dict:
 # 30 (b)'s SBM-60k plan and x run serialized on the card, one shard at a
 # time, against that world's outputs; (b) the serialized two-layer HGNN step
 # (F = 32, nhid 32) on SBM-60k's tree and aligned plans against the plain
-# step, and three AdamW epochs; (c) a graph a twentieth the size of
-# experiments/scale_serialized.py's (community_hypergraph, 5M incidences,
-# D = 8; 10M until phase 33 needed its time) forward and step, with the
+# step, and three AdamW epochs; (c) a graph a fortieth the size of
+# experiments/scale_serialized.py's (community_hypergraph, 2.5M incidences,
+# D = 8; 10M until phase 33 and 5M until phase 34 needed its time) forward
+# and step, with the
 # card's peak memory; (d) a 2 x 2 (e, f)
 # grid of gloo ranks: the CLI's --shards 2 --feature-shards 2 on phase 30
 # (a)'s problem, and the feature-sharded dense shard on 20news
@@ -3880,7 +3908,7 @@ SERIAL_D = 4
 SERIAL_F = 32
 SERIAL_CPAD = max(NCLASS, 8)  # the second layer's width, JAX's padded classes
 SERIAL_EPOCHS = 3
-SERIAL_SCALE = dict(n_nodes=1_000_000, n_edges=500_000, n_comm=2000, avg=10.0, noise=0.01,
+SERIAL_SCALE = dict(n_nodes=500_000, n_edges=250_000, n_comm=1000, avg=10.0, noise=0.01,
                     seed=0)
 SERIAL_SCALE_D = 8
 SERIAL_PLAN_LIMIT_S = 120.0
@@ -4149,7 +4177,7 @@ def serial_scale_problem():
 
 
 def serial_scale_cell(device, problem) -> dict:
-    """Phase 31 (c): community_hypergraph at 5M incidences, D = 8, aligned
+    """Phase 31 (c): community_hypergraph at 2.5M incidences, D = 8, aligned
     interior (``problem``: serial_scale_problem's result): one forward and
     one step, each shard's host build, staging and device time, the
     exchange bytes, the card's peak against the bound and against all
@@ -4541,7 +4569,7 @@ def driver_phase(device, card: str) -> dict:
 SCALE_E2E = ["--iters", "5"]  # clustered_e2e: SBM-60k, 30 epochs (its default: 30 iters)
 SCALE_ALIGNED = ["--configs", "pubmed_clustered", "--iters", "10"]
 SCALE_PROJECTION = ["--sizes", "200000:100000:400"]  # one shard of 1M incidences
-SCALE_SERIAL = ["--nodes", "400000", "--edges", "200000", "--comm", "800", "--shards", "4",
+SCALE_SERIAL = ["--nodes", "200000", "--edges", "100000", "--comm", "400", "--shards", "4",
                 "--epoch"]
 SCALE_MINIBATCH = ["--nodes", "300000", "--edges", "214000", "--epochs", "1",
                    "--eval-nodes", "20000"]  # about 1.5M incidences
@@ -4646,6 +4674,224 @@ def scale_phase(device, card: str) -> dict:
         print(f"phase 33 {key} (card {card}; {out[key[0] + '_s']:.2f} s): "
               f"{json.dumps(out[key], default=str)}", flush=True)
     print(f"phase 33 launches: {json.dumps(out['launches'])}", flush=True)
+    return out
+
+
+# phase 34: the ell, bsr and multihot routes. Routes (b) trains and serves
+# on the sorted SBM-60k (bench.py's clustered shape), by name -> (backend,
+# the multihot plan's form or None); their no-dropout losses' bar against
+# ``xla`` (PERF.md §2: 1e-3 for the f32 routes, 1e-2 where one side rounds
+# to bf16) and the served log-probs' bar against the f32 ``tree`` route
+ROUTE_CELLS = {"bsr": ("bsr", None), "multihot": ("multihot", "multihot"),
+               "multihot_precomp": ("multihot", "multihot_precomp"), "ell": ("ell", None)}
+ROUTE_LOSS_RTOL = {"ell": 1e-3, "bsr": 1e-2, "multihot": 1e-2}
+# calls a timed window of (a)'s clustered_bench (the driver's default 20)
+ROUTES_ITERS = 10
+
+
+def route_reference_plan(name: str, plan, hg):
+    """The plan a phase 34 request is held against on CPU tensors: the
+    cell's own (the block products and ELL kernels' plain twins there),
+    except that the compare-built multihot forms are held against the
+    host-built blocks of the same tiles (``multihot_precomp`` with a plain
+    tree combine, no byte cap): the same function, its multihot matrices
+    made another way, at a CPU cost of one product a tile."""
+    from hypergef_tpu_torch.sparse.planner import AggregationPlan, plan_multihot
+
+    if ROUTE_CELLS[name][1] != "multihot":
+        return plan
+    return AggregationPlan(tree=plan.tree, multihot=plan_multihot(
+        hg, form="multihot_precomp", combine="tree", precomp_limit_bytes=1 << 62))
+
+
+def route_epochs(problem, device) -> dict:
+    """Eager against captured on one phase 34 cell, from the same seeded
+    weights with dropout on: COMPILED_EPOCHS losses bitwise equal; then a
+    step of each timed once (``time_steps``: wall and device ms)."""
+    from hypergef_tpu_torch.train.trainer import Trainer
+
+    cfg, hg, x, y, split, plan = problem
+    trainers = {c: Trainer(cfg, hg, x, y, plan=plan, device=device, compiled=c == "captured")
+                for c in ("eager", "captured")}
+    fits = {c: tr.fit(split["train"], epochs=COMPILED_EPOCHS, warmup=0)
+            for c, tr in trainers.items()}
+    check(fits["captured"]["step"] == "captured", "the captured Trainer replays its step")
+    equal = bool(np.array_equal(fits["captured"]["losses"], fits["eager"]["losses"]))
+    check(equal, f"{cfg.backend}: captured losses bitwise equal to eager")
+    turns = time_steps(trainers, split["train"], ("eager", "captured"), device)
+    return {"losses_equal": equal, "capture_s": fits["captured"]["capture_s"], **turns}
+
+
+def route_plan(name: str, hg, device, first_aggr: str = "sum"):
+    """(plan, host seconds to build it, seconds to put it on ``device``, its
+    device MiB) of a phase 34 cell: :func:`default_plan`, or the tree and
+    the multihot plan of the cell's form."""
+    from hypergef_tpu_torch.experiments.clustered_bench import device_bytes
+    from hypergef_tpu_torch.sparse.planner import AggregationPlan, plan_multihot, plan_tree
+    from hypergef_tpu_torch.train.trainer import default_plan, device_plans
+
+    backend, form = ROUTE_CELLS[name]
+    t0 = time.perf_counter()
+    if form not in (None, "multihot"):
+        plan = AggregationPlan(tree=plan_tree(hg), multihot=plan_multihot(hg, form=form))
+    else:
+        plan = default_plan(backend, hg, device, first_aggr)
+    plan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tables = [p.device(device) for p in device_plans(plan)]
+    torch.cuda.synchronize(device)
+    return plan, plan_s, time.perf_counter() - t0, device_bytes(tables) / 2**20
+
+
+def routes_phase(device, card: str, sbm) -> dict:
+    """Phase 34: the ``ell``, ``bsr`` and ``multihot`` routes on the card.
+    (a) clustered_bench at its defaults; (b) HGNN on the sorted SBM-60k on
+    each route of ``ROUTE_CELLS``: 20 captured steps counted, captured
+    against eager (bitwise, with a step of each timed), no-dropout losses
+    against ``xla``, a request counted against the plain version; (c)
+    HGNN max on ``multihot``, its E→V on the multihot plan's own stages;
+    (d) the launches of the ELL gather and segment-sum kernels on ``ell``."""
+    import os
+    import tempfile
+
+    from hypergef_tpu_torch.data.synthetic import random_features
+    from hypergef_tpu_torch.experiments import clustered_bench
+    from hypergef_tpu_torch.ops import ell_gather, fused, maxops, segment_sum, tree
+    from hypergef_tpu_torch.train.splits import rand_train_test_idx
+    from hypergef_tpu_torch.train.trainer import TrainConfig
+
+    out = {"launches": {}}
+    counters = kernel_counters()
+
+    def add(launched):
+        for k, v in launched.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+
+    # (a) clustered_bench at its defaults, its counts from 0
+    torch.cuda.synchronize()
+    for module, attr in counters.values():
+        setattr(module, attr, 0)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_routes_") as tmp:
+        path = os.path.join(tmp, "clustered.csv")
+        rows = clustered_bench.main(["--iters", str(ROUTES_ITERS), "--out", path])
+        lines = csv_lines(path)
+    torch.cuda.synchronize()
+    add({k: getattr(module, attr) for k, (module, attr) in counters.items()})
+    out["a_s"] = time.perf_counter() - t0
+    timed = [r for r in rows if "summary" not in r]
+    summaries = {r["graph"]: r for r in rows if "summary" in r}
+    check(set(summaries) == {"sbm", "random"} and card in lines[0],
+          f"clustered_bench: both graphs, the card's row: {lines[:1]}")
+    check(all(r["ok"] for r in timed), "clustered_bench: every route within its bar of xla")
+    for g in ("sbm", "random"):
+        routes = {r["backend"] for r in timed if r["graph"] == g}
+        check({"cumsum", "tree", "multihot"} <= routes, f"clustered_bench {g}: {routes}")
+        skipped = sum(ln.startswith(f"{g},") and ",multihot," in ln and ",SKIP," in ln
+                      for ln in lines)
+        check(sum(r["backend"] == "multihot" for r in timed if r["graph"] == g) + skipped == 6,
+              f"clustered_bench {g}: the six multihot forms timed or skipped")
+    # what the default multihot plan adds to the ladder's host time, on the
+    # graph whose ladder ends on tree (phase 21's graphs stop before it)
+    from hypergef_tpu_torch.data.synthetic import random_hypergraph
+    from hypergef_tpu_torch.sparse.planner import plan_aggregation
+
+    rnd = random_hypergraph(60_000, 30_000, avg_edge_size=12.0, seed=0)
+    ladder_s = {}
+    for key, flag in (("with_multihot", None), ("without", False)):
+        t0 = time.perf_counter()
+        plan = plan_aggregation(rnd, device, with_multihot=flag)
+        torch.cuda.synchronize()
+        ladder_s[key] = time.perf_counter() - t0
+        check((plan.multihot is not None) == (flag is None) and plan.preferred_backend == "tree",
+              f"the random graph's ladder ends on tree, multihot built by default: {ladder_s}")
+    del rnd, plan
+    out["a"] = {"ladder_s_random": ladder_s,
+                "rows": [{k: r[k] for k in ("graph", "backend", "params", "us", "plan_s",
+                                            "device_s", "device_mb", "max_abs_err", "rel_tol",
+                                            "host_bound")} for r in timed],
+                "refused": [ln for ln in lines if "FAILED" in ln or "SKIP" in ln
+                            or "REFUSED" in ln],
+                "picks": {g: {"card_fastest": s["fastest"], "ladder_pick": s["ladder_pick"],
+                              "ladder_s": s["ladder_s"]} for g, s in summaries.items()}}
+
+    # (b) training and serving on the sorted SBM-60k at bench.py's shape
+    t0 = time.perf_counter()
+    x, y = random_features(sbm.num_nodes, NFEAT, NCLASS, seed=1)
+    split = rand_train_test_idx(y, seed=2)
+    problems, plans = {}, {}
+    for name, (backend, _) in ROUTE_CELLS.items():
+        plan, plan_s, put_s, mb = route_plan(name, sbm, device)
+        plans[name] = {"plan_s": plan_s, "device_s": put_s, "device_mb": mb}
+        cfg = TrainConfig(model="HGNN", nhid=32, nlayer=2, first_aggr="sum", backend=backend)
+        problems[name] = (cfg, sbm, x, y, split, plan)
+    trained = train(problems, device)
+    cells = {}
+    for name, problem in problems.items():
+        cfg, hg, _, _, _, plan = problem
+        add(trained[name]["launches"])
+        epochs = route_epochs(problem, device)
+        nodrop = dataclasses.replace(cfg, dropout=0.0, input_drop=0.0)
+        parity = loss_parity(name, (nodrop, plan, device),
+                             (dataclasses.replace(nodrop, backend="xla"), None, device),
+                             (hg, x, y, split), ROUTE_LOSS_RTOL[cfg.backend], "xla")
+        # one request a route, counted, against the plain version on CPU
+        # tensors within 1e-2 (PERF.md §2) and, for the f32 ell route, the
+        # f32 xla route within 1e-3
+        per = {"ell": {"gather": 4, "segsum": 4}}.get(cfg.backend, {})
+        served = serve(device, hg, cfg.backend,
+                       {k: (*counters[k], v) for k, v in per.items()}, plan=plan,
+                       plain_plan=route_reference_plan(name, plan, hg), plain_device="cpu",
+                       xla_atol=1e-3 if cfg.backend == "ell" else None, requests=1)
+        add(served["launches"])
+        cells[name] = {"plan": plans[name], "trained": trained[name], "epochs": epochs,
+                       "parity": {k: parity[k] for k in ("ref", "rtol", "max_rel",
+                                                         "first_rel")},
+                       "served": {k: served[k] for k in ("route", "launches", "replayed",
+                                                         "worst", "request_ms")}}
+    out["b"] = cells
+    out["b_s"] = time.perf_counter() - t0
+
+    # (c) HGNN max on multihot: V→E by the argmax tree, E→V on the multihot stages
+    t0 = time.perf_counter()
+    plan, plan_s, put_s, mb = route_plan("multihot", sbm, device, "max")
+    hgd = sbm.device_data(device)
+    x32 = torch.as_tensor(np.random.default_rng(34).normal(
+        size=(sbm.num_nodes, 32)).astype(np.float32), device=device)
+    with torch.no_grad():
+        got = fused.hgnn_aggregate(hgd, x32, None, "max", plan=plan, backend="multihot")
+        ref = fused.hgnn_aggregate(hgd, x32, None, "max", backend="xla")
+        e_stage, _ = plan.tree.device(device)
+        fe_stage, fv_stage = plan.multihot.device(device)
+        xe = maxops.v2e_max_tree(x32, e_stage, hgd.record) * hgd.degE
+        own = tree.tree_matvec(xe, fv_stage, fe_stage) * hgd.degV
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    check(torch.equal(got, own), "multihot max: E→V rides the multihot plan's own stages")
+    check(err <= 3e-2 * scale, f"multihot max within 3e-2·max|xla| ({err} of {scale})")
+    cfg = TrainConfig(model="HGNN", nhid=32, nlayer=2, first_aggr="max", backend="multihot")
+    problem = (cfg, sbm, x, y, split, plan)
+    maxed = train({"multihot max": problem}, device)["multihot max"]
+    add(maxed["launches"])
+    nodrop = dataclasses.replace(cfg, dropout=0.0, input_drop=0.0)
+    parity = loss_parity("multihot max", (nodrop, plan, device),
+                         (dataclasses.replace(nodrop, backend="xla"), None, device),
+                         (sbm, x, y, split), ROUTE_LOSS_RTOL["multihot"], "xla")
+    out["c"] = {"plan_s": plan_s, "device_s": put_s, "device_mb": mb, "max_abs_err": err,
+                "max_abs_xla": scale, "e2v_own_stages": True, "trained": maxed,
+                "parity": {k: parity[k] for k in ("ref", "rtol", "max_rel", "first_rel")}}
+    out["c_s"] = time.perf_counter() - t0
+
+    # (d) the ELL gather and segment-sum kernels on the ell route's paths
+    ell = {k: cells["ell"]["trained"]["launches"][k] + cells["ell"]["served"]["launches"][k]
+           for k in ("gather", "segsum")}
+    check(min(ell.values()) > 0, f"the ell route launched both kernels: {ell}")
+    out["d"] = ell
+    for key in ("a", "b", "c"):
+        print(f"phase 34 {key} (card {card}; {out[key + '_s']:.2f} s): "
+              f"{json.dumps(out[key], default=str)}", flush=True)
+    print(f"phase 34 d ell route launches (gather, segsum): {json.dumps(out['d'])}; phase "
+          f"launches: {json.dumps(out['launches'])}", flush=True)
     return out
 
 
@@ -4847,6 +5093,15 @@ def main() -> int:
     t0 = time.perf_counter()
     scaled = scale_phase(device, card)
     print(f"phase 33: {time.perf_counter() - t0:.2f} s", flush=True)
+    # 34. the ell, bsr and multihot routes; their recordings are read as
+    # phases 1-25's are
+    cuda_graphs.DUMP_DIR = str(dumps)
+    dumps.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    routed = routes_phase(device, card, aligned["sbm"])
+    cuda_graphs.DUMP_DIR = None
+    shutil.rmtree(dumps, ignore_errors=True)
+    print(f"phase 34: {time.perf_counter() - t0:.2f} s", flush=True)
 
     fd_bwd_err = max(max(c["max_abs_err"].values()) for c in bwd)
     timed = {"fused_dense_two_stage": times["20news"], "ell_gather_sum": gather_times["edge F=32"],
@@ -5042,9 +5297,11 @@ def main() -> int:
             k["serial_launches"] = serial["launches"].get(c, 0)
             k["driver_launches"] = drivers["launches"].get(c, 0)
             k["scale_launches"] = scaled["launches"].get(c, 0)
+            k["routes_launches"] = routed["launches"].get(c, 0)
             k["launches"] += (k["export_launches"] + k["minibatch_launches"]
                               + k["dist_launches"] + k["serial_launches"]
-                              + k["driver_launches"] + k["scale_launches"])
+                              + k["driver_launches"] + k["scale_launches"]
+                              + k["routes_launches"])
     # the segment sum over each minibatch cell's padded runs (the recorded
     # steps' tables) against the batch's exact runs, F = 32 (phase 29)
     (segsum_line,) = [k for k in kernels if k["name"] == "gather_segment_sum"]

@@ -26,7 +26,7 @@ REPEATS = 20
 # to max|xla|: routes that round x (or A) to bf16 before their products
 # take the bf16 bar of tests/test_fuzz_backends.py:54, the others its f32
 # bar (:46)
-BF16_ROUTES = ("dense", "pallas", "aligned", "precomp", "bitstream")
+BF16_ROUTES = ("dense", "pallas", "aligned", "precomp", "bitstream", "bsr", "multihot")
 BF16_REL_TOL = 3e-2
 F32_REL_TOL = 1e-3
 

@@ -1,8 +1,8 @@
 """Fused two-stage aggregation: route dispatch.
 
 Port of ``hypergef_tpu/ops/fused.py`` (``hgnn_aggregate`` ``:269-375``,
-``unignn_aggregate`` ``:378-472``) with nine routes and ``auto``; the route
-names mean the same thing in both packages:
+``unignn_aggregate`` ``:378-472``) with all twelve routes and ``auto``; the
+route names mean the same thing in both packages:
 
 * ``"xla"`` — the plain segment-sum oracle (:mod:`.refops`).
 * ``"cumsum"`` — gather + sorted segment sum over each CSR
@@ -30,6 +30,17 @@ names mean the same thing in both packages:
 * ``"bitstream"`` — two products over the bit-packed incidence
   (:mod:`.bitstream`, ``fused.py:348-352``), each one launch of the
   hand-written bit-scan kernel on the card.
+* ``"ell"`` — the padded ELL chunk tables of a
+  :class:`~hypergef_tpu_torch.sparse.planner.TilePlan`
+  (``plan_aggregation(..., with_tile=True)`` or ``plan_tiles``,
+  ``fused.py:167-189``, ``:353-364``): the gather kernel's chunk sums, then
+  the segment-sum kernel over each segment's chunks.
+* ``"bsr"`` — 128×128 block products over a
+  :class:`~hypergef_tpu_torch.sparse.bsr.BsrPlan` (:mod:`.bsr_ops`,
+  ``fused.py:312-314``), library bf16 products with an f32 result.
+* ``"multihot"`` — the tiled stages of
+  :func:`~hypergef_tpu_torch.sparse.planner.plan_multihot` (:mod:`.tree`,
+  ``fused.py:320-326``): one multihot bf16 product a source tile.
 
 Max first aggregation (``fused.py:195-263``, ``:284-290``) takes its V→E
 stage from ``plan.tree`` when the plan has one, else from a TreePlan passed
@@ -37,8 +48,10 @@ directly, else from the route's own plan (``aligned``, ``tree``,
 ``pallas_sparse``): a tree stage runs :func:`.maxops.v2e_max_tree`, an
 aligned stage :func:`.aligned_max.v2e_max_aligned` (the argmax kernel in a
 ``pallas_*`` form). The E→V sum then runs on the route's own stages, table
-or packs. Where JAX would fall back to the nnz oracle, this raises
-``ValueError`` and names the plan to pass.
+or packs (``aligned``, ``pallas_sparse`` and ``multihot`` ride their own
+plan's vertex stage, ``fused.py:244-256``). Where JAX would fall back to the
+nnz oracle (no plan, a tiled plan's stages, which carry no argmax), this
+raises ``ValueError`` and names the plan to pass.
 
 UniGNN aggregation (``H Hᵀ X``, degree-scaled or not) runs on the same
 routes; ``precomp`` serves it only degree-scaled (``fused.py:397-406``).
@@ -46,8 +59,7 @@ routes; ``precomp`` serves it only degree-scaled (``fused.py:397-406``).
 ``backend=None`` takes the process-global default (``cumsum``, settable with
 :func:`set_default_backend`); ``"auto"`` takes the plan's
 ``preferred_backend`` (:func:`~hypergef_tpu_torch.sparse.planner.plan_aggregation`),
-``cumsum`` without a plan. ``ell``, ``bsr`` and ``multihot`` are left out by
-design (ROADMAP.md, "Do not port") and raise ``NotImplementedError``.
+``cumsum`` without a plan.
 """
 
 from __future__ import annotations
@@ -57,7 +69,7 @@ from typing import Optional
 
 import torch
 
-from hypergef_tpu_torch.ops import aligned_max, bitstream, maxops, refops, tree
+from hypergef_tpu_torch.ops import aligned_max, bitstream, bsr_ops, maxops, refops, tree
 from hypergef_tpu_torch.ops.fused_dense import (
     dense_dot,
     dense_table,
@@ -66,16 +78,21 @@ from hypergef_tpu_torch.ops.fused_dense import (
 )
 from hypergef_tpu_torch.ops.segments import divide_by_segment_sizes, incidence_gather_sum
 from hypergef_tpu_torch.sparse.hypergraph import HypergraphData
+from hypergef_tpu_torch.sparse.bsr import BsrPlan
 from hypergef_tpu_torch.sparse.planner import (
-    AlignedStageBDev, AlignedStageDev, DensePrecomp, TreePlan,
+    AlignedStageBDev, AlignedStageDev, DensePrecomp, TiledStage, TiledStageDev, TilePlan,
+    TreePlan,
 )
 
-ROUTES = ("xla", "cumsum", "dense", "pallas", "tree", "pallas_sparse", "aligned", "bitstream",
-          "precomp")
-# routes of the JAX package (hypergef_tpu/ops/fused.py:36-39) left out by design
-UNPORTED = ("ell", "bsr", "multihot")
+ROUTES = ("xla", "cumsum", "ell", "tree", "dense", "bsr", "precomp", "pallas", "multihot",
+          "pallas_sparse", "aligned", "bitstream")
 # the routes whose plan is a TreePlan
-_STAGE_ROUTES = ("tree", "pallas_sparse", "aligned")
+_STAGE_ROUTES = ("tree", "pallas_sparse", "aligned", "multihot")
+# the routes whose E→V stage under max first aggregation is their own plan's
+_OWN_E2V = ("aligned", "pallas_sparse", "multihot")
+# what each route's plan is built by, named where one is missing
+_PLAN_OF = {"multihot": "plan_multihot(hg)", "ell": "plan_tiles(hg)",
+            "bsr": "sparse.bsr.plan_bsr(hg)", "bitstream": "BitIncidence.from_hypergraph(hg)"}
 
 _DEFAULT_BACKEND = "cumsum"
 
@@ -118,10 +135,6 @@ def resolve_backend(backend: Optional[str], plan, nnz: Optional[int] = None) -> 
                 "to the tree when a plan has one; pass a plan to run the same route",
                 stacklevel=3)
             _warned_cumsum = True
-    if b in UNPORTED:
-        raise NotImplementedError(
-            f"backend {b!r} is left out of the port by design (ROADMAP.md, 'Do not port'); "
-            f"the routes are {ROUTES}")
     if b not in ROUTES:
         raise ValueError(f"backend must be one of {ROUTES + ('auto',)}, got {b!r}")
     if b not in ("xla", "cumsum") and plan is None:
@@ -134,20 +147,20 @@ def tree_plan(plan, route: str) -> TreePlan:
     that name, or a TreePlan passed directly; ``fused.py:87-92``)."""
     sub = getattr(plan, route, None) or plan
     if not isinstance(sub, TreePlan):
-        raise ValueError(
-            f"the {route} route needs a TreePlan (plan_tree, plan_pallas_sparse or "
-            f"plan_aligned), got {type(sub).__name__}")
+        builders = _PLAN_OF.get(route, "plan_tree, plan_pallas_sparse or plan_aligned")
+        raise ValueError(f"the {route} route needs a TreePlan ({builders}), "
+                         f"got {type(sub).__name__}")
     return sub
 
 
-def bit_plan(plan) -> bitstream.BitIncidence:
-    """The packs of ``plan`` (an AggregationPlan's ``bitstream`` field, or a
-    BitIncidence passed directly; ``fused.py:87-92``)."""
-    sub = getattr(plan, "bitstream", None) or plan
-    if not isinstance(sub, bitstream.BitIncidence):
-        raise ValueError(
-            "the bitstream route needs a BitIncidence: pass AggregationPlan(bitstream="
-            f"BitIncidence.from_hypergraph(hg)), got {type(sub).__name__}")
+def _sub_plan(plan, field: str, cls, route: str):
+    """An AggregationPlan's ``field``, or a plan of type ``cls`` passed
+    directly (``fused.py:87-92``): the packs, ELL tables or block plan of
+    the ``bitstream``, ``ell`` and ``bsr`` routes."""
+    sub = getattr(plan, field, None) or plan
+    if not isinstance(sub, cls):
+        raise ValueError(f"the {route} route needs a {cls.__name__}: pass "
+                         f"AggregationPlan({field}={_PLAN_OF[route]}), got {type(sub).__name__}")
     return sub
 
 
@@ -210,16 +223,17 @@ def _cumsum_e2v(hgd: HypergraphData, xe):
 
 
 def _max_plan(plan, b: str) -> TreePlan:
-    """The TreePlan whose edge stage computes max V→E (``fused.py:208-213``):
-    ``plan.tree``, a TreePlan passed directly, or the route's own plan."""
+    """The TreePlan whose edge stage computes max V→E (``fused.py:208-234``):
+    ``plan.tree``, a TreePlan passed directly, or the route's own plan; a
+    tiled edge stage carries no argmax."""
     for sub in (getattr(plan, "tree", None), plan,
                 getattr(plan, b, None) if b in _STAGE_ROUTES else None):
-        if isinstance(sub, TreePlan):
+        if isinstance(sub, TreePlan) and not isinstance(sub.edge_stage, TiledStage):
             return sub
     raise ValueError(
         f"max first aggregation on the {b} route needs a stage plan that carries the "
         f"record table: pass AggregationPlan(..., tree=plan_tree(hg)) (or the route's own "
-        f"TreePlan); the JAX package falls back to the nnz oracle here")
+        f"untiled TreePlan); the JAX package falls back to the nnz oracle here")
 
 
 def _hgnn_aggregate_max(hgd, x, wdiag, plan, b: str):
@@ -239,15 +253,14 @@ def _hgnn_aggregate_max(hgd, x, wdiag, plan, b: str):
     elif b == "bitstream" and getattr(plan, "bitstream", None) is not None:
         h_pack, ht_pack = plan.bitstream.device(x.device)
         xv = bitstream.bit_matvec(xe, h_pack, ht_pack)
-    elif b == "cumsum":
+    elif b in _OWN_E2V and isinstance(getattr(plan, b, None), TreePlan):
+        # the E→V stage is a plain sum: it rides the route's own stages
+        fe_stage, fv_stage = getattr(plan, b).device(x.device)
+        xv = tree.tree_matvec(xe, fv_stage, fe_stage)
+    elif b == "cumsum" or isinstance(v_stage, TiledStageDev):
         xv = _cumsum_e2v(hgd, xe)
     else:
-        own = getattr(plan, b, None) if b in ("aligned", "pallas_sparse") else None
-        if isinstance(own, TreePlan):
-            fe_stage, fv_stage = own.device(x.device)
-            xv = tree.tree_matvec(xe, fv_stage, fe_stage)
-        else:
-            xv = tree.tree_matvec(xe, v_stage, e_stage)
+        xv = tree.tree_matvec(xe, v_stage, e_stage)
     return xv * hgd.degV
 
 
@@ -283,8 +296,15 @@ def hgnn_aggregate(
         return hgnn_aggregate_fused_dense(hgd, x, wdiag, first_aggr, plan)
     if b in _STAGE_ROUTES:
         return tree.hgnn_aggregate_tree(hgd, x, wdiag, first_aggr, tree_plan(plan, b))
+    if b == "ell":
+        return tree.hgnn_aggregate_tree(hgd, x, wdiag, first_aggr,
+                                        _sub_plan(plan, "tile", TilePlan, b))
+    if b == "bsr":
+        return bsr_ops.hgnn_aggregate_bsr(hgd, x, wdiag, first_aggr,
+                                          _sub_plan(plan, "bsr", BsrPlan, b))
     if b == "bitstream":
-        return bitstream.hgnn_aggregate_bitstream(hgd, x, wdiag, first_aggr, bit_plan(plan))
+        return bitstream.hgnn_aggregate_bitstream(
+            hgd, x, wdiag, first_aggr, _sub_plan(plan, "bitstream", bitstream.BitIncidence, b))
     dense = dense_table(plan, "dense")
     xe = dense_dot(dense.h, x, True)
     if first_aggr == "mean":
@@ -324,8 +344,13 @@ def unignn_aggregate(
         return unignn_aggregate_fused_dense(hgd, x, use_deg, plan)
     if b in _STAGE_ROUTES:
         return tree.unignn_aggregate_tree(hgd, x, use_deg, tree_plan(plan, b))
+    if b == "ell":
+        return tree.unignn_aggregate_tree(hgd, x, use_deg, _sub_plan(plan, "tile", TilePlan, b))
+    if b == "bsr":
+        return bsr_ops.unignn_aggregate_bsr(hgd, x, use_deg, _sub_plan(plan, "bsr", BsrPlan, b))
     if b == "bitstream":
-        return bitstream.unignn_aggregate_bitstream(hgd, x, use_deg, bit_plan(plan))
+        return bitstream.unignn_aggregate_bitstream(
+            hgd, x, use_deg, _sub_plan(plan, "bitstream", bitstream.BitIncidence, b))
     dense = dense_table(plan, "dense")
     xe = dense_dot(dense.h, x, True)
     if use_deg:

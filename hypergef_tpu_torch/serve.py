@@ -252,7 +252,9 @@ class ServingModel:
     the card its aligned plan runs the band kernel), none for ``cumsum``,
     the int8 table for ``dense`` and ``pallas``, the tree for ``tree``, the
     bit packs for ``bitstream`` (each with the tree for max first
-    aggregation) and the plain-form ``plan_aligned(hg)`` for ``aligned``;
+    aggregation), the plain-form ``plan_aligned(hg)`` for ``aligned``, the
+    ladder's plan with the ELL tables for ``ell`` and the tree with
+    ``plan_bsr(hg)`` or ``plan_multihot(hg)`` for ``bsr`` and ``multihot``;
     pass a ``pallas_*`` form plan to run the band and argmax kernels there,
     and ``pallas_sparse`` its plan. A plan's tables go to ``device`` here.
 

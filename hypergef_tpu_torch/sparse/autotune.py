@@ -15,8 +15,8 @@ candidate on the device, on the fused op at the real feature width:
   :class:`~hypergef_tpu_torch.sparse.planner.AggregationPlan` whose
   ``preferred_backend`` comes from the measurement, not the ladder.
 
-The candidates are JAX's less its ``multihot`` forms, which the port
-leaves out (ROADMAP.md, "Do not port"). Where JAX's sweep survives any
+The candidates are JAX's, its six ``multihot`` forms among them. Where
+JAX's sweep survives any
 exception, this one skips (and prints) only a candidate's named refusals:
 ``ValueError``, ``MemoryError`` or ``NotImplementedError`` raised by its
 planner, and ``torch.cuda.OutOfMemoryError``. A kernel's build, launch or
@@ -81,10 +81,11 @@ class TuneResult:
 
 
 def default_candidates(hg) -> list:
-    """JAX's candidates (``:71-113``) less ``multihot``: ``cumsum``, the tree
-    at each ngs of the reference's partition grid, ``dense`` where the int8
-    table fits (at twice the ladder's stream gate, so the sweep can catch a
-    shape the model mis-prices), ``precomp`` where A fits, and ``aligned``
+    """JAX's candidates (``:71-113``): ``cumsum``, the tree at each ngs of
+    the reference's partition grid, ``dense`` where the int8 table fits (at
+    twice the ladder's stream gate, so the sweep can catch a shape the
+    model mis-prices), ``precomp`` where A fits, ``multihot`` at tile rows
+    128, 256 and 512 in the compare and the precomp form, and ``aligned``
     on community-sorted graphs."""
     from hypergef_tpu_torch.sparse import planner
 
@@ -97,6 +98,9 @@ def default_candidates(hg) -> list:
         cands.append(("dense", {}))
     if hg.num_nodes * hg.num_nodes <= 80_000_000:
         cands.append(("precomp", {}))
+    for tr in (128, 256, 512):
+        cands.append(("multihot", {"tile_rows": tr}))
+        cands.append(("multihot", {"tile_rows": tr, "form": "multihot_precomp"}))
     spill = max(
         planner.aligned_spill_stats(hg.ht_indptr, hg.ht_indices, hg.num_nodes, window_blocks=8),
         planner.aligned_spill_stats(hg.h_indptr, hg.h_indices, hg.num_edges, window_blocks=8),
@@ -126,9 +130,14 @@ def _build_plan(hg, backend: str, params: dict, device="cuda"):
         if torch.device(device).type == "cuda":
             plan = dataclasses.replace(plan, form="pallas_auto")
         return plan
-    if backend in ("multihot", "bsr"):
-        raise NotImplementedError(
-            f"backend {backend!r} is left out of the port by design (ROADMAP.md, 'Do not port')")
+    if backend == "multihot":
+        return planner.plan_multihot(hg, tile_rows=params.get("tile_rows", 256),
+                                     ngs=params.get("ngs", 8),
+                                     form=params.get("form", "multihot"))
+    if backend == "bsr":
+        from hypergef_tpu_torch.sparse.bsr import plan_bsr
+
+        return planner.AggregationPlan(tree=planner.plan_tree(hg), bsr=plan_bsr(hg, reorder=True))
     raise ValueError(backend)
 
 
@@ -259,15 +268,22 @@ def autotune_plan(
     """The ladder's plan with ``preferred_backend`` (and its parameters)
     from the measurement on ``device`` (``:288-334``). Where the ladder did
     not build the table the pick reads (the int8 ``dense`` table, the
-    aligned plan), it is built here."""
+    aligned plan), it is built here; a ``multihot`` pick gets the measured
+    form's plan, and the ladder builds none of its own for a ``tree``,
+    ``multihot`` or ``aligned`` pick, as in JAX."""
     from hypergef_tpu_torch.sparse import planner
 
     best = autotune(hg, feature_size, cache=cache, cache_dir=cache_dir, verbose=verbose,
                     device=device)
     if best.backend == "tree":
-        plan = planner.plan_aggregation(hg, device, ngs=best.params.get("ngs"))
+        plan = planner.plan_aggregation(hg, device, ngs=best.params.get("ngs"),
+                                        with_multihot=False)
+    elif best.backend in ("multihot", "aligned"):
+        plan = planner.plan_aggregation(hg, device, with_multihot=False)
     else:
         plan = planner.plan_aggregation(hg, device)
+    if best.backend == "multihot":
+        plan.multihot = _build_plan(hg, "multihot", best.params, device)
     if best.backend == "aligned" and plan.aligned is None:
         plan.aligned = _build_plan(hg, "aligned", best.params, device)
     if best.backend == "dense" and plan.dense is None:

@@ -6,27 +6,31 @@ code, so every host table is bit-identical to the JAX package's:
 * the ELL chunk table and the reduction tree (``:37-236``): ``EllTable``,
   :func:`build_ell`, :func:`choose_ngs`, ``TreeLevel``, ``TreeStage``,
   :func:`build_tree`;
-* :class:`TreePlan`, :func:`plan_tree` (plain stages only) and
-  :func:`plan_pallas_sparse` (``:239-431``, ``:935-949``), whose
-  :meth:`TreePlan.device` puts the stages on a torch device;
+* :class:`TreePlan`, :func:`plan_tree` and :func:`plan_pallas_sparse`
+  (``:239-431``, ``:935-949``), whose :meth:`TreePlan.device` puts the
+  stages on a torch device;
+* the tiled stages (``:785-1005``): :class:`TiledStage` and
+  :func:`build_tiled_tree` (level 0 cut at source-tile boundaries, with
+  the nested multihot combine), and :func:`plan_multihot` with its
+  per-stage downgrade past :data:`MULTIHOT_PRECOMP_LIMIT`;
+* the ELL two-stage plan of the ``ell`` route (``:1764-1852``):
+  :class:`TilePlan` and :func:`plan_tiles`;
 * the aligned host layer (``:1010-1329``, ``:1405-1761``): the uniform
   :class:`AlignedStage` and bucketed :class:`AlignedStageB`, their builders
   and :func:`plan_aligned`, with the JAX planner's bucket-merge cost model;
 * the int8 :class:`DenseIncidence` (``:433-515``) and the bf16
   propagation matrix :class:`DensePrecomp` (``:609-635``);
 * an :class:`AggregationPlan` (``:540-557``) with the ``dense``, ``tree``,
-  ``pallas_sparse``, ``aligned``, ``bitstream`` and ``precomp`` plans (the
-  bit packs live beside their kernel, in
-  :mod:`hypergef_tpu_torch.ops.bitstream`) and ``preferred_backend``;
+  ``tile``, ``bsr``, ``multihot``, ``pallas_sparse``, ``aligned``,
+  ``bitstream`` and ``precomp`` plans (the bit packs live beside their
+  kernel, in :mod:`hypergef_tpu_torch.ops.bitstream`, the block plan in
+  :mod:`hypergef_tpu_torch.sparse.bsr`) and ``preferred_backend``;
 * the routing ladder :func:`plan_aggregation` (``:638-782``) with its
   constants (``:560-606``);
 * the aligned floor model (``:1330-1402``): :func:`aligned_stage_floor`
   and :func:`aligned_plan_floor`, with the rates an argument: JAX's v5e
   rates (:data:`V5E_FLOOR_RATES`, the default) or the card's
   (:func:`card_floor_rates`).
-
-The tiled, BSR and multihot plan forms are left out (ROADMAP.md, "Do not
-port").
 """
 
 from __future__ import annotations
@@ -38,10 +42,12 @@ import numpy as np
 import torch
 
 from hypergef_tpu_torch.ops.ell_gather import GatherTable
+from hypergef_tpu_torch.ops.segment_sum import SegmentTable
 
 if TYPE_CHECKING:
     from hypergef_tpu_torch.ops.aligned_band import BandTable
     from hypergef_tpu_torch.ops.bitstream import BitIncidence
+    from hypergef_tpu_torch.sparse.bsr import BsrPlan
 
 
 def _round_up(x: int, m: int) -> int:
@@ -335,6 +341,75 @@ class AlignedStageDev:
     band: Optional["BandTable"] = None
 
 
+@dataclasses.dataclass(frozen=True)
+class TiledStageDev:
+    """A :class:`TiledStage` on one torch device (``ops/tree.py:31-63``).
+
+    ``gidx`` and ``mask`` are the tile tables the multihot forms compare
+    against; the ``gather`` form's level 0 is ``gather0``, one ELL table over
+    global rows (tile base + tile-local row) for the gather kernel; the
+    ``multihot_precomp`` form reads ``m_dense``, the multihot blocks built on
+    the host (``planner.py:327-340``). ``combine`` is a plain
+    :class:`DeviceStage` or a nested :class:`TiledStageDev`.
+    """
+
+    gidx: torch.Tensor  # int32 [n_tiles, c_max, ngs], tile-local rows
+    mask: torch.Tensor  # f32 [n_tiles, c_max, ngs]
+    combine: object  # DeviceStage or TiledStageDev over the flat partials
+    counts: torch.Tensor  # f32 [S]
+    tile_rows: int
+    form: str
+    m_dense: Optional[torch.Tensor] = None  # bf16 [n_tiles, c_max, tile_rows]
+    gather0: Optional[GatherTable] = None  # gather form: [n_tiles·c_max, ngs] global rows
+
+
+@dataclasses.dataclass(frozen=True)
+class EllStageDev:
+    """One direction of a :class:`TilePlan` on one torch device: the padded
+    ELL chunks as a gather table (``gather``) and, over their sums, the CSR
+    of each segment's chunks (``chunks``, the identity gather; padded
+    chunks lie past its last entry and are never read), the ``ell`` route's
+    stage (``ops/fused.py:167-189``)."""
+
+    gather: GatherTable  # [C_pad, ngs]
+    chunks: SegmentTable  # S segments over the C_pad chunk sums
+    counts: torch.Tensor  # f32 [S], members a segment (mean)
+
+
+def multihot_blocks(st: "TiledStage") -> np.ndarray:
+    """The dense multihot blocks of a tiled stage, f32 [n_tiles, c_max,
+    tile_rows]: row c of tile t is Σ_k mask[t,c,k]·onehot(gidx[t,c,k]),
+    repeats summed (``planner.py:327-340``)."""
+    n_tiles, c_max, _ = st.gidx.shape
+    m = np.zeros((n_tiles, c_max, st.tile_rows), np.float32)
+    t_g = np.broadcast_to(np.arange(n_tiles)[:, None, None], st.gidx.shape)
+    c_g = np.broadcast_to(np.arange(c_max)[None, :, None], st.gidx.shape)
+    np.add.at(m, (t_g, c_g, st.gidx), st.mask)
+    return m
+
+
+def _tiled_device(st: "TiledStage", device) -> TiledStageDev:
+    """A tiled host stage on ``device`` (``planner.py:324-350``). Its
+    combine is plain in every plan form, as JAX's is."""
+    gidx = torch.as_tensor(st.gidx, device=device)
+    mask = torch.as_tensor(st.mask, device=device)
+    m_dense = gather0 = None
+    if st.form == "multihot_precomp":
+        m_dense = torch.from_numpy(multihot_blocks(st)).to(torch.bfloat16).to(device)
+    elif st.form == "gather":
+        n_tiles, c_max, ngs = st.gidx.shape
+        base = (np.arange(n_tiles, dtype=np.int64) * st.tile_rows)[:, None, None]
+        glob = (st.gidx + base).reshape(-1, ngs)
+        gather0 = GatherTable(
+            gidx=torch.as_tensor(glob.astype(np.int32), device=device),
+            gidx_long=torch.as_tensor(glob, device=device),
+            mask=mask.reshape(-1, ngs), num_inputs=st.num_inputs)
+    return TiledStageDev(
+        gidx=gidx, mask=mask, combine=_stage_device(st.combine, device, False),
+        counts=torch.as_tensor(st.counts, device=device), tile_rows=st.tile_rows,
+        form=st.form, m_dense=m_dense, gather0=gather0)
+
+
 def _flat_on_device(tables, device):
     """int8 tables concatenated into one flat tensor on ``device``, put there
     once; returns it and a view of it shaped like each table."""
@@ -413,6 +488,8 @@ def _stage_device(st, device, kernel: bool):
     """A host stage of any type on ``device``."""
     if isinstance(st, (AlignedStage, AlignedStageB)):
         return _aligned_device(st, device, kernel)
+    if isinstance(st, TiledStage):
+        return _tiled_device(st, device)
     return DeviceStage.from_stage(st, device, kernel)
 
 
@@ -430,7 +507,9 @@ TREE_FORMS = ("xla", "pallas_auto", "pallas_vmem", "pallas_dma")
 @dataclasses.dataclass
 class TreePlan:
     """Two-direction stage plan (``:239-388``): reduction-tree stages
-    (:func:`plan_tree`) or aligned stages (:func:`plan_aligned`).
+    (:func:`plan_tree`), tiled stages (:func:`plan_multihot`, or
+    :func:`plan_tree` past its ``tiled_threshold``) or aligned stages
+    (:func:`plan_aligned`).
 
     ``edge_stage`` computes V→E (rows = hyperedges, inputs = vertices),
     ``vertex_stage`` computes E→V. Each stage is the exact adjoint of the
@@ -441,7 +520,7 @@ class TreePlan:
     (in its own form) instead of sharing the original's.
     """
 
-    edge_stage: TreeStage  # or AlignedStage / AlignedStageB
+    edge_stage: TreeStage  # or TiledStage / AlignedStage / AlignedStageB
     vertex_stage: TreeStage
     num_nodes: int
     num_edges: int
@@ -455,8 +534,9 @@ class TreePlan:
 
     def device(self, device) -> tuple:
         """(edge stage, vertex stage) on ``device``, built and checked once
-        per device: :class:`DeviceStage`, :class:`AlignedStageBDev` or
-        :class:`AlignedStageDev`, after the host stages' type."""
+        per device: :class:`DeviceStage`, :class:`TiledStageDev`,
+        :class:`AlignedStageBDev` or :class:`AlignedStageDev`, after the
+        host stages' type."""
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
@@ -472,29 +552,36 @@ class TreePlan:
         return (len(self.edge_stage.levels), len(self.vertex_stage.levels))
 
 
-# Cache-blocked (tiled) level 0 is opt-in in the JAX package and off by
-# default (``:390-396``); it is not ported.
+# Cache-blocked (tiled) level 0 is opt-in, as in the JAX package
+# (``:390-396``): a direction gets it only when its source rows exceed an
+# explicit ``tiled_threshold``.
 TILED_SOURCE_THRESHOLD = 1 << 62
+TILE_ROWS = 16_384
 
 
 def plan_tree(hg, ngs: Optional[int] = None, ngs_vertex: Optional[int] = None,
-              fan: int = 8, tiled_threshold: int = TILED_SOURCE_THRESHOLD) -> TreePlan:
+              fan: int = 8, tiled_threshold: int = TILED_SOURCE_THRESHOLD,
+              tile_rows: int = TILE_ROWS) -> TreePlan:
     """Build the two-direction reduction-tree plan for a hypergraph
-    (``:399-430``), plain stages only."""
-    if max(hg.num_nodes, hg.num_edges) > tiled_threshold:
-        raise NotImplementedError(
-            "tiled (cache-blocked) tree stages are not ported; the JAX package "
-            "builds them only below an explicit tiled_threshold")
+    (``:399-430``). A direction whose source rows exceed
+    ``tiled_threshold`` gets a tiled level 0 (:func:`build_tiled_tree`, the
+    ``gather`` form)."""
     if ngs is None:
         ngs = choose_ngs(hg.edge_sizes(), min_ngs=4, max_ngs=64, step=4)
     if ngs_vertex is None:
         ngs_vertex = choose_ngs(hg.vertex_degrees(), min_ngs=4, max_ngs=64, step=4)
-    return TreePlan(
-        edge_stage=build_tree(hg.ht_indptr, hg.ht_indices, hg.num_nodes, ngs, fan),
-        vertex_stage=build_tree(hg.h_indptr, hg.h_indices, hg.num_edges, ngs_vertex, fan),
-        num_nodes=hg.num_nodes,
-        num_edges=hg.num_edges,
-    )
+    if hg.num_nodes > tiled_threshold:
+        e_stage = build_tiled_tree(hg.ht_indptr, hg.ht_indices, hg.num_nodes, ngs, fan,
+                                   tile_rows)
+    else:
+        e_stage = build_tree(hg.ht_indptr, hg.ht_indices, hg.num_nodes, ngs, fan)
+    if hg.num_edges > tiled_threshold:
+        v_stage = build_tiled_tree(hg.h_indptr, hg.h_indices, hg.num_edges, ngs_vertex, fan,
+                                   tile_rows)
+    else:
+        v_stage = build_tree(hg.h_indptr, hg.h_indices, hg.num_edges, ngs_vertex, fan)
+    return TreePlan(edge_stage=e_stage, vertex_stage=v_stage, num_nodes=hg.num_nodes,
+                    num_edges=hg.num_edges)
 
 
 def plan_pallas_sparse(hg, impl: str = "auto", ngs: Optional[int] = None,
@@ -510,6 +597,177 @@ def plan_pallas_sparse(hg, impl: str = "auto", ngs: Optional[int] = None,
         num_edges=plan.num_edges,
         form=f"pallas_{impl}",
     )
+
+
+class TiledStage(NamedTuple):
+    """Tree stage whose level 0 is cut at source-tile boundaries
+    (``:785-819``).
+
+    A level-0 chunk reads only rows of one source tile (CSR rows are
+    column-sorted, so a row's entries in one tile are contiguous), and the
+    chunks are grouped a tile at a time. ``form``: ``gather`` (the chunks
+    gathered as an ELL table; on the card the gather kernel), or
+    ``multihot``/``multihot_batched``/``multihot_precomp`` (a tile-local
+    multihot bf16 matrix times the tile's rows, :mod:`hypergef_tpu_torch.ops.tree`).
+    """
+
+    gidx: np.ndarray  # [n_tiles, c_max, ngs] int32, tile-LOCAL source rows
+    mask: np.ndarray  # [n_tiles, c_max, ngs] f32
+    combine: "TreeStage"  # over the flat [n_tiles·c_max] partials (or a nested TiledStage)
+    counts: np.ndarray  # [num_segments] f32, members a segment (mean)
+    tile_rows: int
+    num_inputs: int
+    num_segments: int
+    form: str = "gather"
+
+    def fragmentation(self) -> float:
+        """Chunks over ideal chunks (1.0: every chunk full inside one tile;
+        random graphs of degree far below the tile count approach ngs)."""
+        ngs = self.gidx.shape[2]
+        live = float(self.mask.sum())
+        if live == 0:
+            return 1.0
+        chunks = float((self.mask.sum(axis=2) > 0).sum())
+        return chunks / max(live / ngs, 1.0)
+
+
+def build_tiled_tree(
+    indptr: np.ndarray,
+    indices: np.ndarray,
+    num_inputs: int,
+    ngs: int = 8,
+    fan: int = 8,
+    tile_rows: int = 16384,
+    form: str = "gather",
+    pad_limit: int = 1 << 26,
+    combine_form: str = "tree",
+    combine_tile_rows: int = 256,
+) -> TiledStage:
+    """A stage whose level-0 chunks are cut at source-tile boundaries and
+    grouped a tile at a time (``:822-932``). ``combine_form``: ``tree`` (a
+    plain tree over the flat partials) or a multihot form: a nested tiled
+    stage whose own combine is a plain tree. Raises ``MemoryError`` when
+    the padded [n_tiles, c_max, ngs] table would exceed ``pad_limit``
+    entries (skewed per-tile chunk counts pad every tile to the hottest)."""
+    indptr = np.asarray(indptr, dtype=np.int64)
+    indices = np.asarray(indices, dtype=np.int64)
+    num_rows = indptr.shape[0] - 1
+    nnz = indices.shape[0]
+    n_tiles = max(-(-num_inputs // tile_rows), 1)
+    row_of = np.repeat(np.arange(num_rows, dtype=np.int64), np.diff(indptr))
+    tile_of = indices // tile_rows
+
+    if nnz:
+        # (row, tile) runs are contiguous in nnz order: a chunk starts at
+        # each run start and every ngs entries within a run
+        new_run = np.ones(nnz, dtype=bool)
+        new_run[1:] = (row_of[1:] != row_of[:-1]) | (tile_of[1:] != tile_of[:-1])
+        run_starts = np.nonzero(new_run)[0]
+        run_id = np.cumsum(new_run) - 1
+        pos_in_run = np.arange(nnz, dtype=np.int64) - run_starts[run_id]
+        slot = pos_in_run % ngs
+        chunk_first = slot == 0
+        chunk_id = np.cumsum(chunk_first) - 1  # [nnz]
+        n_chunks = int(chunk_id[-1]) + 1
+        first_idx = np.nonzero(chunk_first)[0]
+        chunk_tile = tile_of[first_idx]
+        chunk_row = row_of[first_idx]
+        per_tile = np.bincount(chunk_tile, minlength=n_tiles)
+        c_max = max(int(per_tile.max(initial=0)), 1)
+        if n_tiles * c_max * ngs > pad_limit:
+            raise MemoryError(
+                f"tiled stage padding blowup: {n_tiles} tiles x c_max {c_max} "
+                f"x ngs {ngs} > pad_limit {pad_limit}"
+            )
+        # each chunk's rank within its tile (a stable sort keeps row order)
+        order = np.argsort(chunk_tile, kind="stable")
+        rank_in_tile = np.zeros(n_chunks, dtype=np.int64)
+        prev_count = np.zeros(n_tiles + 1, dtype=np.int64)
+        np.cumsum(per_tile, out=prev_count[1:])
+        rank_in_tile[order] = np.arange(n_chunks, dtype=np.int64) - prev_count[
+            chunk_tile[order]
+        ]
+        flat_pos = chunk_tile * c_max + rank_in_tile
+        gidx = np.zeros((n_tiles, c_max, ngs), dtype=np.int32)
+        mask = np.zeros((n_tiles, c_max, ngs), dtype=np.float32)
+        t_of_entry = chunk_tile[chunk_id]
+        r_of_entry = rank_in_tile[chunk_id]
+        gidx[t_of_entry, r_of_entry, slot] = (indices - tile_of * tile_rows).astype(np.int32)
+        mask[t_of_entry, r_of_entry, slot] = 1.0
+        # the combine's CSR: each segment's chunks by flat position
+        seg_order = np.lexsort((flat_pos, chunk_row))
+        comb_indices = flat_pos[seg_order].astype(np.int32)
+        comb_indptr = np.zeros(num_rows + 1, dtype=np.int64)
+        np.add.at(comb_indptr, chunk_row + 1, 1)
+        np.cumsum(comb_indptr, out=comb_indptr)
+    else:
+        c_max = 1
+        gidx = np.zeros((n_tiles, 1, ngs), dtype=np.int32)
+        mask = np.zeros((n_tiles, 1, ngs), dtype=np.float32)
+        comb_indices = np.zeros(0, dtype=np.int32)
+        comb_indptr = np.zeros(num_rows + 1, dtype=np.int64)
+    if combine_form == "tree":
+        combine = build_tree(comb_indptr, comb_indices, n_tiles * c_max, ngs=4, fan=fan)
+    else:
+        # the nested multihot combine: one level of nesting, its own combine
+        # a plain tree over each segment's tile partials
+        combine = build_tiled_tree(
+            comb_indptr, comb_indices, n_tiles * c_max, ngs=4, fan=fan,
+            tile_rows=combine_tile_rows, form=combine_form, pad_limit=pad_limit,
+            combine_form="tree",
+        )
+    return TiledStage(
+        gidx=gidx,
+        mask=mask,
+        combine=combine,
+        counts=np.diff(indptr).astype(np.float32),
+        tile_rows=tile_rows,
+        num_inputs=num_inputs,
+        num_segments=num_rows,
+        form=form,
+    )
+
+
+# per-stage byte budget of the host-built dense multihot blocks (bf16,
+# ``:952-955``): above it a ``multihot_precomp`` stage takes the compare
+# form, which has no such footprint
+MULTIHOT_PRECOMP_LIMIT = 256 * 1024 * 1024
+MULTIHOT_FORMS = ("multihot", "multihot_batched", "multihot_precomp")
+
+
+def plan_multihot(
+    hg,
+    tile_rows: int = 256,
+    ngs: int = 8,
+    fan: int = 8,
+    form: str = "multihot",
+    precomp_limit_bytes: int = MULTIHOT_PRECOMP_LIMIT,
+    combine: str = "auto",
+) -> TreePlan:
+    """Both directions as tiled stages whose level 0 is one multihot bf16
+    product a source tile (``:958-1005``). ``combine="auto"`` nests a
+    multihot combine for the precomp form and keeps the plain tree for the
+    compare forms. A precomp stage whose blocks would exceed
+    ``precomp_limit_bytes`` takes the ``multihot`` form (its nested combine
+    keeps its own form)."""
+    if form not in MULTIHOT_FORMS:
+        raise ValueError(f"form must be one of {MULTIHOT_FORMS}, got {form!r}")
+    if combine == "auto":
+        combine = "multihot_precomp" if form == "multihot_precomp" else "tree"
+    e_stage = build_tiled_tree(hg.ht_indptr, hg.ht_indices, hg.num_nodes, ngs, fan,
+                               tile_rows, form, combine_form=combine)
+    v_stage = build_tiled_tree(hg.h_indptr, hg.h_indices, hg.num_edges, ngs, fan,
+                               tile_rows, form, combine_form=combine)
+    if form == "multihot_precomp":
+        def _fit(st):
+            n_tiles, c_max, _ = st.gidx.shape
+            if n_tiles * c_max * st.tile_rows * 2 > precomp_limit_bytes:
+                return st._replace(form="multihot")
+            return st
+
+        e_stage, v_stage = _fit(e_stage), _fit(v_stage)
+    return TreePlan(edge_stage=e_stage, vertex_stage=v_stage, num_nodes=hg.num_nodes,
+                    num_edges=hg.num_edges)
 
 
 class AlignedStage(NamedTuple):
@@ -1283,17 +1541,20 @@ class AggregationPlan:
     (``:540-557``).
 
     ``dense`` serves the ``dense`` and ``pallas`` routes, ``tree`` the
-    ``tree`` route, ``precomp``, ``pallas_sparse``, ``aligned`` and
-    ``bitstream`` the routes of those names, and ``preferred_backend`` is
-    the route ``backend="auto"`` takes. Unlike the JAX package's, it needs
-    no ``tree`` for the ``aligned`` route; like it, it needs one for max
-    first aggregation on ``dense``, ``pallas``, ``bitstream`` and
-    ``cumsum``. The JAX package's ``tile``, ``bsr`` and ``multihot`` forms
-    are not ported (ROADMAP.md, "Do not port").
+    ``tree`` route, ``tile`` the ``ell`` route, ``precomp``, ``bsr``,
+    ``multihot``, ``pallas_sparse``, ``aligned`` and ``bitstream`` the
+    routes of those names, and ``preferred_backend`` is the route
+    ``backend="auto"`` takes. Unlike the JAX package's, it needs no
+    ``tree`` for the ``aligned`` route; like it, it needs one for max first
+    aggregation on ``dense``, ``pallas``, ``bitstream``, ``cumsum``,
+    ``ell``, ``bsr`` and ``multihot``.
     """
 
     dense: Optional[DenseIncidence] = None
     tree: Optional[TreePlan] = None
+    tile: Optional["TilePlan"] = None  # the ell route's ELL tables
+    bsr: Optional["BsrPlan"] = None  # sparse.bsr.plan_bsr
+    multihot: Optional[TreePlan] = None  # plan_multihot's tiled TreePlan
     pallas_sparse: Optional[TreePlan] = None  # pallas-level-0 TreePlan
     aligned: Optional[TreePlan] = None  # plan_aligned's TreePlan, plain or kernel form
     bitstream: Optional["BitIncidence"] = None  # the bit-packed H and Hᵀ
@@ -1314,13 +1575,16 @@ def plan_aggregation(
     with_precomp: bool = True,
     with_multihot: Optional[bool] = None,
     with_aligned: bool = True,
+    bsr_fill_threshold: float = 0.02,
+    multihot_tile_rows: int = 256,
     ngs: Optional[int] = None,
     fan: int = 8,
 ) -> AggregationPlan:
     """The routing ladder (``:638-782``), branch for branch in JAX's order:
 
     * ``precomp`` when N² ≤ ``PRECOMP_MAX_ENTRIES`` and N ≤ 2E;
-    * ``dense`` when N·E ≤ ``dense_threshold``;
+    * ``dense`` when N·E ≤ ``dense_threshold``, else ``bsr`` when
+      ``with_bsr`` and the blocks fit their budget;
     * ``aligned`` when the graph is community-sorted (``plan_aligned``,
       then with ``window_blocks=32`` when the aspect ratio is ≥ 4);
     * ``dense`` again for an unstructured graph with N·E under the int8 cap
@@ -1335,34 +1599,42 @@ def plan_aggregation(
     plan always holds the plain-form tree, which max first aggregation
     reads. On a CUDA device the aligned
     plan takes the kernel form (``form="pallas_auto"``, the band kernel);
-    the route's name stays ``aligned``. The tiled, BSR and multihot forms
-    are not ported: asking for one raises ``NotImplementedError``; the JAX
-    ladder builds multihot by default but never prefers it.
+    the route's name stays ``aligned``. As in JAX, the multihot plan
+    (:func:`plan_multihot`, ``multihot_tile_rows``) is built by default
+    when the ladder ends on ``tree`` (``with_multihot=None``; True builds
+    it always, False never) but never preferred, and ``with_tile`` adds the
+    ``ell`` route's :func:`plan_tiles`.
     """
-    for name, flag in (("with_tile", with_tile), ("with_bsr", with_bsr),
-                       ("with_multihot", with_multihot)):
-        if flag:
-            raise NotImplementedError(
-                f"{name}=True asks for a plan form the port leaves out (ROADMAP.md, "
-                "'Do not port')")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: plan_aggregation plans for the card unless it is "
                            "given device='cpu'")
     n, e, nnz = hg.num_nodes, hg.num_edges, hg.nnz
     tree = plan_tree(hg, ngs=ngs, fan=fan)
-    dense = precomp = aligned = bitstream = None
+    dense = precomp = aligned = bitstream = bsr = None
     preferred = "tree"
     if with_precomp and n * n <= PRECOMP_MAX_ENTRIES:
         precomp = DensePrecomp.from_hypergraph(hg, device)
     if n * e <= dense_threshold:
         dense = DenseIncidence.from_hypergraph(hg, device)
         preferred = "dense"
+    elif with_bsr:
+        # demoted from the ladder in JAX (measured on a TPU v5e); taken only
+        # when asked for
+        from hypergef_tpu_torch.sparse.bsr import plan_bsr
+
+        try:
+            cand = plan_bsr(hg, reorder=True)
+            if cand.fill_fraction() >= bsr_fill_threshold or with_bsr:
+                bsr = cand
+                preferred = "bsr"
+        except MemoryError:
+            pass
     if precomp is not None and n <= 2 * e:
         # one product with A reads N² bf16 against the dense route's two
         # reads of H (2·N·E): it wins for N ≲ 2E
         preferred = "precomp"
-    if with_aligned and dense is None and preferred == "tree":
+    if with_aligned and dense is None and preferred in ("tree", "bsr"):
         try:
             aligned = plan_aligned(hg)
             preferred = "aligned"
@@ -1390,7 +1662,78 @@ def plan_aggregation(
             bitstream = None  # not a 0/1 incidence
     if preferred == "tree" and nnz <= CUMSUM_PREFER_NNZ:
         preferred = "cumsum"
+    multihot = None
+    if with_multihot or (with_multihot is None and dense is None and preferred == "tree"):
+        try:
+            multihot = plan_multihot(hg, tile_rows=multihot_tile_rows, fan=fan)
+        except MemoryError:
+            multihot = None  # skewed per-tile chunk counts: padding blowup
+    tile = plan_tiles(hg) if with_tile else None
     if aligned is not None and device.type == "cuda":
         aligned = dataclasses.replace(aligned, form="pallas_auto")
-    return AggregationPlan(dense=dense, tree=tree, aligned=aligned, bitstream=bitstream,
-                           precomp=precomp, preferred_backend=preferred)
+    return AggregationPlan(dense=dense, tree=tree, tile=tile, bsr=bsr, multihot=multihot,
+                           aligned=aligned, bitstream=bitstream, precomp=precomp,
+                           preferred_backend=preferred)
+
+
+@dataclasses.dataclass
+class TilePlan:
+    """The ``ell`` route's static two-stage schedule (``:1776-1823``): the
+    padded ELL chunk tables of both directions. :meth:`device` puts them on
+    a torch device once, as an (edge, vertex) pair of
+    :class:`EllStageDev`: each stage is the other's adjoint, as a tree
+    plan's are."""
+
+    edge_table: EllTable  # V→E: chunks of Hᵀ rows
+    vertex_table: EllTable  # E→V: chunks of H rows
+    num_nodes: int
+    num_edges: int
+    _device: Dict[torch.device, tuple] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
+
+    def device(self, device) -> tuple:
+        """(edge stage, vertex stage) on ``device``, built and checked once
+        per device."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if device not in self._device:
+            self._device[device] = (
+                _ell_device(self.edge_table, self.num_nodes, device),
+                _ell_device(self.vertex_table, self.num_edges, device))
+        return self._device[device]
+
+    def padding_waste(self) -> float:
+        """Share of padded (dead) gather slots across both tables."""
+        et, vt = self.edge_table, self.vertex_table
+        live = float(et.mask.sum() + vt.mask.sum())
+        total = float(et.mask.size + vt.mask.size)
+        return 1.0 - live / total if total else 0.0
+
+
+def _ell_device(t: EllTable, num_inputs: int, device) -> EllStageDev:
+    gl = torch.as_tensor(t.gather_idx.astype(np.int64), device=device)
+    counts = np.bincount(t.seg_ids[:t.num_chunks], weights=t.mask[:t.num_chunks].sum(axis=1),
+                         minlength=t.num_segments)
+    return EllStageDev(
+        gather=GatherTable(gidx=torch.as_tensor(t.gather_idx, device=device), gidx_long=gl,
+                           mask=torch.as_tensor(t.mask, device=device), num_inputs=num_inputs),
+        chunks=SegmentTable.build(t.seg_ptr, None, t.gather_idx.shape[0], device),
+        counts=torch.as_tensor(counts.astype(np.float32), device=device))
+
+
+def plan_tiles(hg, ngs: Optional[int] = None, ngs_vertex: Optional[int] = None,
+               pad_chunks_to: int = 8) -> TilePlan:
+    """The ``ell`` route's plan (``:1826-1852``): ``ngs`` from
+    :func:`choose_ngs` on the hyperedge sizes, the vertex side's from the
+    vertex degrees."""
+    if ngs is None:
+        ngs = choose_ngs(hg.edge_sizes())
+    if ngs_vertex is None:
+        ngs_vertex = choose_ngs(hg.vertex_degrees())
+    return TilePlan(
+        edge_table=build_ell(hg.ht_indptr, hg.ht_indices, ngs, pad_chunks_to),
+        vertex_table=build_ell(hg.h_indptr, hg.h_indices, ngs_vertex, pad_chunks_to),
+        num_nodes=hg.num_nodes,
+        num_edges=hg.num_edges,
+    )

@@ -75,8 +75,8 @@ def parse(argv=None):
                    help="plan by a measured per-graph sweep of routes and parameters "
                         "(sparse/autotune.py), kept in a persistent cache")
     p.add_argument("--backend", type=str, default="auto",
-                   help="auto|xla|cumsum|dense|pallas|tree|pallas_sparse|aligned|bitstream|"
-                        "precomp")
+                   help="auto|xla|cumsum|ell|tree|dense|bsr|precomp|pallas|multihot|"
+                        "pallas_sparse|aligned|bitstream")
     p.add_argument("--plan-cache", type=str, default=None, nargs="?", const="",
                    help="keep built plans in this directory, keyed by the graph's content "
                         "(no DIR: the default user cache); reruns load instead of building")

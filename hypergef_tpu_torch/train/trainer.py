@@ -32,8 +32,10 @@ from torch.nn import functional as F
 from hypergef_tpu_torch.models.zoo import build_model
 from hypergef_tpu_torch.ops import fused
 from hypergef_tpu_torch.ops.bitstream import BitIncidence
+from hypergef_tpu_torch.sparse.bsr import BsrPlan, plan_bsr
 from hypergef_tpu_torch.sparse.planner import (
-    AggregationPlan, DensePrecomp, TreePlan, plan_aggregation, plan_aligned, plan_tree,
+    AggregationPlan, DensePrecomp, TilePlan, TreePlan, plan_aggregation, plan_aligned,
+    plan_multihot, plan_tree,
 )
 from hypergef_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from hypergef_tpu_torch.train.splits import accuracy
@@ -188,13 +190,24 @@ def default_plan(backend: Optional[str], hg, device, first_aggr: str = "sum"):
     graph that is not: run ``community_reorder`` first). Max on ``aligned``
     runs the masked argmax on the aligned edge stage. ``bitstream`` gets the
     bit packs, the plan JAX's ladder builds in its band (``planner.py:735-754``),
-    with the tree for max."""
+    with the tree for max. ``ell`` gets the ladder's plan with the ELL tables
+    (``with_tile=True``, as JAX's Trainer builds it, ``:89-99``); ``bsr``
+    and ``multihot`` the tree and their own plan (``plan_bsr(hg,
+    reorder=True)``, ``plan_multihot(hg)``), as JAX's autotune builds them
+    (``autotune.py:136-147``): JAX's Trainer passes the ladder's plan, which
+    holds no BSR plan and, off the ``tree`` rung, no multihot plan."""
     if backend == "xla":
         return None
     if backend == "cumsum":
         return AggregationPlan(tree=plan_tree(hg)) if first_aggr == "max" else None
     if backend in (None, "auto", "precomp"):
         return plan_aggregation(hg, device)
+    if backend == "ell":
+        return plan_aggregation(hg, device, with_tile=True)
+    if backend == "bsr":
+        return AggregationPlan(tree=plan_tree(hg), bsr=plan_bsr(hg, reorder=True))
+    if backend == "multihot":
+        return AggregationPlan(tree=plan_tree(hg), multihot=plan_multihot(hg))
     if backend in ("dense", "pallas", "bitstream"):
         if backend == "bitstream":
             plan = AggregationPlan(bitstream=BitIncidence.from_hypergraph(hg))
@@ -211,7 +224,7 @@ def default_plan(backend: Optional[str], hg, device, first_aggr: str = "sum"):
         raise ValueError(
             "backend 'pallas_sparse' needs its plan: pass plan=plan_pallas_sparse(hg), "
             "as the JAX package's Trainer needs it too")
-    fused.resolve_backend(backend, None)  # raises for a route left out or unknown
+    fused.resolve_backend(backend, None)  # raises for an unknown route
     raise AssertionError(backend)
 
 
@@ -243,12 +256,13 @@ def trainer_plan(cfg: "TrainConfig", hg, device):
 
 
 def device_plans(plan):
-    """The stage plans, bit packs and propagation matrix of ``plan``, whose
-    tables go to the device when a Trainer or a server is built, not inside
-    its first step."""
-    if isinstance(plan, (TreePlan, BitIncidence, DensePrecomp)):
+    """The stage plans, ELL and block tables, bit packs and propagation
+    matrix of ``plan``, whose tables go to the device when a Trainer or a
+    server is built, not inside its first step."""
+    if isinstance(plan, (TreePlan, TilePlan, BsrPlan, BitIncidence, DensePrecomp)):
         return [plan]
-    fields = ("tree", "pallas_sparse", "aligned", "bitstream", "precomp")
+    fields = ("tree", "tile", "bsr", "multihot", "pallas_sparse", "aligned", "bitstream",
+              "precomp")
     return [p for p in (getattr(plan, f, None) for f in fields) if p is not None]
 
 

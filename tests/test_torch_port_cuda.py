@@ -1988,3 +1988,96 @@ def test_clustered_e2e_small_on_the_card(cuda, tmp_path):
     for r in rows:
         assert r["step"] == "captured" and r["epoch_us"] > 0, r
         assert r["test_acc"] > 100.0 / clustered_e2e.NCLASS, r
+
+
+# ------------------------------------------------ the ell, bsr and multihot routes
+NEW_ROUTES = ("ell", "bsr", "multihot", "multihot_batched", "multihot_precomp")
+
+
+def new_route_plan(route, hg, device):
+    """The plan of one of the three routes (the multihot plan in the named
+    form) and the route's name."""
+    from hypergef_tpu_torch.sparse.bsr import plan_bsr
+
+    tree = planner.plan_tree(hg)
+    if route == "ell":
+        return planner.AggregationPlan(tree=tree, tile=planner.plan_tiles(hg)), "ell"
+    if route == "bsr":
+        return planner.AggregationPlan(tree=tree, bsr=plan_bsr(hg)), "bsr"
+    return planner.AggregationPlan(
+        tree=tree, multihot=planner.plan_multihot(hg, tile_rows=128, form=route)), "multihot"
+
+
+@pytest.mark.parametrize("aggr", ["sum", "mean", "max", "uni"])
+@pytest.mark.parametrize("route", NEW_ROUTES)
+def test_new_routes_match_plain_and_repeat_bitwise(cuda, route, aggr):
+    """Each of the three routes on the card against the same route on CPU
+    tensors (the kernels' plain twins; the products in f32 of the same bf16
+    operands): outputs and dx within 1e-5·max (the same f32 terms in another
+    order), 1e-2 for ``multihot_precomp``, whose nested combine rounds the
+    partials to bf16 again; two card runs bitwise equal. The ``ell`` route
+    launches the gather and segment-sum kernels once a stage apply."""
+    from hypergef_tpu_torch.ops import segment_sum
+
+    hg = sorted_community_graph(2000, 1600, 25, 5, 0.02, 3)
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(hg.num_nodes, 16)).astype(np.float32)
+    cot = rng.normal(size=(hg.num_nodes, 16)).astype(np.float32)
+    res = []
+    for dev in (cuda, cuda, torch.device("cpu")):
+        plan, backend = new_route_plan(route, hg, dev)
+        hgd = hg.device_data(dev)
+        xr = torch.as_tensor(x, device=dev).requires_grad_(True)
+        before = (ell_gather.launches, segment_sum.launches)
+        if aggr == "uni":
+            out = fused.unignn_aggregate(hgd, xr, True, plan=plan, backend=backend)
+        else:
+            out = fused.hgnn_aggregate(hgd, xr, None, aggr, plan=plan, backend=backend)
+        (out * torch.as_tensor(cot, device=dev)).sum().backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launched = (ell_gather.launches - before[0], segment_sum.launches - before[1])
+        res.append((out.detach().cpu(), xr.grad.cpu(), launched))
+    (o1, g1, n1), (o2, g2, _), (op, gp, np_) = res
+    assert torch.equal(o1, o2) and torch.equal(g1, g2)
+    # max takes V→E and, on ell, E→V from the tree (JAX's fused.py:244-258)
+    want = (4, 4) if route == "ell" and aggr != "max" else (0, 0)
+    assert (n1, np_) == (want, (0, 0))
+    tol = 1e-2 if route == "multihot_precomp" else 1e-5
+    for got, ref in ((o1, op), (g1, gp)):
+        torch.testing.assert_close(got, ref, rtol=tol, atol=tol * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("route", NEW_ROUTES)
+def test_new_routes_captured_steps_equal_eager(cuda, route):
+    """A Trainer on each route, captured against eager from the same seed
+    with dropout on: three epochs' losses bitwise equal."""
+    from hypergef_tpu_torch.data.synthetic import random_features
+    from hypergef_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    hg = sorted_community_graph(2000, 1600, 25, 5, 0.02, 3)
+    x, y = random_features(hg.num_nodes, 24, 4, seed=1)
+    idx = np.arange(0, hg.num_nodes, 2)
+    plan, backend = new_route_plan(route, hg, cuda)
+    cfg = TrainConfig(nhid=16, backend=backend)
+    losses = [Trainer(cfg, hg, x, y, nclass=4, plan=plan, device="cuda", compiled=c).fit(
+        idx, epochs=3, warmup=0) for c in (False, True)]
+    assert losses[1]["step"] == "captured"
+    assert np.array_equal(losses[0]["losses"], losses[1]["losses"])
+
+
+def test_clustered_bench_small_on_the_card(cuda, tmp_path):
+    """clustered_bench at a small size on the card: the card's row, every
+    candidate timed and within its bar of ``xla``, the ladder's pick named."""
+    from hypergef_tpu_torch.experiments import clustered_bench
+
+    out = tmp_path / "c.csv"
+    rows = clustered_bench.main(["--n", "4000", "--e", "2000", "--comm", "24", "--iters", "3",
+                                 "--out", str(out)])
+    lines = out.read_text().splitlines()
+    assert lines[0].startswith("# card: ") and lines[2] == clustered_bench.HEADER
+    timed = [r for r in rows if "summary" not in r]
+    assert all(r["ok"] for r in timed)
+    assert {r["backend"] for r in timed if r["graph"] == "sbm"} == {
+        "cumsum", "tree", "bsr", "multihot", "aligned"}
+    assert [r["graph"] for r in rows if "summary" in r] == ["sbm", "random"]

@@ -43,7 +43,7 @@ from hypergef_tpu_torch.sparse import planner
 from hypergef_tpu_torch.train.trainer import TrainConfig, Trainer, device_plans
 
 REPO = Path(__file__).resolve().parents[1]
-FIELDS = ("dense", "precomp", "aligned", "bitstream", "tree")
+FIELDS = ("dense", "precomp", "aligned", "bitstream", "tree", "tile", "bsr", "multihot")
 
 # (n, e, avg_edge_size): the graphs of tests/test_auto_ladder.py and of
 # chip_smoke.py's ladder phase that are cheap to plan on the CPU
@@ -133,10 +133,31 @@ def test_stream_branches_at_small_size(monkeypatch, stream_cap, want):
 
 
 def test_left_out_plan_forms_raise():
-    _, thg = _random(120, 80, 5.0, seed=3)
+    """The plan forms once refused here: with each flag the port builds the
+    plans JAX builds, their tables bit-equal. ``with_bsr`` is reached past
+    the dense gate (closed by argument)."""
+    jhg, thg = _random(120, 80, 5.0, seed=3)
     for flag in ("with_tile", "with_bsr", "with_multihot"):
-        with pytest.raises(NotImplementedError, match="Do not port"):
-            planner.plan_aggregation(thg, "cpu", **{flag: True})
+        gates = dict(dense_threshold=0, with_precomp=False) if flag == "with_bsr" else {}
+        jplan = jplanner.plan_aggregation(jhg, **gates, **{flag: True})
+        tplan = planner.plan_aggregation(thg, "cpu", **gates, **{flag: True})
+        _same_plans(jplan, tplan)
+        sub = {"with_tile": "tile", "with_bsr": "bsr", "with_multihot": "multihot"}[flag]
+        assert getattr(tplan, sub) is not None
+    for a, b in ((tplan.multihot.edge_stage, jplan.multihot.edge_stage),
+                 (tplan.multihot.vertex_stage, jplan.multihot.vertex_stage)):
+        np.testing.assert_array_equal(a.gidx, b.gidx)
+        np.testing.assert_array_equal(a.mask, b.mask)
+    tile = planner.plan_aggregation(thg, "cpu", with_tile=True).tile
+    jtile = jplanner.plan_aggregation(jhg, with_tile=True).tile
+    for t, jt in ((tile.edge_table, jtile.edge_table), (tile.vertex_table, jtile.vertex_table)):
+        np.testing.assert_array_equal(t.gather_idx, jt.gather_idx)
+        np.testing.assert_array_equal(t.seg_ids, jt.seg_ids)
+    bplan = planner.plan_aggregation(thg, "cpu", dense_threshold=0, with_precomp=False,
+                                     with_bsr=True)
+    jbplan = jplanner.plan_aggregation(jhg, dense_threshold=0, with_precomp=False,
+                                       with_bsr=True)
+    np.testing.assert_array_equal(bplan.bsr.edge_stage.blocks, jbplan.bsr.edge_stage.blocks)
 
 
 @pytest.mark.parametrize("shape", [(700, 500, 4.0), (2708, 2708, 4.0)])

@@ -19,6 +19,7 @@ import hypergef_tpu.data.synthetic as jsyn
 from hypergef_tpu.ops import fused as jfused
 from hypergef_tpu.ops import pallas_kernels as jpk
 from hypergef_tpu.ops import refops as jrefops
+from hypergef_tpu.sparse import planner as jplanner
 from hypergef_tpu.sparse.planner import plan_aggregation
 
 import hypergef_tpu_torch.data.synthetic as tsyn
@@ -116,17 +117,30 @@ def test_plain_path_keeps_gradients():
 
 @pytest.mark.parametrize("backend", ["auto", "cumsum", "ell", "bsr", "precomp", "multihot", None])
 def test_unported_routes_raise(backend):
-    """The JAX route names beyond the first seven: the three left out by
-    design raise; ``auto``, ``cumsum``, ``precomp`` and None, ported since,
-    run on the ladder's plan and agree with the xla route (``precomp`` at
-    the bf16 bar)."""
-    _, thg, x, _ = _problem("small_f4", False)
-    plan = plan_port(thg, "cpu")
+    """The JAX route names beyond the first seven, all ported: ``auto``,
+    ``cumsum``, ``precomp`` and None run on the ladder's plan and agree with
+    the xla route (``precomp`` at the bf16 bar); ``ell``, ``bsr`` and
+    ``multihot`` run on their plans and agree with JAX's route on the same
+    plans (``ell`` at the f32 bar, the other two at the bf16 bar)."""
+    jhg, thg, x, _ = _problem("small_f4", False)
     hgd, xt = thg.device_data("cpu"), torch.as_tensor(x)
-    if backend in fused.UNPORTED:
-        with pytest.raises(NotImplementedError, match="left out"):
-            fused.hgnn_aggregate(hgd, xt, None, "sum", plan=plan, backend=backend)
+    if backend in ("ell", "bsr", "multihot"):
+        from hypergef_tpu.sparse import bsr as jbsr
+
+        from hypergef_tpu_torch.sparse import bsr, planner
+
+        plan = AggregationPlan(tree=planner.plan_tree(thg), tile=planner.plan_tiles(thg),
+                               bsr=bsr.plan_bsr(thg), multihot=planner.plan_multihot(thg))
+        jplan = jplanner.AggregationPlan(
+            tree=jplanner.plan_tree(jhg), tile=jplanner.plan_tiles(jhg),
+            bsr=jbsr.plan_bsr(jhg), multihot=jplanner.plan_multihot(jhg))
+        got = fused.hgnn_aggregate(hgd, xt, None, "sum", plan=plan, backend=backend).numpy()
+        want = jfused.hgnn_aggregate(jhg.device_data(), jnp.asarray(x), None, "sum",
+                                     plan=jplan, backend=backend)
+        np.testing.assert_allclose(got, np.asarray(want),
+                                   **(F32_TOL if backend == "ell" else BF16_TOL))
         return
+    plan = plan_port(thg, "cpu")
     got = fused.hgnn_aggregate(hgd, xt, None, "sum", plan=plan, backend=backend).numpy()
     want = fused.hgnn_aggregate(hgd, xt, None, "sum", backend="xla").numpy()
     np.testing.assert_allclose(got, want, **(BF16_TOL if backend in ("auto", "precomp")

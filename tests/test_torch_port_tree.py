@@ -144,8 +144,16 @@ def test_plan_forms_and_tiling_are_checked():
     _, thg = _graphs("random")
     with pytest.raises(ValueError, match="form"):
         planner.plan_pallas_sparse(thg, impl="no_such_impl")
-    with pytest.raises(NotImplementedError, match="tiled"):
-        planner.plan_tree(thg, tiled_threshold=10)
+    # tiled level 0 (once refused here): the tables JAX builds, bit for bit
+    jhg, _ = _graphs("random")
+    tiled = planner.plan_tree(thg, tiled_threshold=10, tile_rows=64)
+    jtiled = jplanner.plan_tree(jhg, tiled_threshold=10, tile_rows=64)
+    for st, jst in ((tiled.edge_stage, jtiled.edge_stage),
+                    (tiled.vertex_stage, jtiled.vertex_stage)):
+        assert isinstance(st, planner.TiledStage) and st.form == jst.form == "gather"
+        np.testing.assert_array_equal(st.gidx, np.asarray(jst.gidx))
+        np.testing.assert_array_equal(st.mask, np.asarray(jst.mask))
+        np.testing.assert_array_equal(st.combine.final_idx, np.asarray(jst.combine.final_idx))
 
 
 @pytest.mark.parametrize("impl", ["vmem", "dma"])

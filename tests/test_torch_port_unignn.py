@@ -157,9 +157,25 @@ def test_unignn_aggregate_and_gradient_match_jax(route, use_deg):
 def test_unignn_aggregate_refusals():
     _, thg = _graphs()
     hgd, x = thg.device_data("cpu"), torch.as_tensor(_inputs()[0])
-    for backend in fused.UNPORTED:
-        with pytest.raises(NotImplementedError, match="left out"):
-            fused.unignn_aggregate(hgd, x, plan=_port_plan("dense"), backend=backend)
+    # the three routes once refused here run, and agree with JAX's on the
+    # same plans (ell at the f32 bar, bsr and multihot at the bf16 bar)
+    from hypergef_tpu.sparse import bsr as jbsr
+
+    from hypergef_tpu_torch.sparse import bsr
+
+    jhg, thg = _graphs()
+    plan = AggregationPlan(tree=planner.plan_tree(thg), tile=planner.plan_tiles(thg),
+                           bsr=bsr.plan_bsr(thg), multihot=planner.plan_multihot(thg))
+    jplan = jplanner.AggregationPlan(
+        tree=jplanner.plan_tree(jhg), tile=jplanner.plan_tiles(jhg), bsr=jbsr.plan_bsr(jhg),
+        multihot=jplanner.plan_multihot(jhg))
+    for backend, tol in (("ell", TOLS["f32"]), ("bsr", TOLS["bf16"]),
+                         ("multihot", TOLS["bf16"])):
+        for use_deg in (False, True):
+            want = jfused.unignn_aggregate(jhg.device_data(), jnp.asarray(_inputs()[0]),
+                                           use_deg, plan=jplan, backend=backend)
+            _close(fused.unignn_aggregate(hgd, x, use_deg, plan=plan, backend=backend).numpy(),
+                   np.asarray(want), tol)
     # None takes the default route, cumsum, which needs no plan
     assert torch.equal(fused.unignn_aggregate(hgd, x),
                        fused.unignn_aggregate(hgd, x, backend="cumsum"))
