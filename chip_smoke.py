@@ -361,6 +361,32 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    and its losses against ``xla``; (d) the ELL gather and segment-sum
    launches of the ``ell`` route's paths. Its launches join the kernels
    line as ``routes_launches``.
+35. The packed-int4 dense incidence (``packed_phase``): (a) the fused
+   kernel's packed form on the nibble carrier
+   (``DenseIncidence(packed=True)``) bitwise equal to the int8 form on the
+   same operands at phase 2's shapes (pubmed_real F = 32, odd E; 20news F
+   = 32, 4, 100; cora F = 32, 7) and on a 20news table whose counts reach
+   7, within phase 2's bar of its plain twin, two runs bitwise equal, one
+   count a call on ``packed_launches``; (b) one CUDA kernel a call and a
+   packed V→E phase under ``torch.profiler`` (in a process of its own: late
+   in a long process the profiler sees no device events on the card's
+   machine), and a call's peak device memory growing by its output and
+   scratch alone, less than the int8 table's bytes (no [N, E] table is
+   made); (c) the backward
+   (dx, d scale_e, d scale_v: the packed op twice, the packed V→E phase
+   twice) bitwise the int8 form's; (d) 20 captured ``Trainer`` steps on
+   20news/``pallas`` (4 packed launches a step) and pubmed_real/``dense``
+   (no kernel: the library products on the unpacked table) on a packed
+   plan, losses bitwise the int8 plan's; (e) 5 requests from a built
+   ``ServingModel`` on the 20news packed plan and from its export,
+   bitwise equal to each other and to the int8 plan's server; (f) the
+   packed dense shard: ``local_two_stage`` on each slice of a D = 4 plan of
+   pubmed_real, forward and backward, bitwise the unpacked plan's; (g) the
+   packed kernel's times against the int8 kernel's, its plain twin (the
+   unpack and the plain form), the two library products and its bound (the
+   carrier read twice, x, the scales and the output) at F = 32 on 20news,
+   cora and pubmed_real, and both tables' device MB. Its paths' launches
+   are the kernels line's ``fused_dense_two_stage_packed`` row.
 
 Phases 1-25 drive the default step and request: on the card a CUDA-graph
 replay (``Trainer``'s and ``ServingModel``'s ``compiled=None``); the plain
@@ -468,6 +494,10 @@ KERNEL_SITES = {
                          "scripts/probe_r2b_bisect.py:184"],
     "scaled_copy": ["scripts/probe_r2b_bisect.py:49"],
 }
+# a kernel's form that replaces the same pl.pallas_call as another: the
+# packed-int4 form of the fused kernel, the pallas_call that JAX's
+# _unpack_bf16 feeds from the nibble carrier (pallas_kernels.py:40-56)
+SITE_OF_FORM = {"fused_dense_two_stage_packed": "fused_dense_two_stage"}
 # the record-routed sum replaces no pl.pallas_call: JAX computes the max
 # backward with XLA ops (gathers, a compare, a segment sum)
 RECORD_SUM_SITE = "hypergef_tpu/ops/maxops.py:106"
@@ -582,14 +612,15 @@ def make_graph(name: str):
     return random_hypergraph(g["n"], g["e"], avg_edge_size=g["avg"], seed=0, name=name)
 
 
-def kernel_operands(hg, f: int, seed: int, device):
+def kernel_operands(hg, f: int, seed: int, device, h=None):
     """(h, x, scale_e, scale_v) as the pallas route passes them, with a
-    random wdiag folded into scale_e."""
+    random wdiag folded into scale_e; ``h`` built here unless given."""
     from hypergef_tpu_torch.sparse.planner import DenseIncidence
 
     rng = np.random.default_rng(seed)
     hgd = hg.device_data(device)
-    h = DenseIncidence.from_hypergraph(hg, device).h
+    if h is None:
+        h = DenseIncidence.from_hypergraph(hg, device).h
     x = torch.as_tensor(rng.normal(size=(hg.num_nodes, f)).astype(np.float32), device=device)
     wdiag = torch.as_tensor(
         rng.uniform(0.5, 1.5, size=(hg.num_edges, 1)).astype(np.float32), device=device)
@@ -624,7 +655,7 @@ def cuda_kernels_per_call(fn) -> int:
 # each hand-written kernel's name in a recorded graph, and the counters
 # (``kernel_counters``' names) whose every launch runs it once
 GRAPH_KERNELS = {
-    "fused_dense_kernel": ("fused",), "ell_gather_sum_kernel": ("gather",),
+    "fused_dense_kernel": ("fused", "fused_packed"), "ell_gather_sum_kernel": ("gather",),
     "aligned_band_kernel": ("band",), "aligned_max_kernel": ("argmax", "argsum"),
     "bitmm_kernel": ("bitmm",), "segment_sum_kernel": ("segsum",),
     "record_sum_kernel": ("recsum",), "row_gather_": ("row_gather",),
@@ -874,7 +905,9 @@ def kernel_counters():
         aligned_band, aligned_max, bitstream, ell_gather, fused_dense, segment_sum,
     )
 
-    return {"fused": (fused_dense, "launches"), "gather": (ell_gather, "launches"),
+    return {"fused": (fused_dense, "launches"),
+            "fused_packed": (fused_dense, "packed_launches"),
+            "gather": (ell_gather, "launches"),
             "band": (aligned_band, "launches"), "argmax": (aligned_max, "argmax_launches"),
             "argsum": (aligned_max, "argsum_launches"), "bitmm": (bitstream, "launches"),
             "segsum": (segment_sum, "launches"),
@@ -4894,6 +4927,378 @@ def routes_phase(device, card: str, sbm) -> dict:
           f"launches: {json.dumps(out['launches'])}", flush=True)
     return out
 
+# phase 35: the packed-int4 dense incidence. The fused kernel's cases are
+# phase 2's (graph, F, seed), with a 20news table whose counts reach 7 in
+# place of phase 2's counts of 2.
+PACKED_CASES = (("20news", 32, 1), ("20news", 4, 2), ("20news", 100, 11),
+                ("pubmed_real", 32, 3), ("cora", 32, 12), ("cora", 7, 13),
+                ("20news counts 7", 32, 15))
+PACKED_SHARDS = 4
+
+
+def repeated_incidences(hg, seed: int):
+    """``hg`` with a fifth of its incidences listed 2-7 times, one of them 7
+    times: a table whose counts reach 7, the most a nibble holds."""
+    from hypergef_tpu_torch.sparse.hypergraph import Hypergraph
+
+    rng = np.random.default_rng(seed)
+    v = hg.ht_indices.astype(np.int64)
+    ed = np.repeat(np.arange(hg.num_edges), np.diff(hg.ht_indptr))
+    reps = np.where(rng.random(v.size) < 0.2, rng.integers(2, 8, v.size), 1)
+    reps[0] = 7
+    return Hypergraph.from_coo(np.repeat(v, reps), np.repeat(ed, reps), num_nodes=hg.num_nodes,
+                               num_edges=hg.num_edges, dedup=False, name=f"{hg.name} counts 7")
+
+
+class PackedTables:
+    """Each graph's int8 table and nibble carrier on the card, built once."""
+
+    def __init__(self, graphs, device):
+        self.graphs, self.device, self.built = graphs, device, {}
+
+    def __call__(self, name):
+        if name not in self.built:
+            from hypergef_tpu_torch.sparse.planner import DenseIncidence, pack_nibbles
+
+            hg = self.graphs[name]
+            i8 = DenseIncidence.from_hypergraph(hg, self.device)
+            packed = DenseIncidence.from_hypergraph(hg, self.device, packed=True)
+            check(torch.equal(packed.h.cpu(), torch.as_tensor(pack_nibbles(i8.h.cpu().numpy()))),
+                  f"{name}: the carrier packs the int8 table")
+            self.built[name] = (i8, packed)
+        return self.built[name]
+
+    def operands(self, name, f: int, seed: int):
+        """(int8 table, carrier, x, scale_e, scale_v): ``kernel_operands``
+        on the tables built once."""
+        i8, packed = self(name)
+        h, x, se, sv = kernel_operands(self.graphs[name], f, seed, self.device, h=i8.h)
+        return h, packed.h, x, se, sv
+
+
+def check_packed(tables, name: str, f: int, seed: int) -> dict:
+    """(a) the packed form against the int8 form (bitwise) and its plain
+    twin (phase 2's bar), two runs, one count a call."""
+    from hypergef_tpu_torch.ops import fused_dense
+
+    h, carrier, x, se, sv = tables.operands(name, f, seed)
+    before = (fused_dense.launches, fused_dense.packed_launches)
+    got = fused_dense.fused_dense_two_stage(carrier, x, se, sv, packed=True)
+    again = fused_dense.fused_dense_two_stage(carrier, x, se, sv, packed=True)
+    torch.cuda.synchronize()
+    check((fused_dense.launches, fused_dense.packed_launches) == (before[0], before[1] + 2),
+          f"{name}: one packed launch a call, none of the int8 form")
+    int8 = fused_dense.fused_dense_two_stage(h, x, se, sv)
+    want = fused_dense.fused_dense_two_stage_plain(h, x, se, sv)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2 * scale)
+    diff = float((got - int8).abs().max())
+    check(torch.equal(got, int8), f"{name} F={f}: packed bitwise equal to int8 ({diff})")
+    check(torch.equal(got, again), f"{name} F={f}: two packed runs are bitwise equal")
+    return {"graph": name, "f": f, "e": int(h.shape[1]), "carrier_cols": int(carrier.shape[1]),
+            "max_abs_err": float((got - want).abs().max()), "max_abs_plain": scale,
+            "max_count": int(h.max()), "bitwise_int8": True}
+
+
+def packed_profile() -> dict:
+    """The CUDA kernels of one packed two-stage call and of one packed V→E
+    phase at 20news F = 32, under ``torch.profiler``: the body of
+    :func:`packed_kernels_per_call`'s process."""
+    from hypergef_tpu_torch.ops import _build, fused_dense
+
+    _build.load_library()
+    tables = PackedTables({"20news": make_graph("20news")}, torch.device("cuda", 0))
+    _, carrier, x, se, sv = tables.operands("20news", 32, 3)
+    e = tables.graphs["20news"].num_edges
+    return {"two_stage": cuda_kernels_per_call(
+                lambda: fused_dense.fused_dense_two_stage(carrier, x, se, sv, packed=True)),
+            "v2e": cuda_kernels_per_call(lambda: fused_dense._launch_v2e(carrier, x, e))}
+
+
+def packed_kernels_per_call() -> dict:
+    """(b) :func:`packed_profile` in a process of its own, as phase 2's
+    profile runs early in this one: on the card's machine a profiler
+    session late in a long process (or after a process's first two) has
+    seen no device events, and recordings after such a session have
+    failed (``tests/test_torch_port_cuda.py``)."""
+    import os
+
+    code = "import json, chip_smoke; print(json.dumps(chip_smoke.packed_profile()))"
+    proc = subprocess.run([sys.executable, "-c", code],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=300, check=False)
+    check(proc.returncode == 0, f"the packed profile's process failed: {proc.stderr[-3000:]}")
+    counts = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(counts == {"two_stage": 1, "v2e": 1},
+          f"one CUDA kernel a packed call and a packed V→E phase, got {counts}")
+    return counts
+
+
+def packed_call_memory(tables, name: str) -> dict:
+    """(b) The growth of the card's peak memory over a packed call: no more
+    than the output and the scratch the wrapper allocates (each rounded to
+    the allocator's 512-byte blocks, plus up to 1 MiB that the caching
+    allocator leaves unsplit in a cached block), and under the int8
+    table's bytes where that table is larger than them (pubmed_real: no
+    [N, E] table is made)."""
+    from hypergef_tpu_torch.ops import fused_dense
+
+    h, carrier, x, se, sv = tables.operands(name, 32, 3)
+    (n, e), f = h.shape, x.shape[1]
+    ws = fused_dense._device_split(n, e, f, x.device)
+    sizes = [n * f * 4, ws.splits_a * e * ws.fp * 4, e * ws.fp * 2,
+             ws.splits_c * n * ws.fp * 4 if ws.splits_c > 1 else 0]
+    allocated = sum(-(-b // 512) * 512 + (1 << 20) for b in sizes if b)
+    fused_dense.fused_dense_two_stage(carrier, x, se, sv, packed=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(tables.device)
+    base = torch.cuda.memory_allocated(tables.device)
+    fused_dense.fused_dense_two_stage(carrier, x, se, sv, packed=True)
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated(tables.device) - base
+    check(grew <= allocated, f"{name}: a packed call's peak grew {grew} bytes, more than its "
+                             f"output and scratch ({allocated})")
+    if allocated < h.numel():
+        check(grew < h.numel(), f"{name}: a packed call's peak grew {grew} bytes, not under "
+                                f"the int8 table's {h.numel()}")
+    return {"graph": name, "peak_growth_bytes": int(grew),
+            "output_and_scratch_bytes": sum(sizes), "int8_table_bytes": int(h.numel()),
+            "carrier_bytes": int(carrier.numel())}
+
+
+def check_packed_backward(tables, name: str, f: int, seed: int) -> dict:
+    """(c) dx, d scale_e, d scale_v on the carrier bitwise the int8 form's:
+    the packed op twice and the packed V→E phase twice."""
+    from hypergef_tpu_torch.ops import fused_dense
+
+    h, carrier, x, se, sv = tables.operands(name, f, seed)
+    g = torch.as_tensor(np.random.default_rng(seed + 1).normal(size=tuple(x.shape))
+                        .astype(np.float32), device=tables.device)
+    grads = {}
+    for packed, table in ((False, h), (True, carrier)):
+        ts = [t.clone().requires_grad_(True) for t in (x, se, sv)]
+        out = fused_dense.fused_dense_two_stage(table, *ts, packed=packed)
+        before = (fused_dense.packed_launches, fused_dense.packed_v2e_launches)
+        grads[packed] = torch.autograd.grad(out, ts, g)
+        torch.cuda.synchronize()
+        launched = (fused_dense.packed_launches - before[0],
+                    fused_dense.packed_v2e_launches - before[1])
+        check(launched == ((2, 2) if packed else (0, 0)),
+              f"{name}: a packed backward launches the op twice and V→E twice: {launched}")
+    for what, a, b in zip(("dx", "d_scale_e", "d_scale_v"), grads[True], grads[False]):
+        check(torch.equal(a, b), f"{name} F={f}: packed {what} bitwise the int8 form's "
+                                 f"({float((a - b).abs().max())})")
+    return {"graph": name, "f": f, "bitwise_int8": ["dx", "d_scale_e", "d_scale_v"]}
+
+
+def packed_train(name: str, tables, device) -> dict:
+    """(d) 20 captured steps on the int8 and the packed plan, each counted
+    with the counts set to 0 just before it: losses bitwise equal."""
+    from hypergef_tpu_torch.data.synthetic import random_features
+    from hypergef_tpu_torch.sparse.planner import AggregationPlan
+    from hypergef_tpu_torch.train.splits import rand_train_test_idx
+    from hypergef_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    # train_problem's configurations, pubmed_real on the dense route
+    hg = tables.graphs[name]
+    nfeat, nclass = (NFEAT, NCLASS) if name == "20news" else (PUBMED_NFEAT, PUBMED_NCLASS)
+    x, y = random_features(hg.num_nodes, nfeat, nclass, seed=1)
+    split = rand_train_test_idx(y, seed=2)
+    cfg = TrainConfig(model="HGNN", nhid=32, nlayer=2, first_aggr="sum", lr=0.01, wd=5e-4,
+                      backend="pallas" if name == "20news" else "dense")
+    counters = kernel_counters()
+    out, trainers, losses = {"route": cfg.backend}, {}, {}
+    for packed, dense in zip((False, True), tables(name)):
+        per = ({"fused_packed" if packed else "fused": 4} if cfg.backend == "pallas" else {})
+        tr = Trainer(cfg, hg, x, y, plan=AggregationPlan(dense=dense), device=device)
+        torch.cuda.synchronize()
+        for module, attr in counters.values():
+            setattr(module, attr, 0)
+        res = tr.fit(split["train"], epochs=TRAIN_STEPS, warmup=0)
+        launched = {k: getattr(module, attr) for k, (module, attr) in counters.items()}
+        check(res["step"] == "captured", f"{name}: the step is recorded")
+        calls = res["capture_warmup"] + 1
+        want = {k: calls * per.get(k, 0) for k in counters}
+        check(launched == want, f"{name} packed={packed}: {calls} step calls launched "
+                                f"{launched}, want {want}")
+        (step,) = tr._steps.values()
+        replayed = check_replays(f"{name}'s step graph", graph_kernels(step), counters, per,
+                                 TRAIN_STEPS)
+        check(bool(np.isfinite(res["losses"]).all()), f"{name}: finite losses")
+        key = "packed" if packed else "int8"
+        trainers[key], losses[key] = tr, res["losses"]
+        out[key] = {"launches": {k: v for k, v in launched.items() if v},
+                    "replayed": replayed, "capture_s": res["capture_s"]}
+    check(np.array_equal(losses["packed"], losses["int8"]),
+          f"{name}: packed losses bitwise the int8 plan's "
+          f"(max diff {float(np.abs(losses['packed'] - losses['int8']).max())})")
+    out.update(losses=losses["packed"].tolist(), bitwise_int8=True)
+    return {"line": out, "trainers": trainers}
+
+
+def packed_serve(trainers, device, root: str) -> dict:
+    """(e) 5 requests from a built server on the packed plan and from its
+    export (both captured, counted from 0), bitwise equal to each other and
+    to a server on the int8 plan, from the packed trainer's weights."""
+    import os
+
+    from hypergef_tpu_torch import serve
+    from hypergef_tpu_torch.data.synthetic import random_features
+
+    tr = trainers["packed"]
+    cfg, hg = tr.cfg, tr.hg
+    nfeat, nclass = int(tr.x.shape[1]), tr.nclass
+    params = tr.model.state_dict()
+    xs = [torch.as_tensor(random_features(hg.num_nodes, nfeat, nclass, seed=350 + i)[0],
+                          device=device) for i in range(REQUESTS)]
+    counters = kernel_counters()
+    per = {"fused_packed": 2}  # two layers a request
+
+    def counted(make):
+        torch.cuda.synchronize()
+        for module, attr in counters.values():
+            setattr(module, attr, 0)
+        server = make()
+        answers = [server.predict(x) for x in xs]
+        torch.cuda.synchronize()
+        launched = {k: getattr(module, attr) for k, (module, attr) in counters.items()}
+        check(server.compiled, "the server is recorded")
+        want = {k: 2 * per.get(k, 0) for k in counters}  # warm-up and recording
+        check(launched == want, f"a packed server launched {launched}, want {want}")
+        check_replays("the packed request graph", graph_kernels(server._graph), counters, per,
+                      REQUESTS)
+        return answers, {k: v for k, v in launched.items() if v}
+
+    built, built_launches = counted(lambda: serve.ServingModel(
+        cfg, hg, nfeat, nclass, device, params=params, plan=tr.plan))
+    path = os.path.join(root, "packed.hgefsrv")
+    meta = serve.export_trainer(tr, path)
+    exported, export_launches = counted(lambda: serve.ServingModel.load(path))
+    int8 = serve.ServingModel(cfg, hg, nfeat, nclass, device, params=params,
+                              plan=trainers["int8"].plan, compiled=False)
+    for i, (a, b, x) in enumerate(zip(built, exported, xs)):
+        c = int8.predict(x)
+        check(torch.equal(a, b), f"request {i}: the export answers as the built server")
+        check(torch.equal(a, c), f"request {i}: the packed plan answers as the int8 plan")
+        check(tuple(a.shape) == (hg.num_nodes, nclass) and bool(torch.isfinite(a).all()),
+              "finite answers of the right shape")
+    return {"requests": REQUESTS, "built_launches": built_launches,
+            "export_launches": export_launches, "payload_bytes": meta["payload_bytes"],
+            "bitwise": ["built", "export", "int8 plan"]}
+
+
+def packed_shard(hg, device) -> dict:
+    """(f) ``local_two_stage`` on each slice of a D = 4 packed plan, forward
+    and backward, bitwise the unpacked plan's."""
+    from hypergef_tpu_torch.parallel import dense_shard
+
+    plans = {p: dense_shard.plan_sharded_dense(hg, PACKED_SHARDS, packed=p)
+             for p in (False, True)}
+    rng = np.random.default_rng(21)
+    x = torch.as_tensor(rng.normal(size=(hg.num_nodes, 32)).astype(np.float32), device=device)
+    cot = torch.as_tensor(rng.normal(size=(hg.num_nodes, 32)).astype(np.float32), device=device)
+    for r in range(PACKED_SHARDS):
+        res = []
+        for packed, plan in plans.items():
+            loc = plan.local(r, device)
+            xt = x.clone().requires_grad_(True)
+            out = dense_shard.local_two_stage(loc, xt)
+            (dx,) = torch.autograd.grad(out, xt, cot)
+            res.append((out, dx))
+        check(torch.equal(res[0][0], res[1][0]) and torch.equal(res[0][1], res[1][1]),
+              f"rank {r}: the packed slice's product and gradient are the unpacked one's")
+    return {"shards": PACKED_SHARDS, "e_pad": plans[True].e_pad,
+            "slice_mb": {("packed" if p else "int8"): plan.table_bytes_per_device() / 1e6
+                         for p, plan in plans.items()}, "bitwise_unpacked": True}
+
+
+def time_packed(tables, name: str) -> dict:
+    """(g) The packed kernel, the int8 kernel, the packed plain twin (the
+    unpack and the plain form) and the int8 row's two library products on a
+    bf16 copy of H made before the window, in turns, at F = 32. The bound:
+    the carrier, x, the scales and the output moved once (``bound_ms``),
+    and with the carrier read in each stage (``bound_table_twice_ms``)."""
+    from hypergef_tpu_torch.ops import fused_dense
+    from hypergef_tpu_torch.sparse.planner import unpack_nibbles
+
+    h, carrier, x, se, sv = tables.operands(name, 32, 7)
+    e = int(h.shape[1])
+    hb = h.to(torch.bfloat16)
+
+    def library():
+        xe = torch.mm(hb.t(), x.to(torch.bfloat16), out_dtype=torch.float32) * se
+        return torch.mm(hb, xe.to(torch.bfloat16), out_dtype=torch.float32) * sv
+
+    fns = {
+        "kernel": lambda: fused_dense.fused_dense_two_stage(carrier, x, se, sv, packed=True),
+        "int8": lambda: fused_dense.fused_dense_two_stage(h, x, se, sv),
+        "plain": lambda: fused_dense.fused_dense_two_stage_plain(unpack_nibbles(carrier, e),
+                                                                 x, se, sv),
+        "library": library,
+    }
+    out = time_turns(fns, ("plain", "kernel", "int8", "library",
+                           "library", "int8", "kernel", "plain"))
+    ops_count = 4 * int((h != 0).sum()) * 32
+    moved = nbytes(x, se, sv) + nbytes(x)
+    out.update(bound(nbytes(carrier) + moved, ops_count))
+    out["bound_table_twice_ms"] = bound(2 * nbytes(carrier) + moved, ops_count)["bound_ms"]
+    out["int8_bound_table_twice_ms"] = bound(2 * nbytes(h) + moved, ops_count)["bound_ms"]
+    out.update(int8_table_mb=nbytes(h) / 1e6, carrier_mb=nbytes(carrier) / 1e6)
+    return out
+
+
+def packed_phase(device, card: str, graphs) -> dict:
+    """Phase 35: the packed-int4 dense incidence on the card, (a)-(g) of the
+    module docstring. ``launches`` holds the packed kernel's launches on the
+    phase's paths: the packed Trainer's steps, the built server and the
+    exported one."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    graphs = {**graphs, "20news counts 7": repeated_incidences(graphs["20news"], 16)}
+    tables = PackedTables(graphs, device)
+    out = {"cases": [check_packed(tables, *c) for c in PACKED_CASES]}
+    check(out["cases"][-1]["max_count"] == 7, "the repeated table holds counts of 7")
+    out["kernels_per_call"] = packed_kernels_per_call()
+    out["memory"] = [packed_call_memory(tables, g) for g in ("20news", "pubmed_real")]
+    out["backward"] = [check_packed_backward(tables, "pubmed_real", 32, 6),
+                       check_packed_backward(tables, "20news", 32, 4),
+                       check_packed_backward(tables, "20news counts 7", 4, 5)]
+    out["a_c_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trained = {name: packed_train(name, tables, device) for name in ("20news", "pubmed_real")}
+    out["trained"] = {name: t["line"] for name, t in trained.items()}
+    with tempfile.TemporaryDirectory() as root:
+        out["served"] = packed_serve(trained["20news"]["trainers"], device, root)
+    out["d_e_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["shard"] = packed_shard(graphs["pubmed_real"], device)
+    out["times"] = {g: time_packed(tables, g) for g in ("20news", "cora", "pubmed_real")}
+    out["f_g_s"] = time.perf_counter() - t0
+    out["launches"] = (out["trained"]["20news"]["packed"]["launches"]["fused_packed"]
+                       + out["served"]["built_launches"]["fused_packed"]
+                       + out["served"]["export_launches"]["fused_packed"])
+    for c in out["cases"]:
+        print(f"phase 35 a packed kernel vs int8 vs plain: {json.dumps(c)}", flush=True)
+    print(f"phase 35 b CUDA kernels a call (torch.profiler, a process of its own): "
+          f"{json.dumps(out['kernels_per_call'])}; peak memory over a call: "
+          f"{json.dumps(out['memory'])}", flush=True)
+    print(f"phase 35 c backward: {json.dumps(out['backward'])}", flush=True)
+    for name, t in out["trained"].items():
+        print(f"phase 35 d train {name}: {json.dumps(t)}", flush=True)
+    print(f"phase 35 e serve: {json.dumps(out['served'])}", flush=True)
+    print(f"phase 35 f shard: {json.dumps(out['shard'])}", flush=True)
+    print(f"phase 35 g times (ms, CUDA events behind a queued sleep, median of 20; card {card}) "
+          "at F=32: " + "; ".join(
+              f"{g} packed {t['kernel']} int8 {t['int8']} plain {t['plain']} library "
+              f"{t['library']} bound {t['bound_ms']} (carrier twice "
+              f"{t['bound_table_twice_ms']}; int8 table twice {t['int8_bound_table_twice_ms']}); "
+              f"tables int8 {t['int8_table_mb']} MB, carrier {t['carrier_mb']} MB"
+              for g, t in out["times"].items()), flush=True)
+    print(f"phase 35 seconds: a-c {out['a_c_s']:.2f}, d-e {out['d_e_s']:.2f}, "
+          f"f-g {out['f_g_s']:.2f}; launches {out['launches']}", flush=True)
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -5099,9 +5504,13 @@ def main() -> int:
     dumps.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     routed = routes_phase(device, card, aligned["sbm"])
+    print(f"phase 34: {time.perf_counter() - t0:.2f} s", flush=True)
+    # 35. the packed-int4 dense incidence, its recordings read as phase 34's
+    t0 = time.perf_counter()
+    packed = packed_phase(device, card, {**graphs, "cora": cora})
     cuda_graphs.DUMP_DIR = None
     shutil.rmtree(dumps, ignore_errors=True)
-    print(f"phase 34: {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"phase 35: {time.perf_counter() - t0:.2f} s", flush=True)
 
     fd_bwd_err = max(max(c["max_abs_err"].values()) for c in bwd)
     timed = {"fused_dense_two_stage": times["20news"], "ell_gather_sum": gather_times["edge F=32"],
@@ -5111,6 +5520,7 @@ def main() -> int:
              "bitstream_bitmm": streamed["bitmm_times"]["stream100k Ht F=32"],
              "gather_segment_sum": dtimes["segsum_times"]["v2e F=32"],
              "record_routed_dx": maxed["record_times"]["F=32"],
+             "fused_dense_two_stage_packed": packed["times"]["20news"],
              **probed["times"]}
     dblp_segsum = [defaults["served"]["coauthor_dblp"]["launches"]["segsum"]] + [
         t["launches"]["segsum"] for name, t in defaults["trained"].items()
@@ -5135,6 +5545,23 @@ def main() -> int:
         "pubmed_real_bound_table_twice_ms": times["pubmed_real"]["bound_table_twice_ms"],
         "bwd_ms": bwd_times["20news"]["kernel"],
         "bwd_plain_ms": bwd_times["20news"]["plain"],
+    }, {
+        "name": "fused_dense_two_stage_packed",
+        "route": "cuda",
+        "source": "hypergef_tpu_torch/csrc/fused_dense.cu",
+        # the packed Trainer's steps, the built server and its export (phase 35)
+        "launches": packed["launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in packed["cases"]),
+        "bitwise_int8": all(c["bitwise_int8"] for c in packed["cases"]),
+        "cuda_kernels_per_call": packed["kernels_per_call"]["two_stage"],
+        "peak_growth_bytes": {c["graph"]: c["peak_growth_bytes"] for c in packed["memory"]},
+        "int8_ms": packed["times"]["20news"]["int8"],
+        **{f"{g}_{k}": packed["times"][g][key] for g in ("cora", "pubmed_real")
+           for k, key in (("ms", "kernel"), ("int8_ms", "int8"), ("plain_ms", "plain"),
+                          ("library_ms", "library"), ("bound_ms", "bound_ms"),
+                          ("bound_table_twice_ms", "bound_table_twice_ms"))},
+        "table_mb": {g: {"int8": t["int8_table_mb"], "carrier": t["carrier_mb"]}
+                     for g, t in packed["times"].items()},
     }, {
         "name": "ell_gather_sum",
         "route": "cuda",
@@ -5283,7 +5710,8 @@ def main() -> int:
                                 ("library_ms", "library"), ("bound_ms", "bound_ms"))})
     copy["empty_launch_ms"] = probed["times"]["scaled_copy"]["empty_launch_ms"]
     # phases 28-29: the exported requests and the minibatch steps
-    counter_of = {"fused_dense_two_stage": "fused", "ell_gather_sum": "gather",
+    counter_of = {"fused_dense_two_stage": "fused",
+                  "fused_dense_two_stage_packed": "fused_packed", "ell_gather_sum": "gather",
                   "aligned_band": "band", "aligned_masked_argmax": "argmax",
                   "aligned_masked_argsum": "argsum", "bitstream_bitmm": "bitmm",
                   "gather_segment_sum": "segsum", "record_routed_dx": "recsum"}
@@ -5313,7 +5741,7 @@ def main() -> int:
                 "runs_exact")})
     for k in kernels:
         t = timed[k["name"]]
-        sites = KERNEL_SITES.get(k["name"], [RECORD_SUM_SITE])
+        sites = KERNEL_SITES.get(SITE_OF_FORM.get(k["name"], k["name"]), [RECORD_SUM_SITE])
         k.update({"replaces": sites[0], **({"also_replaces": sites[1:]} if sites[1:] else {}),
                   "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": t["bound_ms"],
                   "bound_by": t["bound_by"], "library_ms": t.get("library")})

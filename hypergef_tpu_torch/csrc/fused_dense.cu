@@ -80,6 +80,22 @@
 // F is taken in passes of up to kFChunk features (4 n8 tiles); the n tiles
 // past F hold zeros and are never stored.
 //
+// The packed form (a template flag, kPacked; `packed` in the entries) reads
+// JAX's packed-int4 table instead (DenseIncidence(packed=True)): the int8
+// nibble carrier [N, ceil(E/2)], byte j of a row holding edge 2j in its low
+// nibble and edge 2j + 1 in its high one, each a signed 4-bit count (JAX's
+// S4 bitcast, pallas_kernels.py:40-50, ahead of the same Pallas kernel).
+// Only the table path changes: a stage copies a row's C/2 bytes (C/32 + 1
+// words: the rows are ceil(E/2) bytes apart, aligned to nothing), and a
+// lane reads its count's byte and widens the nibble, sign-extended into a
+// byte, where the int8 form reads the byte. Edge tiles and stages start at
+// multiples of 128 edges, so no tile boundary splits a byte; the padding
+// nibble past an odd E lies past E, which both forms mask. The grid, the
+// work split, the stages, the zero-tile skip, the products and their order
+// are the int8 form's, so on the same operands the two give bitwise equal
+// results. No unpacked table is made: the carrier's bytes, half the int8
+// table's, are all that a stage reads from it.
+//
 // Phases A and B without the scale and the rounding are also an entry of
 // their own, hg_dense_v2e: H^T @ bf16(X) in f32, the product that the
 // backward's d scale_e takes twice (pallas_kernels.py:161-170).
@@ -129,8 +145,19 @@ struct Layout {
   static constexpr int kBytes = kRowOff + kKStep * 2;
 };
 // a stage is whole 16-byte words of each row apart from the last: a row's
-// offset in its words is the same in every stage of an item
-static_assert(kKStep % 16 == 0 && kKStepC % 16 == 0, "");
+// offset in its words is the same in every stage of an item (the carrier's
+// stages of phase C are kKStepC / 2 bytes apart)
+static_assert(kKStep % 16 == 0 && kKStepC % 32 == 0 && kEdgeTile % 2 == 0, "");
+
+// bytes a table row of a stage of C columns takes in the ring: the aligned
+// words that hold its bytes (C, or C / 2 in the carrier)
+template <int C, bool kPacked>
+__host__ __device__ constexpr int row_bytes() {
+  return ((kPacked ? C / 2 : C) / 16 + 1) * 16;
+}
+static_assert(row_bytes<kEdgeTile, true>() <= Layout::kRowA &&
+                  row_bytes<kKStepC, true>() <= Layout::kRowC,
+              "the carrier's stages fit the int8 form's slots");
 // phase C's k halves meet through the ring: 4 warps' acc of 16 floats a lane
 static_assert(Layout::kRing >= (kWarps / 2) * 32 * 16 * 4, "");
 
@@ -144,6 +171,7 @@ struct Params {
   __nv_bfloat16* xe;   // [e, fp]
   float* partial_c;    // [splits_c, n, fp] where splits_c > 1
   int n, e, f, fp;
+  int pe;  // bytes a table row: e, or the carrier's (e + 1) / 2
   int splits_a, k_a, ways_a;  // phase A's row splits, rows a split; phase B's lanes a sum
   int splits_c, k_c, ways_c;  // phase C's edge splits, edges a split; phase D's lanes a sum
 };
@@ -197,6 +225,12 @@ __device__ __forceinline__ uint32_t counts_bf16x2(uint32_t lo, uint32_t hi) {
   return *reinterpret_cast<const uint32_t*>(&c);
 }
 
+// nibble `hi` of a carrier byte as the zero-extended byte of its signed
+// 4-bit count (JAX's S4 reading), the form counts_bf16x2 takes
+__device__ __forceinline__ uint32_t nibble(uint32_t byte, int hi) {
+  return ((((byte >> (4 * hi)) & 0xFu) ^ 8u) + 0xF8u) & 0xFFu;
+}
+
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
   asm volatile(
@@ -207,20 +241,23 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 }
 
 // Issue the copies of the table's rows [r0, r0 + R) x columns [c0, c0 + C)
-// as the aligned 16-byte words that hold them, C/16 + 1 words a row, a
-// row's words to neighbouring threads; words of rows at or past rlim, and
-// words wholly at or past column clim, are zero-filled instead.
-template <int R, int C>
+// as the aligned 16-byte words that hold them, C/16 + 1 words a row (the
+// carrier's C/2 bytes: C/32 + 1 words; c0 is even there), a row's words to
+// neighbouring threads; words of rows at or past rlim, and words wholly
+// past the bytes of the columns before clim, are zero-filled instead.
+template <int R, int C, bool kPacked>
 __device__ __forceinline__ void issue_table(const Params& p, uint8_t* raw, long long r0,
                                             long long rlim, int c0, int clim) {
-  constexpr int W = C / 16 + 1;
-  const int nv = min(C, clim - c0);  // columns of the tile inside the table
+  constexpr int W = row_bytes<C, kPacked>() / 16;
+  const int cols = min(C, clim - c0);  // columns of the tile inside the table
+  const int nv = kPacked ? (cols + 1) / 2 : cols;  // their bytes
+  const int b0 = kPacked ? c0 / 2 : c0;
   const uintptr_t base = reinterpret_cast<uintptr_t>(p.h);
   const uintptr_t fill = base & ~uintptr_t(15);  // an aligned address of the table
   for (int i = threadIdx.x; i < R * W; i += kThreads) {
     const int r = i / W, w = i - r * W;
     const long long row = r0 + r;
-    const uintptr_t b = base + (uintptr_t)(row * p.e + c0);
+    const uintptr_t b = base + (uintptr_t)(row * p.pe + b0);
     const uintptr_t a = (b & ~uintptr_t(15)) + 16 * w;
     const bool valid = row < rlim && nv > 0 && a < b + nv;
     cp_async16(raw + 16 * i, reinterpret_cast<const void*>(valid ? a : fill), valid);
@@ -303,7 +340,10 @@ __device__ __forceinline__ void mma_step(float (&acc)[4][4], const uint32_t (&a)
 // and its edges the m, so a lane reads its A counts as single bytes (rows
 // 2t, 2t+1, 2t+8, 2t+9 of the k step; edges g and g+8 of the warp's m tile)
 // at each row's offset in its words (roff: each row's first byte in the
-// stage's words). ok0/ok1: edges g and g+8 lie inside the table.
+// stage's words). ok0/ok1: edges g and g+8 lie inside the table. The
+// carrier holds edge m in nibble m & 1 of byte m / 2; edges g and g+8 share
+// the nibble.
+template <bool kPacked>
 __device__ __forceinline__ void mma_stage_a(float (&acc)[4][4], const uint8_t* raw,
                                             const __nv_bfloat16* bt, const uint16_t* roff,
                                             bool ok0, bool ok1, int nt) {
@@ -318,9 +358,15 @@ __device__ __forceinline__ void mma_stage_a(float (&acc)[4][4], const uint8_t* r
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int r = ks * 16 + 2 * t + (q & 1) + (q >> 1) * 8;
-      const uint8_t* row = raw + roff[r] + m0;
-      c[q][0] = ok0 ? row[0] : 0u;
-      c[q][1] = ok1 ? row[8] : 0u;
+      if constexpr (kPacked) {
+        const uint8_t* row = raw + roff[r] + (m0 >> 1);
+        c[q][0] = ok0 ? nibble(row[0], m0 & 1) : 0u;
+        c[q][1] = ok1 ? nibble(row[4], m0 & 1) : 0u;
+      } else {
+        const uint8_t* row = raw + roff[r] + m0;
+        c[q][0] = ok0 ? row[0] : 0u;
+        c[q][1] = ok1 ? row[8] : 0u;
+      }
     }
     if (!tile_live(c[0][0] | c[0][1] | c[1][0] | c[1][1] | c[2][0] | c[2][1] | c[3][0] |
                    c[3][1]))
@@ -336,8 +382,9 @@ __device__ __forceinline__ void mma_stage_a(float (&acc)[4][4], const uint8_t* r
 // and g+8 of the warp's m tile, whose first bytes lie at off0 and off1 of
 // the stage's words; warps w and w + kWarps/2 share an m tile and take the
 // first and second half of the stage's k steps. nv: the stage's edges
-// inside its split (kWhole: all of them).
-template <bool kWhole>
+// inside its split (kWhole: all of them). The carrier holds edges 2t and
+// 2t+1 (2t+8 and 2t+9) in the low and high nibble of one byte.
+template <bool kWhole, bool kPacked>
 __device__ __forceinline__ void mma_stage_c(float (&acc)[4][4], const uint8_t* raw,
                                             const __nv_bfloat16* bt, int off0, int off1, int nv,
                                             int nt) {
@@ -356,8 +403,15 @@ __device__ __forceinline__ void mma_stage_c(float (&acc)[4][4], const uint8_t* r
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int k = ks * 16 + 2 * t + (q & 1) + (q >> 1) * 8;
-      c[0][q] = kWhole || k < nv ? row0[k] : 0u;
-      c[1][q] = kWhole || k < nv ? row1[k] : 0u;
+      const bool in = kWhole || k < nv;
+      if constexpr (kPacked) {
+        const int byte = ks * 8 + t + (q >> 1) * 4;  // k / 2
+        c[0][q] = in ? nibble(row0[byte], q & 1) : 0u;
+        c[1][q] = in ? nibble(row1[byte], q & 1) : 0u;
+      } else {
+        c[0][q] = in ? row0[k] : 0u;
+        c[1][q] = in ? row1[k] : 0u;
+      }
     }
     if (!tile_live(c[0][0] | c[0][1] | c[0][2] | c[0][3] | c[1][0] | c[1][1] | c[1][2] |
                    c[1][3]))
@@ -371,6 +425,7 @@ __device__ __forceinline__ void mma_stage_c(float (&acc)[4][4], const uint8_t* r
 // Phase A, one work item: partial_a[split] rows [e0, e0 + kEdgeTile) =
 // H[rows of split]^T @ bf16(x[rows of split]). A stage's x rows are rounded
 // into a B tile one stage ahead of its products: one barrier a stage.
+template <bool kPacked>
 __device__ __forceinline__ void v2e_item(const Params& p, uint8_t* smem, int tile, int split) {
   using L = Layout;
   __nv_bfloat16* bts = reinterpret_cast<__nv_bfloat16*>(smem + L::kRing);
@@ -382,7 +437,9 @@ __device__ __forceinline__ void v2e_item(const Params& p, uint8_t* smem, int til
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int m0 = e0 + warp * 16 + lane / 4;
   const bool ok0 = m0 < p.e, ok1 = m0 + 8 < p.e;
-  const uintptr_t first = reinterpret_cast<uintptr_t>(p.h) + (uintptr_t)(r_begin * p.e + e0);
+  constexpr int kRow = row_bytes<kEdgeTile, kPacked>();
+  const uintptr_t first =
+      reinterpret_cast<uintptr_t>(p.h) + (uintptr_t)(r_begin * p.pe + (kPacked ? e0 / 2 : e0));
   const bool whole = p.f % 4 == 0 && (reinterpret_cast<uintptr_t>(p.x) & 15) == 0;
   auto slot = [&](int s) { return smem + (s % kStages) * L::kSlot; };
   auto xs = [&](int s) { return reinterpret_cast<float*>(slot(s) + L::kRawA); };
@@ -392,13 +449,12 @@ __device__ __forceinline__ void v2e_item(const Params& p, uint8_t* smem, int til
     float acc[4][4] = {};
     auto issue = [&](int s) {
       const long long r0 = r_begin + (long long)s * kKStep;
-      issue_table<kKStep, kEdgeTile>(p, slot(s), r0, rlim, e0, p.e);
+      issue_table<kKStep, kEdgeTile, kPacked>(p, slot(s), r0, rlim, e0, p.e);
       issue_x(p, xs(s), r0, rlim, f0, whole);
     };
     __syncthreads();  // the ring and the tiles are free
     if (threadIdx.x < kKStep)  // read after the first stage's barrier
-      roff[threadIdx.x] =
-          threadIdx.x * L::kRowA + (int)((first + threadIdx.x * (uint32_t)p.e) & 15);
+      roff[threadIdx.x] = threadIdx.x * kRow + (int)((first + threadIdx.x * (uint32_t)p.pe) & 15);
     for (int i = 0; i < kStages - 1; ++i) {
       if (i < stages) issue(i);
       cp_commit();
@@ -412,7 +468,7 @@ __device__ __forceinline__ void v2e_item(const Params& p, uint8_t* smem, int til
       if (s + kStages - 1 < stages) issue(s + kStages - 1);
       cp_commit();
       if (s + 1 < stages) convert_x(xs(s + 1), bt(s + 1));
-      mma_stage_a(acc, slot(s), bt(s), roff, ok0, ok1, nt);
+      mma_stage_a<kPacked>(acc, slot(s), bt(s), roff, ok0, ok1, nt);
     }
     const int lg = lane >> 2, lt = lane & 3;
 #pragma unroll
@@ -435,6 +491,7 @@ __device__ __forceinline__ void v2e_item(const Params& p, uint8_t* smem, int til
 // of split: scaled by scale_v into out, or, with more than one split, into
 // partial_c[split]. The two halves of each row's k steps are added at the
 // end, first half first.
+template <bool kPacked>
 __device__ __forceinline__ void e2v_item(const Params& p, uint8_t* smem, int tile, int split) {
   using L = Layout;
   const long long r_begin = (long long)tile * kRowsPerCta;
@@ -443,18 +500,20 @@ __device__ __forceinline__ void e2v_item(const Params& p, uint8_t* smem, int til
   const int stages = (clim - c_begin + kKStepC - 1) / kKStepC;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int mt = warp % (kWarps / 2), half = warp / (kWarps / 2);
-  const uintptr_t first = reinterpret_cast<uintptr_t>(p.h) + (uintptr_t)(r_begin * p.e + c_begin);
+  constexpr int kRow = row_bytes<kKStepC, kPacked>();
+  const uintptr_t first = reinterpret_cast<uintptr_t>(p.h) +
+                          (uintptr_t)(r_begin * p.pe + (kPacked ? c_begin / 2 : c_begin));
   // the lane's rows g and g+8 of the warp's m tile: where they start in a stage's words
   const int m0 = mt * 16 + lane / 4;
-  const int off0 = m0 * L::kRowC + (int)((first + (uint32_t)m0 * (uint32_t)p.e) & 15);
-  const int off1 = (m0 + 8) * L::kRowC + (int)((first + (uint32_t)(m0 + 8) * (uint32_t)p.e) & 15);
+  const int off0 = m0 * kRow + (int)((first + (uint32_t)m0 * (uint32_t)p.pe) & 15);
+  const int off1 = (m0 + 8) * kRow + (int)((first + (uint32_t)(m0 + 8) * (uint32_t)p.pe) & 15);
   auto slot = [&](int s) { return smem + (s % kStages) * L::kSlot; };
   for (int f0 = 0; f0 < p.fp; f0 += kFChunk) {
     const int cw = min(kFChunk, p.fp - f0), nt = cw / 8;
     float acc[4][4] = {};
     auto issue = [&](int s) {
       const int c0 = c_begin + s * kKStepC;
-      issue_table<kRowsPerCta, kKStepC>(p, slot(s), r_begin, p.n, c0, clim);
+      issue_table<kRowsPerCta, kKStepC, kPacked>(p, slot(s), r_begin, p.n, c0, clim);
       issue_xe(p, reinterpret_cast<__nv_bfloat16*>(slot(s) + L::kRawC), c0, clim, f0, cw);
     };
     __syncthreads();  // the ring is free
@@ -470,9 +529,9 @@ __device__ __forceinline__ void e2v_item(const Params& p, uint8_t* smem, int til
       cp_commit();
       const auto* bt = reinterpret_cast<const __nv_bfloat16*>(slot(s) + L::kRawC);
       if (nv >= kKStepC)
-        mma_stage_c<true>(acc, slot(s), bt, off0, off1, kKStepC, nt);
+        mma_stage_c<true, kPacked>(acc, slot(s), bt, off0, off1, kKStepC, nt);
       else
-        mma_stage_c<false>(acc, slot(s), bt, off0, off1, nv, nt);
+        mma_stage_c<false, kPacked>(acc, slot(s), bt, off0, off1, nv, nt);
     }
     // the second half's sums, through the idle ring, onto the first's
     float* red = reinterpret_cast<float*>(smem) + (mt * 32 + lane) * 16;
@@ -562,7 +621,7 @@ __device__ __forceinline__ void reduce_partials(const float* partial, int splits
 #define PHASE_MARK(i)
 #endif
 
-template <bool kTwoStage>
+template <bool kTwoStage, bool kPacked>
 __global__ void __launch_bounds__(kThreads, kCtasPerSm) fused_dense_kernel(const Params p) {
   extern __shared__ __align__(16) uint8_t smem[];
   cg::grid_group grid = cg::this_grid();
@@ -584,7 +643,7 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm) fused_dense_kernel(const
   // A: split-K V->E partials
   const int e_tiles = (p.e + kEdgeTile - 1) / kEdgeTile;
   for (int item = blockIdx.x; item < e_tiles * p.splits_a; item += gridDim.x)
-    v2e_item(p, smem, item % e_tiles, item / e_tiles);
+    v2e_item<kPacked>(p, smem, item % e_tiles, item / e_tiles);
   grid.sync();
   PHASE_MARK(1);
 
@@ -606,7 +665,7 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm) fused_dense_kernel(const
   // C: E->V on Xe
   const int r_tiles = (p.n + kRowsPerCta - 1) / kRowsPerCta;
   for (int item = blockIdx.x; item < r_tiles * p.splits_c; item += gridDim.x)
-    e2v_item(p, smem, item % r_tiles, item / r_tiles);
+    e2v_item<kPacked>(p, smem, item % r_tiles, item / r_tiles);
 #ifdef HG_FD_PHASE_CLOCK
   grid.sync();
 #endif
@@ -627,15 +686,20 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm) fused_dense_kernel(const
   PHASE_MARK(4);
 }
 
+// the kernel's four forms: two stages or V->E alone, int8 table or carrier
+using Form = void (*)(const Params);
+Form form_of(bool two_stage, bool packed) {
+  if (packed) return two_stage ? fused_dense_kernel<true, true> : fused_dense_kernel<false, true>;
+  return two_stage ? fused_dense_kernel<true, false> : fused_dense_kernel<false, false>;
+}
+
 // Above 48 KB of shared memory a kernel must opt in, once a process.
 cudaError_t opt_in() {
   static cudaError_t status = [] {
-    cudaError_t e = cudaFuncSetAttribute(fused_dense_kernel<true>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         Layout::kBytes);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(fused_dense_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, Layout::kBytes);
+    cudaError_t e = cudaSuccess;
+    for (int i = 0; i < 4 && e == cudaSuccess; ++i)
+      e = cudaFuncSetAttribute(form_of(i & 1, i & 2), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Layout::kBytes);
     return e;
   }();
   return status;
@@ -648,12 +712,11 @@ bool split_ok(int splits, int per, int k) {
 
 bool ways_ok(int ways) { return ways >= 1 && ways <= 32 && (ways & (ways - 1)) == 0; }
 
-template <bool kTwoStage>
-int launch(const Params& p, int grid, void* stream) {
+int launch(const Params& p, bool two_stage, bool packed, int grid, void* stream) {
   cudaError_t err = opt_in();
   if (err != cudaSuccess) return (int)err;
   void* args[] = {const_cast<Params*>(&p)};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(&fused_dense_kernel<kTwoStage>),
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(form_of(two_stage, packed)),
                                     dim3(grid), dim3(kThreads), args, Layout::kBytes,
                                     static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();  // clears a refused launch's error
@@ -666,17 +729,18 @@ int launch(const Params& p, int grid, void* stream) {
 // most a cooperative grid may have a SM): out[0..7] = edges a phase-A item,
 // rows a phase-C item, table rows a phase-A stage, edges a phase-C stage,
 // features a pass, threads a CTA, the launch bounds' CTAs an SM, the
-// card's CTAs an SM.
+// card's CTAs an SM (of the form that fits fewest).
 extern "C" int hg_fused_dense_layout(int* out) {
   cudaError_t err = opt_in();
   if (err != cudaSuccess) return (int)err;
-  int two = 0, one = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&two, fused_dense_kernel<true>, kThreads,
-                                                      Layout::kBytes);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&one, fused_dense_kernel<false>, kThreads,
+  int fewest = kCtasPerSm;
+  for (int i = 0; i < 4; ++i) {
+    int ctas = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, form_of(i & 1, i & 2), kThreads,
                                                         Layout::kBytes);
-  if (err != cudaSuccess) return (int)err;
+    if (err != cudaSuccess) return (int)err;
+    fewest = ctas < fewest ? ctas : fewest;
+  }
   out[0] = kEdgeTile;
   out[1] = kRowsPerCta;
   out[2] = kKStep;
@@ -684,14 +748,16 @@ extern "C" int hg_fused_dense_layout(int* out) {
   out[4] = kFChunk;
   out[5] = kThreads;
   out[6] = kCtasPerSm;
-  out[7] = two < one ? two : one;
+  out[7] = fewest;
   return 0;
 }
 
 // Plain C entry, bound from Python with ctypes. The caller allocates `out`
 // [n, f] f32 and the scratch of this call: `partial_a` [splits_a, e, fp] f32,
 // `xe` [e, fp] bf16 and, where splits_c > 1, `partial_c` [splits_c, n, fp]
-// f32 (fp = f rounded up to a multiple of 8); computes the work split (row
+// f32 (fp = f rounded up to a multiple of 8); `packed` says whether h is the
+// int8 table [n, e] or the nibble carrier [n, (e + 1) / 2] of e edges, never
+// guessed from a shape; computes the work split (row
 // splits of k_a rows, edge splits of k_c edges, the lanes of a reduce and
 // the grid) on the host; passes its current stream; and raises on a non-zero
 // return (a cudaError_t). One cooperative launch: a grid the card cannot hold
@@ -700,30 +766,33 @@ extern "C" int hg_fused_dense_two_stage(const void* h, const void* x, const void
                                         const void* scale_v, void* out, void* partial_a,
                                         void* xe, void* partial_c, int n, int e, int f,
                                         int splits_a, int k_a, int ways_a, int splits_c, int k_c,
-                                        int ways_c, int grid, void* stream) {
+                                        int ways_c, int grid, int packed, void* stream) {
+  // a carrier's edge splits start on whole bytes
   if (n <= 0 || e <= 0 || f <= 0 || grid <= 0 || !split_ok(splits_a, k_a, n) ||
-      !split_ok(splits_c, k_c, e) || !ways_ok(ways_a) || !ways_ok(ways_c))
+      !split_ok(splits_c, k_c, e) || !ways_ok(ways_a) || !ways_ok(ways_c) ||
+      (packed && splits_c > 1 && k_c % 2 != 0))
     return (int)cudaErrorInvalidValue;
   Params p{static_cast<const int8_t*>(h), static_cast<const float*>(x),
            static_cast<const float*>(scale_e), static_cast<const float*>(scale_v),
            static_cast<float*>(out), static_cast<float*>(partial_a),
            static_cast<__nv_bfloat16*>(xe), static_cast<float*>(partial_c),
-           n, e, f, (f + 7) / 8 * 8, splits_a, k_a, ways_a, splits_c, k_c, ways_c};
-  return launch<true>(p, grid, stream);
+           n, e, f, (f + 7) / 8 * 8, packed ? (e + 1) / 2 : e,
+           splits_a, k_a, ways_a, splits_c, k_c, ways_c};
+  return launch(p, true, packed != 0, grid, stream);
 }
 
-// out [e, fp] = Ht @ bf16(x) in f32, columns past f zero; `partial_a` and
-// the split as above.
+// out [e, fp] = Ht @ bf16(x) in f32, columns past f zero; `partial_a`, the
+// split and `packed` as above.
 extern "C" int hg_dense_v2e(const void* h, const void* x, void* partial_a, void* out, int n,
                             int e, int f, int splits_a, int k_a, int ways_a, int grid,
-                            void* stream) {
+                            int packed, void* stream) {
   if (n <= 0 || e <= 0 || f <= 0 || grid <= 0 || !split_ok(splits_a, k_a, n) ||
       !ways_ok(ways_a))
     return (int)cudaErrorInvalidValue;
   Params p{static_cast<const int8_t*>(h), static_cast<const float*>(x), nullptr, nullptr,
            static_cast<float*>(out), static_cast<float*>(partial_a), nullptr, nullptr,
-           n, e, f, (f + 7) / 8 * 8, splits_a, k_a, ways_a, 1, e, 1};
-  return launch<false>(p, grid, stream);
+           n, e, f, (f + 7) / 8 * 8, packed ? (e + 1) / 2 : e, splits_a, k_a, ways_a, 1, e, 1};
+  return launch(p, false, packed != 0, grid, stream);
 }
 
 extern "C" const char* hg_error_string(int code) {

@@ -98,10 +98,10 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # the argument types of each entry of the library
 ENTRIES = {
     # h, x, scale_e, scale_v, out, partial_a, xe, partial_c; n, e, f, splits_a, k_a,
-    # ways_a, splits_c, k_c, ways_c, grid; stream
-    "hg_fused_dense_two_stage": [_PTR] * 8 + [_INT] * 10 + [_PTR],
-    # h, x, partial_a, out; n, e, f, splits_a, k_a, ways_a, grid; stream
-    "hg_dense_v2e": [_PTR] * 4 + [_INT] * 7 + [_PTR],
+    # ways_a, splits_c, k_c, ways_c, grid, packed; stream
+    "hg_fused_dense_two_stage": [_PTR] * 8 + [_INT] * 11 + [_PTR],
+    # h, x, partial_a, out; n, e, f, splits_a, k_a, ways_a, grid, packed; stream
+    "hg_dense_v2e": [_PTR] * 4 + [_INT] * 8 + [_PTR],
     # out: int[8]
     "hg_fused_dense_layout": [_PTR],
     # x, gidx, mask, out; c, ngs, f, form, lanes, batch; stream

@@ -16,9 +16,12 @@ route names mean the same thing in both packages:
   first aggregation other than sum, it falls through to ``dense`` (when the
   plan has the table) or ``tree``, as in JAX.
 * ``"dense"`` — two plain matmuls over the int8 table, the XLA dense route
-  (``fused.py:107-142``, ``:341-347``).
+  (``fused.py:107-142``, ``:341-347``); a packed table
+  (``DenseIncidence(packed=True)``) is unpacked first, as JAX's
+  ``_dense_dot(packed=True)`` unpacks it.
 * ``"pallas"`` — the hand-written fused kernel (:mod:`.fused_dense`), the
-  counterpart of the Pallas kernel. It never falls back to another route.
+  counterpart of the Pallas kernel, on the int8 table or, in its packed
+  form, on the nibble carrier. It never falls back to another route.
 * ``"tree"`` — the reduction tree with every level plain (:mod:`.tree`,
   ``fused.py:316-319``).
 * ``"pallas_sparse"`` — the same tree with level 0 on the hand-written
@@ -249,7 +252,7 @@ def _hgnn_aggregate_max(hgd, x, wdiag, plan, b: str):
     if wdiag is not None:
         xe = xe * wdiag
     if b == "dense" and getattr(plan, "dense", None) is not None:
-        xv = dense_dot(plan.dense.h, xe, False)
+        xv = dense_dot(plan.dense.unpacked(), xe, False)
     elif b == "bitstream" and getattr(plan, "bitstream", None) is not None:
         h_pack, ht_pack = plan.bitstream.device(x.device)
         xv = bitstream.bit_matvec(xe, h_pack, ht_pack)
@@ -305,15 +308,15 @@ def hgnn_aggregate(
     if b == "bitstream":
         return bitstream.hgnn_aggregate_bitstream(
             hgd, x, wdiag, first_aggr, _sub_plan(plan, "bitstream", bitstream.BitIncidence, b))
-    dense = dense_table(plan, "dense")
-    xe = dense_dot(dense.h, x, True)
+    h = dense_table(plan, "dense").unpacked()
+    xe = dense_dot(h, x, True)
     if first_aggr == "mean":
         cnt = (hgd.ht_indptr[1:] - hgd.ht_indptr[:-1]).to(xe.dtype)
         xe = xe / cnt.clamp_min(1.0)[:, None]
     xe = xe * hgd.degE
     if wdiag is not None:
         xe = xe * wdiag
-    return dense_dot(dense.h, xe, False) * hgd.degV
+    return dense_dot(h, xe, False) * hgd.degV
 
 
 def unignn_aggregate(
@@ -351,11 +354,11 @@ def unignn_aggregate(
     if b == "bitstream":
         return bitstream.unignn_aggregate_bitstream(
             hgd, x, use_deg, _sub_plan(plan, "bitstream", bitstream.BitIncidence, b))
-    dense = dense_table(plan, "dense")
-    xe = dense_dot(dense.h, x, True)
+    h = dense_table(plan, "dense").unpacked()
+    xe = dense_dot(h, x, True)
     if use_deg:
         xe = xe * hgd.degE
-    xv = dense_dot(dense.h, xe, False)
+    xv = dense_dot(h, xe, False)
     if use_deg:
         xv = xv * hgd.degV
     return xv

@@ -15,9 +15,19 @@ with f32 accumulation, in two forms:
 * :func:`fused_dense_two_stage_plain` is the same math in plain torch, and
   :func:`fused_dense_backward_plain` its gradient's.
 
-``launches`` counts the two-stage kernel's launches and ``v2e_launches``
-those of its first phase alone (``Hᵀ @ bf16(X)``, for the gradient of
-``scale_e``), so a run can show that its main path went through them.
+H is the int8 [N, E] table, or, with ``packed=True``, JAX's packed-int4
+nibble carrier [N, ceil(E/2)] (``DenseIncidence(packed=True)``, the table
+JAX's ``_unpack_bf16`` unpacks ahead of the same Pallas kernel,
+``pallas_kernels.py:40-56``). The kernel reads the carrier itself, in its
+packed form; the plain versions read the unpacked int8 table. ``packed``
+is always said, never guessed from a shape: at E = 1 the two have the
+same shape.
+
+``launches`` counts the two-stage kernel's launches on the int8 table and
+``v2e_launches`` those of its first phase alone (``Hᵀ @ bf16(X)``, for the
+gradient of ``scale_e``); ``packed_launches`` and ``packed_v2e_launches``
+count the packed form's. A run can show that its main path went through
+them.
 """
 
 from __future__ import annotations
@@ -28,10 +38,12 @@ import functools
 import torch
 
 from hypergef_tpu_torch.ops import library
-from hypergef_tpu_torch.sparse.planner import DenseIncidence
+from hypergef_tpu_torch.sparse.planner import DenseIncidence, unpack_nibbles
 
 launches = 0
 v2e_launches = 0
+packed_launches = 0
+packed_v2e_launches = 0
 
 # The kernel's tile constants (csrc/fused_dense.cu; hg_fused_dense_layout
 # gives them, and the wrapper checks them before its first launch).
@@ -59,7 +71,10 @@ def dense_dot(h_i8: torch.Tensor, x: torch.Tensor, contract_left: bool) -> torch
     The table's counts and bf16 values are exact in f32, so an f32 matmul
     of them gives the products of the bf16 dot exactly, with f32
     accumulation (``hypergef_tpu/ops/fused.py:107-126``). A bf16 matmul
-    with an f32 result is not available on every backend.
+    with an f32 result is not available on every backend. ``h_i8`` is the
+    int8 table: a packed table is unpacked first
+    (:meth:`DenseIncidence.unpacked`), as JAX's ``_dense_dot(packed=True)``
+    unpacks it in XLA before the same product.
     """
     h = h_i8.to(torch.float32)
     return (h.t() if contract_left else h) @ bf16_round(x)
@@ -82,7 +97,8 @@ def fused_dense_backward_plain(h_i8, x, scale_e, scale_v, g):
 
 
 def dense_table(plan, route: str) -> DenseIncidence:
-    """The int8 table of ``plan`` (an AggregationPlan or a DenseIncidence)."""
+    """The table of ``plan`` (an AggregationPlan or a DenseIncidence), int8
+    or packed."""
     dense = getattr(plan, "dense", None) or plan
     if not isinstance(dense, DenseIncidence):
         raise ValueError(f"the {route} route needs a plan with a DenseIncidence")
@@ -204,14 +220,21 @@ def _device_split(n: int, e: int, f: int, device: torch.device, two_stage: bool 
     return work_split(n, e, f, *_card(index), two_stage=two_stage)
 
 
-def _check_kernel_args(h, x, scale_e=None, scale_v=None):
-    """Checks what the kernel takes; the scales only where they are given."""
+def _check_kernel_args(h, x, scale_e=None, scale_v=None, num_edges=None):
+    """Checks what the kernel takes; the scales only where they are given.
+    ``num_edges`` is given for a packed table: ``h`` is then the carrier
+    of that many edges."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {dev}")
     if h.dtype != torch.int8 or h.dim() != 2:
         raise TypeError(f"h must be a 2-D int8 table, got {h.dtype} {tuple(h.shape)}")
     n, e = h.shape
+    if num_edges is not None:
+        if num_edges <= 0 or h.shape[1] != -(-num_edges // 2):
+            raise TypeError(f"a carrier of {num_edges} edges is [N, {-(-num_edges // 2)}], "
+                            f"got {tuple(h.shape)}")
+        e = num_edges
     if x.dtype != torch.float32 or x.dim() != 2 or x.shape[0] != n:
         raise TypeError(f"x must be f32 [{n}, F], got {x.dtype} {tuple(x.shape)}")
     f = x.shape[1]
@@ -243,13 +266,16 @@ def _raise_on(err: int, lib, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: {lib.hg_error_string(err).decode()}")
 
 
-def _launch(h, x, scale_e, scale_v):
+def _launch(h, x, scale_e, scale_v, packed: bool = False):
     """The two-stage kernel: the CUDA implementation of the
-    ``fused_dense_two_stage`` op (:mod:`.library`)."""
-    global launches
+    ``fused_dense_two_stage`` op, and with ``packed`` of the
+    ``fused_dense_two_stage_packed`` op, whose carrier's edges are
+    ``scale_e``'s rows (:mod:`.library`)."""
+    global launches, packed_launches
     from hypergef_tpu_torch.ops import _build
 
-    n, e, f = _check_kernel_args(h, x, scale_e, scale_v)
+    n, e, f = _check_kernel_args(h, x, scale_e, scale_v,
+                                 scale_e.shape[0] if packed else None)
     lib = _build.load_library()
     ws = _device_split(n, e, f, x.device)
     dev = x.device
@@ -264,19 +290,23 @@ def _launch(h, x, scale_e, scale_v):
             h.data_ptr(), x.data_ptr(), scale_e.data_ptr(), scale_v.data_ptr(),
             out.data_ptr(), partial_a.data_ptr(), xe.data_ptr(), partial_c.data_ptr(),
             n, e, f, ws.splits_a, ws.k_a, ws.ways_a, ws.splits_c, ws.k_c, ws.ways_c,
-            ws.grid, stream,
+            ws.grid, int(packed), stream,
         )
     _raise_on(err, lib, "fused_dense_two_stage")
-    launches += 1
+    if packed:
+        packed_launches += 1
+    else:
+        launches += 1
     return out
 
 
-def _launch_v2e(h, x):
-    """``Hᵀ @ bf16(x)`` in f32 by the kernel's phases A and B: [E, F]."""
-    global v2e_launches
+def _launch_v2e(h, x, num_edges=None):
+    """``Hᵀ @ bf16(x)`` in f32 by the kernel's phases A and B: [E, F]. With
+    ``num_edges``, ``h`` is the carrier of that many edges."""
+    global v2e_launches, packed_v2e_launches
     from hypergef_tpu_torch.ops import _build
 
-    n, e, f = _check_kernel_args(h, x)
+    n, e, f = _check_kernel_args(h, x, num_edges=num_edges)
     lib = _build.load_library()
     ws = _device_split(n, e, f, x.device, two_stage=False)
     partial_a = torch.empty((ws.splits_a, e, ws.fp), dtype=torch.float32, device=x.device)
@@ -285,24 +315,31 @@ def _launch_v2e(h, x):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.hg_dense_v2e(h.data_ptr(), x.data_ptr(), partial_a.data_ptr(),
                                out.data_ptr(), n, e, f, ws.splits_a, ws.k_a, ws.ways_a,
-                               ws.grid, stream)
+                               ws.grid, int(num_edges is not None), stream)
     _raise_on(err, lib, "dense_v2e")
-    v2e_launches += 1
+    if num_edges is None:
+        v2e_launches += 1
+    else:
+        packed_v2e_launches += 1
     return out[:, :f]
 
 
-def _two_stage(h, x, scale_e, scale_v):
-    """The kernel on CUDA tensors (the ``fused_dense_two_stage`` op), the
-    plain version on CPU tensors."""
+def _two_stage(h, x, scale_e, scale_v, packed):
+    """The kernel on CUDA tensors (the ``fused_dense_two_stage`` op, or its
+    ``_packed`` form), the plain version on CPU tensors (over the unpacked
+    table)."""
     if x.device.type == "cpu":
+        if packed:
+            h = unpack_nibbles(h, scale_e.shape[0])
         return fused_dense_two_stage_plain(h, x, scale_e, scale_v)
-    return library.OPS["fused_dense_two_stage"](h, x, scale_e, scale_v)
+    op = "fused_dense_two_stage_packed" if packed else "fused_dense_two_stage"
+    return library.OPS[op](h, x, scale_e, scale_v)
 
 
-def _v2e(h, x):
+def _v2e(h, x, num_edges, packed):
     if x.device.type == "cpu":
-        return dense_dot(h, x, True)
-    return _launch_v2e(h, x)
+        return dense_dot(unpack_nibbles(h, num_edges) if packed else h, x, True)
+    return _launch_v2e(h, x, num_edges if packed else None)
 
 
 @functools.lru_cache(maxsize=16)
@@ -314,44 +351,49 @@ def _unit_scale(n: int, device: torch.device) -> torch.Tensor:
 class _FusedDenseTwoStage(torch.autograd.Function):
     """The op as an autograd node: forward as :func:`_two_stage`, backward
     ``_fd_bwd`` (``pallas_kernels.py:153-177``) on the same op. Each
-    gradient is computed only when it is asked for; ``h`` gets none."""
+    gradient is computed only when it is asked for; ``h`` gets none. The
+    packed form runs the packed kernel (and phase) throughout."""
 
     @staticmethod
-    def forward(ctx, h, x, scale_e, scale_v):
-        _, _, need_se, need_sv = ctx.needs_input_grad
+    def forward(ctx, h, x, scale_e, scale_v, packed):
+        _, _, need_se, need_sv, _ = ctx.needs_input_grad
+        ctx.packed = packed
         ctx.save_for_backward(h, x if need_se or need_sv else None, scale_e, scale_v)
-        return _two_stage(h, x, scale_e, scale_v)
+        return _two_stage(h, x, scale_e, scale_v, packed)
 
     @staticmethod
     def backward(ctx, g):
         h, x, scale_e, scale_v = ctx.saved_tensors
-        _, need_x, need_se, need_sv = ctx.needs_input_grad
+        _, need_x, need_se, need_sv, _ = ctx.needs_input_grad
+        packed, e = ctx.packed, scale_e.shape[0]
         dx = d_se = d_sv = None
         # dx = H Se Hᵀ (Sv ⊙ g): the same op, the output scale moved to the input
         gv = (g * scale_v).contiguous() if need_x or need_se else None
         if need_x:
-            dx = _two_stage(h, gv, scale_e, _unit_scale(h.shape[0], g.device))
+            dx = _two_stage(h, gv, scale_e, _unit_scale(h.shape[0], g.device), packed)
         if need_se:  # Σ_f (Hᵀ x) ⊙ (Hᵀ (Sv ⊙ g))
-            d_se = (_v2e(h, x) * _v2e(h, gv)).sum(dim=1, keepdim=True)
+            d_se = (_v2e(h, x, e, packed) * _v2e(h, gv, e, packed)).sum(dim=1, keepdim=True)
         if need_sv:  # Σ_f (H Se Hᵀ x) ⊙ g
-            y = _two_stage(h, x, scale_e, _unit_scale(h.shape[0], g.device))
+            y = _two_stage(h, x, scale_e, _unit_scale(h.shape[0], g.device), packed)
             d_sv = (y * g).sum(dim=1, keepdim=True)
-        return None, dx, d_se, d_sv
+        return None, dx, d_se, d_sv, None
 
 
-def fused_dense_two_stage(h_i8, x, scale_e, scale_v):
+def fused_dense_two_stage(h, x, scale_e, scale_v, packed: bool = False):
     """``out = scale_v ⊙ (H @ bf16(scale_e ⊙ (Hᵀ @ bf16(X))))``.
 
-    h_i8: int8 [N, E]; x: f32 [N, F]; scale_e: f32 [E, 1]; scale_v: f32
-    [N, 1]. On CUDA tensors this launches the kernel; on CPU tensors it
-    runs :func:`fused_dense_two_stage_plain`. Either way the gradient is
-    that of the JAX package's custom VJP.
+    h: int8 [N, E], or with ``packed`` the nibble carrier [N, ceil(E/2)]
+    of E = scale_e's rows; x: f32 [N, F]; scale_e: f32 [E, 1]; scale_v:
+    f32 [N, 1]. On CUDA tensors this launches the kernel (its packed form
+    on a carrier, which it reads as it is); on CPU tensors it runs
+    :func:`fused_dense_two_stage_plain` on the (unpacked) table. Either way
+    the gradient is that of the JAX package's custom VJP.
     """
     if x.device.type == "cpu":
-        for t in (h_i8, scale_e, scale_v):
+        for t in (h, scale_e, scale_v):
             if t.device.type != "cpu":
                 raise ValueError(f"x is on the CPU but an operand is on {t.device}")
-    return _FusedDenseTwoStage.apply(h_i8, x, scale_e, scale_v)
+    return _FusedDenseTwoStage.apply(h, x, scale_e, scale_v, bool(packed))
 
 
 def hgnn_aggregate_fused_dense(hgd, x, wdiag, first_aggr, plan):
@@ -368,7 +410,7 @@ def hgnn_aggregate_fused_dense(hgd, x, wdiag, first_aggr, plan):
     if first_aggr == "mean":
         cnt = (hgd.ht_indptr[1:] - hgd.ht_indptr[:-1]).to(x.dtype)[:, None]
         scale_e = scale_e / cnt.clamp_min(1.0)
-    return fused_dense_two_stage(dense.h, x, scale_e.contiguous(), hgd.degV)
+    return fused_dense_two_stage(dense.h, x, scale_e.contiguous(), hgd.degV, dense.packed)
 
 
 def unignn_aggregate_fused_dense(hgd, x, use_deg: bool, plan):
@@ -382,4 +424,4 @@ def unignn_aggregate_fused_dense(hgd, x, use_deg: bool, plan):
     else:
         scale_e = _unit_scale(dense.num_edges, x.device)
         scale_v = _unit_scale(dense.num_nodes, x.device)
-    return fused_dense_two_stage(dense.h, x, scale_e, scale_v)
+    return fused_dense_two_stage(dense.h, x, scale_e, scale_v, dense.packed)

@@ -1,4 +1,4 @@
-"""The six forward kernels as ``torch.library`` custom ops.
+"""The forward kernels as ``torch.library`` custom ops.
 
 A kernel wrapper reads its operands' ``data_ptr()`` and calls the kernel
 library through ``ctypes``, which ``torch.export`` cannot trace: a fake
@@ -25,6 +25,7 @@ is the same function of the op's arguments, bitwise
 | op | kernel (``csrc/``) | plain twin |
 |---|---|---|
 | ``fused_dense_two_stage`` | ``fused_dense.cu`` | ``fused_dense.fused_dense_two_stage_plain`` |
+| ``fused_dense_two_stage_packed`` | ``fused_dense.cu`` (packed form) | the same, on ``planner.unpack_nibbles`` |
 | ``ell_gather_sum`` | ``ell_gather.cu`` | ``ell_gather.ell_gather_sum_plain`` |
 | ``aligned_band`` | ``aligned_band.cu`` | ``aligned_band.flat_band_plain`` |
 | ``aligned_masked_argmax`` | ``aligned_max.cu`` | ``aligned_max.flat_max_plain`` |
@@ -72,9 +73,33 @@ def _fused_dense_cuda(h, x, scale_e, scale_v):
     return fused_dense._launch(h, x, scale_e, scale_v)
 
 
+def _fused_dense_fake(h, x, scale_e, scale_v):
+    return x.new_empty((h.shape[0], x.shape[1]))
+
+
 _define("fused_dense_two_stage(Tensor h, Tensor x, Tensor scale_e, Tensor scale_v) -> Tensor",
-        _fused_dense_cpu, _fused_dense_cuda,
-        lambda h, x, scale_e, scale_v: x.new_empty((h.shape[0], x.shape[1])))
+        _fused_dense_cpu, _fused_dense_cuda, _fused_dense_fake)
+
+
+# the same over the packed-int4 nibble carrier h [N, ceil(E/2)], E = scale_e's
+# rows: an op of its own, since the carrier's shape cannot say it is one (at
+# E = 1 it is the int8 table's)
+def _fused_dense_packed_cpu(h, x, scale_e, scale_v):
+    from hypergef_tpu_torch.ops import fused_dense
+    from hypergef_tpu_torch.sparse.planner import unpack_nibbles
+
+    return fused_dense.fused_dense_two_stage_plain(unpack_nibbles(h, scale_e.shape[0]), x,
+                                                   scale_e, scale_v)
+
+
+def _fused_dense_packed_cuda(h, x, scale_e, scale_v):
+    from hypergef_tpu_torch.ops import fused_dense
+
+    return fused_dense._launch(h, x, scale_e, scale_v, packed=True)
+
+
+_define("fused_dense_two_stage_packed(Tensor h, Tensor x, Tensor scale_e, Tensor scale_v) "
+        "-> Tensor", _fused_dense_packed_cpu, _fused_dense_packed_cuda, _fused_dense_fake)
 
 
 # ------------------------------------------------------------------ ELL gather

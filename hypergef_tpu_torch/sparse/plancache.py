@@ -7,7 +7,9 @@ tensors) is written to one compressed ``.npz`` and read back bit-exact,
 keyed by a hash of the graph's content:
 
 * NumPy leaves are stored as they are, deduplicated by identity; torch
-  tensors (the int8 ``DenseIncidence.h``, the bf16 ``DensePrecomp.a``) are
+  tensors (``DenseIncidence.h``, int8 counts or the packed-int4 nibble
+  carrier, whose ``packed`` flag is a field like any other and comes back
+  as saved, as JAX's cache keeps it; the bf16 ``DensePrecomp.a``) are
   stored from the host by dtype tag, bf16 as an ``int16`` view (NumPy has
   no bf16), and put back on the device the caller names;
 * fields whose names start with ``_`` are derived caches and are skipped:

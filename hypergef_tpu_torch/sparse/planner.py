@@ -18,7 +18,8 @@ code, so every host table is bit-identical to the JAX package's:
 * the aligned host layer (``:1010-1329``, ``:1405-1761``): the uniform
   :class:`AlignedStage` and bucketed :class:`AlignedStageB`, their builders
   and :func:`plan_aligned`, with the JAX planner's bucket-merge cost model;
-* the int8 :class:`DenseIncidence` (``:433-515``) and the bf16
+* :class:`DenseIncidence` (``:433-535``), int8 or the packed-int4 nibble
+  carrier, and the bf16
   propagation matrix :class:`DensePrecomp` (``:609-635``);
 * an :class:`AggregationPlan` (``:540-557``) with the ``dense``, ``tree``,
   ``tile``, ``bsr``, ``multihot``, ``pallas_sparse``, ``aligned``,
@@ -1452,24 +1453,36 @@ def build_aligned_stage_bucketed(
 
 @dataclasses.dataclass
 class DenseIncidence:
-    """Dense |V|×|E| incidence-count table, int8, on a device.
+    """Dense |V|×|E| incidence-count table on a device (``:433-535``).
 
-    Entries are exact incidence counts (0/1 for a deduplicated graph), so
-    int8 loses nothing. Both the ``dense`` route and the fused CUDA kernel
-    read this table; the packed-int4 form of the JAX package is not ported
-    (ROADMAP.md, "Do not port").
+    Entries are exact incidence counts (0/1 for a deduplicated graph). The
+    default form is int8 [N, E]; ``packed=True`` is JAX's explicit opt-in
+    (``dtype=jnp.int4``), a nibble carrier: int8 [N, ceil(E/2)], byte ``j``
+    of a row holding column ``2j`` in its low nibble and ``2j + 1`` in its
+    high one (a zero high nibble past an odd E), each read as a signed
+    4-bit count, as JAX's S4 bitcast reads it. The ``dense`` route reads
+    :meth:`unpacked`; the ``pallas`` route's fused CUDA kernel reads either
+    form itself, the carrier without unpacking it.
     """
 
-    h: torch.Tensor  # int8 [N, E]
+    h: torch.Tensor  # int8 [N, E] counts, or the [N, ceil(E/2)] nibble carrier
     num_nodes: int
     num_edges: int
+    packed: bool = False  # True: ``h`` is the nibble carrier
 
     @classmethod
-    def from_hypergraph(cls, hg, device) -> "DenseIncidence":
-        """Build the int8 table on ``device`` (``planner.py:480-515``, int8
-        branch)."""
+    def from_hypergraph(cls, hg, device, packed: bool = False) -> "DenseIncidence":
+        """Build the table on ``device``: int8 (``planner.py:480-515``), or
+        with ``packed`` the nibble carrier, bit for bit JAX's (``:488-505``)."""
         arr = hg.to_scipy().toarray()
         amax = int(arr.max()) if arr.size else 0
+        if packed:
+            if amax > 7:
+                raise MemoryError(
+                    ">7 duplicate incidences in one (vertex, edge) pair "
+                    "— the packed int4 form cannot represent this graph")
+            h = torch.as_tensor(pack_nibbles(arr.astype(np.int8)), device=device)
+            return cls(h=h, num_nodes=hg.num_nodes, num_edges=hg.num_edges, packed=True)
         if amax > 127:
             raise MemoryError(
                 ">127 duplicate incidences in one (vertex, edge) pair "
@@ -1477,6 +1490,29 @@ class DenseIncidence:
             )
         h = torch.as_tensor(arr.astype(np.int8), device=device)
         return cls(h=h, num_nodes=hg.num_nodes, num_edges=hg.num_edges)
+
+    def unpacked(self) -> torch.Tensor:
+        """The int8 [N, E] counts: ``h`` itself, or the carrier unpacked
+        (a new tensor on ``h``'s device)."""
+        return unpack_nibbles(self.h, self.num_edges) if self.packed else self.h
+
+
+def pack_nibbles(counts: np.ndarray) -> np.ndarray:
+    """int8 [..., E] counts in [-8, 7] → the int8 [..., ceil(E/2)] nibble
+    carrier, low nibble the even column (``planner.py:496-499``)."""
+    e = counts.shape[-1]
+    pad = np.zeros(counts.shape[:-1] + (-(-e // 2) * 2,), np.int8)
+    pad[..., :e] = counts
+    return ((pad[..., 0::2] & 0xF) | (pad[..., 1::2] << 4)).astype(np.int8)
+
+
+def unpack_nibbles(carrier: torch.Tensor, num_edges: int) -> torch.Tensor:
+    """The int8 [..., num_edges] counts of a nibble carrier, each nibble
+    sign-extended as JAX's S4 bitcast reads it (``planner.py:517-535``,
+    without its barriers, which guard XLA's constant folding)."""
+    lo = torch.bitwise_right_shift(torch.bitwise_left_shift(carrier, 4), 4)
+    hi = torch.bitwise_right_shift(carrier, 4)
+    return torch.stack([lo, hi], dim=-1).flatten(-2)[..., :num_edges]
 
 
 # The routing ladder's constants, with the JAX package's values

@@ -7,7 +7,8 @@ JAX's counterparts run here on the simulated 8-device CPU mesh, on the same
 NumPy inputs:
 
 * ``sharded_hgnn_aggregate`` (sum, mean, max; with ``wdiag``) and
-  ``sharded_unignn_aggregate``; ``sharded_dense_*``; ``halo_hgnn_aggregate``
+  ``sharded_unignn_aggregate``; ``sharded_dense_*`` (int8, and the
+  packed-int4 slices against JAX's packed ``psum``); ``halo_hgnn_aggregate``
   (sum, mean, max; tree and aligned interiors; with ``wdiag``) and
   ``halo_unignn_aggregate``: outputs and the gradients of ⟨out, cot⟩ with
   respect to x;
@@ -86,8 +87,8 @@ class Problem:
         self.plans = {}
         self.dp_jax = {}
 
-    def plan(self, kind, name, d, pkg):
-        key = (kind, name, d, pkg)
+    def plan(self, kind, name, d, pkg, packed=False):
+        key = (kind, name, d, pkg, packed)
         if key not in self.plans:
             hg = self.hg[name] if pkg == "jax" else self.phg[name]
             if kind == "agg":
@@ -95,7 +96,7 @@ class Problem:
                 self.plans[key] = mod.plan_sharded_aggregation(hg, d)
             elif kind == "dense":
                 mod = jdense if pkg == "jax" else dense_shard
-                self.plans[key] = mod.plan_sharded_dense(hg, d)
+                self.plans[key] = mod.plan_sharded_dense(hg, d, packed=packed)
             else:
                 mod = jhalo if pkg == "jax" else halo
                 self.plans[key] = mod.plan_halo(hg, d, local_form=kind)
@@ -140,6 +141,7 @@ AGG_CASES = {
     "dense sum": dict(kind="dense", aggr="sum"),
     "dense mean wdiag": dict(kind="dense", aggr="mean", wdiag=True),
     "dense unignn deg": dict(kind="dense", unignn=True),
+    "dense packed mean wdiag": dict(kind="dense", aggr="mean", wdiag=True, packed=True),
     "halo sum": dict(kind="tree", aggr="sum"),
     "halo mean": dict(kind="tree", aggr="mean"),
     "halo max": dict(kind="tree", aggr="max"),
@@ -168,7 +170,7 @@ def rank_cases(p: Problem, d: int):
             continue
         g = c.get("graph", "skewed")
         kind = c["kind"]
-        plan = p.plan("agg" if kind == "agg" else kind, g, d, "torch")
+        plan = p.plan("agg" if kind == "agg" else kind, g, d, "torch", c.get("packed", False))
         kw = dict(plan=plan, x=p.x[g], cot=p.cot[g], wdiag=p.w if c.get("wdiag") else None)
         if kind in ("agg", "dense"):
             kw.update(aggr=c.get("aggr", "sum"), unignn=c.get("unignn"), dense=kind == "dense",
@@ -244,7 +246,7 @@ def jax_agg(p: Problem, name: str, d: int):
     g = c.get("graph", "skewed")
     kind = c["kind"]
     hg = p.hg[g]
-    plan = p.plan("agg" if kind == "agg" else kind, g, d, "jax")
+    plan = p.plan("agg" if kind == "agg" else kind, g, d, "jax", c.get("packed", False))
     mesh = _jmesh(d)
     x, cot = p.x[g], p.cot[g]
     aggr = c.get("aggr", "sum")

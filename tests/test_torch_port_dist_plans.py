@@ -11,8 +11,8 @@ the JAX package's, NumPy only (no program is compiled or run):
 * ``cached_plan_halo`` loads a plan equal to the one it built;
 * the dense shard's products a block of rows at a time equal the
   whole-slice ones;
-* the refusals: ``packed=True``, nccl without a card a rank, CUDA ranks
-  without a card.
+* the refusals: nccl without a card a rank, CUDA ranks without a card
+  (``packed=True`` is ported: ``tests/test_torch_port_packed_int4.py``).
 """
 
 import dataclasses
@@ -145,11 +145,6 @@ def test_cached_plan_halo_round_trip(skewed_hg, tmp_path):
     assert_same(loaded, jhalo.plan_halo(skewed_hg, 4))
     assert plancache.plan_key(hg, "cpu", n_shards=4) != plancache.plan_key(hg, "cuda",
                                                                           n_shards=4)
-
-
-def test_packed_dense_raises(small_hg):
-    with pytest.raises(NotImplementedError, match="Do not port"):
-        dense_shard.plan_sharded_dense(port_hg(small_hg), 2, packed=True)
 
 
 def test_dense_byte_guard(small_hg):

@@ -1,7 +1,7 @@
 """The serving export (``serve.py``) and the kernels' custom ops
 (``ops/library.py``) against the JAX package's export, on the CPU.
 
-* Each of the six ``hypergef_torch`` ops passes ``torch.library.opcheck``
+* Each of the seven ``hypergef_torch`` ops passes ``torch.library.opcheck``
   on the CPU (schema, fake against real, autograd registration, the
   dispatch tracer's dynamic shapes), and its CPU result equals its plain
   twin's, bitwise.
@@ -46,7 +46,7 @@ from hypergef_tpu_torch.ops import (
 )
 from hypergef_tpu_torch.ops.bitstream import BitIncidence
 from hypergef_tpu_torch.ops.ell_gather import GatherTable
-from hypergef_tpu_torch.sparse.planner import plan_aligned
+from hypergef_tpu_torch.sparse.planner import pack_nibbles, plan_aligned
 from hypergef_tpu_torch.sparse.reorder import community_reorder
 from hypergef_tpu_torch.train.trainer import TrainConfig, Trainer
 
@@ -87,9 +87,12 @@ def _op_cases():
                      num_inputs=200)
     v2e = thg.device_data("cpu").v2e
     pack = BitIncidence.from_hypergraph(thg).device("cpu")[1]  # Hᵀ: [E, N]
+    carrier = torch.as_tensor(pack_nibbles(h.numpy()))
     cases = {
         "fused_dense_two_stage": ((h, xt, se, sv),
                                   fused_dense.fused_dense_two_stage_plain(h, xt, se, sv)),
+        "fused_dense_two_stage_packed": (
+            (carrier, xt, se, sv), fused_dense.fused_dense_two_stage_plain(h, xt, se, sv)),
         "ell_gather_sum": ((xt, gt.gidx, gt.mask, 200),
                            ell_gather.ell_gather_sum_plain(xt, gt.gidx_long, gt.mask)),
         "bitmm": ((xt, pack.words, None, None, None, pack.m, pack.k),
@@ -113,7 +116,7 @@ def _op_cases():
     return cases
 
 
-OP_CASES = ["fused_dense_two_stage", "ell_gather_sum", "aligned_band bucketed",
+OP_CASES = ["fused_dense_two_stage", "fused_dense_two_stage_packed", "ell_gather_sum", "aligned_band bucketed",
             "aligned_band uniform", "aligned_masked_argmax bucketed",
             "aligned_masked_argmax uniform", "bitmm", "gather_segment_sum"]
 
@@ -131,7 +134,8 @@ def test_op_cpu_result_is_plain_twin(case):
         assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
 
 
-@pytest.mark.parametrize("op", ["fused_dense_two_stage", "ell_gather_sum", "aligned_band",
+@pytest.mark.parametrize("op", ["fused_dense_two_stage", "fused_dense_two_stage_packed",
+                                "ell_gather_sum", "aligned_band",
                                 "aligned_masked_argmax", "bitmm", "gather_segment_sum"])
 def test_opcheck(op):
     case = op if op in _cases() else f"{op} bucketed"
