@@ -368,9 +368,10 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    = 32, 4, 100; cora F = 32, 7) and on a 20news table whose counts reach
    7, within phase 2's bar of its plain twin, two runs bitwise equal, one
    count a call on ``packed_launches``; (b) one CUDA kernel a call and a
-   packed V→E phase under ``torch.profiler`` (in a process of its own: late
-   in a long process the profiler sees no device events on the card's
-   machine), and a call's peak device memory growing by its output and
+   packed V→E phase under ``torch.profiler`` (in this process, through
+   ``utils/profiling.py::profiler``, which detaches CUPTI at each stop: a
+   session kept attached late in a long process saw no device events),
+   and a call's peak device memory growing by its output and
    scratch alone, less than the int8 table's bytes (no [N, E] table is
    made); (c) the backward
    (dx, d scale_e, d scale_v: the packed op twice, the packed V→E phase
@@ -387,6 +388,19 @@ Phases, each of which raises on failure (non-zero exit, no ``ok`` line):
    carrier read twice, x, the scales and the output) at F = 32 on 20news,
    cora and pubmed_real, and both tables' device MB. Its paths' launches
    are the kernels line's ``fused_dense_two_stage_packed`` row.
+36. The op-level counts and the profiler (``profiling_phase``,
+   ``hypergef_tpu_torch/utils/profiling.py``): (a) fig8 at cora and
+   pubmed on the card and on the CPU, JAX's route set, each route's card
+   count beside its CPU count (counts, not times); (b) ``cost_analysis`` of
+   one eager training step each of 20news/``pallas``, coauthor_dblp/
+   ``cumsum`` and SBM-60k/``aligned`` (kernel form): its kernel ops equal
+   the launches the step made, counter by counter, and each kernel op's
+   count equals the same step's count on the CPU; (c) five profiler
+   sessions late in this process, each seeing the fused dense kernel and
+   followed by a recorded 20news ``pallas`` fit bitwise equal to the eager
+   one, the last session through ``trace``, whose trace file holds the
+   kernel. Its launches are read for its own checks, not added to the
+   kernels line.
 
 Phases 1-25 drive the default step and request: on the card a CUDA-graph
 replay (``Trainer``'s and ``ServingModel``'s ``compiled=None``); the plain
@@ -436,7 +450,14 @@ import time
 import numpy as np
 import torch
 
-from hypergef_tpu_torch.sparse.planner import H100_BF16_TC_OPS_PER_S, H100_STREAM_BPS
+# the kernel bounds: each function's bytes (each input read once, each
+# output written once) over the H100 SXM's memory rate, or its operations
+# over the f32 rate or, for the band kernel's tile products, the dense bf16
+# tensor-core rate, whichever is longer (NVIDIA's data sheet, 700 W)
+from hypergef_tpu_torch.utils.profiling import (
+    band_bound, bound, max_bounds, nbytes, rows_read_bytes, stage_table_bytes,
+)
+from hypergef_tpu_torch.utils.rates import H100_F32_OPS_PER_S, H100_STREAM_BPS
 
 # graphs of bench.py: the e2e graph and the pubmed_real kernel box
 GRAPHS = {
@@ -536,55 +557,6 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-# the least time the card could take for a function: the larger of its
-# bytes (each input read once, each output written once) over the H100 SXM's
-# memory rate and its operations over the rate of the unit that does them:
-# the f32 rate outside the tensor cores, where every port kernel but the
-# band kernel does its arithmetic, or the dense bf16 tensor-core rate, where
-# the band kernel does its tile products (NVIDIA's data sheet, 700 W; the
-# memory and tensor-core rates are the planner's, which its floor model
-# at card_floor_rates shares)
-HBM_BYTES_PER_S = H100_STREAM_BPS
-F32_OPS_PER_S = 67e12
-BF16_TC_OPS_PER_S = H100_BF16_TC_OPS_PER_S
-
-
-def bound(nbytes: int, ops: int, ops_per_s: float = F32_OPS_PER_S) -> dict:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_per_s * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": int(nbytes), "ops": int(ops)}
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def rows_read_bytes(x, idx) -> int:
-    """The bytes of the rows of ``x`` that ``idx`` names, each read once (a
-    row no index names need not move)."""
-    return int(torch.unique(idx).numel()) * x[0].numel() * x.element_size()
-
-
-def stage_table_bytes(stage) -> int:
-    """The kernel tables a stage apply reads: bands, spills, windows,
-    sources and the directory."""
-    t = stage.band
-    return nbytes(t.band, t.win, t.spill, t.src, t.groups)
-
-
-def max_bounds(stage, moved: int, ops: int) -> dict:
-    """The max kernels' bound over the live layout they read (with the
-    spill sources its chunks name), and beside it the bound over the flat
-    band and spill tables they read before; ``moved``: the operands' and
-    outputs' bytes."""
-    live = stage.band.live
-    out = bound(live.nbytes() + nbytes(stage.band.src) + moved, ops)
-    out["tables_bound_ms"] = bound(stage_table_bytes(stage) + moved, ops)["bound_ms"]
-    return out
-
-
 def layout_info(stage) -> dict:
     """The live layout's bytes and host build seconds beside the flat
     tables' bytes."""
@@ -597,12 +569,6 @@ def stage_live(stage) -> int:
     """Non-zero entries of a stage's band and spill tables."""
     t = stage.band
     return int((t.band != 0).sum()) + int((t.spill != 0).sum())
-
-
-def stage_dense(stage) -> int:
-    """Entries of a stage's band tiles, zeros included: what the band
-    kernel's tensor-core products multiply."""
-    return stage.band.tiles.numel()
 
 
 def make_graph(name: str):
@@ -642,14 +608,14 @@ def duplicate_incidences(hg, share: float, seed: int):
 
 def cuda_kernels_per_call(fn) -> int:
     """CUDA kernels that one call of ``fn`` runs, under ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
+    from hypergef_tpu_torch.utils.profiling import device_events, profiler
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiler() as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return len(device_events(prof))
 
 
 # each hand-written kernel's name in a recorded graph, and the counters
@@ -1202,16 +1168,8 @@ def time_band(stage, f: int, device, csr) -> dict:
     out.update(band_bound(stage, f))
     # beside it, the time of the same function's operations on the f32
     # pipes, a multiply-add a feature for each non-zero count only
-    out["live_f32_ops_ms"] = 2 * stage_live(stage) * f / F32_OPS_PER_S * 1e3
+    out["live_f32_ops_ms"] = 2 * stage_live(stage) * f / H100_F32_OPS_PER_S * 1e3
     return out
-
-
-def band_bound(stage, f: int) -> dict:
-    """The band kernel's bound on a stage at width ``f`` (PERF.md §6 row
-    4): its tables, x and the output once; the kernel multiplies whole
-    tiles on the tensor cores."""
-    return bound(stage_table_bytes(stage) + stage.num_inputs * f * 4
-                 + stage.num_segments * f * 4, 2 * stage_dense(stage) * f, BF16_TC_OPS_PER_S)
 
 
 def sbm_problem(hg, plan):
@@ -2211,7 +2169,7 @@ def r2_gather_bound() -> dict:
     gidx = np.random.default_rng(0).integers(0, n, size=(nnz // probes.NGS, probes.NGS))
     rest = nnz * 4 + nnz * f * 4
     out = bound(int(np.unique(gidx).size) * f * 4 + rest, 0)
-    out["bound_named_ms"] = (nnz * f * 4 + rest) / HBM_BYTES_PER_S * 1e3
+    out["bound_named_ms"] = (nnz * f * 4 + rest) / H100_STREAM_BPS * 1e3
     return out
 
 
@@ -2232,7 +2190,7 @@ def r2_chunk_sum_bounds() -> dict:
         rows = int(np.unique(gidx).size)
         rest = 2 * gidx.size * 4 + c * f * 4
         out[scale] = bound(rows * f * 4 + rest, 2 * gidx.size * f)
-        out[scale]["bound_named_ms"] = (gidx.size * f * 4 + rest) / HBM_BYTES_PER_S * 1e3
+        out[scale]["bound_named_ms"] = (gidx.size * f * 4 + rest) / H100_STREAM_BPS * 1e3
     return out
 
 
@@ -3238,12 +3196,11 @@ def profile_steps(device, steps: int = 10) -> None:
     count, the kernels that take the most device time and the shares of the
     fused dense kernel and of the record-routed sum. Not part of the smoke
     run."""
-    from torch.profiler import ProfilerActivity, profile
-
     from hypergef_tpu_torch.data.synthetic import random_features
     from hypergef_tpu_torch.sparse.planner import AggregationPlan, plan_tree
     from hypergef_tpu_torch.train.splits import rand_train_test_idx
     from hypergef_tpu_torch.train.trainer import TrainConfig, Trainer
+    from hypergef_tpu_torch.utils.profiling import profiler
 
     # the eager step's kernels, one by one (a replay would show as one graph)
     Trainer = functools.partial(Trainer, compiled=False)  # noqa: N806
@@ -3304,7 +3261,7 @@ def profile_steps(device, steps: int = 10) -> None:
         for _ in range(5):
             tr.step(idx)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profiler() as prof:
             for _ in range(steps):
                 tr.step(idx)
             torch.cuda.synchronize()
@@ -5000,35 +4957,21 @@ def check_packed(tables, name: str, f: int, seed: int) -> dict:
             "max_count": int(h.max()), "bitwise_int8": True}
 
 
-def packed_profile() -> dict:
-    """The CUDA kernels of one packed two-stage call and of one packed V→E
-    phase at 20news F = 32, under ``torch.profiler``: the body of
-    :func:`packed_kernels_per_call`'s process."""
-    from hypergef_tpu_torch.ops import _build, fused_dense
+def packed_kernels_per_call(tables) -> dict:
+    """(b) The CUDA kernels of one packed two-stage call and of one packed
+    V→E phase at 20news F = 32, under ``torch.profiler``, in this process.
+    Its sessions come late in a long process: opened otherwise than by
+    ``utils/profiling.py::profiler``, a session kept CUPTI attached from the
+    process's first session, and a short session's kernel, stamped from a
+    stale clock correlation, fell out of its window (no device events); the
+    helper detaches CUPTI at each stop."""
+    from hypergef_tpu_torch.ops import fused_dense
 
-    _build.load_library()
-    tables = PackedTables({"20news": make_graph("20news")}, torch.device("cuda", 0))
     _, carrier, x, se, sv = tables.operands("20news", 32, 3)
     e = tables.graphs["20news"].num_edges
-    return {"two_stage": cuda_kernels_per_call(
-                lambda: fused_dense.fused_dense_two_stage(carrier, x, se, sv, packed=True)),
-            "v2e": cuda_kernels_per_call(lambda: fused_dense._launch_v2e(carrier, x, e))}
-
-
-def packed_kernels_per_call() -> dict:
-    """(b) :func:`packed_profile` in a process of its own, as phase 2's
-    profile runs early in this one: on the card's machine a profiler
-    session late in a long process (or after a process's first two) has
-    seen no device events, and recordings after such a session have
-    failed (``tests/test_torch_port_cuda.py``)."""
-    import os
-
-    code = "import json, chip_smoke; print(json.dumps(chip_smoke.packed_profile()))"
-    proc = subprocess.run([sys.executable, "-c", code],
-                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
-                          text=True, timeout=300, check=False)
-    check(proc.returncode == 0, f"the packed profile's process failed: {proc.stderr[-3000:]}")
-    counts = json.loads(proc.stdout.strip().splitlines()[-1])
+    counts = {"two_stage": cuda_kernels_per_call(
+                  lambda: fused_dense.fused_dense_two_stage(carrier, x, se, sv, packed=True)),
+              "v2e": cuda_kernels_per_call(lambda: fused_dense._launch_v2e(carrier, x, e))}
     check(counts == {"two_stage": 1, "v2e": 1},
           f"one CUDA kernel a packed call and a packed V→E phase, got {counts}")
     return counts
@@ -5259,7 +5202,7 @@ def packed_phase(device, card: str, graphs) -> dict:
     tables = PackedTables(graphs, device)
     out = {"cases": [check_packed(tables, *c) for c in PACKED_CASES]}
     check(out["cases"][-1]["max_count"] == 7, "the repeated table holds counts of 7")
-    out["kernels_per_call"] = packed_kernels_per_call()
+    out["kernels_per_call"] = packed_kernels_per_call(tables)
     out["memory"] = [packed_call_memory(tables, g) for g in ("20news", "pubmed_real")]
     out["backward"] = [check_packed_backward(tables, "pubmed_real", 32, 6),
                        check_packed_backward(tables, "20news", 32, 4),
@@ -5280,7 +5223,7 @@ def packed_phase(device, card: str, graphs) -> dict:
                        + out["served"]["export_launches"]["fused_packed"])
     for c in out["cases"]:
         print(f"phase 35 a packed kernel vs int8 vs plain: {json.dumps(c)}", flush=True)
-    print(f"phase 35 b CUDA kernels a call (torch.profiler, a process of its own): "
+    print(f"phase 35 b CUDA kernels a call (torch.profiler): "
           f"{json.dumps(out['kernels_per_call'])}; peak memory over a call: "
           f"{json.dumps(out['memory'])}", flush=True)
     print(f"phase 35 c backward: {json.dumps(out['backward'])}", flush=True)
@@ -5299,6 +5242,145 @@ def packed_phase(device, card: str, graphs) -> dict:
           f"f-g {out['f_g_s']:.2f}; launches {out['launches']}", flush=True)
     return out
 
+
+
+# phase 36: the op-level counts and the profiler (utils/profiling.py). (a)
+# fig8 at cora and pubmed on the card and on the CPU; (b) cost_analysis of one
+# eager training step on three routes: its kernel ops against the launch
+# counters, and against the same step's count on the CPU; (c) profiler
+# sessions in this long process, each followed by a recorded step held
+# against the eager one, the last through trace()
+FIG8_ROUTES = [("cora", "xla"), ("cora", "cumsum"), ("cora", "tree"), ("cora", "dense"),
+               ("pubmed", "xla"), ("pubmed", "cumsum"), ("pubmed", "tree")]
+PROFILE_SESSIONS = 5
+PROFILE_FIT_STEPS = 3
+# each kernel op of a count and the counter (kernel_counters' names, with
+# the fused dense V→E phases') its launches raise
+COUNTED_BY = {"fused_dense_two_stage": "fused", "fused_dense_two_stage_packed": "fused_packed",
+              "fused_dense_v2e": "v2e", "fused_dense_v2e_packed": "packed_v2e",
+              "ell_gather_sum": "gather", "aligned_band": "band",
+              "aligned_masked_argmax": "argmax", "aligned_masked_argsum": "argsum",
+              "bitmm": "bitmm", "gather_segment_sum": "segsum", "record_routed_dx": "recsum",
+              "row_gather": "row_gather", "chunk_masked_sum": "chunk_sum",
+              "chunk_masked_sum_ring": "chunk_sum", "scaled_copy": "scaled_copy"}
+
+
+def counted_step(problem, dev, counters) -> dict:
+    """The count of one eager training step on ``dev`` (after one step that
+    builds the route's lazy tables), with the launches it made."""
+    from hypergef_tpu_torch.train.trainer import Trainer
+    from hypergef_tpu_torch.utils import profiling
+
+    cfg, hg, x, y, split, plan = problem
+    tr = Trainer(cfg, hg, x, y, plan=plan, device=dev, compiled=False)
+    idx = torch.as_tensor(split["train"], device=dev)
+    tr.step(idx)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    for module, attr in counters.values():
+        setattr(module, attr, 0)
+    count = profiling.cost_analysis(tr.step, idx, device=dev)
+    count["launched"] = {k: getattr(m, a) for k, (m, a) in counters.items() if getattr(m, a)}
+    return count
+
+
+def profiling_phase(device, card: str, graphs, sbm, al_plan) -> dict:
+    """Phase 36 (a)-(c)."""
+    import os
+    from pathlib import Path
+
+    from hypergef_tpu_torch.experiments import fig8
+    from hypergef_tpu_torch.ops import fused_dense
+    from hypergef_tpu_torch.train.trainer import Trainer
+    from hypergef_tpu_torch.utils import profiling
+
+    build = Path(__file__).resolve().parent / "build"
+    out = {}
+    # (a) each route's count on the card beside its count on the CPU
+    t0 = time.perf_counter()
+    rows = {dev: fig8.main(["--configs", "cora,pubmed", "--device", dev,
+                            "--out", str(build / f"chip_smoke_fig8_{dev}.csv")])
+            for dev in ("cuda", "cpu")}
+    for dev, rs in rows.items():
+        check([(r["graph"], r["route"]) for r in rs] == FIG8_ROUTES,
+              f"fig8 on {dev}: JAX's routes, got {[(r['graph'], r['route']) for r in rs]}")
+        check(all(np.isfinite(r["bytes"]) and r["bytes"] > 0 and np.isfinite(r["flops"])
+                  for r in rs), f"fig8 on {dev}: finite counts")
+    out["fig8"] = [{"graph": c["graph"], "route": c["route"], "card_bytes": c["bytes"],
+                    "cpu_bytes": p["bytes"], "card_flops": c["flops"], "cpu_flops": p["flops"],
+                    "card_ratio": c["ratio"], "cpu_ratio": p["ratio"]}
+                   for c, p in zip(rows["cuda"], rows["cpu"])]
+    out["a_s"] = time.perf_counter() - t0
+    # (b) kernel ops against the launch counters, and against the CPU's count
+    t0 = time.perf_counter()
+    counters = {**kernel_counters(), "v2e": (fused_dense, "v2e_launches"),
+                "packed_v2e": (fused_dense, "packed_v2e_launches")}
+    steps = {"20news pallas": train_problem("20news"),
+             "coauthor_dblp cumsum": default_problem(graphs["coauthor_dblp"], DBLP_NFEAT,
+                                                     DBLP_NCLASS, backend="cumsum"),
+             "sbm60k aligned kernel": sbm_problem(sbm, al_plan)}
+    out["steps"] = {}
+    for name, problem in steps.items():
+        card_count = counted_step(problem, device, counters)
+        cpu_count = counted_step(problem, torch.device("cpu"), counters)
+        by_counter = {}
+        for kernel, row in card_count["kernels"].items():
+            by_counter[COUNTED_BY[kernel]] = by_counter.get(COUNTED_BY[kernel], 0) + row["count"]
+        check(card_count["kernel_ops"] > 0 and by_counter == card_count["launched"],
+              f"{name}: kernel ops {by_counter} against launches {card_count['launched']}")
+        check(not cpu_count["launched"], f"{name}: the CPU step launched {cpu_count['launched']}")
+        check(card_count["kernels"] == cpu_count["kernels"],
+              f"{name}: the card's kernel ops {card_count['kernels']} against the CPU's "
+              f"{cpu_count['kernels']}")
+        out["steps"][name] = {
+            "kernels": card_count["kernels"], "launched": card_count["launched"],
+            **{f"{dev}_{k}": c[k] for dev, c in (("card", card_count), ("cpu", cpu_count))
+               for k in ("flops", "bytes accessed", "kernel_ops")},
+            "card_aten_ops": sum(r["count"] for r in card_count["ops"].values()),
+            "cpu_aten_ops": sum(r["count"] for r in cpu_count["ops"].values())}
+    out["b_s"] = time.perf_counter() - t0
+    # (c) sessions in this long process, a recording after each
+    t0 = time.perf_counter()
+    cfg, hg, x, y, split, _ = train_problem("20news")
+    ops = kernel_operands(graphs["20news"], 32, 1, device)
+    traces = build / "chip_smoke_traces"
+    out["sessions"] = []
+    for i in range(PROFILE_SESSIONS):
+        last = i == PROFILE_SESSIONS - 1
+        with (profiling.trace(str(traces), device) if last else profiling.profiler()) as prof:
+            fused_dense.fused_dense_two_stage(*ops)
+            torch.cuda.synchronize()
+        names = [e.name for e in profiling.device_events(prof)]
+        eager, captured = (Trainer(cfg, hg, x, y, device=device, compiled=c)
+                           for c in (False, True))
+        want, got = (t.fit(split["train"], epochs=PROFILE_FIT_STEPS, warmup=0)
+                     for t in (eager, captured))
+        check(len(names) == 1 and "fused_dense_kernel" in names[0],
+              f"profiler session {i + 1}: one fused dense kernel, got {names}")
+        check(got["step"] == "captured" and np.array_equal(got["losses"], want["losses"]),
+              f"the recording after session {i + 1}: losses {got['losses']} against eager "
+              f"{want['losses']}")
+        out["sessions"].append({"session": i + 1, "device_events": len(names)})
+    (path,) = traces.glob(f"trace-{os.getpid()}-*.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    check(any("fused_dense_kernel" in e.get("name", "") for e in kernels),
+          f"the trace holds the fused dense kernel, got {[e.get('name') for e in kernels]}")
+    out["trace"] = {"path": str(path.relative_to(build.parent)), "events": len(events),
+                    "kernel_events": len(kernels)}
+    out["c_s"] = time.perf_counter() - t0
+    for r in out["fig8"]:
+        print(f"phase 36 a fig8 (counts, not times) {r['graph']},{r['route']}: card bytes="
+              f"{r['card_bytes']:.0f} flops={r['card_flops']:.0f} ratio={r['card_ratio']:.3f} | "
+              f"cpu bytes={r['cpu_bytes']:.0f} flops={r['cpu_flops']:.0f} "
+              f"ratio={r['cpu_ratio']:.3f}", flush=True)
+    for name, r in out["steps"].items():
+        print(f"phase 36 b cost_analysis {name} (card {card}): {json.dumps(r)}", flush=True)
+    print(f"phase 36 c profiler sessions, a recorded step after each: "
+          f"{json.dumps(out['sessions'])}; trace {json.dumps(out['trace'])}", flush=True)
+    print(f"phase 36 seconds: a {out['a_s']:.2f}, b {out['b_s']:.2f}, c {out['c_s']:.2f}",
+          flush=True)
+    return out
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -5511,6 +5593,10 @@ def main() -> int:
     cuda_graphs.DUMP_DIR = None
     shutil.rmtree(dumps, ignore_errors=True)
     print(f"phase 35: {time.perf_counter() - t0:.2f} s", flush=True)
+    # 36. the op-level counts and the profiler
+    t0 = time.perf_counter()
+    profiling_phase(device, card, ladder_graphs, aligned["sbm"], aligned["plan"])
+    print(f"phase 36: {time.perf_counter() - t0:.2f} s", flush=True)
 
     fd_bwd_err = max(max(c["max_abs_err"].values()) for c in bwd)
     timed = {"fused_dense_two_stage": times["20news"], "ell_gather_sum": gather_times["edge F=32"],

@@ -17,6 +17,7 @@ tables and CSV columns.
     python -m hypergef_tpu_torch.experiments.minibatch_scale
     python -m hypergef_tpu_torch.experiments.weak_scaling
     python -m hypergef_tpu_torch.experiments.halo_overlap
+    python -m hypergef_tpu_torch.experiments.fig8
 
 Each runs on the card unless it is given ``--device cpu`` (without a card
 the default raises), writes its CSV to ``--out`` (a file in the working
@@ -27,5 +28,6 @@ behind its queued sleep, none of the JAX drivers' TPU workarounds
 (``chain_fold``, min-window widening, jit operands). The scale drivers
 model the exchanges one card cannot run (``--links``: the H100's NVLink 4
 from its data sheet, or the JAX drivers' v5e ICI); every such row says
-MODELED (:mod:`.scale_common`).
+MODELED (:mod:`.scale_common`). fig8 times nothing: it counts each
+route's bytes and flops (``utils/profiling.py``).
 """

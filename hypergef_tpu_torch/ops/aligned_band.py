@@ -50,6 +50,7 @@ import torch
 
 from hypergef_tpu_torch.ops import library
 from hypergef_tpu_torch.ops.fused_dense import bf16_round
+from hypergef_tpu_torch.utils import profiling
 
 if TYPE_CHECKING:
     from hypergef_tpu_torch.ops.aligned_max import LiveLayout
@@ -565,6 +566,25 @@ def _launch(x, table: BandTable):
         table.num_segments)
 
 
+def stage_tables(st) -> tuple:
+    """The tables a kernel reads from stage ``st`` (a ``pallas_*`` form),
+    as they lie on either device: its :class:`BandTable`'s flat band and
+    spill tables, windows, sources and directory."""
+    t = st.band
+    return t.band, t.win, t.spill, t.src, t.groups
+
+
+def stage_entries(st) -> int:
+    """Entries of a stage's band and spill tables, zeros included."""
+    return st.band.band.numel() + st.band.spill.numel()
+
+
+def _cost(x, st):
+    """A multiply-add a feature for each band and spill entry."""
+    return "aligned_band", (x, *stage_tables(st)), 2 * stage_entries(st) * x.shape[1]
+
+
+@profiling.kernel(_cost)
 def aligned_band(x, st):
     """One aligned stage applied to x f32 [N, F]: f32 [S, F].
 

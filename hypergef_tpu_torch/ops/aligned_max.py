@@ -53,11 +53,12 @@ import torch
 from hypergef_tpu_torch.ops import library
 from hypergef_tpu_torch.ops.aligned_band import (
     _BAND_OFF, _SPILL_OFF, _SRC_OFF, _SW, _WIDTH, _WIN_OFF, check_operand, flat_classes,
-    flat_rows, kernel_table, raise_on_error,
+    flat_rows, kernel_table, raise_on_error, stage_entries, stage_tables,
 )
 from hypergef_tpu_torch.ops.maxops import NEG
 from hypergef_tpu_torch.ops.segment_sum import RecordTable, record_routed_dx
 from hypergef_tpu_torch.sparse.planner import AlignedStageBDev, AlignedStageDev
+from hypergef_tpu_torch.utils import profiling
 from hypergef_tpu_torch.utils.graphs import refuse_capture
 
 argmax_launches = 0
@@ -427,6 +428,20 @@ def launch_argmax(x, src, groups, chunks, group_chunks, row_ptr, slots, items,
     return val, arg
 
 
+def _argmax_cost(x, st):
+    """A max over the stage's band and spill entries: one an entry and
+    feature."""
+    return "aligned_masked_argmax", (x, *stage_tables(st)), stage_entries(st) * x.shape[1]
+
+
+def _argsum_cost(g, arg, st):
+    """Each entry's compare with its row, the select and the sum: three an
+    entry and feature, as the record-routed sum."""
+    return ("aligned_masked_argsum", (g, arg, *stage_tables(st)),
+            3 * stage_entries(st) * g.shape[1])
+
+
+@profiling.kernel(_argmax_cost)
 def aligned_masked_argmax(x, st):
     """(val, arg) of the masked argmax over stage ``st``: one kernel launch
     on a CUDA ``x`` (a ``pallas_*``-form stage), through the
@@ -444,6 +459,7 @@ def aligned_masked_argmax(x, st):
         table.block_rows, table.num_inputs, table.num_segments)
 
 
+@profiling.kernel(_argsum_cost)
 def aligned_masked_argsum(g, arg, st):
     """dx of the masked arg-sum over the transpose stage ``st``: one kernel
     launch on CUDA tensors (a ``pallas_*``-form stage), the twin on CPU ones."""

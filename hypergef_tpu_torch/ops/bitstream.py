@@ -43,6 +43,7 @@ import torch
 from hypergef_tpu_torch.ops import library
 from hypergef_tpu_torch.ops.fused_dense import bf16_round
 from hypergef_tpu_torch.ops.segment_sum import warp_runs
+from hypergef_tpu_torch.utils import profiling
 
 launches = 0
 
@@ -342,6 +343,13 @@ def _launch(pack: BitPack, x):
     return library.OPS["bitmm"](x, None, lay.pairs, lay.bit_ptr, lay.runs, pack.m, pack.k)
 
 
+def _cost(pack: BitPack, x):
+    """The product of the dense [m, k] matrix the pack holds (its words are
+    what both forms read from it)."""
+    return "bitmm", (pack.words, x), 2 * pack.m * pack.k * x.shape[1]
+
+
+@profiling.kernel(_cost)
 def bitmm(pack: BitPack, x):
     """``A @ bf16(x)`` for the first ``pack.m`` rows of the pack: x f32
     [k, F] → f32 [m, F].

@@ -33,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from hypergef_tpu_torch.ops import library
+from hypergef_tpu_torch.utils import profiling
 
 launches = 0
 
@@ -161,6 +162,13 @@ def _launch(x, gidx, mask, num_inputs: int):
     return out
 
 
+def _cost(x, table: GatherTable):
+    """The masked products over the [C, ngs] table and their sums over k."""
+    c, ngs = table.gidx.shape
+    return "ell_gather_sum", (x, table.gidx, table.mask), 2 * c * ngs * x.shape[1]
+
+
+@profiling.kernel(_cost)
 def ell_gather_sum(x, table: GatherTable):
     """``out[c] = Σ_k x[gidx[c,k]]·mask[c,k]``: x f32 [N, F] → f32 [C, F].
 

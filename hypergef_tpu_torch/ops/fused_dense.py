@@ -39,6 +39,7 @@ import torch
 
 from hypergef_tpu_torch.ops import library
 from hypergef_tpu_torch.sparse.planner import DenseIncidence, unpack_nibbles
+from hypergef_tpu_torch.utils import profiling
 
 launches = 0
 v2e_launches = 0
@@ -324,6 +325,21 @@ def _launch_v2e(h, x, num_edges=None):
     return out[:, :f]
 
 
+def _two_stage_cost(h, x, scale_e, scale_v, packed):
+    """Two products of the dense [N, E] table, 2·N·E·F each, and the two
+    row scalings."""
+    (n, f), e = x.shape, scale_e.shape[0]
+    name = "fused_dense_two_stage_packed" if packed else "fused_dense_two_stage"
+    return name, (h, x, scale_e, scale_v), 4 * n * e * f + e * f + n * f
+
+
+def _v2e_cost(h, x, num_edges, packed):
+    """One product of the dense [N, E] table's transpose."""
+    (n, f), e = x.shape, num_edges
+    return "fused_dense_v2e_packed" if packed else "fused_dense_v2e", (h, x), 2 * n * e * f
+
+
+@profiling.kernel(_two_stage_cost)
 def _two_stage(h, x, scale_e, scale_v, packed):
     """The kernel on CUDA tensors (the ``fused_dense_two_stage`` op, or its
     ``_packed`` form), the plain version on CPU tensors (over the unpacked
@@ -336,6 +352,7 @@ def _two_stage(h, x, scale_e, scale_v, packed):
     return library.OPS[op](h, x, scale_e, scale_v)
 
 
+@profiling.kernel(_v2e_cost)
 def _v2e(h, x, num_edges, packed):
     if x.device.type == "cpu":
         return dense_dot(unpack_nibbles(h, num_edges) if packed else h, x, True)

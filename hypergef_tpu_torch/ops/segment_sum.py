@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from hypergef_tpu_torch.ops import library
+from hypergef_tpu_torch.utils import profiling
 
 launches = 0
 record_launches = 0
@@ -464,6 +465,21 @@ def _launch_record(g, arg, record: RecordTable):
     return out
 
 
+def _sum_cost(x, table: SegmentTable):
+    """The gathered rows summed, one an entry and feature."""
+    operands = (x, table.indptr) if table.gather is None else (x, table.indptr, table.gather)
+    return "gather_segment_sum", operands, table.nnz * x.shape[1]
+
+
+def _record_cost(g, arg, record: RecordTable):
+    """Each entry's compare with its segment, the select and the sum: three
+    an entry and feature, as :func:`record_routed_dx_plain` counts them."""
+    table = record.e2v
+    return ("record_routed_dx", (g, arg, table.indptr, table.gather),
+            3 * table.nnz * g.shape[1])
+
+
+@profiling.kernel(_sum_cost)
 def gather_segment_sum(x, table: SegmentTable):
     """``out[s] = Σ_{k ∈ seg s} x[gather[k]]``: x f32 [N, F] → f32 [S, F].
 
@@ -486,6 +502,7 @@ def gather_segment_sum(x, table: SegmentTable):
                                       table.num_inputs)
 
 
+@profiling.kernel(_record_cost)
 def record_routed_dx(g, arg, record: RecordTable):
     """``dx[v, f] = Σ_{k ∈ seg v} g[gather[k], f]·[arg[gather[k], f] == v]``
     over ``record.e2v`` (the vertex-major CSR; ``HypergraphData.record``):

@@ -49,6 +49,7 @@ import torch
 
 from hypergef_tpu_torch.ops import ell_gather, segment_sum
 from hypergef_tpu_torch.ops.ell_gather import GatherTable
+from hypergef_tpu_torch.utils import profiling
 
 row_gather_launches = 0
 chunk_sum_launches = 0
@@ -233,6 +234,7 @@ def row_gather_plain(x, idx):
     return x.index_select(0, idx.long())
 
 
+@profiling.kernel(lambda x, idx, n_buf=0: ("row_gather", (x, idx), 0))
 def row_gather(x, idx, n_buf: int = 0):
     """``out[r] = x[idx[r]]``: x f32 [N, F], idx int32 [R] in [0, N), on
     the plan of :func:`row_plan`. ``n_buf`` 0 loads each row directly
@@ -273,6 +275,7 @@ def chunk_masked_sum_plain(g, mask):
     return acc
 
 
+@profiling.kernel(lambda g, mask: ("chunk_masked_sum", (g, mask), 2 * g.numel()))
 def chunk_masked_sum(g, mask):
     """``out[c] = Σ_k g[c, k] · mask[c, k]``: g f32 [C, ngs, F], mask f32
     [C, ngs]; summed over k in order, as :func:`chunk_masked_sum_plain`."""
@@ -297,6 +300,8 @@ def chunk_masked_sum(g, mask):
     return out
 
 
+@profiling.kernel(lambda x, gidx, mask, n_buf: (
+    "chunk_masked_sum_ring", (x, gidx, mask), 2 * gidx.numel() * x.shape[1]))
 def chunk_masked_sum_ring(x, gidx, mask, n_buf: int):
     """``out[c] = Σ_k x[gidx[c, k]] · mask[c, k]``: x f32 [N, F], gidx int32
     [C, ngs] in [0, N), mask f32 [C, ngs], with ``n_buf`` chunk slots a
@@ -329,6 +334,7 @@ def chunk_masked_sum_ring(x, gidx, mask, n_buf: int):
     return out
 
 
+@profiling.kernel(lambda x, s: ("scaled_copy", (x,), x.numel()))
 def scaled_copy(x, s: float):
     """``out = x · s`` for a contiguous f32 ``x`` of any shape."""
     global scaled_copy_launches

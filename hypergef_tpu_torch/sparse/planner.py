@@ -44,6 +44,7 @@ import torch
 
 from hypergef_tpu_torch.ops.ell_gather import GatherTable
 from hypergef_tpu_torch.ops.segment_sum import SegmentTable
+from hypergef_tpu_torch.utils.rates import H100_BF16_TC_OPS_PER_S, H100_STREAM_BPS
 
 if TYPE_CHECKING:
     from hypergef_tpu_torch.ops.aligned_band import BandTable
@@ -1092,11 +1093,6 @@ class FloorRates(NamedTuple):
 # The JAX planner's rates, measured on a TPU v5e: at these the floor is the
 # JAX package's, bit for bit. They are not the card's (card_floor_rates).
 V5E_FLOOR_RATES = FloorRates(ALIGNED_A_ELEM_RATE, ALIGNED_STREAM_BPS, ALIGNED_GATHER_S_PER_ROW)
-
-# the NVIDIA H100 SXM's data sheet (700 W): HBM3 rate and dense bf16
-# tensor-core rate, the convention of PERF.md §6's bounds
-H100_STREAM_BPS = 3.35e12
-H100_BF16_TC_OPS_PER_S = 989e12
 
 
 def card_floor_rates(feat: int) -> FloorRates:

@@ -1,4 +1,4 @@
-"""The A/B tools' eager step and request.
+"""The A/B tools' eager step and request, and their profiler session.
 
 A worker builds ``Trainer`` and ``ServingModel`` through :func:`eager`, so
 that every tree it times runs eager steps and requests, as every tree
@@ -20,3 +20,17 @@ def eager(cls):
     if "compiled" in inspect.signature(cls).parameters:
         return functools.partial(cls, compiled=False)
     return cls
+
+
+def profiler():
+    """A profiler session of CPU and CUDA activity: the tree's one helper
+    (``utils/profiling.py::profiler``) where the tree has it, else a plain
+    ``torch.profiler.profile``, as such a tree opened its sessions."""
+    import torch
+
+    try:
+        from hypergef_tpu_torch.utils.profiling import profiler as helper
+    except ImportError:
+        return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                  torch.profiler.ProfilerActivity.CUDA])
+    return helper()

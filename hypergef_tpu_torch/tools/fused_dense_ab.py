@@ -10,8 +10,10 @@ each one a worker process imports that tree's package, builds its kernels
 and, on the graphs of ``chip_smoke.py`` (20news, cora, pubmed_real) at
 F = 32, checks ``fused_dense_two_stage`` against its plain version (rtol
 1e-2, atol 1e-2·max|plain|), times it with CUDA events behind a queued
-sleep (median of 20), and records one call under ``torch.profiler``: the
-CUDA kernels it launched, with their device times. The first checkout's
+sleep (median of 20), and records one call under ``torch.profiler`` (the
+tree's ``utils/profiling.py::profiler`` where it has one, through
+``ab_eager.profiler``): the CUDA kernels it launched,
+with their device times. The first checkout's
 worker also times the plain version and the library yardstick (two
 ``torch.mm(..., out_dtype=torch.float32)`` on a bf16 copy of H made before
 the window, with the two scalings). Workers run in turns (A, B, B, A for
@@ -89,10 +91,10 @@ def worker(args) -> dict:
             torch.testing.assert_close(lib, want, rtol=1e-2, atol=1e-2 * scale)
             r["plain_ms"] = cuda_time_ms(lambda: fused_dense.fused_dense_two_stage_plain(*ops))
             r["library_ms"] = cuda_time_ms(library)
-        from torch.profiler import ProfilerActivity, profile
+        from ab_eager import profiler
 
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profiler() as prof:
             fused_dense.fused_dense_two_stage(*ops)
             torch.cuda.synchronize()
         kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]

@@ -79,16 +79,19 @@ def plain_record(g, arg, hgd):
 
 
 def busy_ms(trainer, idx, steps: int = 10) -> float:
-    """The card's busy time a step under ``torch.profiler``: the sum of its
-    kernels' device times over ``steps`` steps (after 5 warm-up steps),
-    leaving out the optimizer's range annotation, which is no kernel."""
+    """The card's busy time a step under ``torch.profiler`` (the tree's
+    ``utils/profiling.py::profiler`` where it has one, through
+    ``ab_eager.profiler``): the sum of its kernels' device times
+    over ``steps`` steps (after 5 warm-up steps), leaving out the
+    optimizer's range annotation, which is no kernel."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    from ab_eager import profiler
 
     for _ in range(5):
         trainer.step(idx)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiler() as prof:
         for _ in range(steps):
             trainer.step(idx)
         torch.cuda.synchronize()

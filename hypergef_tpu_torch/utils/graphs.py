@@ -30,6 +30,8 @@ from typing import Callable, Optional
 
 import torch
 
+from hypergef_tpu_torch.utils import profiling
+
 # a directory, or None: where each recording is written as a DOT file
 DUMP_DIR: Optional[str] = None
 _dumps = itertools.count()
@@ -64,12 +66,15 @@ class Captured:
     do: only one of them replays at a time, and what each returns is read
     before another replays. A recording that fails raises
     :class:`CaptureError` (a collective that reads the device from the
-    host, say); nothing runs eagerly in its place.
+    host, say); nothing runs eagerly in its place. Neither a recording nor
+    a replay runs inside :func:`.profiling.cost_analysis`, which would count
+    the kernels it launches as nothing: both raise there.
     """
 
     def __init__(self, fn: Callable[[], object], device,
                  generator: Optional[torch.Generator] = None,
                  warmup: Optional[Callable[[], object]] = None, pool=None):
+        profiling.refuse_in_count("a CUDA graph's recording")
         device = torch.device(device)
         main = torch.cuda.current_stream(device)
         stream = torch.cuda.Stream(device)
@@ -107,6 +112,7 @@ class Captured:
                 self.graph.debug_dump(self.dot)
 
     def replay(self):
+        profiling.refuse_in_count("a CUDA graph's replay")
         self.graph.replay()
         self.replays += 1
         return self.out

@@ -238,7 +238,7 @@ def test_kernel_reads_a_table_at_any_byte_offset(cuda, offset):
 
 
 def test_kernel_is_one_cuda_kernel_a_call(cuda):
-    from torch.profiler import ProfilerActivity, profile
+    from hypergef_tpu_torch.utils.profiling import device_events, profiler
 
     h, x, se, sv = _operands(16242, 100, 32, 0.04, seed=3, device=cuda)
     fused_dense.fused_dense_two_stage(h, x, se, sv)
@@ -246,11 +246,10 @@ def test_kernel_is_one_cuda_kernel_a_call(cuda):
     torch.cuda.synchronize()
     for call in (lambda: fused_dense.fused_dense_two_stage(h, x, se, sv),
                  lambda: fused_dense._launch_v2e(h, x)):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profiler() as prof:
             call()
             torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        names = [e.name for e in device_events(prof)]
         assert len(names) == 1 and "fused_dense_kernel" in names[0], names
 
 
@@ -313,6 +312,173 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         fused_dense.fused_dense_two_stage(h, x.t().contiguous().t(), se, sv)
     with pytest.raises(ValueError):
         fused_dense.fused_dense_two_stage(h.cpu(), x, se, sv)
+
+
+# The packed-int4 form of the fused dense kernel.
+
+def _packed(h):
+    """The nibble carrier of an int8 table of counts in [0, 7], on its device."""
+    return torch.as_tensor(planner.pack_nibbles(h.cpu().numpy()), device=h.device)
+
+
+def _counts_to_7(h, seed):
+    """``h`` with a share of its counts raised to 4-7: a carrier's every nibble value."""
+    rng = np.random.default_rng(seed)
+    live = h.cpu().numpy() != 0
+    up = torch.as_tensor(live * rng.integers(1, 8, size=live.shape).astype(np.int8))
+    return up.to(h.device)
+
+
+@pytest.mark.parametrize(
+    "n,e,f,density",
+    [
+        (5, 3, 1, 0.5),
+        (120, 80, 8, 0.06),
+        (301, 187, 17, 0.03),
+        (16242, 100, 32, 0.04),
+        (16242, 100, 4, 0.04),
+        (16242, 100, 100, 0.04),
+        (2708, 2708, 32, 0.0015),
+        (2708, 2708, 7, 0.0015),
+        (19717, 7963, 32, 0.0014),
+        (130, 4099, 3, 0.01),
+        (3000, 17, 65, 0.2),
+        (64, 1, 8, 0.5),
+    ],
+)
+@pytest.mark.parametrize("counts", ["ones and threes", "up to 7"])
+def test_packed_kernel_is_bitwise_the_int8_kernel(cuda, n, e, f, density, counts):
+    """The packed form on the carrier against the int8 form on the same
+    counts: bitwise equal (odd E included: the padding nibble is never
+    read as a count), within the plain bar, two runs equal, one count a
+    call on its own counter."""
+    h, x, se, sv = _operands(n, e, f, density, seed=n + e + f, device=cuda)
+    if counts == "up to 7":
+        h = _counts_to_7(h, seed=n + f)
+    carrier = _packed(h)
+    assert tuple(carrier.shape) == (n, -(-e // 2))
+    before = (fused_dense.launches, fused_dense.packed_launches)
+    got = fused_dense.fused_dense_two_stage(carrier, x, se, sv, packed=True)
+    again = fused_dense.fused_dense_two_stage(carrier, x, se, sv, packed=True)
+    torch.cuda.synchronize()
+    assert (fused_dense.launches, fused_dense.packed_launches) == (before[0], before[1] + 2)
+    int8 = fused_dense.fused_dense_two_stage(h, x, se, sv)
+    assert torch.equal(got, int8), float((got - int8).abs().max())
+    assert torch.equal(got, again), "two runs differ"
+    want = fused_dense.fused_dense_two_stage_plain(h, x, se, sv)
+    torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("n,e,f,density", [(301, 187, 17, 0.03), (16242, 100, 4, 0.04),
+                                           (2708, 2708, 32, 0.0015),
+                                           (19717, 7963, 32, 0.0014)])
+def test_packed_backward_is_bitwise_the_int8_backward(cuda, n, e, f, density):
+    """dx, d scale_e and d scale_v on the carrier: the packed op twice and
+    the packed V→E phase twice, bitwise the int8 form's gradients."""
+    h, x, se, sv = _operands(n, e, f, density, seed=n + f, device=cuda)
+    h = _counts_to_7(h, seed=f)
+    carrier = _packed(h)
+    g = torch.as_tensor(np.random.default_rng(f).normal(size=(n, f)).astype(np.float32),
+                        device=cuda)
+    grads = []
+    for table, packed in ((h, False), (carrier, True)):
+        ts = [t.clone().requires_grad_(True) for t in (x, se, sv)]
+        out = fused_dense.fused_dense_two_stage(table, *ts, packed=packed)
+        before = (fused_dense.packed_launches, fused_dense.packed_v2e_launches)
+        out.backward(g)
+        torch.cuda.synchronize()
+        if packed:
+            assert (fused_dense.packed_launches, fused_dense.packed_v2e_launches) == (
+                before[0] + 2, before[1] + 2)
+        grads.append([t.grad for t in ts])
+    for name, a, b in zip(("dx", "d_scale_e", "d_scale_v"), *grads):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("offset", [1, 3, 8])
+def test_packed_kernel_reads_a_carrier_at_any_byte_offset(cuda, offset):
+    h, x, se, sv = _operands(777, 203, 12, 0.05, seed=offset, device=cuda)
+    carrier = _packed(h)
+    buf = torch.zeros(carrier.numel() + offset, dtype=torch.int8, device=cuda)
+    view = buf[offset:].view(carrier.shape)
+    view.copy_(carrier)
+    got = fused_dense.fused_dense_two_stage(view, x, se, sv, packed=True)
+    assert torch.equal(got, fused_dense.fused_dense_two_stage(h, x, se, sv))
+
+
+def test_packed_kernel_is_one_cuda_kernel_a_call(cuda):
+    """The packed two-stage call and the packed V→E phase are one CUDA
+    kernel each, the kernel's packed form, under ``torch.profiler``, in this
+    process after the int8 form's sessions. Opened otherwise than by
+    ``utils/profiling.py::profiler``, a session kept CUPTI attached from the
+    process's first session, and a short session's kernel, stamped from a
+    stale clock correlation, fell out of its window: no device events."""
+    from hypergef_tpu_torch.utils.profiling import device_events, profiler
+
+    h, x, se, sv = _operands(16242, 100, 32, 0.04, seed=3, device=cuda)
+    carrier = _packed(h)
+    calls = (lambda: fused_dense.fused_dense_two_stage(carrier, x, se, sv, packed=True),
+             lambda: fused_dense._launch_v2e(carrier, x, 100))
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    for call in calls:
+        with profiler() as prof:
+            call()
+            torch.cuda.synchronize()
+        names = [e.name for e in device_events(prof)]
+        assert len(names) == 1 and "fused_dense_kernel<" in names[0], names
+        assert "true>" in names[0].split("fused_dense_kernel<", 1)[1].split("(", 1)[0], names
+
+
+def test_packed_call_makes_no_table(cuda):
+    """A packed call at pubmed_real's shape grows the card's peak memory by
+    its output and scratch alone, far under the int8 table's bytes."""
+    h, x, se, sv = _operands(19717, 7963, 32, 0.0014, seed=3, device=cuda)
+    carrier = _packed(h)
+    del h
+    fused_dense.fused_dense_two_stage(carrier, x, se, sv, packed=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    fused_dense.fused_dense_two_stage(carrier, x, se, sv, packed=True)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(cuda) - base < 19717 * 7963 // 4
+
+
+def test_packed_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    h, x, se, sv = _operands(64, 33, 8, 0.1, seed=1, device=cuda)
+    carrier = _packed(h)
+    with pytest.raises(TypeError, match="carrier"):
+        fused_dense.fused_dense_two_stage(h, x, se, sv, packed=True)  # 33 columns, not 17
+    with pytest.raises(TypeError, match="carrier"):
+        fused_dense._launch_v2e(carrier, x, 35)
+    with pytest.raises(ValueError):
+        fused_dense.fused_dense_two_stage(carrier.cpu(), x, se, sv, packed=True)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "dense"])
+def test_routes_on_a_packed_plan(cuda, backend):
+    """On the card the pallas route runs the packed kernel on a packed plan
+    (never the int8 one), the dense route its library products on the
+    unpacked table; each bitwise the int8 plan's."""
+    hg = community_hypergraph(3000, 301, 12, 8, 0.1, seed=2)
+    hgd = hg.device_data(cuda)
+    x = torch.as_tensor(np.random.default_rng(0).normal(size=(3000, 16)).astype(np.float32),
+                        device=cuda)
+    outs = []
+    for packed in (False, True):
+        plan = planner.AggregationPlan(dense=planner.DenseIncidence.from_hypergraph(
+            hg, cuda, packed=packed))
+        before = (fused_dense.launches, fused_dense.packed_launches)
+        outs.append(fused.hgnn_aggregate(hgd, x, None, "mean", plan=plan, backend=backend))
+        torch.cuda.synchronize()
+        launched = (fused_dense.launches - before[0], fused_dense.packed_launches - before[1])
+        if backend == "pallas":
+            assert launched == ((0, 1) if packed else (1, 0))
+        else:
+            assert launched == (0, 0)
+    assert torch.equal(outs[0], outs[1])
 
 
 def sorted_community_graph(n, e, comm, avg, noise, seed, duplicate=0.0):
@@ -2085,198 +2251,148 @@ def test_clustered_bench_small_on_the_card(cuda, tmp_path):
     assert [r["graph"] for r in rows if "summary" in r] == ["sbm", "random"]
 
 
-# The packed-int4 form of the fused dense kernel. These tests run last: placed
-# after the int8 form's tests, they were followed by failures of two
-# captured-request tests on the card (a recording invalidated at its first
-# cuBLAS call), which pass with these deselected or run beside them alone;
-# the cause is not known (PERF.md, section 7).
+# --------------------------------------------------------------------------
+# Profiling: the one profiler helper, and the op-level counts
 
-def _packed(h):
-    """The nibble carrier of an int8 table of counts in [0, 7], on its device."""
-    return torch.as_tensor(planner.pack_nibbles(h.cpu().numpy()), device=h.device)
+PROFILE_SESSIONS = 5
+# the second session's start after the first: from about 45 s on, a session
+# that kept CUPTI attached from the first lost its kernel
+PROFILE_AGE_S = 60.0
 
 
-def _counts_to_7(h, seed):
-    """``h`` with a share of its counts raised to 4-7: a carrier's every nibble value."""
-    rng = np.random.default_rng(seed)
-    live = h.cpu().numpy() != 0
-    up = torch.as_tensor(live * rng.integers(1, 8, size=live.shape).astype(np.int8))
-    return up.to(h.device)
+def _pallas_trainers(cuda):
+    """An eager and a recorded Trainer of HGNN on a 20news-shaped graph
+    (the e2e graph's sizes) through the fused dense kernel."""
+    from hypergef_tpu_torch.data.synthetic import random_features, random_hypergraph
+    from hypergef_tpu_torch.train.splits import rand_train_test_idx
+    from hypergef_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    hg = random_hypergraph(16242, 100, avg_edge_size=654.5, seed=0, name="20news")
+    x, y = random_features(16242, 100, 4, seed=1)
+    cfg = TrainConfig(model="HGNN", nhid=32, nlayer=2, backend="pallas")
+    return ([Trainer(cfg, hg, x, y, device=cuda, compiled=c) for c in (False, True)],
+            rand_train_test_idx(y, seed=2)["train"])
 
 
-@pytest.mark.parametrize(
-    "n,e,f,density",
-    [
-        (5, 3, 1, 0.5),
-        (120, 80, 8, 0.06),
-        (301, 187, 17, 0.03),
-        (16242, 100, 32, 0.04),
-        (16242, 100, 4, 0.04),
-        (16242, 100, 100, 0.04),
-        (2708, 2708, 32, 0.0015),
-        (2708, 2708, 7, 0.0015),
-        (19717, 7963, 32, 0.0014),
-        (130, 4099, 3, 0.01),
-        (3000, 17, 65, 0.2),
-        (64, 1, 8, 0.5),
-    ],
-)
-@pytest.mark.parametrize("counts", ["ones and threes", "up to 7"])
-def test_packed_kernel_is_bitwise_the_int8_kernel(cuda, n, e, f, density, counts):
-    """The packed form on the carrier against the int8 form on the same
-    counts: bitwise equal (odd E included: the padding nibble is never
-    read as a count), within the plain bar, two runs equal, one count a
-    call on its own counter."""
-    h, x, se, sv = _operands(n, e, f, density, seed=n + e + f, device=cuda)
-    if counts == "up to 7":
-        h = _counts_to_7(h, seed=n + f)
-    carrier = _packed(h)
-    assert tuple(carrier.shape) == (n, -(-e // 2))
-    before = (fused_dense.launches, fused_dense.packed_launches)
-    got = fused_dense.fused_dense_two_stage(carrier, x, se, sv, packed=True)
-    again = fused_dense.fused_dense_two_stage(carrier, x, se, sv, packed=True)
-    torch.cuda.synchronize()
-    assert (fused_dense.launches, fused_dense.packed_launches) == (before[0], before[1] + 2)
-    int8 = fused_dense.fused_dense_two_stage(h, x, se, sv)
-    assert torch.equal(got, int8), float((got - int8).abs().max())
-    assert torch.equal(got, again), "two runs differ"
-    want = fused_dense.fused_dense_two_stage_plain(h, x, se, sv)
-    torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2 * float(want.abs().max()))
+def test_profiler_sessions_leave_recordings_whole(cuda):
+    """Five profiler sessions in one process, the second 60 s after the
+    first, each followed by a Trainer's recorded fit on the pallas route
+    (``tools/profiler_sessions.py``): every session sees the fused dense
+    kernel, every recording replays the eager losses bitwise. Opened
+    otherwise than by ``profiling.profiler`` (the tool's ``--raw``), the
+    sessions kept CUPTI attached from the first on, and a session 45 s or
+    more after the first lost its kernel (its stamp, from a stale clock
+    correlation, out of its window): no device events."""
+    from hypergef_tpu_torch.tools import profiler_sessions
+
+    rows = profiler_sessions.run(PROFILE_SESSIONS, PROFILE_AGE_S)
+    assert len(rows) == PROFILE_SESSIONS
+    for row in rows:
+        assert row["kernel"] and row["captured"] and row["bitwise"], rows
 
 
-@pytest.mark.parametrize("n,e,f,density", [(301, 187, 17, 0.03), (16242, 100, 4, 0.04),
-                                           (2708, 2708, 32, 0.0015),
-                                           (19717, 7963, 32, 0.0014)])
-def test_packed_backward_is_bitwise_the_int8_backward(cuda, n, e, f, density):
-    """dx, d scale_e and d scale_v on the carrier: the packed op twice and
-    the packed V→E phase twice, bitwise the int8 form's gradients."""
-    h, x, se, sv = _operands(n, e, f, density, seed=n + f, device=cuda)
-    h = _counts_to_7(h, seed=f)
-    carrier = _packed(h)
-    g = torch.as_tensor(np.random.default_rng(f).normal(size=(n, f)).astype(np.float32),
-                        device=cuda)
-    grads = []
-    for table, packed in ((h, False), (carrier, True)):
-        ts = [t.clone().requires_grad_(True) for t in (x, se, sv)]
-        out = fused_dense.fused_dense_two_stage(table, *ts, packed=packed)
-        before = (fused_dense.packed_launches, fused_dense.packed_v2e_launches)
-        out.backward(g)
-        torch.cuda.synchronize()
-        if packed:
-            assert (fused_dense.packed_launches, fused_dense.packed_v2e_launches) == (
-                before[0] + 2, before[1] + 2)
-        grads.append([t.grad for t in ts])
-    for name, a, b in zip(("dx", "d_scale_e", "d_scale_v"), *grads):
-        assert torch.equal(a, b), name
-
-
-@pytest.mark.parametrize("offset", [1, 3, 8])
-def test_packed_kernel_reads_a_carrier_at_any_byte_offset(cuda, offset):
-    h, x, se, sv = _operands(777, 203, 12, 0.05, seed=offset, device=cuda)
-    carrier = _packed(h)
-    buf = torch.zeros(carrier.numel() + offset, dtype=torch.int8, device=cuda)
-    view = buf[offset:].view(carrier.shape)
-    view.copy_(carrier)
-    got = fused_dense.fused_dense_two_stage(view, x, se, sv, packed=True)
-    assert torch.equal(got, fused_dense.fused_dense_two_stage(h, x, se, sv))
-
-
-_PACKED_PROFILE = """
-import json
-import numpy as np
-import torch
-from torch.profiler import ProfilerActivity, profile
-from hypergef_tpu_torch.ops import fused_dense
-from hypergef_tpu_torch.sparse.planner import pack_nibbles
-
-rng = np.random.default_rng(3)
-n, e, f = 16242, 100, 32
-dev = torch.device("cuda")
-h = torch.as_tensor(pack_nibbles((rng.random((n, e)) < 0.04).astype(np.int8)), device=dev)
-x = torch.as_tensor(rng.normal(size=(n, f)).astype(np.float32), device=dev)
-se = torch.as_tensor(rng.uniform(0.1, 1.0, size=(e, 1)).astype(np.float32), device=dev)
-sv = torch.as_tensor(rng.uniform(0.1, 1.0, size=(n, 1)).astype(np.float32), device=dev)
-calls = (lambda: fused_dense.fused_dense_two_stage(h, x, se, sv, packed=True),
-         lambda: fused_dense._launch_v2e(h, x, e))
-for call in calls:
-    call()
-torch.cuda.synchronize()
-out = []
-for call in calls:
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        call()
-        torch.cuda.synchronize()
-    out.append([ev.name for ev in prof.events()
-                if ev.device_type == torch.autograd.DeviceType.CUDA])
-print(json.dumps(out))
-"""
-
-
-def test_packed_kernel_is_one_cuda_kernel_a_call(cuda):
-    """The packed two-stage call and the packed V→E phase are one CUDA
-    kernel each, the kernel's packed form, under ``torch.profiler``, in a
-    process of their own: on the card's machine, in one process after
-    ``test_kernel_is_one_cuda_kernel_a_call``'s two sessions, a third and
-    fourth session saw no device events, and two later recordings of this
-    file failed."""
+def test_trace_on_the_card_in_a_fifth_session(cuda, tmp_path):
+    """``trace`` after four sessions in this process: its trace file holds
+    the fused dense kernel as a device event."""
     import json
-    import subprocess
-    import sys
 
-    proc = subprocess.run([sys.executable, "-c", _PACKED_PROFILE], cwd=REPO,
-                          env={**os.environ, "PYTHONPATH": str(REPO)}, capture_output=True,
-                          text=True, timeout=300, check=False)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    for names in json.loads(proc.stdout.strip().splitlines()[-1]):
-        assert len(names) == 1 and "fused_dense_kernel<" in names[0], names
-        assert "true>" in names[0].split("fused_dense_kernel<", 1)[1].split("(", 1)[0], names
+    from hypergef_tpu_torch.utils import profiling
+
+    h, x, se, sv = _operands(2708, 2708, 32, 0.0015, seed=2, device=cuda)
+    for _ in range(PROFILE_SESSIONS - 1):
+        with profiling.profiler() as prof:
+            fused_dense.fused_dense_two_stage(h, x, se, sv)
+            torch.cuda.synchronize()
+        assert profiling.device_events(prof)
+    with profiling.trace(str(tmp_path)):
+        fused_dense.fused_dense_two_stage(h, x, se, sv)
+    (path,) = tmp_path.glob("trace-*.json")
+    kernels = [e.get("name", "") for e in json.loads(path.read_text())["traceEvents"]
+               if e.get("cat") == "kernel"]
+    assert any("fused_dense_kernel" in k for k in kernels), kernels
 
 
-def test_packed_call_makes_no_table(cuda):
-    """A packed call at pubmed_real's shape grows the card's peak memory by
-    its output and scratch alone, far under the int8 table's bytes."""
-    h, x, se, sv = _operands(19717, 7963, 32, 0.0014, seed=3, device=cuda)
+def _count_calls(dev):
+    """One call of each kernel wrapper on ``dev``, from the same seeded
+    operands on either device."""
+    from hypergef_tpu_torch import probes
+    from hypergef_tpu_torch.data.synthetic import random_hypergraph
+    from hypergef_tpu_torch.ops import segment_sum
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    h, x, se, sv = _operands(301, 187, 17, 0.05, seed=4, device=dev)
     carrier = _packed(h)
-    del h
-    fused_dense.fused_dense_two_stage(carrier, x, se, sv, packed=True)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(cuda)
-    base = torch.cuda.memory_allocated(cuda)
-    fused_dense.fused_dense_two_stage(carrier, x, se, sv, packed=True)
-    torch.cuda.synchronize()
-    assert torch.cuda.max_memory_allocated(cuda) - base < 19717 * 7963 // 4
+    rng = np.random.default_rng(5)
+    gidx = rng.integers(0, 90, size=(40, 8))
+    mask = (rng.random((40, 8)) < 0.7).astype(np.float32)
+    gather = ell_gather.GatherTable(t(gidx.astype(np.int32)), t(gidx), t(mask), 90)
+    x90 = t(rng.normal(size=(90, 8)).astype(np.float32))
+    hg = random_hypergraph(120, 70, avg_edge_size=4.0, seed=3)
+    record = hg.device_data(dev).record
+    table = segment_sum.SegmentTable.build(hg.ht_indptr, hg.ht_indices, hg.num_nodes, dev)
+    xn = t(rng.normal(size=(hg.num_nodes, 5)).astype(np.float32))
+    ge = t(rng.normal(size=(hg.num_edges, 5)).astype(np.float32))
+    arg_e = t(rng.integers(0, hg.num_nodes, size=(hg.num_edges, 5)).astype(np.int32))
+    plan = dataclasses.replace(aligned_plan("bucketed"), form="pallas_auto")
+    st = plan.device(dev)[0]
+    xs = t(rng.normal(size=(st.num_inputs, 7)).astype(np.float32))
+    arg_s = t(rng.integers(0, st.num_segments, size=(st.num_inputs, 7)).astype(np.int32))
+    pack = bitstream.BitIncidence.from_hypergraph(hg).device(dev)[0]
+    xk = t(rng.normal(size=(pack.k, 4)).astype(np.float32))
+    idx = t(rng.integers(0, 90, size=33).astype(np.int32))
+    gidx32 = t(rng.integers(0, 90, size=(12, 5)).astype(np.int32))
+    mask12 = t((rng.random((12, 5)) < 0.6).astype(np.float32))
+    g3 = t(rng.normal(size=(12, 5, 8)).astype(np.float32))
+    return {
+        "fused_dense_two_stage": lambda: fused_dense.fused_dense_two_stage(h, x, se, sv),
+        "fused_dense_two_stage_packed": lambda: fused_dense.fused_dense_two_stage(
+            carrier, x, se, sv, packed=True),
+        "fused_dense_v2e": lambda: fused_dense._v2e(h, x, 187, False),
+        "fused_dense_v2e_packed": lambda: fused_dense._v2e(carrier, x, 187, True),
+        "ell_gather_sum": lambda: ell_gather.ell_gather_sum(x90, gather),
+        "gather_segment_sum": lambda: segment_sum.gather_segment_sum(xn, table),
+        "record_routed_dx": lambda: segment_sum.record_routed_dx(ge, arg_e, record),
+        "aligned_band": lambda: aligned_band.aligned_band(xs, st),
+        "aligned_masked_argmax": lambda: aligned_max.aligned_masked_argmax(xs, st),
+        "aligned_masked_argsum": lambda: aligned_max.aligned_masked_argsum(xs, arg_s, st),
+        "bitmm": lambda: bitstream.bitmm(pack, xk),
+        "row_gather": lambda: probes.row_gather(x90, idx),
+        "chunk_masked_sum": lambda: probes.chunk_masked_sum(g3, mask12),
+        "chunk_masked_sum_ring": lambda: probes.chunk_masked_sum_ring(x90, gidx32, mask12, 4),
+        "scaled_copy": lambda: probes.scaled_copy(x90, 0.5),
+    }
 
 
-def test_packed_wrapper_rejects_what_the_kernel_does_not_take(cuda):
-    h, x, se, sv = _operands(64, 33, 8, 0.1, seed=1, device=cuda)
-    carrier = _packed(h)
-    with pytest.raises(TypeError, match="carrier"):
-        fused_dense.fused_dense_two_stage(h, x, se, sv, packed=True)  # 33 columns, not 17
-    with pytest.raises(TypeError, match="carrier"):
-        fused_dense._launch_v2e(carrier, x, 35)
-    with pytest.raises(ValueError):
-        fused_dense.fused_dense_two_stage(carrier.cpu(), x, se, sv, packed=True)
+KERNEL_OPS = ["fused_dense_two_stage", "fused_dense_two_stage_packed", "fused_dense_v2e",
+              "fused_dense_v2e_packed", "ell_gather_sum", "gather_segment_sum",
+              "record_routed_dx", "aligned_band", "aligned_masked_argmax",
+              "aligned_masked_argsum", "bitmm", "row_gather", "chunk_masked_sum",
+              "chunk_masked_sum_ring", "scaled_copy"]
 
 
-@pytest.mark.parametrize("backend", ["pallas", "dense"])
-def test_routes_on_a_packed_plan(cuda, backend):
-    """On the card the pallas route runs the packed kernel on a packed plan
-    (never the int8 one), the dense route its library products on the
-    unpacked table; each bitwise the int8 plan's."""
-    hg = community_hypergraph(3000, 301, 12, 8, 0.1, seed=2)
-    hgd = hg.device_data(cuda)
-    x = torch.as_tensor(np.random.default_rng(0).normal(size=(3000, 16)).astype(np.float32),
-                        device=cuda)
-    outs = []
-    for packed in (False, True):
-        plan = planner.AggregationPlan(dense=planner.DenseIncidence.from_hypergraph(
-            hg, cuda, packed=packed))
-        before = (fused_dense.launches, fused_dense.packed_launches)
-        outs.append(fused.hgnn_aggregate(hgd, x, None, "mean", plan=plan, backend=backend))
-        torch.cuda.synchronize()
-        launched = (fused_dense.launches - before[0], fused_dense.packed_launches - before[1])
-        if backend == "pallas":
-            assert launched == ((0, 1) if packed else (1, 0))
-        else:
-            assert launched == (0, 0)
-    assert torch.equal(outs[0], outs[1])
+@pytest.mark.parametrize("kernel", KERNEL_OPS)
+def test_a_kernel_op_counts_the_same_on_the_card_and_the_cpu(cuda, kernel):
+    """A kernel is one op of its declared count on both devices: the card's
+    count (the launch) equals the CPU's (the plain twin), and neither holds
+    an aten op of its body."""
+    from hypergef_tpu_torch.utils import profiling
+
+    counts = {dev: profiling.cost_analysis(_count_calls(dev)[kernel], device=dev)
+              for dev in ("cuda", "cpu")}
+    for dev, got in counts.items():
+        assert got["ops"] == {} and list(got["kernels"]) == [kernel], (dev, got)
+        assert got["kernel_ops"] == 1, dev
+    assert counts["cuda"]["kernels"] == counts["cpu"]["kernels"]
+    assert counts["cuda"]["devices"] == ["cuda:0"] and counts["cpu"]["devices"] == ["cpu"]
+
+
+def test_a_replay_is_refused_in_a_count(cuda):
+    from hypergef_tpu_torch.utils import profiling
+
+    (_, captured), idx = _pallas_trainers(cuda)
+    captured.fit(idx, epochs=1, warmup=0)
+    idx_t = torch.as_tensor(idx, device=cuda)
+    with pytest.raises(RuntimeError, match="replay"):
+        profiling.cost_analysis(captured.step, idx_t)
